@@ -1,0 +1,210 @@
+"""Predicate IR + plan-time bound extraction.
+
+Copy of ``geomesa_tpu/filter/ir.py`` cut to the nodes this port serves:
+INCLUDE / EXCLUDE, AND / OR / NOT, BBOX, spatial relations against a polygon
+literal, and DURING intervals (BEFORE / AFTER / TEQUALS parse to DURING).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from geomesa_tpu_torch.utils import geometry as geo
+
+MIN_MS = -(2**62)
+MAX_MS = 2**62
+
+
+class Filter:
+    pass
+
+
+@dataclass(frozen=True)
+class Include(Filter):
+    """Match everything (ECQL INCLUDE)."""
+
+
+@dataclass(frozen=True)
+class Exclude(Filter):
+    """Match nothing (ECQL EXCLUDE)."""
+
+
+@dataclass(frozen=True)
+class And(Filter):
+    children: Sequence[Filter]
+
+
+@dataclass(frozen=True)
+class Or(Filter):
+    children: Sequence[Filter]
+
+
+@dataclass(frozen=True)
+class Not(Filter):
+    child: Filter
+
+
+@dataclass(frozen=True)
+class BBox(Filter):
+    prop: str
+    xmin: float
+    ymin: float
+    xmax: float
+    ymax: float
+
+
+@dataclass(frozen=True)
+class Spatial(Filter):
+    """INTERSECTS / CONTAINS / WITHIN / DISJOINT / ... against a literal."""
+
+    op: str
+    prop: str
+    geom: geo.Geometry
+
+
+@dataclass(frozen=True)
+class During(Filter):
+    """Temporal interval, inclusive on both ends."""
+
+    prop: str
+    lo_ms: int
+    hi_ms: int
+
+
+@dataclass
+class FilterValues:
+    """Extracted values plus a 'disjoint' flag (provably-empty query)."""
+
+    values: list
+    disjoint: bool = False
+
+    @property
+    def is_empty(self):
+        return not self.values and not self.disjoint
+
+
+def extract_geometries(f: Filter, geom_prop: str) -> FilterValues:
+    """Query geometries constraining ``geom_prop``: union bounds for Or,
+    the more selective side for And; anything not understood widens to
+    unbounded (empty list)."""
+
+    def walk(node: Filter) -> Optional[List[geo.Geometry]]:
+        # None = unbounded
+        if isinstance(node, BBox) and node.prop == geom_prop:
+            return [geo.bbox_polygon(node.xmin, node.ymin, node.xmax, node.ymax)]
+        if isinstance(node, Spatial) and node.prop == geom_prop:
+            return [node.geom] if node.op != "disjoint" else None
+        if isinstance(node, And):
+            bounds = None
+            geoms = None
+            for c in node.children:
+                g = walk(c)
+                if g is None:
+                    continue
+                if not g:
+                    return []  # a provably-empty arm empties the conjunction
+                if geoms is None:
+                    geoms, bounds = g, _union_bounds(g)
+                else:
+                    nb = _union_bounds(g)
+                    inter = _intersect_bounds(bounds, nb)
+                    if inter is None:
+                        return []  # provably disjoint
+                    if _area(nb) < _area(bounds):
+                        geoms = g
+                    bounds = inter
+            return geoms
+        if isinstance(node, Or):
+            out = []
+            for c in node.children:
+                g = walk(c)
+                if g is None:
+                    return None
+                out.extend(g)
+            return out
+        if isinstance(node, Exclude):
+            return []
+        return None
+
+    g = walk(f)
+    if g is None:
+        return FilterValues([])
+    if g == []:
+        return FilterValues([], disjoint=True)
+    return FilterValues(g)
+
+
+def extract_intervals(f: Filter, dtg_prop: str) -> FilterValues:
+    """Temporal [lo_ms, hi_ms] intervals constraining ``dtg_prop``."""
+
+    def walk(node: Filter) -> Optional[List[Tuple[int, int]]]:
+        if isinstance(node, During) and node.prop == dtg_prop:
+            return [(node.lo_ms, node.hi_ms)]
+        if isinstance(node, And):
+            acc = None
+            for c in node.children:
+                iv = walk(c)
+                if iv is None:
+                    continue
+                if acc is None:
+                    acc = iv
+                else:
+                    merged = []
+                    for (a0, a1) in acc:
+                        for (b0, b1) in iv:
+                            lo, hi = max(a0, b0), min(a1, b1)
+                            if lo <= hi:
+                                merged.append((lo, hi))
+                    if not merged:
+                        return []
+                    acc = merged
+            return acc
+        if isinstance(node, Or):
+            out = []
+            for c in node.children:
+                iv = walk(c)
+                if iv is None:
+                    return None
+                out.extend(iv)
+            return out
+        if isinstance(node, Exclude):
+            return []
+        return None
+
+    iv = walk(f)
+    if iv is None:
+        return FilterValues([])
+    if iv == []:
+        return FilterValues([], disjoint=True)
+    return FilterValues(_merge_intervals(iv))
+
+
+def _merge_intervals(iv: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    iv = sorted(iv)
+    out = [iv[0]]
+    for lo, hi in iv[1:]:
+        if lo <= out[-1][1] + 1:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def _union_bounds(geoms: List[geo.Geometry]):
+    bs = np.asarray([g.bounds() for g in geoms])
+    return (bs[:, 0].min(), bs[:, 1].min(), bs[:, 2].max(), bs[:, 3].max())
+
+
+def _intersect_bounds(a, b):
+    lo = (max(a[0], b[0]), max(a[1], b[1]))
+    hi = (min(a[2], b[2]), min(a[3], b[3]))
+    if lo[0] > hi[0] or lo[1] > hi[1]:
+        return None
+    return (lo[0], lo[1], hi[0], hi[1])
+
+
+def _area(b) -> float:
+    return max(b[2] - b[0], 0.0) * max(b[3] - b[1], 0.0)

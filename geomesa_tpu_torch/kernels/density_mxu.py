@@ -1,0 +1,138 @@
+"""Host schedule for the grouped density kernel: (chunk, tile) candidates.
+
+Copy of the host half of ``geomesa_tpu/kernels/density_mxu.py`` (``ladder8``,
+``_chunk_boxes``, ``pair_candidates``), cut to the z3 key space. Chunks are
+B-row runs of the z-sorted order, so each spans a small spatial box computed
+from its own sorted keys; a chunk is paired only with the grid tiles its box
+overlaps.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from geomesa_tpu_torch.curves.zorder import deinterleave3
+
+
+def ladder8(n: int) -> int:
+    """Geometric (~1.25x) bucket ladder on multiples of 8: the shared
+    bucketing rule for compact chunk counts and pair padding."""
+    b = 8
+    while b < n:
+        b = -(-int(b * 1.25) // 8) * 8
+    return b
+
+
+def _chunk_boxes(compact: Dict, table, col: str, shift: int,
+                 box_cache: Optional[Dict]):
+    """Exact per-chunk normalized-index boxes from the sorted key column:
+    deinterleave every window row's quantized key and take the per-chunk
+    min/max (each quantized cell contributes its full extent)."""
+    ckey = (compact["whash"], compact["B"], col, table.n)
+    if box_cache is not None:
+        hit = box_cache.get(ckey)
+        if hit is not None:
+            return hit
+    key = table.key_columns[col]
+    L = table.shard_len
+    cstart, lo, valid = compact["cstart"], compact["lo"], compact["valid"]
+    act = valid > 0
+    cs = (cstart + lo).astype(np.int64)
+    s_of = cs // L
+    g0 = table.shard_bounds[s_of] + (cs % L)
+    segs = [key[a:a + int(v)] for a, v in zip(g0[act], valid[act])]
+    if not segs:
+        return None
+    cat = np.concatenate(segs).astype(np.uint64)
+    sh = np.uint64(shift)
+    lo_parts = deinterleave3(cat << sh)
+    hi_parts = deinterleave3(((cat + np.uint64(1)) << sh) - np.uint64(1))
+    starts = np.concatenate(([0], np.cumsum(valid[act].astype(np.int64))[:-1]))
+    n_chunk = len(valid)
+    out = []
+    for d in range(2):  # x, y only (the time dimension is irrelevant here)
+        lo_d = np.minimum.reduceat(lo_parts[d], starts)
+        hi_d = np.maximum.reduceat(hi_parts[d], starts)
+        full_lo = np.zeros(n_chunk, np.uint64)
+        full_hi = np.zeros(n_chunk, np.uint64)
+        full_lo[act] = lo_d
+        full_hi[act] = hi_d
+        out.append((full_lo, full_hi))
+    if box_cache is not None:
+        if len(box_cache) >= 64:
+            box_cache.clear()
+        box_cache[ckey] = out
+    return out
+
+
+def pair_candidates(
+    compact: Dict, table, keyspace, bbox, width: int, height: int,
+    TY: int, TX: int, box_cache: Optional[Dict] = None,
+) -> Optional[Dict]:
+    """(chunk, tile) candidate list for the compacted scan layout. Chunk
+    boxes are conservative supersets (key quantization widens them by a
+    cell; a one-cell pad covers the device's f32 pixel rounding). None
+    when the table has no z3 key column."""
+    if getattr(keyspace, "kind", None) != "z3":
+        return None
+    col = "__z3"
+    key = table.key_columns.get(col)
+    if key is None:
+        return None
+    shift = 0
+    if table.key_shifts is not None:
+        shift = int(table.key_shifts.get(col, 0))
+    lon, lat = keyspace.sfc.lon, keyspace.sfc.lat
+    bits = lon.bits
+
+    valid = compact["valid"]
+    act = valid > 0
+    boxes = _chunk_boxes(compact, table, col, shift, box_cache)
+    if boxes is None:
+        return None
+    (x0, x1), (y0, y1) = boxes
+
+    xmin, ymin, xmax, ymax = (float(v) for v in bbox)
+    cellw = (xmax - xmin) / width
+    cellh = (ymax - ymin) / height
+    scale_x = (lon.hi - lon.lo) / (1 << bits)
+    scale_y = (lat.hi - lat.lo) / (1 << bits)
+    x0 = x0.astype(np.float64)
+    x1 = x1.astype(np.float64)
+    y0 = y0.astype(np.float64)
+    y1 = y1.astype(np.float64)
+    # the pad covers the device's f32 px/py rounding and f32 coordinate
+    # representation error (|x| * 2^-24), which at deep zoom exceeds a cell
+    ulp_x = max(abs(lon.lo), abs(lon.hi)) * 2.0 ** -24
+    ulp_y = max(abs(lat.lo), abs(lat.hi)) * 2.0 ** -24
+    pad_x = 1 + int(np.ceil(ulp_x / max(cellw, 1e-300)))
+    pad_y = 1 + int(np.ceil(ulp_y / max(cellh, 1e-300)))
+    cx0 = np.floor((lon.lo + x0 * scale_x - xmin) / cellw).astype(np.int64) - pad_x
+    cx1 = np.floor((lon.lo + (x1 + 1) * scale_x - xmin) / cellw).astype(np.int64) + pad_x
+    cy0 = np.floor((lat.lo + y0 * scale_y - ymin) / cellh).astype(np.int64) - pad_y
+    cy1 = np.floor((lat.lo + (y1 + 1) * scale_y - ymin) / cellh).astype(np.int64) + pad_y
+    cx0 = np.clip(cx0, 0, width - 1)
+    cx1 = np.clip(cx1, 0, width - 1)
+    cy0 = np.clip(cy0, 0, height - 1)
+    cy1 = np.clip(cy1, 0, height - 1)
+
+    ntx = -(-width // TX)
+    nty = -(-height // TY)
+    tx0, tx1 = cx0 // TX, cx1 // TX
+    ty0, ty1 = cy0 // TY, cy1 // TY
+    nx = np.where(act, tx1 - tx0 + 1, 0)
+    ny = np.where(act, ty1 - ty0 + 1, 0)
+    per = (nx * ny).astype(np.int64)
+    P = int(per.sum())
+    if P == 0:
+        return None
+    chunk_of = np.repeat(np.arange(len(per)), per)
+    j = np.arange(P) - np.repeat(np.cumsum(per) - per, per)
+    tx = tx0[chunk_of] + (j % np.maximum(nx[chunk_of], 1))
+    ty = ty0[chunk_of] + (j // np.maximum(nx[chunk_of], 1))
+    return {
+        "chunk_of": chunk_of, "tx": tx, "ty": ty,
+        "ntx": ntx, "nty": nty, "P": P,
+    }

@@ -1,0 +1,160 @@
+"""Feature schema model: a named, typed attribute list plus user data.
+
+Copy of ``geomesa_tpu/schema/feature_type.py`` cut to the attribute types
+this port serves (Point, Date, Float, Integer). The spec-string format stays
+GeoMesa's (``name:Type:opt=val,*geom:Point;userdata='v'``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+# spec type name -> canonical type
+_TYPES = {
+    "integer": "int32",
+    "int": "int32",
+    "float": "float32",
+    "date": "date",
+    "timestamp": "date",
+    "point": "point",
+}
+
+#: spec types the JAX package accepts that this port does not serve yet
+_LATER = {
+    "string", "long", "double", "boolean", "uuid", "bytes", "json",
+    "linestring", "polygon", "multipoint", "multilinestring",
+    "multipolygon", "geometry", "geometrycollection",
+}
+
+
+@dataclass
+class AttributeSpec:
+    name: str
+    type: str  # canonical: int32 | float32 | date | point
+    default_geom: bool = False
+    options: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def is_geom(self) -> bool:
+        return self.type == "point"
+
+    @property
+    def is_point(self) -> bool:
+        return self.type == "point"
+
+
+@dataclass
+class FeatureType:
+    """Schema: name + ordered attributes + user data."""
+
+    name: str
+    attributes: List[AttributeSpec]
+    user_data: Dict[str, str] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self._by_name = {a.name: a for a in self.attributes}
+        if len(self._by_name) != len(self.attributes):
+            raise ValueError(f"duplicate attribute names in schema {self.name!r}")
+
+    def attr(self, name: str) -> AttributeSpec:
+        a = self._by_name.get(name)
+        if a is None:
+            raise KeyError(
+                f"no attribute {name!r} in schema {self.name!r} "
+                f"(has: {', '.join(self._by_name)})"
+            )
+        return a
+
+    @property
+    def geom_field(self) -> Optional[str]:
+        for a in self.attributes:
+            if a.default_geom:
+                return a.name
+        for a in self.attributes:
+            if a.is_geom:
+                return a.name
+        return None
+
+    @property
+    def dtg_field(self) -> Optional[str]:
+        explicit = self.user_data.get("geomesa.index.dtg")
+        if explicit:
+            return explicit
+        for a in self.attributes:
+            if a.type == "date":
+                return a.name
+        return None
+
+    @property
+    def time_period(self) -> str:
+        return self.user_data.get("geomesa.z3.interval", "week")
+
+    @staticmethod
+    def from_spec(name: str, spec: str) -> "FeatureType":
+        """Parse ``field:Type[:opt=val]*,...[;userdata='v',...]``."""
+        spec = spec.strip()
+        user_data: Dict[str, str] = {}
+        if ";" in spec:
+            spec, ud = spec.split(";", 1)
+            for kv in _split_top(ud, ","):
+                if not kv.strip():
+                    continue
+                k, v = kv.split("=", 1)
+                user_data[k.strip()] = v.strip().strip("'\"")
+        if "geomesa.partition" in user_data:
+            raise NotImplementedError(
+                "partitioned schemas: ROADMAP Queue 1, partitioned executor"
+            )
+        attrs = []
+        for part in _split_top(spec, ","):
+            part = part.strip()
+            if not part:
+                continue
+            default_geom = part.startswith("*")
+            if default_geom:
+                part = part[1:]
+            pieces = part.split(":")
+            if len(pieces) < 2:
+                raise ValueError(f"invalid attribute spec: {part!r}")
+            aname, atype = pieces[0].strip(), pieces[1].strip().lower()
+            if atype in _LATER:
+                raise NotImplementedError(
+                    f"attribute type {pieces[1]!r}: ROADMAP Queue 1, "
+                    "index key spaces and predicates"
+                )
+            if atype not in _TYPES:
+                raise ValueError(f"unknown attribute type {pieces[1]!r} for {aname!r}")
+            options = {}
+            for opt in pieces[2:]:
+                if "=" in opt:
+                    k, v = opt.split("=", 1)
+                    options[k.strip()] = v.strip()
+            attrs.append(AttributeSpec(aname, _TYPES[atype], default_geom, options))
+        return FeatureType(name, attrs, user_data)
+
+
+def _split_top(s: str, sep: str) -> List[str]:
+    """Split on sep outside quotes/brackets."""
+    out, depth, cur, q = [], 0, [], None
+    for ch in s:
+        if q:
+            if ch == q:
+                q = None
+            cur.append(ch)
+        elif ch in "'\"":
+            q = ch
+            cur.append(ch)
+        elif ch in "([":
+            depth += 1
+            cur.append(ch)
+        elif ch in ")]":
+            depth -= 1
+            cur.append(ch)
+        elif ch == sep and depth == 0:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    out.append("".join(cur))
+    return out

@@ -1,0 +1,173 @@
+"""PyTorch port vs the JAX package: the grouped density kernel module.
+
+The same 40k-row dataset is ingested by both packages (compaction forced,
+as tests/test_density_pallas.py forces it). The port's pair schedule must
+equal the JAX ``build_grouped`` arrays, and its plain grouped density (what
+its wrapper runs for CPU tensors) must match the JAX Pallas kernel run in
+interpret mode on the same compact rows: unweighted exactly, weighted within
+the reference's rtol 1e-4 / atol 1e-3 (f32 sums in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu import GeoDataset as JGeoDataset
+from geomesa_tpu import config
+from geomesa_tpu.kernels import density_pallas as jdp
+from geomesa_tpu_torch import GeoDataset
+from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+from geomesa_tpu_torch.kernels import density_grouped as kg
+from geomesa_tpu_torch.planning import executor
+
+ECQL = (
+    "BBOX(geom, -100, 30, -80, 45) AND "
+    "dtg DURING 2020-01-05T00:00:00Z/2020-01-15T00:00:00Z"
+)
+BBOX = (-100.0, 30.0, -80.0, 45.0)
+GRIDS = [(256, 256), (300, 200), (512, 512)]
+
+
+@pytest.fixture(scope="module")
+def pair():
+    rng = np.random.default_rng(13)
+    n = 40_000
+    lo = parse_iso_ms("2020-01-01")
+    data = {
+        "geom__x": rng.uniform(-120, -70, n),
+        "geom__y": rng.uniform(25, 50, n),
+        "dtg": rng.integers(lo, parse_iso_ms("2020-02-01"), n).astype("datetime64[ms]"),
+        "weight": rng.uniform(0, 1, n).astype(np.float32),
+    }
+    spec = "weight:Float,dtg:Date,*geom:Point"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GEOMESA_PALLAS_INTERPRET", "1")
+        config.COMPACT_MIN_ROWS.set(1)
+        config.COMPACT_FRACTION.set(2.0)
+        try:
+            j = JGeoDataset(n_shards=4)
+            j.create_schema("t", spec)
+            j.insert("t", data, fids=np.arange(n).astype(str))
+            j.flush("t")
+            p = GeoDataset(n_shards=4, device="cpu", compact_min_rows=1,
+                           compact_fraction=2.0)
+            p.create_schema("t", spec)
+            p.insert("t", data)
+            p.flush("t")
+            yield j, p
+        finally:
+            config.COMPACT_MIN_ROWS.set(None)
+            config.COMPACT_FRACTION.set(None)
+
+
+def _jax_compact(j):
+    st, _, plan = j._plan("t", ECQL)
+    ex = j._executor(st)
+    setup = ex._scan_setup(plan, [])
+    ex._maybe_compact(plan, setup, True)
+    return setup["compact"], setup["table"]
+
+
+def _port_compact(p):
+    ex = p._executor("t")
+    plan = p._plan("t", ECQL)
+    setup = ex._scan_setup(plan, [])
+    ex._maybe_compact(plan, setup)
+    return setup["compact"], setup["table"]
+
+
+def test_compact_descriptor_equal(pair):
+    j, p = pair
+    dj, _ = _jax_compact(j)
+    dp, _ = _port_compact(p)
+    assert dj is not None and dp is not None
+    assert (dj["B"], dj["C"]) == (dp["B"], dp["C"])
+    for k in ("cstart", "lo", "valid"):
+        assert np.array_equal(dj[k], dp[k]), k
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_build_grouped_equal(pair, grid):
+    j, p = pair
+    W, H = grid
+    dj, tj = _jax_compact(j)
+    dp, tp = _port_compact(p)
+    gj = jdp.build_grouped(dj, tj, tj.keyspace, BBOX, W, H)
+    gp = kg.build_grouped(dp, tp, tp.keyspace, BBOX, W, H)
+    assert gj is not None and gp is not None
+    assert set(gj) == set(gp)
+    for k, v in gj.items():
+        assert np.array_equal(np.asarray(v), np.asarray(gp[k])), k
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("weighted", [False, True], ids=["count", "weighted"])
+def test_plain_matches_pallas_interpret(pair, grid, weighted, monkeypatch):
+    import jax.numpy as jnp
+
+    monkeypatch.setenv("GEOMESA_PALLAS_INTERPRET", "1")
+    j, p = pair
+    W, H = grid
+    ex = p._executor("t")
+    plan = p._plan("t", ECQL)
+    ops = ex.density_inputs(plan, BBOX, W, H)
+    x, y, mask = ops["x"], ops["y"], ops["w"] > 0
+    w = ops["w"]
+    weight = None
+    if weighted:
+        weight = ex.scan_columns(plan, ["weight"])["weight"]
+        w = ex.density_inputs(plan, BBOX, W, H, "weight")["w"]
+        assert torch.equal(w, torch.where(mask, weight, torch.zeros(())))
+    got = kg.density_grouped(x, y, w, BBOX, W, H, ops["sched"]).numpy()
+
+    dj, tj = _jax_compact(j)
+    gr = jdp.build_grouped(dj, tj, tj.keyspace, BBOX, W, H)
+    want = np.asarray(jdp.density_grid_grouped(
+        jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+        jnp.asarray(mask.numpy()), BBOX, W, H,
+        None if weight is None else jnp.asarray(weight.numpy()),
+        *(jnp.asarray(gr[k]) for k in ("sc", "row", "tile", "ox", "oy", "seen")),
+        gr["B"], gr["ntx"], gr["nty"], gr["n_pairs"],
+    ))
+    assert got.shape == want.shape == (H, W)
+    if weighted:
+        assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
+        assert abs(got.sum() - want.sum()) / max(want.sum(), 1) < 1e-4
+    else:
+        assert np.array_equal(got, want)
+        assert got.sum() == float(mask.sum())
+
+
+@pytest.mark.parametrize("target", [1, 7, 264])
+def test_tile_segments_partition_the_pairs(pair, target):
+    _, p = pair
+    dp, tp = _port_compact(p)
+    gr = kg.build_grouped(dp, tp, tp.keyspace, BBOX, 512, 512)
+    seg = kg.tile_segments(gr, target)
+    real = gr["ox"] != kg._OFFGRID
+    assert np.array_equal(seg["chunks"], (gr["sc"] * kg.SG + gr["row"])[real])
+    assert np.array_equal(seg["pair_tile"], gr["tile"][real])
+    # segments tile [0, P) in order, each inside one tile's run
+    assert seg["seg_begin"][0] == 0 and seg["seg_end"][-1] == len(seg["chunks"])
+    assert np.array_equal(seg["seg_begin"][1:], seg["seg_end"][:-1])
+    for t, b, e in zip(seg["seg_tile"], seg["seg_begin"], seg["seg_end"]):
+        assert e > b and (seg["pair_tile"][b:e] == t).all()
+    assert len(seg["seg_tile"]) >= min(target, len(np.unique(seg["pair_tile"])))
+
+
+def test_scatter_rung_over_the_duplication_budget(pair, monkeypatch):
+    """Over the pair budget the port scatters, as the reference leaves the
+    Pallas rung there; unweighted counts are the same either way."""
+    _, p = pair
+    plan = p._plan("t", ECQL)
+    ex = p._executor("t")
+    g_grouped = ex.density(plan, BBOX, 256, 256)
+    assert plan.exec_path["density_kernel"] == "grouped"
+    tight = GeoDataset(n_shards=4, device="cpu", compact_min_rows=1,
+                       compact_fraction=2.0)
+    tight.attach_store(p._store("t"))
+    ex_tight = tight._executor("t")
+    monkeypatch.setattr(executor, "MAX_DUP", 0.01)
+    plan_t = tight._plan("t", ECQL)
+    g_scatter = ex_tight.density(plan_t, BBOX, 256, 256)
+    assert plan_t.exec_path["density_kernel"] == "scatter"
+    assert np.array_equal(g_grouped, g_scatter)
