@@ -18,9 +18,15 @@
    time and idle share (traces under ``chiprun_out/chip_smoke/``).
 3. Each kernel against its plain PyTorch version on the card, on the
    operands the main path gives it (PIP exact; density unweighted exact,
-   weighted rtol 1e-4 / atol 1e-3), with CUDA-event timings of the kernel,
-   the plain version, and (density) ``torch.bincount`` as the library
-   yardstick, beside the least time the card could take.
+   weighted rtol 1e-4 / atol 1e-3), with CUDA-event timings (launches queued
+   behind a sleeping stream, so host launch overhead is not counted) of the
+   kernel and the plain version taken in turns (plain, kernel, kernel,
+   plain), and
+   (density) ``torch.bincount`` as the library yardstick, beside the least
+   time the card could take. The bound counts the work this run's data
+   needs (PIP: only the crossing tests whose edge y-span holds the point;
+   density: the mask byte of every row, x, y and weight only of masked-in
+   rows); the first kernels' counts are logged beside it.
 4. The answers against NumPy oracles: bbox count exact (f64 predicate);
    unweighted grid exact and weighted grid within rtol 1e-4 against the
    reference's pixel mapping (f32 op by op, f64 for the f32-band rows the
@@ -75,13 +81,30 @@ def log(*a):
     print(*a, flush=True)
 
 
+def in_turns(torch, kernel, plain, reps: int, plain_reps: int):
+    """(kernel ms, plain ms, the four timings): plain, kernel, kernel,
+    plain on one card, each a :func:`cuda_ms` mean; the kernel's and the
+    plain version's two means are averaged."""
+    t = [cuda_ms(torch, plain, plain_reps), cuda_ms(torch, kernel, reps),
+         cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, plain_reps)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+#: GPU clock cycles the stream sleeps before a timed run (a few ms): the
+#: host queues the launches meanwhile, so the events time the card's work
+#: and not the host's launch overhead
+_QUEUE_CYCLES = 10_000_000
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card over ``reps`` launches,
-    after one warm-up, by CUDA events."""
+    after one warm-up, by CUDA events recorded around launches queued
+    behind a sleeping stream."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -313,15 +336,26 @@ def main() -> int:
         f"{pip_err} mismatches")
     if pip_err:
         raise AssertionError(f"pip kernel disagrees with its plain version on {pip_err} points")
+    # x and y read, the verdict written, the edge table read once; 6 f32
+    # operations for each crossing test the data needs (the culling skips
+    # the rest exactly); the first kernel's count took every point against
+    # every edge
     pip_bytes = 9 * npts + packed.nbytes
-    pip_ops = 6 * npts * n_edges
+    spans = kpip.span_pairs(py.cpu().numpy(), packed, n_edges)
+    pip_ops = 6 * spans
+    log(f"[kernel] pip work: {spans} crossing tests of {npts * n_edges} "
+        f"point-edge pairs; operations counted {pip_ops} (every point against every edge: "
+        f"{6 * npts * n_edges})")
+    ms, plain_ms, turns = in_turns(
+        torch, lambda: kpip.pip_mask(px, py, edges, n_edges),
+        lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 20, 3)
+    log(f"[kernel] pip in turns (plain, kernel, kernel, plain) ms: {turns}")
     kernels.append({
         "name": "pip", "route": "cuda",
         "source": "geomesa_tpu_torch/csrc/pip.cu",
         "replaces": "geomesa_tpu/kernels/pallas_kernels.py:197",
         "launches": launches["pip"], "max_abs_err": float(pip_err),
-        "ms": cuda_ms(torch, lambda: kpip.pip_mask(px, py, edges, n_edges), 20),
-        "plain_ms": cuda_ms(torch, lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 3),
+        "ms": ms, "plain_ms": plain_ms,
         "bytes": pip_bytes, "ops": pip_ops,
         "library_ms": None,
     })
@@ -332,11 +366,13 @@ def main() -> int:
     if ops_u is None or ops_w is None:
         raise AssertionError("the main query did not take the grouped rung")
     errs = []
+    def dargs(o):
+        return (o["x"], o["y"], o["mask"], o["weight"], QUERY_BBOX, WIDTH,
+                HEIGHT, o["sched"])
+
     for label, o in (("unweighted", ops_u), ("weighted", ops_w)):
-        g_k = kgrouped.density_grouped(o["x"], o["y"], o["w"], QUERY_BBOX,
-                                       WIDTH, HEIGHT, o["sched"])
-        g_p = kgrouped.density_grouped_plain(o["x"], o["y"], o["w"], QUERY_BBOX,
-                                             WIDTH, HEIGHT, o["sched"])
+        g_k = kgrouped.density_grouped(*dargs(o))
+        g_p = kgrouped.density_grouped_plain(*dargs(o))
         torch.cuda.synchronize()
         err = float((g_k - g_p).abs().max())
         errs.append(err)
@@ -354,30 +390,37 @@ def main() -> int:
                 raise AssertionError(f"weighted density sum off by {rel}")
     o = ops_u
     rows = o["x"].numel()
-    # the least the kernel must read: every scheduled row's 0/1 weight, x and
-    # y only where it is non-zero, the schedule once; and write the grid
-    live = int((o["w"] != 0).sum())
+    # the least the kernel must read: every scheduled row's mask byte, x and
+    # y only where the mask is true, the schedule once; and write the grid
+    live = int(o["mask"].sum())
     sched_bytes = sum(o["sched"][k].nbytes
                       for k in ("chunks", "seg_tile", "seg_begin", "seg_end"))
+    d_bytes = rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT
+    log(f"[kernel] density_grouped: {live} of {rows} scheduled rows are masked "
+        f"in; bytes counted {d_bytes} (the first kernel's count, a 4-byte weight for every "
+        f"row: {4 * rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT}; "
+        f"weighted adds {4 * live})")
     cx, cy = pixel_coords(o["x"], o["y"], QUERY_BBOX, WIDTH, HEIGHT)
     flat = (cy.to(torch.int64) * WIDTH + cx).reshape(-1)
-    wflat = o["w"].reshape(-1)
+    wflat = o["mask"].reshape(-1).to(torch.float32)
+    ms, plain_ms, turns = in_turns(
+        torch, lambda: kgrouped.density_grouped(*dargs(o)),
+        lambda: kgrouped.density_grouped_plain(*dargs(o)), 20, 3)
+    log(f"[kernel] density_grouped in turns (plain, kernel, kernel, plain) ms: "
+        f"{turns}")
+    ms_w = cuda_ms(torch, lambda: kgrouped.density_grouped(*dargs(ops_w)), 20)
+    log(f"[kernel] density_grouped weighted: {ms_w:.6f} ms")
     kernels.append({
         "name": "density_grouped", "route": "cuda",
         "source": "geomesa_tpu_torch/csrc/density_grouped.cu",
         "replaces": "geomesa_tpu/kernels/density_pallas.py:201",
         "launches": launches["density_grouped"], "max_abs_err": max(errs),
-        "ms": cuda_ms(torch, lambda: kgrouped.density_grouped(
-            o["x"], o["y"], o["w"], QUERY_BBOX, WIDTH, HEIGHT, o["sched"]), 20),
-        "plain_ms": cuda_ms(torch, lambda: kgrouped.density_grouped_plain(
-            o["x"], o["y"], o["w"], QUERY_BBOX, WIDTH, HEIGHT, o["sched"]), 3),
-        "bytes": 4 * rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT,
+        "ms": ms, "plain_ms": plain_ms,
+        "bytes": d_bytes,
         "ops": 8 * live,
         "library_ms": cuda_ms(torch, lambda: torch.bincount(
             flat, weights=wflat, minlength=WIDTH * HEIGHT), 20),
     })
-    log(f"[kernel] density_grouped: {live} of {rows} scheduled rows have a "
-        "non-zero weight")
     for k in kernels:
         nbytes, nops = k.pop("bytes"), k.pop("ops")
         b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -418,7 +461,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": name, "count": 1}}),
         flush=True)
     return 0
 

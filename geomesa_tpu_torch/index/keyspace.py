@@ -2,7 +2,8 @@
 windows (plan time).
 
 Copy of ``geomesa_tpu/index/keyspace.py`` cut to ``Z3KeySpace`` (point geometry
-+ time) with ``KeyPlan``, range merging and window capping. Per-bin window
++ time) with ``KeyPlan``, range merging, window capping and the LSM append's
+``fast_build(force_shifts=)`` / ``insert_positions``. Per-bin window
 resolution is NumPy ``searchsorted`` (the JAX package may use native C++
 there; both give the same windows). The range budget and the per-shard
 window cap are explicit arguments instead of scoped configuration.
@@ -137,16 +138,48 @@ class Z3KeySpace:
         z = self.sfc.index(cols[self.geom + "__x"], cols[self.geom + "__y"], off)
         return {"__z3_bin": np.asarray(b, np.int32), "__z3": z}
 
+    def sort_order(self, cols: Dict[str, np.ndarray]) -> np.ndarray:
+        """argsort of raw (bin, z3) keys (the fallback of the pack-sort)."""
+        return np.lexsort((cols["__z3"], cols["__z3_bin"]))
+
+    def fast_build(self, cols: Dict[str, np.ndarray],
+                   force_shifts: Optional[Dict[str, int]] = None):
+        """Radix pack-sort build: (order, key columns quantized by shifts,
+        shifts), or None when the bit budget is too tight. ``force_shifts``
+        pins the quantization to an existing table's (LSM append)."""
+        fs = None if force_shifts is None else force_shifts.get("__z3")
+        out = packsort.pack_sort(cols["__z3"], 63, prefix=cols["__z3_bin"],
+                                 force_shift=fs)
+        if out is None:
+            return None
+        perm, zq, bins_sorted, shift = out
+        return perm, {"__z3_bin": bins_sorted, "__z3": zq}, {"__z3": shift}
+
     def build(self, cols: Dict[str, np.ndarray]):
         """(order, sorted key columns, key shifts): the radix pack-sort, or
         a lexsort over raw keys when the bit budget is too tight."""
-        out = packsort.pack_sort(cols["__z3"], 63, prefix=cols["__z3_bin"])
+        out = self.fast_build(cols)
         if out is not None:
-            perm, zq, bins_sorted, shift = out
-            return perm, {"__z3_bin": bins_sorted, "__z3": zq}, {"__z3": shift}
-        order = np.lexsort((cols["__z3"], cols["__z3_bin"]))
+            return out
+        order = self.sort_order(cols)
         order = order.astype(np.int32 if len(order) < 2**31 else np.int64)
         return order, {k: cols[k][order] for k in self.key_cols}, None
+
+    def insert_positions(self, sorted_key_cols: Dict[str, np.ndarray],
+                         fresh_sorted: Dict[str, np.ndarray]) -> np.ndarray:
+        """Merge positions of already-sorted fresh (bin, z3) keys into the
+        table's sorted key columns: per fresh bin, a searchsorted inside
+        that bin's run (equal keys land after the old rows)."""
+        bins_col = sorted_key_cols["__z3_bin"]
+        key_col = sorted_key_cols["__z3"]
+        fb, fk = fresh_sorted["__z3_bin"], fresh_sorted["__z3"]
+        p = np.empty(len(fb), np.int64)
+        for b in np.unique(fb):
+            sel = fb == b
+            s = int(np.searchsorted(bins_col, b, side="left"))
+            e = int(np.searchsorted(bins_col, b, side="right"))
+            p[sel] = s + np.searchsorted(key_col[s:e], fk[sel], side="right")
+        return p
 
     def plan(self, ft: FeatureType, f: ir.Filter,
              ranges_target: int = RANGES_TARGET) -> Optional[KeyPlan]:

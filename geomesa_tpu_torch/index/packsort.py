@@ -1,9 +1,10 @@
 """Radix pack-sort: the bulk-ingest sort engine (NumPy path).
 
-Copy of ``geomesa_tpu/index/packsort.py::pack_sort`` without the native C++
-pack/unpack. Packs ``[prefix | quantized key | row index]`` into one uint64,
-value-sorts it, and unpacks both the permutation and the sorted quantized key
-column from the same array. The stored key is the QUANTIZED key; window
+Copy of ``geomesa_tpu/index/packsort.py::pack_sort`` (with its
+``force_shift``) without the native C++ pack/unpack or the tiebreak key.
+Packs ``[prefix | quantized key | row index]`` into one uint64, value-sorts
+it, and unpacks both the permutation and the sorted quantized key column
+from the same array. The stored key is the QUANTIZED key; window
 resolution shifts its query bounds identically, so windows stay supersets.
 The quantization and shifts match the JAX package bit for bit.
 """
@@ -27,11 +28,15 @@ def pack_sort(
     key: np.ndarray,
     key_bits: int,
     prefix: Optional[np.ndarray] = None,
+    force_shift: Optional[int] = None,
 ) -> Optional[Tuple[np.ndarray, np.ndarray, Optional[np.ndarray], int]]:
     """Sort rows by (prefix, key) via one packed radix sort.
 
+    ``force_shift`` pins the key quantization (an LSM append must match the
+    existing table's stored keys); None picks the finest shift that fits.
     Returns (perm, key_quantized_sorted uint64, prefix_sorted or None,
-    key_shift), or None when the bit budget leaves the key too coarse."""
+    key_shift), or None when the bit budget leaves the key too coarse (or
+    cannot hold the forced quantization)."""
     n = len(key)
     if n == 0:
         return None
@@ -45,7 +50,7 @@ def pack_sort(
     avail = 64 - idx_bits - prefix_bits
     if avail <= 0:
         return None
-    shift = max(0, key_bits - avail)
+    shift = max(0, key_bits - avail) if force_shift is None else force_shift
     kq_bits = key_bits - shift
     if kq_bits < min(MIN_KEY_BITS, key_bits) or kq_bits > avail or kq_bits <= 0:
         return None

@@ -74,6 +74,43 @@ class IndexTable:
         self.set_state(columns, self.order, self.key_columns, self.key_shifts,
                        np.linspace(0, len(self.order), self.n_shards + 1).astype(np.int64))
 
+    def append_rows(self, columns: Dict[str, np.ndarray],
+                    fresh_cols: Dict[str, np.ndarray], n_fresh: int) -> None:
+        """LSM append, as the reference's: sort the fresh rows alone, under
+        the table's key shifts, and merge them into the existing order at
+        their searchsorted insertion positions (O(old + fresh) instead of a
+        full re-sort). ``columns`` is the master column dict with the fresh
+        rows last; ``fresh_cols`` those rows' columns and keys. Falls back
+        to :meth:`rebuild` for an empty table, or when the fresh keys do not
+        fit the table's quantization."""
+        ks = self.keyspace
+        if self.n == 0:
+            return self.rebuild(columns)
+        if self.key_shifts is not None:
+            fb = ks.fast_build(fresh_cols, force_shifts=self.key_shifts)
+            if fb is None or fb[2] != self.key_shifts:
+                return self.rebuild(columns)
+            fresh_order, fresh_sorted, _ = fb
+            fresh_order = fresh_order.astype(np.int64, copy=False)
+        else:
+            fresh_order = np.asarray(ks.sort_order(fresh_cols), np.int64)
+            fresh_sorted = {k: fresh_cols[k][fresh_order] for k in self.key_columns}
+        at = ks.insert_positions(self.key_columns, fresh_sorted) + np.arange(n_fresh)
+        total = self.n + n_fresh
+        is_fresh = np.zeros(total, bool)
+        is_fresh[at] = True
+        order = np.empty(total, np.int32 if total < 2**31 else np.int64)
+        order[is_fresh] = self.n + fresh_order  # master rows are [old | fresh]
+        order[~is_fresh] = self.order
+        keys = {}
+        for k, old in self.key_columns.items():
+            merged = np.empty(total, old.dtype)
+            merged[at] = fresh_sorted[k].astype(old.dtype, copy=False)
+            merged[~is_fresh] = old
+            keys[k] = merged
+        self.set_state(columns, order, keys, self.key_shifts,
+                       np.linspace(0, total, self.n_shards + 1).astype(np.int64))
+
     def set_state(self, master, order, key_columns, key_shifts,
                   shard_bounds) -> None:
         self._master = dict(master)
@@ -168,6 +205,9 @@ class FeatureStore:
         self.table = IndexTable(self.keyspace, n_shards, device)
         self._buffer: List[ColumnBatch] = []
         self._all: Optional[ColumnBatch] = None
+        #: z3 key columns of ``_all``'s rows, in master order (None: not
+        #: computed, e.g. for a store carried across from arrays)
+        self._key_cols: Optional[Dict[str, np.ndarray]] = None
         #: bumped on every data mutation; keys the executor's caches
         self.version = 0
 
@@ -178,17 +218,27 @@ class FeatureStore:
         return batch.n
 
     def flush(self) -> None:
-        """Merge the buffer into the master columns, compute the z3 keys and
-        rebuild the sorted table (one full re-sort per flush)."""
+        """Merge the buffer into the table as the reference does: z3 keys
+        for the fresh rows only (the old rows' keys are kept), then the LSM
+        append of :meth:`IndexTable.append_rows`."""
         if not self._buffer:
             return
-        parts = ([self._all] if self._all is not None else []) + self._buffer
+        fresh = ColumnBatch.concat(self._buffer)
         self._buffer = []
-        merged = ColumnBatch.concat(parts)
-        cols = dict(merged.columns)
-        cols.update(self.keyspace.index_keys(self.ft, cols))
+        fresh_keys = self.keyspace.index_keys(self.ft, fresh.columns)
+        if self._all is None:
+            merged, keys = fresh, fresh_keys
+        else:
+            merged = ColumnBatch.concat([self._all, fresh])
+            if self._key_cols is None:
+                keys = self.keyspace.index_keys(self.ft, merged.columns)
+            else:
+                keys = {k: np.concatenate([self._key_cols[k], v])
+                        for k, v in fresh_keys.items()}
         self._all = merged
-        self.table.rebuild(cols)
+        self._key_cols = keys
+        self.table.append_rows({**merged.columns, **keys},
+                               {**fresh.columns, **fresh_keys}, fresh.n)
         self.version += 1
 
     def bounds(self) -> Optional[Tuple[float, float, float, float]]:

@@ -2,9 +2,11 @@
 and its plain PyTorch version.
 
 Port of ``geomesa_tpu/kernels/pallas_kernels.py`` (``polygon_edge_tables``
-and ``pack_edges`` copied; ``_pip_kernel`` rewritten as ``csrc/pip.cu``).
-The wrapper launches the kernel for CUDA tensors and takes the plain version
-only for tensors on the CPU.
+and ``pack_edges`` copied; ``_pip_kernel`` rewritten as ``csrc/pip.cu``,
+which interleaves the [4, Ep] table into float4 edge records as it stages
+it). The wrapper launches the kernel for CUDA tensors and takes the plain
+version only for tensors on the CPU. :func:`span_pairs` counts the crossing
+tests a point set needs, for the kernel's bound.
 """
 
 from __future__ import annotations
@@ -52,6 +54,20 @@ def pack_edges(x1, y1, y2, slope) -> np.ndarray:
     out[2, :e] = y2
     out[3, :e] = slope
     return out
+
+
+def span_pairs(y, packed: np.ndarray, n_edges: int = None) -> int:
+    """Number of (point, edge) pairs with ``(y1 > y) != (y2 > y)``: the
+    crossing tests the data needs, which the kernel's exact culling cannot
+    skip. For an edge that is the points with ``min(y1, y2) <= y <
+    max(y1, y2)``, counted by binary search over the sorted f32 ``y`` (NaN
+    sorts last and is never counted)."""
+    ne = packed.shape[1] if n_edges is None else n_edges
+    y1, y2 = packed[1, :ne], packed[2, :ne]
+    ys = np.sort(np.asarray(y, np.float32).reshape(-1))
+    lo = np.searchsorted(ys, np.minimum(y1, y2), side="left")
+    hi = np.searchsorted(ys, np.maximum(y1, y2), side="left")
+    return int((hi - lo).sum())
 
 
 def pip_mask_plain(x: torch.Tensor, y: torch.Tensor, edges: torch.Tensor,

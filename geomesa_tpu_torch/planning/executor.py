@@ -312,12 +312,6 @@ class Executor:
         corr = self._band_correction(setup, info, lambda rows, mask: mask.sum(), ())
         return n if corr is None else n + int(corr)
 
-    def _target_segments(self) -> int:
-        """Schedule segments for the grouped kernel: two blocks per SM."""
-        if self.device.type != "cuda":
-            return 1
-        return 2 * torch.cuda.get_device_properties(self.device).multi_processor_count
-
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
         (plan, grid); None when the scan is not compacted or the pairs
@@ -336,7 +330,7 @@ class Executor:
             )
             hit = False
             if gr is not None:
-                seg = kgrouped.tile_segments(gr, self._target_segments())
+                seg = kgrouped.tile_segments(gr)
                 hit = {k: self._tensor(v) if isinstance(v, np.ndarray) else v
                        for k, v in seg.items()}
             c[key] = hit
@@ -348,18 +342,15 @@ class Executor:
         if sched is None:
             return None
         geom = self.store.ft.geom_field
-        w = m.to(torch.float32) if weight is None else torch.where(
-            m, cols[weight].to(torch.float32),
-            torch.zeros((), dtype=torch.float32, device=self.device),
-        )
-        return {"x": cols[geom + "__x"], "y": cols[geom + "__y"], "w": w,
+        return {"x": cols[geom + "__x"], "y": cols[geom + "__y"], "mask": m,
+                "weight": None if weight is None else cols[weight].to(torch.float32),
                 "sched": sched}
 
     def density_inputs(self, plan: QueryPlan, bbox, width: int, height: int,
                        weight: Optional[str] = None):
         """The grouped kernel's operands for this query (compact x, y, the
-        masked weight w and the schedule), or None when the query takes
-        the scatter rung."""
+        fused mask, the weight column or None, and the schedule), or None
+        when the query takes the scatter rung."""
         s = self._scan(plan, self._density_cols(weight))
         return None if s is None else self._density_operands(
             plan, s, bbox, width, height, weight)
@@ -383,7 +374,8 @@ class Executor:
         if ops is not None:
             self._note(plan, density_kernel="grouped")
             grid = kgrouped.density_grouped(
-                ops["x"], ops["y"], ops["w"], bbox, width, height, ops["sched"]
+                ops["x"], ops["y"], ops["mask"], ops["weight"], bbox, width,
+                height, ops["sched"],
             )
         else:
             self._note(plan, density_kernel="scatter")

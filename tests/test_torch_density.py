@@ -109,25 +109,15 @@ def test_plain_matches_pallas_interpret(pair, grid, weighted, monkeypatch):
     W, H = grid
     ex = p._executor("t")
     plan = p._plan("t", ECQL)
-    ops = ex.density_inputs(plan, BBOX, W, H)
-    x, y, mask = ops["x"], ops["y"], ops["w"] > 0
-    w = ops["w"]
-    weight = None
+    ops = ex.density_inputs(plan, BBOX, W, H, "weight" if weighted else None)
+    x, y, mask, weight = ops["x"], ops["y"], ops["mask"], ops["weight"]
+    assert mask.dtype == torch.bool and mask.shape == x.shape
     if weighted:
-        weight = ex.scan_columns(plan, ["weight"])["weight"]
-        w = ex.density_inputs(plan, BBOX, W, H, "weight")["w"]
-        assert torch.equal(w, torch.where(mask, weight, torch.zeros(())))
-    got = kg.density_grouped(x, y, w, BBOX, W, H, ops["sched"]).numpy()
-
-    dj, tj = _jax_compact(j)
-    gr = jdp.build_grouped(dj, tj, tj.keyspace, BBOX, W, H)
-    want = np.asarray(jdp.density_grid_grouped(
-        jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
-        jnp.asarray(mask.numpy()), BBOX, W, H,
-        None if weight is None else jnp.asarray(weight.numpy()),
-        *(jnp.asarray(gr[k]) for k in ("sc", "row", "tile", "ox", "oy", "seen")),
-        gr["B"], gr["ntx"], gr["nty"], gr["n_pairs"],
-    ))
+        assert torch.equal(weight, ex.scan_columns(plan, ["weight"])["weight"])
+    else:
+        assert weight is None
+    got = kg.density_grouped(x, y, mask, weight, BBOX, W, H, ops["sched"]).numpy()
+    want = _jax_grouped(j, x, y, mask, weight, W, H)
     assert got.shape == want.shape == (H, W)
     if weighted:
         assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
@@ -137,21 +127,72 @@ def test_plain_matches_pallas_interpret(pair, grid, weighted, monkeypatch):
         assert got.sum() == float(mask.sum())
 
 
-@pytest.mark.parametrize("target", [1, 7, 264])
+def _jax_grouped(j, x, y, mask, weight, W, H):
+    """The JAX Pallas grouped kernel (interpret mode) on the port's compact
+    operands, under the JAX package's own pair schedule."""
+    import jax.numpy as jnp
+
+    dj, tj = _jax_compact(j)
+    gr = jdp.build_grouped(dj, tj, tj.keyspace, BBOX, W, H)
+    return np.asarray(jdp.density_grid_grouped(
+        jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+        jnp.asarray(mask.numpy()), BBOX, W, H,
+        None if weight is None else jnp.asarray(weight.numpy()),
+        *(jnp.asarray(gr[k]) for k in ("sc", "row", "tile", "ox", "oy", "seen")),
+        gr["B"], gr["ntx"], gr["nty"], gr["n_pairs"],
+    ))
+
+
+def test_nan_weight_under_a_false_mask_adds_nothing(pair, monkeypatch):
+    """The kernel takes the mask and the weight apart, as the reference
+    does: a NaN weight on a row whose mask is false never reaches the grid
+    (``jnp.where(mask, weight, 0)`` in the reference)."""
+    monkeypatch.setenv("GEOMESA_PALLAS_INTERPRET", "1")
+    j, p = pair
+    ex = p._executor("t")
+    ops = ex.density_inputs(p._plan("t", ECQL), BBOX, 256, 256, "weight")
+    x, y, mask = ops["x"], ops["y"], ops["mask"]
+    assert 0 < int(mask.sum()) < mask.numel()
+    weight = torch.where(mask, ops["weight"], torch.full((), float("nan")))
+    got = kg.density_grouped(x, y, mask, weight, BBOX, 256, 256, ops["sched"]).numpy()
+    want = _jax_grouped(j, x, y, mask, weight, 256, 256)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
+    clean = kg.density_grouped(x, y, mask, ops["weight"], BBOX, 256, 256, ops["sched"])
+    assert torch.equal(torch.from_numpy(got), clean)
+
+
+@pytest.mark.parametrize("target", [1, 7, 8, 264])
 def test_tile_segments_partition_the_pairs(pair, target):
+    """Each tile of the grid gets exactly ``target`` (the cluster size)
+    consecutive segments splitting its chunk run evenly; no pair is lost or
+    doubled; tiles without pairs keep their segments, all empty, so the
+    kernel writes their zeros. The second bbox reaches past the query's, so
+    some of its tiles have no pairs."""
     _, p = pair
     dp, tp = _port_compact(p)
-    gr = kg.build_grouped(dp, tp, tp.keyspace, BBOX, 512, 512)
-    seg = kg.tile_segments(gr, target)
-    real = gr["ox"] != kg._OFFGRID
-    assert np.array_equal(seg["chunks"], (gr["sc"] * kg.SG + gr["row"])[real])
-    assert np.array_equal(seg["pair_tile"], gr["tile"][real])
-    # segments tile [0, P) in order, each inside one tile's run
-    assert seg["seg_begin"][0] == 0 and seg["seg_end"][-1] == len(seg["chunks"])
-    assert np.array_equal(seg["seg_begin"][1:], seg["seg_end"][:-1])
-    for t, b, e in zip(seg["seg_tile"], seg["seg_begin"], seg["seg_end"]):
-        assert e > b and (seg["pair_tile"][b:e] == t).all()
-    assert len(seg["seg_tile"]) >= min(target, len(np.unique(seg["pair_tile"])))
+    empty_seen = 0
+    for bbox in (BBOX, (-100.0, 30.0, -40.0, 45.0)):
+        gr = kg.build_grouped(dp, tp, tp.keyspace, bbox, 512, 512)
+        seg = kg.tile_segments(gr, target)
+        real = gr["ox"] != kg._OFFGRID
+        assert np.array_equal(seg["chunks"], (gr["sc"] * kg.SG + gr["row"])[real])
+        assert np.array_equal(seg["pair_tile"], gr["tile"][real])
+        ntiles = gr["ntx"] * gr["nty"]
+        assert np.array_equal(seg["seg_tile"], np.repeat(np.arange(ntiles), target))
+        # segments tile [0, P) in order, each inside one tile's run
+        b, e = seg["seg_begin"], seg["seg_end"]
+        assert b[0] == 0 and e[-1] == len(seg["chunks"])
+        assert np.array_equal(b[1:], e[:-1]) and (e >= b).all()
+        for t, lo, hi in zip(seg["seg_tile"], b, e):
+            assert (seg["pair_tile"][lo:hi] == t).all()
+        count = np.bincount(seg["pair_tile"], minlength=ntiles)
+        sizes = (e - b).reshape(ntiles, target)
+        assert np.array_equal(sizes.sum(axis=1), count)
+        assert (sizes.max(axis=1) - sizes.min(axis=1) <= 1).all()
+        assert (sizes[count == 0] == 0).all()
+        empty_seen += int((count == 0).sum())
+    assert empty_seen > 0
 
 
 def test_scatter_rung_over_the_duplication_budget(pair, monkeypatch):

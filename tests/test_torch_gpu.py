@@ -20,6 +20,7 @@ import torch
 from geomesa_tpu_torch import GeoDataset
 from geomesa_tpu_torch.filter.ecql import parse_iso_ms
 from geomesa_tpu_torch.kernels import density_grouped as kg
+from geomesa_tpu_torch.kernels.density import pixel_coords
 from geomesa_tpu_torch.kernels import pip as kpip
 from geomesa_tpu_torch.utils.geometry import parse_wkt
 
@@ -49,12 +50,16 @@ def _ngon(n, cx=0.0, cy=0.0, r=10.0):
 POLYGONS = {
     "triangle": "POLYGON ((0 0, 10 0, 5 8, 0 0))",
     "donut": "POLYGON ((-9 -9, 9 -9, 9 9, -9 9, -9 -9), (-4 -4, 4 -4, 4 4, -4 4, -4 -4))",
+    "edges64": _ngon(64),
+    "edges1024": _ngon(1024),  # exactly one 1024-edge shared-memory tile
+    "edges1025": _ngon(1025),
     "edges1500": _ngon(1500),  # more than one 1024-edge shared-memory tile
 }
 
 
 @pytest.mark.parametrize("name", sorted(POLYGONS))
-@pytest.mark.parametrize("shape", [(1,), (255,), (257,), (3, 1001), ((1 << 20) + 3,)],
+@pytest.mark.parametrize("shape", [(1,), (3,), (255,), (257,), (4 * 256 + 1,), (3, 1001),
+                                   ((1 << 20) + 3,)],
                          ids=str)
 def test_pip_kernel_matches_plain(cuda, name, shape):
     (x1, *_), packed = kpip.polygon_edge_tables(parse_wkt(POLYGONS[name]))
@@ -69,6 +74,32 @@ def test_pip_kernel_matches_plain(cuda, name, shape):
     assert got.shape == x.shape and got.dtype == torch.bool
     assert torch.equal(got, kpip.pip_mask_plain(x, y, edges, len(x1)))
     assert torch.equal(got, kpip.pip_mask(x, y, edges))  # padded table
+
+
+@pytest.mark.parametrize("where", ["above", "below", "vertex_rows"])
+def test_pip_culling_is_exact(cuda, where):
+    """Points whose warps' y-ranges miss every edge (above or below the
+    polygon) are culled edge by edge and stay outside; points on the
+    vertices' own y values still match the plain version exactly."""
+    (x1, y1, *_), packed = kpip.polygon_edge_tables(parse_wkt(POLYGONS["edges64"]))
+    rng = np.random.default_rng(4)
+    n = 4 * 256 * 5 + 7
+    x = rng.uniform(-12, 12, n).astype(np.float32)
+    if where == "above":
+        y = rng.uniform(12, 30, n).astype(np.float32)
+    elif where == "below":
+        y = rng.uniform(-30, -12, n).astype(np.float32)
+    else:
+        y = rng.choice(y1.astype(np.float32), n)
+    xt, yt = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    edges = torch.from_numpy(packed).to(cuda)
+    got = kpip.pip_mask(xt, yt, edges, len(x1))
+    assert torch.equal(got, kpip.pip_mask_plain(xt, yt, edges, len(x1)))
+    if where != "vertex_rows":
+        assert not got.any()
+        assert kpip.span_pairs(y, packed, len(x1)) == 0
+    else:
+        assert got.any()
 
 
 def test_pip_kernel_refuses_what_it_does_not_take(cuda):
@@ -103,32 +134,108 @@ def _datasets(cuda, n, seed=5, **kw):
     return out
 
 
-@pytest.mark.parametrize("grid", [(512, 512), (300, 200), (129, 127)],
+@pytest.mark.parametrize("grid", [(512, 512), (300, 200), (129, 127), (1024, 1024)],
                          ids=lambda g: f"{g[0]}x{g[1]}")
 @pytest.mark.parametrize("weight", [None, "weight"], ids=["count", "weighted"])
 def test_density_kernel_matches_plain(cuda, grid, weight):
     W, H = grid
+    # 64 tiles over the query's bbox would pair chunks past the duplication
+    # budget; over a wider one most of the 64 tiles have no pairs
+    bbox = BBOX if W < 1024 else (-140.0, 10.0, -40.0, 60.0)
     gpu, cpu = _datasets(cuda, 40_000)
     ex = gpu._executor("t")
     plan = gpu._plan("t", ECQL)
-    ops = ex.density_inputs(plan, BBOX, W, H, weight)
+    ops = ex.density_inputs(plan, bbox, W, H, weight)
     assert ops is not None, "the query did not take the grouped rung"
+    args = (ops["x"], ops["y"], ops["mask"], ops["weight"], bbox, W, H, ops["sched"])
     before = kg.launches
-    got = kg.density_grouped(ops["x"], ops["y"], ops["w"], BBOX, W, H, ops["sched"])
+    got = kg.density_grouped(*args)
     torch.cuda.synchronize()
     assert kg.launches == before + 1
-    want = kg.density_grouped_plain(ops["x"], ops["y"], ops["w"], BBOX, W, H, ops["sched"])
+    want = kg.density_grouped_plain(*args)
     if weight is None:
         assert torch.equal(got, want)
     else:
         assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
     # through the API, against the CPU dataset's plain path
-    g_gpu = gpu.density("t", ECQL, bbox=BBOX, width=W, height=H, weight=weight)
-    g_cpu = cpu.density("t", ECQL, bbox=BBOX, width=W, height=H, weight=weight)
+    g_gpu = gpu.density("t", ECQL, bbox=bbox, width=W, height=H, weight=weight)
+    g_cpu = cpu.density("t", ECQL, bbox=bbox, width=W, height=H, weight=weight)
     if weight is None:
         assert np.array_equal(g_gpu, g_cpu)
     else:
         assert np.allclose(g_gpu, g_cpu, rtol=1e-4, atol=1e-3)
+
+
+def _grouped_case(cuda, B, chunk_tiles, W, H, mask_p, seed=0):
+    """Compact [C, B] operands whose chunk c lies inside tile
+    ``chunk_tiles[c]`` (None: anywhere on the grid), with its schedule
+    built from the rows' own cells; weights under a false mask are NaN."""
+    rng = np.random.default_rng(seed)
+    ntx, nty = -(-W // kg.TILE), -(-H // kg.TILE)
+    C = len(chunk_tiles)
+    x = np.empty((C, B), np.float32)
+    y = np.empty((C, B), np.float32)
+    for c, t in enumerate(chunk_tiles):
+        if t is None:
+            x[c], y[c] = rng.uniform(0, W, B), rng.uniform(0, H, B)
+        else:
+            ox, oy = (t % ntx) * kg.TILE, (t // ntx) * kg.TILE
+            x[c] = rng.uniform(ox + 1, min(ox + kg.TILE, W) - 1, B)
+            y[c] = rng.uniform(oy + 1, min(oy + kg.TILE, H) - 1, B)
+    mask = rng.random((C, B)) < mask_p
+    weight = np.where(mask, rng.uniform(0, 1, (C, B)), np.nan).astype(np.float32)
+    bbox = (0.0, 0.0, float(W), float(H))
+    px, py = pixel_coords(torch.from_numpy(x), torch.from_numpy(y), bbox, W, H)
+    tile = ((py // kg.TILE) * ntx + px // kg.TILE).numpy()
+    chunk = np.repeat(np.arange(C), B).reshape(C, B)
+    pairs = np.unique(np.stack([tile.reshape(-1), chunk.reshape(-1)], 1), axis=0)
+    gr = {"sc": pairs[:, 1] // kg.SG, "row": pairs[:, 1] % kg.SG,
+          "tile": pairs[:, 0], "ox": (pairs[:, 0] % ntx) * kg.TILE,
+          "ntx": ntx, "nty": nty}
+    sched = {k: torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray) else v
+             for k, v in kg.tile_segments(gr).items()}
+    dev = [torch.from_numpy(a).to(cuda) for a in (x, y, mask, weight)]
+    return dev, bbox, sched
+
+
+# tiles of a 384x256 grid (3 x 2 tiles): tile 0 one chunk, tile 1 fewer
+# chunks than a cluster has blocks, tile 2 many, tile 4 none at all
+SHAPED = [0] + [1] * 3 + [2] * 21 + [3] * 9 + [5] * 2
+
+
+@pytest.mark.parametrize("B", [128, 1024])
+@pytest.mark.parametrize("case", ["shaped", "spread", "all_false"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["count", "weighted"])
+def test_density_kernel_schedules(cuda, B, case, weighted):
+    W, H = (384, 256) if case != "spread" else (512, 512)
+    tiles = [None] * 40 if case == "spread" else SHAPED
+    (x, y, mask, weight), bbox, sched = _grouped_case(
+        cuda, B, tiles, W, H, 0.0 if case == "all_false" else 0.6)
+    if case == "shaped":
+        counts = np.bincount(sched["pair_tile"].cpu().numpy(), minlength=6)
+        assert list(counts) == [1, 3, 21, 9, 0, 2]
+    w = weight if weighted else None
+    got = kg.density_grouped(x, y, mask, w, bbox, W, H, sched)
+    want = kg.density_grouped_plain(x, y, mask, w, bbox, W, H, sched)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if weighted:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+    else:
+        assert torch.equal(got, want)
+        assert float(got.sum()) == float(mask.sum())
+    if case == "all_false":
+        assert not got.any()
+
+
+def test_density_kernel_refuses_what_it_does_not_take(cuda):
+    (x, y, mask, weight), bbox, sched = _grouped_case(cuda, 128, SHAPED, 384, 256, 0.5)
+    with pytest.raises(ValueError):
+        kg.density_grouped(x, y, mask.float(), None, bbox, 384, 256, sched)
+    with pytest.raises(ValueError):
+        kg.density_grouped(x[:, :64], y[:, :64], mask[:, :64], None, bbox, 384, 256, sched)
+    with pytest.raises(ValueError):  # a schedule for another grid
+        kg.density_grouped(x, y, mask, None, bbox, 512, 256, sched)
 
 
 def test_chunk_at_the_table_end(cuda):

@@ -80,3 +80,20 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     before = tpip.launches
     tpip.pip_mask(torch.zeros(10), torch.zeros(10), torch.from_numpy(packed))
     assert tpip.launches == before
+
+
+@pytest.mark.parametrize("wkt", [TRIANGLE, DONUT, POLY64],
+                         ids=["triangle", "donut", "poly64"])
+def test_span_pairs_counts_the_crossing_tests(wkt):
+    """``span_pairs`` (the culling bound's count) equals its definition,
+    the (point, edge) pairs with ``(y1 > y) != (y2 > y)`` over the f32
+    table, with points on the vertices' own y values and NaN among them."""
+    (x1, y1, *_), packed = tpip.polygon_edge_tables(parse_wkt(wkt))
+    rng = np.random.default_rng(5)
+    y = np.concatenate([rng.uniform(-2, 22, 2000), y1, [np.nan, -5.0, 30.0]])
+    y = y.astype(np.float32)
+    e1, e2 = packed[1, :len(x1)], packed[2, :len(x1)]
+    want = int(((e1 > y[:, None]) != (e2 > y[:, None])).sum())
+    assert want > 0
+    assert tpip.span_pairs(y, packed, len(x1)) == want
+    assert tpip.span_pairs(y, packed) == want  # padding edges never span

@@ -248,9 +248,8 @@ def test_chunk_at_the_table_end():
 
 
 def test_two_flushes_answer_as_the_jax_package():
-    """A second insert + flush re-sorts the whole port table while the JAX
-    package merges under its old key shift: the stored keys may differ,
-    the answers may not."""
+    """A second insert + flush merges the fresh rows into the table under
+    its old key shift, in both packages: the answers agree."""
     data = _data(n=20_000, seed=21)
     more = _data(n=12_000, seed=22)
     with pytest.MonkeyPatch.context() as mp:
@@ -276,6 +275,54 @@ def test_two_flushes_answer_as_the_jax_package():
         finally:
             config.COMPACT_MIN_ROWS.set(None)
             config.COMPACT_FRACTION.set(None)
+
+
+def _wide_data(n, seed):
+    """Rows over thirty years: their time bins span so many bits that the
+    keys cannot be quantized with a one-month table's shift."""
+    data = _data(n=n, seed=seed)
+    rng = np.random.default_rng(seed)
+    data["dtg"] = rng.integers(parse_iso_ms("2000-01-01"), parse_iso_ms("2030-01-01"),
+                               n).astype("datetime64[ms]")
+    return data
+
+
+@pytest.mark.parametrize("flushes", [2, 3, 4])
+def test_lsm_append_state_equal(flushes):
+    """Flush by flush, the port's table state equals the JAX store's: the
+    second batch merges under the first's key shift, the third (thirty
+    years of bins) forces a full rebuild with a coarser shift, the fourth
+    merges under that one."""
+    parts = [_data(n=20_000, seed=31), _data(n=7_000, seed=32),
+             _wide_data(5_000, 33), _data(n=3_000, seed=34)][:flushes]
+    j = JGeoDataset(n_shards=4)
+    j.create_schema("t", SPEC)
+    p = GeoDataset(n_shards=4, device="cpu")
+    p.create_schema("t", SPEC)
+    shifts, start = [], 0
+    for part in parts:
+        n = len(part["dtg"])
+        j.insert("t", part, fids=np.arange(start, start + n).astype(str))
+        j.flush("t")
+        p.insert("t", part)
+        p.flush("t")
+        start += n
+        jt, pt = j._store("t").tables["z3"], p._store("t").table
+        assert jt.key_shifts == pt.key_shifts
+        assert np.array_equal(jt.order, pt.order)
+        assert np.array_equal(jt.shard_bounds, pt.shard_bounds)
+        for k in ("__z3_bin", "__z3"):
+            assert jt.key_columns[k].dtype == pt.key_columns[k].dtype
+            assert np.array_equal(jt.key_columns[k], pt.key_columns[k]), k
+        for k in ("geom__x", "dtg__off", "weight"):
+            assert np.array_equal(jt.col_sorted(k), pt.col_sorted(k)), k
+        shifts.append(pt.key_shifts["__z3"])
+    assert shifts[:2] == [shifts[0]] * min(2, flushes)  # the merge keeps the shift
+    if flushes >= 3:
+        assert shifts[2] > shifts[1]  # the wide batch forced a rebuild
+        assert shifts[3:] == [shifts[2]] * (flushes - 3)
+    for q in QUERIES.values():
+        assert p.count("t", q) == j.count("t", q)
 
 
 @pytest.mark.parametrize("q", [
