@@ -32,6 +32,23 @@
    reference's pixel mapping (f32 op by op, f64 for the f32-band rows the
    host corrects); polygon count exact against an f32 even-odd oracle over
    the same packed edge table.
+5. Slice 3, on a second schema of the same ``GeoDataset``
+   (``name:String:index=true,code:Long,weight:Float,dtg:Date,*geom:Point``):
+   the same N points, ``dtg`` and ``weight``, ``name`` Zipf(1.1)-skewed over
+   256 values (GDELT actor-code skew), ``code`` uniform in [0, 2^40), fids
+   ``e<row>``. Queries without a time bound (z2 plans, full scan), a rare
+   and a frequent name (attribute vs z2), a fid lookup (host), a Long bound
+   beyond 2^24 (device coarse mask + host refinement), a name / weight /
+   bbox / time conjunction (z3), LIKE + DWITHIN, and a polygon; 512x512
+   densities of the bbox (unweighted and weighted) and of the conjunction
+   (weighted). Each runs cold once and ``--reps`` times warm, with its
+   index, ``exec_path``, answer and NumPy oracle (counts exact against an
+   f64 predicate; DWITHIN between the f64 disk rows inside the reference's
+   plan box and all f64 disk rows, each up to the rows within 10 m of the
+   radius; grids as in 4), its profile, per-table ingest seconds and device bytes. The
+   kernels' counters are zeroed before the phase and must both be > 0
+   after; both kernels are held against their plain versions on the z2
+   plans' operands.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
@@ -178,7 +195,8 @@ def time_mask(data):
 
 
 def density_oracles(data, tm):
-    """(unweighted, weighted) f64 grids with the reference's semantics:
+    """(unweighted, weighted) f64 grids of the bbox rows that the row mask
+    ``tm`` keeps, with the reference's semantics:
     exact f64 membership; pixel cells computed in f32 op by op, except for
     rows colliding with an f32 bound (the band), which the host corrects
     from f64 values."""
@@ -222,6 +240,190 @@ def polygon_oracle(data, tm, packed, n_edges) -> int:
         xint = x1 + (yb - y1) * slope
         total += int(((cond & (xb < xint)).sum(axis=1) % 2).sum())
     return total
+
+
+SPEC3 = "name:String:index=true,code:Long,weight:Float,dtg:Date,*geom:Point"
+BOX = "BBOX(geom, -100.0, 30.0, -80.0, 45.0)"
+RARE, FREQUENT, NAME_SET = "c007", "c000", ("c003", "c010", "c042")
+DWITHIN_KM = 500.0
+
+
+def make_data3(n: int, seed: int):
+    """Slice 3's extra columns: Zipf(1.1) names over 256 values, Long
+    codes in [0, 2^40) and the fids ``e<row>`` (bytes)."""
+    rng = np.random.default_rng(seed + 1)
+    zipf = 1.0 / np.arange(1, 257) ** 1.1
+    names = np.array([f"c{i:03d}" for i in range(256)])[
+        rng.choice(256, n, p=zipf / zipf.sum())]
+    return {"name": names, "code": rng.integers(0, 1 << 40, n)}, \
+        np.char.add(b"e", np.arange(n).astype("S8"))
+
+
+def haversine_m(x, y, px, py):
+    rx1, ry1, rx2, ry2 = (np.radians(np.asarray(v, np.float64)) for v in (x, y, px, py))
+    a = (np.sin((ry2 - ry1) / 2) ** 2
+         + np.cos(ry1) * np.cos(ry2) * np.sin((rx2 - rx1) / 2) ** 2)
+    return 2 * 6_371_008.8 * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+def slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
+    """The slice-3 phase (see the module docstring, 5). Returns the
+    launches of both kernels in the phase."""
+    n = len(data["dtg"])
+    extra, fids = make_data3(n, args.seed)
+    data3 = {**data, **extra}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds.create_schema("gdelt3", SPEC3)
+    ds.insert("gdelt3", data3, fids=fids)
+    encode_s = time.perf_counter() - t0
+    ds.flush("gdelt3")
+    st = ds._store("gdelt3")
+    log(f"[slice3] ingest {n} rows: encode {encode_s:.3f} s, flush "
+        f"{sum(st.flush_seconds.values()):.3f} s by stage "
+        f"{ {k: round(v, 3) for k, v in st.flush_seconds.items()} }; tables {list(st.tables)}")
+
+    queries = {
+        "bbox": BOX,
+        "include": "INCLUDE",
+        "rare_name": f"name = '{RARE}' AND {BOX}",
+        "frequent_name": f"name = '{FREQUENT}' AND {BOX}",
+        "fids": "IN ('e17', 'e4242')",
+        "long_code": f"code > 500000000000 AND {BOX} AND {DURING}",
+        "names_weights": (f"name IN ({', '.join(repr(v) for v in NAME_SET)}) AND "
+                          f"weight BETWEEN 0.25 AND 0.75 AND {BOX} AND {DURING}"),
+        "like_dwithin": (f"name LIKE 'c01%' AND DWITHIN(geom, POINT(-90 40), "
+                         f"{DWITHIN_KM}, kilometers)"),
+        "polygon": f"INTERSECTS(geom, {wkt})",
+    }
+    calls = {k: (lambda q=q: ds.count("gdelt3", q)) for k, q in queries.items()}
+    for key, q, w in (("bbox_density", queries["bbox"], None),
+                      ("bbox_density_weighted", queries["bbox"], "weight"),
+                      ("names_weights_density_weighted", queries["names_weights"], "weight")):
+        calls[key] = (lambda q=q, w=w: ds.density(
+            "gdelt3", q, bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT, weight=w))
+    query_of = {k: queries[k.split("_density")[0]] for k in calls}
+
+    kpip.launches = 0
+    kgrouped.launches = 0
+    results, latency, paths, index = {}, {}, {}, {}
+    for key, fn in calls.items():
+        results[key], cold = timed(torch, fn)
+        warm = [timed(torch, fn)[1] for _ in range(args.reps)]
+        latency[key] = (cold * 1e3, float(np.median(warm)) * 1e3)
+        plan = ds._plan("gdelt3", query_of[key])
+        paths[key] = dict(plan.__dict__.get("exec_path", {}))
+        index[key] = plan.index_name
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for key in calls:
+        ans = results[key]
+        shown = ans if isinstance(ans, int) else f"grid sum {float(ans.sum())}"
+        log(f"[slice3] {key}: index {index[key]}, exec_path {paths[key]}, answer {shown}, "
+            f"cold {latency[key][0]:.3f} ms, warm p50 {latency[key][1]:.3f} ms")
+    log(f"[slice3] launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in slice 3's phase: {launches}")
+    for key in ("bbox", "polygon", "bbox_density"):
+        if index[key] != "z2":
+            raise AssertionError(f"{key} took the {index[key]} index, not z2")
+    dev_bytes = {name: sum(t.nbytes for t in tbl._device_cache.values())
+                 for name, tbl in st.tables.items()}
+    ex = ds._executor("gdelt3")
+    gathered = sum(t.nbytes for t in ex._gathered.values())
+    log(f"[slice3] peak device memory {peak} B; [S, L] column bytes by table "
+        f"{dev_bytes}; gathered [C, B] slabs {gathered} B; columns by table "
+        f"{ {k: sorted(t._device_cache) for k, t in st.tables.items()} }")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    for key, fn in calls.items():
+        wall, busy, top = profile_warm(torch, fn, args.reps, out_dir / f"slice3_{key}.json")
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        log(f"[profile] slice3 {key}: wall {wall:.4f} ms/call, device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, "
+            f"idle share {share}, top device work (ms/call) {top}")
+
+    # both kernels against their plain versions on the z2 plans' operands
+    bbox_plan = ds._plan("gdelt3", queries["bbox"])
+    for w in (None, "weight"):
+        o = ex.density_inputs(bbox_plan, QUERY_BBOX, WIDTH, HEIGHT, w)
+        if o is None:
+            raise AssertionError("the z2 bbox plan did not take the grouped rung")
+        a = (o["x"], o["y"], o["mask"], o["weight"], QUERY_BBOX, WIDTH, HEIGHT, o["sched"])
+        g_k, g_p = kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)
+        torch.cuda.synchronize()
+        ok = torch.equal(g_k, g_p) if w is None else torch.allclose(
+            g_k, g_p, rtol=1e-4, atol=1e-3)
+        log(f"[slice3] density_grouped ({w or 'unweighted'}) on the z2 plan's "
+            f"{tuple(o['x'].shape)} rows, {o['sched']['chunks'].numel()} pairs: "
+            f"max abs err {float((g_k - g_p).abs().max())}")
+        if not ok:
+            raise AssertionError("density kernel disagrees with its plain version on z2")
+    cols = ex.scan_columns(ds._plan("gdelt3", queries["polygon"]), ["geom__x", "geom__y"])
+    edges = torch.from_numpy(packed).cuda()
+    px, py = cols["geom__x"], cols["geom__y"]
+    bad = int((kpip.pip_mask(px, py, edges, n_edges)
+               != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+    log(f"[slice3] pip on the z2 plan's {tuple(px.shape)} points: {bad} mismatches")
+    if bad:
+        raise AssertionError("pip kernel disagrees with its plain version on z2")
+
+    # the answers against NumPy oracles
+    x, y = data["geom__x"], data["geom__y"]
+    names, code, w = extra["name"], extra["code"], data["weight"]
+    tm = time_mask(data)
+    box = (x >= -100) & (x <= -80) & (y >= 30) & (y <= 45)
+    in_set = np.isin(names, NAME_SET) & (w >= 0.25) & (w <= 0.75) & tm
+    like = np.char.startswith(names, "c01")
+    d64 = haversine_m(x, y, -90.0, 40.0)
+    # the reference's key plan scans the box it widens the point by
+    # (distance over 111,319.49 m a degree, longitude by the centre's
+    # cosine); that box is smaller than the great-circle disk, so disk rows
+    # outside it may go unscanned, in the port as in the reference
+    d_deg = DWITHIN_KM * 1000 / 111_319.49079327358
+    dx = d_deg / math.cos(math.radians(40.0))
+    plan_box = (np.abs(x + 90.0) <= dx) & (np.abs(y - 40.0) <= d_deg)
+    disk = like & (d64 <= DWITHIN_KM * 1000)
+    want = {
+        "bbox": int(box.sum()),
+        "include": n,
+        "rare_name": int(((names == RARE) & box).sum()),
+        "frequent_name": int(((names == FREQUENT) & box).sum()),
+        "fids": int(np.isin(fids, [b"e17", b"e4242"]).sum()),
+        "long_code": int(((code > 500000000000) & box & tm).sum()),
+        "names_weights": int((in_set & box).sum()),
+        "like_dwithin": int(disk.sum()),
+        "polygon": polygon_oracle(data, np.ones(n, bool), packed, n_edges),
+    }
+    near = int((like & (np.abs(d64 - DWITHIN_KM * 1000) < 10.0)).sum())
+    for key, v in want.items():
+        got = results[key]
+        if key == "like_dwithin":
+            lo = int((disk & plan_box).sum())
+            if not lo - near <= got <= v + near:
+                raise AssertionError(f"{key}: {got} outside [{lo}, {v}] (f64 disk "
+                                     f"rows in the plan box, all f64 disk rows) by "
+                                     f"more than the {near} rows within 10 m of the radius")
+            log(f"[check] slice3 {key}: {got}; f64 disk rows {v}, of them {v - lo} "
+                f"outside the reference's plan box; {near} rows within 10 m of "
+                "the radius")
+        elif got != v:
+            raise AssertionError(f"{key}: {got} != oracle {v}")
+    for key, keep in (("bbox_density", np.ones(n, bool)),
+                      ("names_weights_density_weighted", in_set)):
+        g_u, g_w, _, cnt = density_oracles(data, keep)
+        grids = ([(results[key], g_u, "unweighted")] if key == "bbox_density" else []) \
+            + [(results["bbox_density_weighted" if key == "bbox_density" else key],
+                g_w, "weighted")]
+        for grid, oracle, kind in grids:
+            if grid.shape != (HEIGHT, WIDTH) or not np.isfinite(grid).all():
+                raise AssertionError(f"{key} {kind}: wrong shape or non-finite cells")
+            if kind == "unweighted" and not np.array_equal(grid.astype(np.float64), oracle):
+                raise AssertionError(f"{key}: unweighted grid differs from the oracle")
+            if kind == "weighted" and not np.allclose(grid, oracle, rtol=1e-4, atol=1e-3):
+                raise AssertionError(f"{key}: weighted grid outside rtol 1e-4")
+    log(f"[check] slice3: every count exact against its f64 oracle (DWITHIN as "
+        f"above), grids match (unweighted exact, weighted within rtol 1e-4)")
+    return launches
 
 
 def main() -> int:
@@ -457,6 +659,9 @@ def main() -> int:
         f"weighted within rtol 1e-4); polygon count {n_poly} exact; cells where "
         f"the f64-pixel oracle differs from the reference's f32 pixel mapping: "
         f"{int((g_64 != g_u).sum())}")
+
+    # -- 5. slice 3 ---------------------------------------------------------
+    slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

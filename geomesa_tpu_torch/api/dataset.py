@@ -1,16 +1,17 @@
 """User-facing entry point: schema catalog + per-schema stores + planner +
 executor, on one CUDA device.
 
-Port of the ``geomesa_tpu/api/dataset.py::GeoDataset`` surface this slice
-serves: ``create_schema``, ``insert``, ``flush``, ``count`` and ``density``
-with the JAX signatures. The layers the JAX ``GeoDataset`` wraps around its
-executor (aggregate cache, audit, serving, tracing, journal, fleet) are not
-part of this port yet: ``count`` and ``density`` call the executor directly.
+Port of the ``geomesa_tpu/api/dataset.py::GeoDataset`` surface the port
+serves: ``create_schema``, ``insert`` (with feature ids), ``flush``,
+``count``, ``density`` and ``bounds`` with the JAX signatures. The layers
+the JAX ``GeoDataset`` wraps around its executor (aggregate cache, audit,
+serving, tracing, journal, fleet) are not part of this port yet: ``count``
+and ``density`` call the executor directly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,17 +95,13 @@ class GeoDataset:
     def insert(self, name: str, data: Dict[str, Any], fids=None,
                visibilities=None) -> int:
         """Append a batch of features; flush() (or a query) indexes them.
-        Feature ids and row visibilities are refused: no query here returns
-        features, and nothing stores them yet."""
-        if fids is not None:
-            raise NotImplementedError(
-                "feature ids: ROADMAP Queue 1, index key spaces and predicates"
-            )
+        ``fids``: one feature id per row (random 128-bit hex when None).
+        Row visibilities are refused: nothing stores them yet."""
         if visibilities is not None:
             raise NotImplementedError(
                 "row visibilities: ROADMAP Queue 1, host layers"
             )
-        return self._store(name).append(data)
+        return self._store(name).append(data, fids)
 
     def flush(self, name: Optional[str] = None) -> None:
         for st in ([self._store(name)] if name else self._stores.values()):
@@ -152,8 +149,15 @@ class GeoDataset:
             )
         plan = self._plan(name, query)
         if bbox is None:
-            bbox = self._store(name).bounds() or (-180, -90, 180, 90)
+            bbox = self.bounds(name) or (-180, -90, 180, 90)
         return self._executor(name).density(plan, tuple(bbox), width, height, weight)
+
+    def bounds(self, name: str) -> Optional[Tuple[float, float, float, float]]:
+        """Geometry bounds of the schema's rows (None when empty), from the
+        write-time ``bounds`` sketch."""
+        st = self._store(name)
+        st.flush()
+        return st.bounds()
 
     def stats(self, name: str, stat_spec: str, query="INCLUDE"):
         raise NotImplementedError(

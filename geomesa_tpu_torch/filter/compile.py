@@ -1,17 +1,25 @@
 """Predicate IR -> fused columnar mask.
 
-Port of ``geomesa_tpu/filter/compile.py`` cut to the nodes this port serves.
-A compiled node is ``fn(cols, xp)``: with ``xp=torch`` it builds the device
-mask from f32 / int32 tensors; with ``xp=np`` it evaluates exactly on host
-f64 master rows (the band certificate and its refinement). Geometry
-literals become packed edge tables; polygon membership on the device goes
-through the point-in-polygon kernel (``kernels/pip.py``).
+Port of ``geomesa_tpu/filter/compile.py`` cut to the nodes this port
+serves. A compiled node is ``fn(cols, xp)``: with ``xp=torch`` it builds the
+device mask from f32 / int32 / bool tensors; with ``xp=np`` it evaluates on
+host rows (the f64 master columns). String predicates resolve to dictionary
+codes at compile time. Polygon membership on the device goes through the
+point-in-polygon kernel (``kernels/pip.py``).
+
+Where f32 cannot decide a row exactly, the compiled filter says so: the
+``band`` marks rows whose f64 value collides with the f32 image of a query
+bound (BBOX, Double compares), and ``refine`` holds the exact host tree for
+coarse device masks (Long bounds beyond 2^24, point and line literals,
+WITHIN / TOUCHES). The executor corrects or refines those rows on the host.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+import math
+import re
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,32 +27,57 @@ import torch
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.kernels import pip as kpip
-from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.schema.columns import DictionaryEncoder
+from geomesa_tpu_torch.schema.feature_type import LATER_ITEM, FeatureType
 from geomesa_tpu_torch.utils import geometry as geo
-
-_LATER = "ROADMAP Queue 1, index key spaces and predicates"
 
 
 @dataclass
 class CompiledFilter:
-    """``fn(cols, xp)`` -> bool mask. ``band`` (when not None) marks rows
-    whose membership is uncertain at f32 (an f64 value colliding with the
-    f32 image of a query bound): the device counts ``mask & ~band`` and the
-    executor adds the band rows back from their exact f64 evaluation by
-    ``refine`` (``refine_only_if_band``: refine exists only for that)."""
+    """``fn(cols, xp)`` -> bool mask over the columns ``columns``.
+
+    ``refine`` (when not None) is the exact host tree: the executor applies
+    it to the rows ``fn`` keeps, reading ``columns`` plus
+    ``refine_columns``; it may clear rows, never add them. ``band`` (when
+    not None) marks rows whose membership is uncertain at f32: the device
+    counts ``mask & ~band`` and the executor adds the band rows back from
+    ``refine``'s exact evaluation (``refine_only_if_band``: ``refine``
+    exists only for that, so a device path needs no refinement)."""
 
     fn: Callable
     columns: List[str]
     refine: Optional[Callable] = None
+    refine_columns: List[str] = field(default_factory=list)
     band: Optional[Callable] = None
     refine_only_if_band: bool = False
 
     def __call__(self, cols, xp=torch):
         return self.fn(cols, xp)
 
+    def exact_mask(self, cols: Dict[str, np.ndarray], n: int) -> np.ndarray:
+        """Exact 1-D host mask over ``n`` rows: ``fn``, then ``refine`` on
+        the rows it keeps."""
+        m = np.asarray(self.fn(cols, np))
+        m = np.full(n, bool(m)) if m.ndim == 0 else m.astype(bool, copy=True)
+        if self.refine is not None:
+            idx = np.nonzero(m)[0]
+            if len(idx):
+                keep = self.refine_rows({k: v[idx] for k, v in cols.items()}, len(idx))
+                m[idx[~keep]] = False
+        return m
 
+    def refine_rows(self, cols_rows: Dict[str, np.ndarray], n: int) -> np.ndarray:
+        """The exact tree over already-gathered candidate rows: the keep
+        mask (bool, length ``n``)."""
+        keep = np.asarray(self.refine(cols_rows, np))
+        if keep.ndim == 0:
+            return np.full(n, bool(keep))
+        return keep.astype(bool)
+
+
+# -- backend helpers (xp is numpy or torch) ------------------------------------
 def _f32(a, xp):
-    return a.astype(np.float32) if xp is np else a.to(torch.float32)
+    return np.asarray(a).astype(np.float32) if xp is np else a.to(torch.float32)
 
 
 def _const(value: bool):
@@ -53,6 +86,22 @@ def _const(value: bool):
 
 _TRUE = _const(True)
 _FALSE = _const(False)
+
+
+def _zeros(c, xp):
+    if xp is np:
+        return np.zeros(np.shape(c), dtype=bool)
+    return torch.zeros(c.shape, dtype=torch.bool, device=c.device)
+
+
+def _radians(a, xp):
+    return np.radians(a) if xp is np else torch.deg2rad(a)
+
+
+def _scalar(v, xp):
+    """A numpy scalar as the host path reads it, a Python number for a
+    tensor operand (promotes like the reference's weakly typed scalars)."""
+    return v if xp is np else (v.item() if isinstance(v, np.generic) else v)
 
 
 def during_device_bounds(ft: FeatureType, lo_ms: int,
@@ -134,12 +183,148 @@ def _pip_fn(g: geo.Geometry, xcol: str, ycol: str, need_band=None,
     return pip
 
 
+def _tensors(arrays, like):
+    """f32 tensors of host constants on ``like``'s device: the f32 images
+    the reference's device path computes with."""
+    return [torch.as_tensor(np.asarray(a, np.float32), device=like.device)
+            for a in arrays]
+
+
+def _on_segments_fn(E: np.ndarray, xcol: str, ycol: str):
+    """Coarse point-on-any-segment test: the collinearity threshold is
+    relative to the f32 rounding error of the cross product, so on the f32
+    device path it is a superset of the exact f64 test (near misses are
+    cleared by the host refinement)."""
+    x1, y1, x2, y2 = E[:, 0], E[:, 1], E[:, 2], E[:, 3]
+    dx, dy = x2 - x1, y2 - y1
+    pad = 1e-5 * np.maximum(np.abs(E).max(), 1.0)
+    lox, hix = np.minimum(x1, x2) - pad, np.maximum(x1, x2) + pad
+    loy, hiy = np.minimum(y1, y2) - pad, np.maximum(y1, y2) + pad
+    consts = (x1, y1, dx, dy, lox, hix, loy, hiy)
+
+    def fn(cols, xp):
+        x, y = cols[xcol][..., None], cols[ycol][..., None]
+        c = consts if xp is np else _tensors(consts, x)
+        cx1, cy1, cdx, cdy, clox, chix, cloy, chiy = c
+        cross = cdx * (y - cy1) - cdy * (x - cx1)
+        err = 1e-5 * (
+            xp.abs(cdx) * (xp.abs(y) + xp.abs(cy1) + 1.0)
+            + xp.abs(cdy) * (xp.abs(x) + xp.abs(cx1) + 1.0)
+        )
+        inb = (x >= clox) & (x <= chix) & (y >= cloy) & (y <= chiy)
+        hit = (xp.abs(cross) <= err) & inb
+        return hit.any(axis=-1) if xp is np else hit.any(dim=-1)
+
+    return fn
+
+
+def _boundary_endpoints(g: geo.Geometry) -> np.ndarray:
+    """[K, 2] mod-2 boundary points of a (multi)linestring literal."""
+    lines = g.lines if isinstance(g, geo.MultiLineString) else [g]
+    counts: Dict[tuple, int] = {}
+    for ls in lines:
+        for pt in (tuple(ls.coords[0]), tuple(ls.coords[-1])):
+            counts[pt] = counts.get(pt, 0) + 1
+    pts = [p for p, c in counts.items() if c % 2 == 1]
+    return np.asarray(pts, np.float64).reshape(-1, 2)
+
+
+def _point_eq_fn(pts: np.ndarray, xcol: str, ycol: str):
+    """Point-column equality against a set of literal coordinates."""
+
+    def fn(cols, xp):
+        x, y = cols[xcol], cols[ycol]
+        out = None
+        for px, py in pts:
+            m = (x == _scalar(px, xp)) & (y == _scalar(py, xp))
+            out = m if out is None else (out | m)
+        return xp.asarray(False) if out is None else out
+
+    return fn
+
+
+def _points_of(g: geo.Geometry) -> np.ndarray:
+    if isinstance(g, geo.Point):
+        return np.asarray([[g.x, g.y]])
+    return np.asarray([[p.x, p.y] for p in g.points])
+
+
+def _point_exact_fns(g: geo.Geometry, dim: int, xc: str, yc: str):
+    """Exact host (f64) evaluators of a point column against a literal, by
+    op: the refinement counterparts of the coarse device masks."""
+
+    def inside(cols, xp=np):
+        return g.contains_points(np.asarray(cols[xc], np.float64),
+                                 np.asarray(cols[yc], np.float64))
+
+    if dim == 0:
+        eq = _point_eq_fn(_points_of(g), xc, yc)
+        return {"eq": eq, "disjoint": lambda cols, xp=np: ~eq(cols, np)}
+    if dim == 1:
+        ends = _boundary_endpoints(g)
+        at_end = _point_eq_fn(ends, xc, yc) if len(ends) else _FALSE
+        return {
+            "intersects": inside,  # LineString membership = exact on-segment
+            "disjoint": lambda cols, xp=np: ~inside(cols, np),
+            "within": lambda cols, xp=np: inside(cols, np) & ~np.asarray(at_end(cols, np)),
+            "touches": at_end,
+        }
+
+    def on_bnd(cols, xp=np):
+        return geo.on_boundary_of(g, np.asarray(cols[xc], np.float64),
+                                  np.asarray(cols[yc], np.float64))
+
+    return {
+        "intersects": inside,  # boundary-inclusive ring containment
+        "disjoint": lambda cols, xp=np: ~inside(cols, np),
+        "within": lambda cols, xp=np: inside(cols, np) & ~on_bnd(cols, np),
+        "touches": on_bnd,
+    }
+
+
 def _point_spatial_fn(node: ir.Spatial, xc: str, yc: str, exact: bool,
-                      neg: bool, need_band) -> Callable:
-    """Spatial predicate of a point column against a polygon literal."""
+                      neg: bool, need_refine, need_band) -> Callable:
+    """Spatial predicate of a POINT column against a geometry literal. A
+    point's interior is the point itself, so every relation reduces to
+    membership or boundary tests. Polygon INTERSECTS / DISJOINT run whole
+    on the device; boundary- and coincidence-sensitive ops (point and line
+    literals, WITHIN, TOUCHES) emit a coarse superset plus the exact host
+    refinement."""
     g, op = node.geom, node.op
-    if not isinstance(g, (geo.Polygon, geo.MultiPolygon)):
-        raise NotImplementedError(f"non-polygon literals: {_LATER}")
+    dim = (
+        0 if isinstance(g, (geo.Point, geo.MultiPoint))
+        else 1 if isinstance(g, (geo.LineString, geo.MultiLineString))
+        else 2
+    )
+    if dim == 0:
+        if op in ("touches", "crosses", "overlaps"):
+            return _FALSE  # empty boundaries / dimension rules
+        if op in ("contains", "equals") and not isinstance(g, geo.Point):
+            # a single point can only contain / equal a single point
+            if len({(p.x, p.y) for p in g.points}) > 1:
+                return _FALSE
+        ex = _point_exact_fns(g, dim, xc, yc)
+        if exact:
+            return ex["disjoint"] if op == "disjoint" else ex["eq"]
+        need_refine(None)  # f32 equality can collide distinct f64 values
+        if neg:
+            return _FALSE
+        if op == "disjoint":
+            return _TRUE
+        return _point_eq_fn(_points_of(g), xc, yc)  # f32 eq: a superset
+    if dim == 1:
+        if op in ("contains", "crosses", "overlaps", "equals"):
+            return _FALSE  # dimension rules for a single point
+        ex = _point_exact_fns(g, dim, xc, yc)
+        if exact:
+            return ex[op]
+        need_refine(None)
+        if neg:
+            return _FALSE
+        if op == "disjoint":
+            return _TRUE
+        # intersects / within / touches: all lie on the (relaxed) segments
+        return _on_segments_fn(geo.edges(g), xc, yc)
     if op in ("contains", "crosses", "overlaps", "equals"):
         return _FALSE  # a point cannot contain/cross/overlap/equal an area
     band = None if exact else need_band
@@ -149,19 +334,141 @@ def _point_spatial_fn(node: ir.Spatial, xc: str, yc: str, exact: bool,
         # the complement flips the rounding polarity
         pip_n = _pip_fn(g, xc, yc, band, not neg)
         return lambda cols, xp: ~pip_n(cols, xp)
-    raise NotImplementedError(f"{op.upper()} on point columns: {_LATER}")
+    pip = _pip_fn(g, xc, yc, band, neg)
+    ex = _point_exact_fns(g, dim, xc, yc)
+    if exact:
+        return ex[op]
+    need_refine(None)  # within / touches: boundary-sensitive
+    if neg:
+        return _FALSE
+    if op == "within":
+        return pip  # superset of the interior
+    return _on_segments_fn(geo.edges(g), xc, yc)  # touches: relaxed boundary
 
 
-def compile_filter(f: ir.Filter, ft: FeatureType) -> CompiledFilter:
+def _like_regex(pattern: str, ci: bool):
+    """LIKE pattern (% and _ wildcards) -> anchored compiled regex."""
+    rx = "".join(
+        ".*" if ch == "%" else "." if ch == "_" else re.escape(ch) for ch in pattern
+    )
+    return re.compile("^" + rx + "$", re.IGNORECASE if ci else 0)
+
+
+def _like_codes(d: DictionaryEncoder, pattern: str, ci: bool) -> np.ndarray:
+    """The dictionary codes whose value matches a LIKE pattern."""
+    cre = _like_regex(pattern, ci)
+    return np.array([i for i, v in enumerate(d.values) if cre.match(v)],
+                    dtype=np.int32)
+
+
+def _isin_fn(col: str, codes: np.ndarray):
+    """Membership of a column in a small value set: chained compares up to
+    16 values, else ``isin`` (``torch.isin`` on the device)."""
+    codes = np.asarray(codes)
+
+    def fn(cols, xp):
+        c = cols[col]
+        if codes.size == 0:
+            return _zeros(c, xp)
+        if codes.size <= 16:
+            m = c == _scalar(codes[0], xp)
+            for v in codes[1:]:
+                m = m | (c == _scalar(v, xp))
+            return m
+        if xp is np:
+            return np.isin(c, codes)
+        return torch.isin(c, torch.as_tensor(codes, device=c.device).to(c.dtype))
+
+    return fn
+
+
+def _fid_fn(ids: List[str]):
+    """Exact feature-id membership on the host-only ``__fid__`` column, in
+    the column's own layout ('S' bytes, else 'U' or objects)."""
+
+    def fid_mask(cols, xp):
+        fids = np.asarray(cols["__fid__"])
+        if fids.dtype.kind == "S":
+            q = np.asarray([i.encode("utf-8", "surrogateescape") for i in ids])
+        elif fids.dtype.kind == "U":
+            q = np.asarray(ids)
+        else:
+            idset = set(ids)
+            return np.array([f in idset for f in fids], dtype=bool)
+        return np.isin(fids, q)
+
+    return fid_mask
+
+
+def _compare_fn(col: str, op: str, val):
+    """Plain compare of a column with a scalar (exact on host columns, and
+    on device columns whose type holds the value exactly)."""
+    if op == "=":
+        return lambda cols, xp: cols[col] == val
+    if op == "<>":
+        return lambda cols, xp: cols[col] != val
+    if op == "<":
+        return lambda cols, xp: cols[col] < val
+    if op == "<=":
+        return lambda cols, xp: cols[col] <= val
+    if op == ">":
+        return lambda cols, xp: cols[col] > val
+    return lambda cols, xp: cols[col] >= val
+
+
+def _f32_compare_fn(col: str, op: str, val, neg: bool):
+    """Compare at f32 with rounding polarity: by monotone rounding,
+    ``f32(x) <= f32(v)`` is a superset of ``x < v`` and ``f32(x) < f32(v)``
+    a subset (symmetrically for >); f32 equality has no false negatives.
+    Under odd NOT-nesting the subset is emitted."""
+    v32 = float(np.float32(val))
+    if op == "=":
+        return _FALSE if neg else (lambda cols, xp: _f32(cols[col], xp) == v32)
+    if op == "<>":
+        return (lambda cols, xp: _f32(cols[col], xp) != v32) if neg else _TRUE
+    if op in ("<", "<="):
+        if neg:
+            return lambda cols, xp: _f32(cols[col], xp) < v32
+        return lambda cols, xp: _f32(cols[col], xp) <= v32
+    if neg:
+        return lambda cols, xp: _f32(cols[col], xp) > v32
+    return lambda cols, xp: _f32(cols[col], xp) >= v32
+
+
+def _f32_in_fn(col: str, vals: np.ndarray):
+    """f32 membership: a superset (no equality false negatives)."""
+    vals32 = np.unique(vals.astype(np.float32))
+
+    def fn(cols, xp):
+        c = _f32(cols[col], xp)
+        m = c == float(vals32[0])
+        for v in vals32[1:]:
+            m = m | (c == float(v))
+        return m
+
+    return fn
+
+
+def compile_filter(f: ir.Filter, ft: FeatureType,
+                   dicts: Optional[Dict[str, DictionaryEncoder]] = None) -> CompiledFilter:
     """Compile a predicate IR tree into a columnar mask. ``neg`` tracks
     NOT-polarity so f32 compares round toward a superset of the exact
-    matches under even nesting and a subset under odd nesting."""
+    matches under even nesting and a subset under odd nesting; ``exact``
+    builds the host tree over f64 master rows."""
+    dicts = {} if dicts is None else dicts
     needed: List[str] = []
+    refine_needed: List[str] = []
+    has_refine = [False]
 
     def need(*cols):
         for c in cols:
             if c not in needed:
                 needed.append(c)
+
+    def need_refine(c):
+        has_refine[0] = True
+        if c is not None and c not in refine_needed:
+            refine_needed.append(c)
 
     # f32-uncertainty bands: rows whose f64 value rounds to the f32 image
     # of a query bound, the only rows where f32 and f64 compares disagree
@@ -222,12 +529,57 @@ def compile_filter(f: ir.Filter, ft: FeatureType) -> CompiledFilter:
         if isinstance(node, ir.Spatial):
             xc, yc = geom_cols(node.prop)
             need(xc, yc)
-            return _point_spatial_fn(node, xc, yc, exact, neg, band_eq)
+            return _point_spatial_fn(node, xc, yc, exact, neg, need_refine, band_eq)
+        if isinstance(node, ir.DWithin):
+            xc, yc = geom_cols(node.prop)
+            need(xc, yc)
+            if not isinstance(node.geom, geo.Point):
+                raise NotImplementedError(f"DWITHIN with a non-point literal: {LATER_ITEM}")
+            # great-circle test, fused into the device mask
+            px, py, dist = node.geom.x, node.geom.y, node.distance_m
+            rx2, ry2 = float(np.radians(px)), float(np.radians(py))
+            cos_ry2 = float(np.cos(ry2))
+
+            def dwithin(cols, xp):
+                x, y = cols[xc], cols[yc]
+                rx1, ry1 = _radians(x, xp), _radians(y, xp)
+                a = (xp.sin((ry2 - ry1) / 2) ** 2
+                     + xp.cos(ry1) * cos_ry2 * xp.sin((rx2 - rx1) / 2) ** 2)
+                d = 2 * geo.EARTH_RADIUS_M * xp.arcsin(xp.sqrt(xp.clip(a, 0, 1)))
+                return d <= dist
+
+            return dwithin
+        if isinstance(node, ir.Compare):
+            return compile_compare(node, neg, exact)
+        if isinstance(node, ir.Between):
+            inner = ir.And((ir.Compare(node.prop, ">=", node.lo),
+                            ir.Compare(node.prop, "<=", node.hi)))
+            return compile_node(inner, neg, exact)
+        if isinstance(node, ir.In):
+            return compile_in(node, neg, exact)
+        if isinstance(node, ir.Like):
+            a = ft.attr(node.prop)
+            if a.type != "string":
+                raise ValueError(f"LIKE requires a string attribute, got {a.type}")
+            need(node.prop)
+            d = dicts.setdefault(node.prop, DictionaryEncoder())
+            return _isin_fn(node.prop, _like_codes(d, node.pattern, node.case_insensitive))
+        if isinstance(node, ir.IsNull):
+            a = ft.attr(node.prop)
+            need(node.prop)
+            col = node.prop
+            if a.type == "string":
+                fn = lambda cols, xp: cols[col] < 0  # noqa: E731
+            elif a.type.startswith("float"):
+                fn = lambda cols, xp: xp.isnan(cols[col])  # noqa: E731
+            else:
+                fn = lambda cols, xp: _zeros(cols[col], xp)  # noqa: E731
+            if node.negate:
+                return lambda cols, xp: ~fn(cols, xp)
+            return fn
         if isinstance(node, ir.During):
             # lexicographic compare on the (bin, scaled offset) int32 pair
-            lo_b, lo_o, hi_b, hi_o = during_device_bounds(
-                ft, node.lo_ms, node.hi_ms
-            )
+            lo_b, lo_o, hi_b, hi_o = during_device_bounds(ft, node.lo_ms, node.hi_ms)
             cb, co = node.prop + "__bin", node.prop + "__off"
             need(cb, co)
 
@@ -238,11 +590,117 @@ def compile_filter(f: ir.Filter, ft: FeatureType) -> CompiledFilter:
                 return ge & le
 
             return during
-        raise NotImplementedError(f"filter node {type(node).__name__}: {_LATER}")
+        if isinstance(node, ir.IdIn):
+            need("__fid__")
+            return _fid_fn([str(i) for i in node.ids])
+        raise ValueError(f"cannot compile filter node: {node!r}")
+
+    def compile_compare(node: ir.Compare, neg: bool, exact: bool) -> Callable:
+        a = ft.attr(node.prop)
+        col = node.prop
+        if (a.type in ("int32", "int64")
+                and isinstance(node.value, (float, np.floating))
+                and not float(node.value).is_integer()
+                and node.op in ("=", "<>")):
+            # no integer equals a non-integral literal
+            return _const(node.op == "<>")
+        need(col)
+        if a.type == "string":
+            d = dicts.setdefault(node.prop, DictionaryEncoder())
+            if node.op in ("=", "<>"):
+                code = d.code_of(str(node.value))
+                if node.op == "=":
+                    return lambda cols, xp: cols[col] == code
+                return lambda cols, xp: (cols[col] != code) & (cols[col] >= 0)
+            # ordering on strings: resolved against the vocabulary
+            sval = str(node.value)
+            ops = {
+                "<": lambda v: v < sval, "<=": lambda v: v <= sval,
+                ">": lambda v: v > sval, ">=": lambda v: v >= sval,
+            }[node.op]
+            return _isin_fn(col, np.array(
+                [i for i, v in enumerate(d.values) if ops(v)], dtype=np.int32))
+        if a.type == "bool":
+            bv = (node.value if isinstance(node.value, bool)
+                  else str(node.value).lower() == "true")
+            if node.op == "=":
+                return lambda cols, xp: cols[col] == bv
+            if node.op == "<>":
+                return lambda cols, xp: cols[col] != bv
+            raise ValueError(f"unsupported boolean comparison {node.op!r}")
+        val = node.value
+        if a.type == "date":
+            if not isinstance(val, (int, np.integer)):
+                from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+
+                val = parse_iso_ms(str(val))
+            v = int(val)
+            # rewrite to interval form -> (bin, off) pair compare
+            iv = {
+                "=": ir.During(col, v, v),
+                "<>": ir.Not(ir.During(col, v, v)),
+                "<": ir.During(col, ir.MIN_MS, v - 1),
+                "<=": ir.During(col, ir.MIN_MS, v),
+                ">": ir.During(col, v + 1, ir.MAX_MS),
+                ">=": ir.During(col, v, ir.MAX_MS),
+            }[node.op]
+            return compile_node(iv)
+        op = node.op
+        if a.type in ("float32", "float64"):
+            val = float(val)
+        elif isinstance(val, (float, np.floating)) and not float(val).is_integer():
+            # non-integral literal against an integer column: exact
+            # integer bounds (= and <> were resolved above)
+            fv = float(val)
+            val, op = (math.floor(fv), "<=") if op in ("<", "<=") else (math.ceil(fv), ">=")
+        else:
+            val = int(val)
+        if a.type == "float64" and not exact:
+            # Double rides the device as f32: the band marks the rows
+            # colliding with the bound's f32 image
+            band_eq(col, val)
+            return _f32_compare_fn(col, op, val, neg)
+        if a.type == "int64" and not exact and abs(val) >= (1 << 24):
+            # Long rides the device as f32, lossy beyond 2^24: a coarse f32
+            # compare plus the exact refine on the int64 host column
+            need_refine(None)
+            return _f32_compare_fn(col, op, val, neg)
+        return _compare_fn(col, op, val)
+
+    def compile_in(node: ir.In, neg: bool, exact: bool) -> Callable:
+        a = ft.attr(node.prop)
+        need(node.prop)
+        if a.type == "string":
+            d = dicts.setdefault(node.prop, DictionaryEncoder())
+            codes = np.array([d.code_of(str(v)) for v in node.values], dtype=np.int32)
+            return _isin_fn(node.prop, codes[codes >= 0])
+        if a.type.startswith("float"):
+            vals = np.array([float(v) for v in node.values])
+        else:
+            # int columns: a non-integral literal never matches; one outside
+            # int64 cannot either
+            vals = np.array([
+                int(v) for v in node.values
+                if not (isinstance(v, (float, np.floating)) and not float(v).is_integer())
+                and -(2 ** 63) <= int(v) < 2 ** 63
+            ], dtype=np.int64)
+        if a.type == "float64" and not exact and len(vals):
+            band_eq(node.prop, *vals.tolist())
+            return _FALSE if neg else _f32_in_fn(node.prop, vals)
+        if a.type == "int64" and not exact and np.abs(vals).max(initial=0) >= (1 << 24):
+            need_refine(None)
+            return _FALSE if neg else _f32_in_fn(node.prop, vals)
+        return _isin_fn(node.prop, vals)
 
     fn = compile_node(f)
     refine = band = None
-    if bands:
+    band_only = False
+    if has_refine[0]:
+        refine = compile_node(f, exact=True)
+    elif bands:
+        # refine-bearing plans are already host-exact on candidates; only
+        # the pure device path needs the f32-uncertainty band, whose rows
+        # the exact tree decides
         bfns = list(bands)
 
         def band(cols, xp):  # noqa: F811
@@ -251,7 +709,7 @@ def compile_filter(f: ir.Filter, ft: FeatureType) -> CompiledFilter:
                 m = m | b(cols, xp)
             return m
 
-        # the exact tree doubles as the refiner of band rows
         refine = compile_node(f, exact=True)
-    return CompiledFilter(fn, needed, refine=refine, band=band,
-                          refine_only_if_band=band is not None)
+        band_only = True
+    return CompiledFilter(fn, needed, refine=refine, refine_columns=refine_needed,
+                          band=band, refine_only_if_band=band_only)

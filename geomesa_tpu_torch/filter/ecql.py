@@ -5,12 +5,18 @@ the grammar this port serves::
 
     INCLUDE | EXCLUDE
     BBOX(geom, xmin, ymin, xmax, ymax)
-    INTERSECTS/CONTAINS/WITHIN/DISJOINT/...(geom, POLYGON(...))
+    INTERSECTS/CONTAINS/WITHIN/DISJOINT/...(geom, WKT)
+    DWITHIN/BEYOND(geom, WKT, distance, units)
+    a = | <> | != | < | <= | > | >= literal   (or literal op a)
+    a BETWEEN x AND y | a IN (v1, v2) | a LIKE 'pat%' | a ILIKE 'pat%'
+    a IS [NOT] NULL
     dtg DURING t1/t2 | dtg BEFORE t | dtg AFTER t | dtg TEQUALS t
+    IN ('id1', 'id2')              -- feature-id filter
     AND / OR / NOT, parentheses
 
-Attribute comparisons, DWITHIN, feature-id filters and expressions raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Expression operands (property against property, arithmetic, functions,
+``jsonPath``) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -46,8 +52,16 @@ _KEYWORDS = {
     "ILIKE", "IS", "NULL",
 }
 
-#: ROADMAP item that ports the predicates this parser refuses
-_LATER = "ROADMAP Queue 1, index key spaces and predicates"
+#: ROADMAP item that ports the expressions this parser refuses
+_LATER = "ROADMAP Queue 1, extent geometries and expression predicates"
+
+#: DWITHIN / BEYOND distance units -> meters
+_UNITS = {
+    "meters": 1.0, "metres": 1.0, "m": 1.0,
+    "kilometers": 1000.0, "km": 1000.0,
+    "feet": 0.3048, "statute miles": 1609.344, "miles": 1609.344,
+    "nautical miles": 1852.0,
+}
 
 
 class _Tok:
@@ -144,6 +158,28 @@ class _Parser:
             return e
         return self.predicate()
 
+    def literal(self):
+        t = self.next()
+        if t.kind == "num":
+            v = float(t.text)
+            return int(v) if v.is_integer() and "." not in t.text and "e" not in t.text.lower() else v
+        if t.kind == "str":
+            inner = t.text[1:-1].replace("''", "'")
+            if re.fullmatch(_ISO, inner):
+                return np.int64(parse_iso_ms(inner))
+            return inner
+        if t.kind == "date":
+            return np.int64(parse_iso_ms(t.text))
+        if t.kind == "id" and t.text.lower() in ("true", "false"):
+            return t.text.lower() == "true"
+        raise ValueError(f"ECQL: expected literal, got {t!r}")
+
+    def is_literal(self) -> bool:
+        t = self.peek()
+        return t is not None and (
+            t.kind in ("num", "str", "date")
+            or (t.kind == "id" and t.text.lower() in ("true", "false")))
+
     def time_literal(self) -> int:
         t = self.next()
         if t.kind == "date":
@@ -209,12 +245,78 @@ class _Parser:
                 g = self.wkt_literal()
                 self.expect("sym", ")")
                 return ir.Spatial(kw.lower(), prop, g)
-            raise NotImplementedError(f"ECQL {kw}: {_LATER}")
+            if kw in ("DWITHIN", "BEYOND"):
+                self.next()
+                self.expect("sym", "(")
+                prop = self.expect("id").text
+                self.expect("sym", ",")
+                g = self.wkt_literal()
+                self.expect("sym", ",")
+                dist = float(self.expect("num").text)
+                self.expect("sym", ",")
+                units = self.expect("id").text.lower()
+                self.expect("sym", ")")
+                node = ir.DWithin(prop, g, dist * _UNITS.get(units, 1.0))
+                return ir.Not(node) if kw == "BEYOND" else node
+            if kw == "IN":  # feature-id filter
+                self.next()
+                self.expect("sym", "(")
+                ids = []
+                while True:
+                    ids.append(str(self.literal()))
+                    if not self.accept("sym", ","):
+                        break
+                self.expect("sym", ")")
+                return ir.IdIn(tuple(ids))
+            raise ValueError(f"ECQL parse error at {kw} in {self.text!r}")
+        if self.is_literal():
+            # literal op property: flipped into property op literal
+            value = self.literal()
+            op = self.expect("op").text
+            if self.peek() is None or self.peek().kind != "id":
+                raise NotImplementedError(f"ECQL expressions: {_LATER}")
+            flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "!=": "<>"}
+            return ir.Compare(self.next().text, flip.get(op, op), value)
         if t.kind != "id":
             raise NotImplementedError(f"ECQL expressions: {_LATER}")
         prop = self.next().text
+        t = self.peek()
+        if t is not None and t.kind == "sym" and t.text == "(":
+            raise NotImplementedError(f"ECQL functions: {_LATER}")
+        if t is not None and t.kind == "op":
+            op = self.next().text
+            if op == "!=":
+                op = "<>"
+            if not self.is_literal():
+                raise NotImplementedError(f"ECQL expressions: {_LATER}")
+            value = self.literal()
+            nt = self.peek()
+            if nt is not None and (nt.kind == "sym" and nt.text in "+-*/"
+                                   or nt.kind == "num" and nt.text[0] in "+-"):
+                raise NotImplementedError(f"ECQL expressions: {_LATER}")
+            return ir.Compare(prop, op, value)
         kw = self.accept("kw")
         if kw is not None:
+            if kw.text == "BETWEEN":
+                lo = self.literal()
+                self.expect("kw", "AND")
+                return ir.Between(prop, lo, self.literal())
+            if kw.text == "IN":
+                self.expect("sym", "(")
+                vals = []
+                while True:
+                    vals.append(self.literal())
+                    if not self.accept("sym", ","):
+                        break
+                self.expect("sym", ")")
+                return ir.In(prop, tuple(vals))
+            if kw.text in ("LIKE", "ILIKE"):
+                return ir.Like(prop, str(self.literal()),
+                               case_insensitive=kw.text == "ILIKE")
+            if kw.text == "IS":
+                neg = bool(self.accept("kw", "NOT"))
+                self.expect("kw", "NULL")
+                return ir.IsNull(prop, negate=neg)
             if kw.text == "DURING":
                 lo = self.time_literal()
                 self.expect("sym", "/")
@@ -227,7 +329,10 @@ class _Parser:
             if kw.text == "TEQUALS":
                 v = self.time_literal()
                 return ir.During(prop, v, v)
-        raise NotImplementedError(f"attribute predicates on {prop!r}: {_LATER}")
+        if t is not None and (t.kind == "sym" and t.text in "+-*/"
+                              or t.kind == "num" and t.text[0] in "+-"):
+            raise NotImplementedError(f"ECQL expressions: {_LATER}")
+        raise ValueError(f"ECQL parse error near {prop!r} in {self.text!r}")
 
 
 def parse_ecql(text: str) -> ir.Filter:

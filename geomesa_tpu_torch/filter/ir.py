@@ -1,8 +1,12 @@
 """Predicate IR + plan-time bound extraction.
 
 Copy of ``geomesa_tpu/filter/ir.py`` cut to the nodes this port serves:
-INCLUDE / EXCLUDE, AND / OR / NOT, BBOX, spatial relations against a polygon
-literal, and DURING intervals (BEFORE / AFTER / TEQUALS parse to DURING).
+INCLUDE / EXCLUDE, AND / OR / NOT, BBOX, spatial relations and DWITHIN
+against a geometry literal, attribute comparisons (``Compare``,
+``Between``, ``In``, ``Like``, ``IsNull``), DURING intervals (BEFORE /
+AFTER / TEQUALS parse to DURING) and feature-id ``IdIn``; with the
+plan-time extraction of geometries, intervals, ids and attribute bounds.
+Expression comparisons and JSON paths are not part of it.
 """
 
 from __future__ import annotations
@@ -66,6 +70,55 @@ class Spatial(Filter):
 
 
 @dataclass(frozen=True)
+class DWithin(Filter):
+    prop: str
+    geom: geo.Geometry
+    distance_m: float
+
+
+@dataclass(frozen=True)
+class Compare(Filter):
+    """=, <>, <, <=, >, >= on a scalar attribute."""
+
+    prop: str
+    op: str
+    value: object  # float | int | str | bool | np.int64 epoch-ms for dates
+
+
+@dataclass(frozen=True)
+class Between(Filter):
+    prop: str
+    lo: object
+    hi: object
+
+
+@dataclass(frozen=True)
+class In(Filter):
+    prop: str
+    values: Tuple[object, ...]
+
+
+@dataclass(frozen=True)
+class Like(Filter):
+    prop: str
+    pattern: str
+    case_insensitive: bool = False
+
+
+@dataclass(frozen=True)
+class IsNull(Filter):
+    prop: str
+    negate: bool = False
+
+
+@dataclass(frozen=True)
+class IdIn(Filter):
+    """Feature-id filter (ECQL ``IN ('id1', 'id2')`` with no property)."""
+
+    ids: Tuple[str, ...]
+
+
+@dataclass(frozen=True)
 class During(Filter):
     """Temporal interval, inclusive on both ends."""
 
@@ -97,6 +150,13 @@ def extract_geometries(f: Filter, geom_prop: str) -> FilterValues:
             return [geo.bbox_polygon(node.xmin, node.ymin, node.xmax, node.ymax)]
         if isinstance(node, Spatial) and node.prop == geom_prop:
             return [node.geom] if node.op != "disjoint" else None
+        if isinstance(node, DWithin) and node.prop == geom_prop:
+            d = node.distance_m / geo.METERS_PER_DEGREE
+            b = node.geom.bounds()
+            # widen longitude by a latitude-dependent factor (conservative)
+            maxlat = min(89.0, max(abs(b[1]), abs(b[3])))
+            dx = d / max(np.cos(np.radians(maxlat)), 1e-3)
+            return [geo.bbox_polygon(b[0] - dx, b[1] - d, b[2] + dx, b[3] + d)]
         if isinstance(node, And):
             bounds = None
             geoms = None
@@ -143,6 +203,17 @@ def extract_intervals(f: Filter, dtg_prop: str) -> FilterValues:
     def walk(node: Filter) -> Optional[List[Tuple[int, int]]]:
         if isinstance(node, During) and node.prop == dtg_prop:
             return [(node.lo_ms, node.hi_ms)]
+        if isinstance(node, Compare) and node.prop == dtg_prop:
+            v = int(node.value)
+            if node.op == "=":
+                return [(v, v)]
+            if node.op in ("<", "<="):
+                return [(MIN_MS, v)]
+            if node.op in (">", ">="):
+                return [(v, MAX_MS)]
+            return None
+        if isinstance(node, Between) and node.prop == dtg_prop:
+            return [(int(node.lo), int(node.hi))]
         if isinstance(node, And):
             acc = None
             for c in node.children:
@@ -180,6 +251,78 @@ def extract_intervals(f: Filter, dtg_prop: str) -> FilterValues:
     if iv == []:
         return FilterValues([], disjoint=True)
     return FilterValues(_merge_intervals(iv))
+
+
+def extract_ids(f: Filter) -> Optional[Tuple[str, ...]]:
+    """Feature ids of an ``IdIn`` at the top or under a top-level AND."""
+    if isinstance(f, IdIn):
+        return f.ids
+    if isinstance(f, And):
+        for c in f.children:
+            ids = extract_ids(c)
+            if ids is not None:
+                return ids
+    return None
+
+
+def extract_attr_bounds(f: Filter, prop: str) -> FilterValues:
+    """Closed value bounds [(lo, hi)] constraining a scalar attribute (None
+    = open end): the attribute index's range windows."""
+
+    def walk(node: Filter):
+        if isinstance(node, Compare) and node.prop == prop:
+            v = node.value
+            if node.op == "=":
+                return [(v, v)]
+            if node.op in ("<", "<="):
+                return [(None, v)]
+            if node.op in (">", ">="):
+                return [(v, None)]
+            return None
+        if isinstance(node, Between) and node.prop == prop:
+            return [(node.lo, node.hi)]
+        if isinstance(node, In) and node.prop == prop:
+            return [(v, v) for v in node.values]
+        if isinstance(node, During) and node.prop == prop:
+            return [(node.lo_ms, node.hi_ms)]
+        if isinstance(node, And):
+            acc = None
+            for c in node.children:
+                b = walk(c)
+                if b is None:
+                    continue
+                if acc is None:
+                    acc = b
+                else:
+                    merged = []
+                    for (a0, a1) in acc:
+                        for (b0, b1) in b:
+                            lo = b0 if a0 is None else a0 if b0 is None else max(a0, b0)
+                            hi = b1 if a1 is None else a1 if b1 is None else min(a1, b1)
+                            if lo is None or hi is None or lo <= hi:
+                                merged.append((lo, hi))
+                    if not merged:
+                        return []
+                    acc = merged
+            return acc
+        if isinstance(node, Or):
+            out = []
+            for c in node.children:
+                b = walk(c)
+                if b is None:
+                    return None
+                out.extend(b)
+            return out
+        if isinstance(node, Exclude):
+            return []
+        return None
+
+    b = walk(f)
+    if b is None:
+        return FilterValues([])
+    if b == []:
+        return FilterValues([], disjoint=True)
+    return FilterValues(b)
 
 
 def _merge_intervals(iv: List[Tuple[int, int]]) -> List[Tuple[int, int]]:

@@ -1,27 +1,30 @@
-"""Z3 key space: feature batch -> sort keys (ingest) and filter -> scan
+"""Key spaces: feature batch -> sort keys (ingest) and filter -> scan
 windows (plan time).
 
-Copy of ``geomesa_tpu/index/keyspace.py`` cut to ``Z3KeySpace`` (point geometry
-+ time) with ``KeyPlan``, range merging, window capping and the LSM append's
-``fast_build(force_shifts=)`` / ``insert_positions``. Per-bin window
-resolution is NumPy ``searchsorted`` (the JAX package may use native C++
-there; both give the same windows). The range budget and the per-shard
-window cap are explicit arguments instead of scoped configuration.
+Copy of ``geomesa_tpu/index/keyspace.py`` cut to the point-schema key
+spaces: ``Z3KeySpace`` (point geometry + time), ``Z2KeySpace`` (point
+geometry), ``IdKeySpace`` (feature-id hash) and ``AttributeKeySpace`` (one
+attribute, with a z2 tiebreak), with ``KeyPlan`` (full scans included),
+range merging, window capping and the LSM append's insert positions.
+Per-bin window resolution is NumPy ``searchsorted`` (the JAX package may
+use native C++ there; both give the same windows). The range budget and
+the per-shard window cap are explicit arguments instead of scoped
+configuration.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from geomesa_tpu_torch.curves.binned_time import TimePeriod
 from geomesa_tpu_torch.curves.cover import ZRange
-from geomesa_tpu_torch.curves.zorder import Z3SFC
+from geomesa_tpu_torch.curves.zorder import Z2SFC, Z3SFC
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index import packsort
-from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.schema.feature_type import LATER_ITEM, FeatureType
 
 MAX_WINDOW_BINS = 64  # collapse per-bin windows beyond this many time bins
 
@@ -35,24 +38,90 @@ RANGES_TARGET = 2000
 
 @dataclass
 class KeyPlan:
-    """Plan-time product of the key space for one query."""
+    """Plan-time product of a key space for one query."""
 
-    keyspace: "Z3KeySpace"
+    keyspace: "KeySpace"
     #: provably empty (disjoint bounds)
     disjoint: bool = False
-    #: z-ranges over the full offset span (middle bins)
+    #: no key constraint: every row of every shard
+    full_scan: bool = False
+    #: z-ranges (over the full offset span for z3's middle bins); also the
+    #: decider's selectivity input
     ranges: List[ZRange] = field(default_factory=list)
-    #: time bins touched
+    #: time bins touched (z3)
     bins: Optional[np.ndarray] = None
-    #: per edge bin: time-tightened z-ranges
+    #: per z3 edge bin: time-tightened z-ranges
     edge: Dict[int, List[Tuple[int, int]]] = field(default_factory=dict)
+    #: estimated fraction of the key space covered (a cost input)
+    coverage: float = 1.0
+    #: feature ids (id index)
+    ids: Tuple[str, ...] = ()
+    #: closed value bounds, None = open (attribute index)
+    bounds: list = field(default_factory=list)
 
     def windows(self, shard_cols: Dict[str, np.ndarray], n: int,
                 cap: int = MAX_SHARD_WINDOWS) -> Tuple[np.ndarray, np.ndarray]:
         """(starts, ends) row windows for one shard's sorted key columns."""
         if self.disjoint:
             return np.zeros(1, np.int64), np.zeros(1, np.int64)
+        if self.full_scan:
+            return np.zeros(1, np.int64), np.full(1, n, np.int64)
         return self.keyspace.resolve_windows(self, shard_cols, n, cap)
+
+
+class KeySpace:
+    name: str = "base"   # unique per instance (table key)
+    kind: str = "base"   # family (cost model / dispatch key)
+    key_cols: Sequence[str] = ()
+    #: False when appends always rebuild the table
+    can_insert = True
+
+    def index_keys(self, ft: FeatureType, cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Vectorized key encode for an ingest batch."""
+        raise NotImplementedError
+
+    def sort_order(self, cols: Dict[str, np.ndarray]) -> np.ndarray:
+        """argsort of the raw keys (the fallback of the pack-sort)."""
+        raise NotImplementedError
+
+    def fast_build(self, cols: Dict[str, np.ndarray],
+                   force_shifts: Optional[Dict[str, int]] = None):
+        """Radix pack-sort build: (order, key columns quantized by shifts,
+        shifts), or None to fall back to :meth:`sort_order`.
+        ``force_shifts`` pins the quantization to an existing table's."""
+        return None
+
+    def plan(self, ft: FeatureType, f: ir.Filter,
+             ranges_target: int = RANGES_TARGET) -> Optional[KeyPlan]:
+        """None when this key space cannot serve the filter at all."""
+        raise NotImplementedError
+
+    def resolve_windows(self, plan: KeyPlan, shard_cols, n: int, cap: int):
+        raise NotImplementedError
+
+    def insert_positions(self, sorted_key_cols: Dict[str, np.ndarray],
+                         fresh_sorted: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
+        """Merge positions of already-sorted fresh keys into the table's
+        sorted key columns (equal keys land after the old rows): one
+        searchsorted for a single key column, per fresh bin for (bin, key)
+        pairs."""
+        cols = list(self.key_cols)
+        if len(cols) == 1:
+            k = cols[0]
+            return np.searchsorted(sorted_key_cols[k], fresh_sorted[k],
+                                   side="right").astype(np.int64)
+        if len(cols) == 2:
+            bc, kc = cols
+            bins_col, key_col = sorted_key_cols[bc], sorted_key_cols[kc]
+            fb, fk = fresh_sorted[bc], fresh_sorted[kc]
+            p = np.empty(len(fb), np.int64)
+            for b in np.unique(fb):
+                sel = fb == b
+                s = int(np.searchsorted(bins_col, b, side="left"))
+                e = int(np.searchsorted(bins_col, b, side="right"))
+                p[sel] = s + np.searchsorted(key_col[s:e], fk[sel], side="right")
+            return p
+        return None
 
 
 def _merge_cap(los: np.ndarray, his: np.ndarray, cap: int,
@@ -89,10 +158,31 @@ def _merge_zranges(ranges: List[Tuple[int, int]], cap: int) -> List[Tuple[int, i
     return list(zip(mlo.tolist(), mhi.tolist()))
 
 
+def _per_geom_ranges(cover_fn, bounds_list, ranges_target: int) -> List[ZRange]:
+    """Cover each query geometry's bounds separately and merge: disjoint
+    boxes get disjoint covers instead of one envelope cover."""
+    all_r = [(int(r.lo), int(r.hi)) for b in bounds_list for r in cover_fn(b)]
+    return [ZRange(lo, hi) for lo, hi in _merge_zranges(all_r, ranges_target)]
+
+
 def _cap_windows(starts: np.ndarray, ends: np.ndarray, cap: int):
     """Merge overlapping half-open row windows; union the smallest gaps
     when more than ``cap`` remain."""
     return _merge_cap(starts, ends, cap, adjacent=0)
+
+
+def _shift_of(shard_cols: Dict, col: str) -> int:
+    """Quantization shift of a stored key column (0 on the argsort path)."""
+    shifts = shard_cols.get("__shifts__")
+    return 0 if shifts is None else shifts.get(col, 0)
+
+
+def _coverage(ranges: List[ZRange], total_bits: int) -> float:
+    return sum(r.hi - r.lo + 1 for r in ranges) / float(1 << total_bits)
+
+
+def _empty_windows():
+    return np.zeros(1, np.int64), np.zeros(1, np.int64)
 
 
 def _bin_windows(bins_col: np.ndarray, z_col: np.ndarray, bins: np.ndarray,
@@ -114,9 +204,10 @@ def _bin_windows(bins_col: np.ndarray, z_col: np.ndarray, bins: np.ndarray,
     return np.asarray(starts, np.int64), np.asarray(ends, np.int64)
 
 
-class Z3KeySpace:
+class Z3KeySpace(KeySpace):
     """(bin, z3) keys over point geometry + time."""
 
+    name = "z3"
     kind = "z3"
 
     def __init__(self, geom: str, dtg: str, period: "str | TimePeriod" = TimePeriod.WEEK):
@@ -127,8 +218,7 @@ class Z3KeySpace:
         self.key_cols = ("__z3_bin", "__z3")
 
     def index_keys(self, ft: FeatureType, cols: Dict[str, np.ndarray]):
-        """Vectorized key encode for an ingest batch, reusing the batch's
-        ``<dtg>__bin`` column when its period matches."""
+        """Reuses the batch's ``<dtg>__bin`` column when its period matches."""
         bin_col = self.dtg + "__bin"
         if bin_col in cols and ft.time_period == self.binned.period:
             b = cols[bin_col]
@@ -138,15 +228,10 @@ class Z3KeySpace:
         z = self.sfc.index(cols[self.geom + "__x"], cols[self.geom + "__y"], off)
         return {"__z3_bin": np.asarray(b, np.int32), "__z3": z}
 
-    def sort_order(self, cols: Dict[str, np.ndarray]) -> np.ndarray:
-        """argsort of raw (bin, z3) keys (the fallback of the pack-sort)."""
+    def sort_order(self, cols):
         return np.lexsort((cols["__z3"], cols["__z3_bin"]))
 
-    def fast_build(self, cols: Dict[str, np.ndarray],
-                   force_shifts: Optional[Dict[str, int]] = None):
-        """Radix pack-sort build: (order, key columns quantized by shifts,
-        shifts), or None when the bit budget is too tight. ``force_shifts``
-        pins the quantization to an existing table's (LSM append)."""
+    def fast_build(self, cols, force_shifts=None):
         fs = None if force_shifts is None else force_shifts.get("__z3")
         out = packsort.pack_sort(cols["__z3"], 63, prefix=cols["__z3_bin"],
                                  force_shift=fs)
@@ -155,34 +240,7 @@ class Z3KeySpace:
         perm, zq, bins_sorted, shift = out
         return perm, {"__z3_bin": bins_sorted, "__z3": zq}, {"__z3": shift}
 
-    def build(self, cols: Dict[str, np.ndarray]):
-        """(order, sorted key columns, key shifts): the radix pack-sort, or
-        a lexsort over raw keys when the bit budget is too tight."""
-        out = self.fast_build(cols)
-        if out is not None:
-            return out
-        order = self.sort_order(cols)
-        order = order.astype(np.int32 if len(order) < 2**31 else np.int64)
-        return order, {k: cols[k][order] for k in self.key_cols}, None
-
-    def insert_positions(self, sorted_key_cols: Dict[str, np.ndarray],
-                         fresh_sorted: Dict[str, np.ndarray]) -> np.ndarray:
-        """Merge positions of already-sorted fresh (bin, z3) keys into the
-        table's sorted key columns: per fresh bin, a searchsorted inside
-        that bin's run (equal keys land after the old rows)."""
-        bins_col = sorted_key_cols["__z3_bin"]
-        key_col = sorted_key_cols["__z3"]
-        fb, fk = fresh_sorted["__z3_bin"], fresh_sorted["__z3"]
-        p = np.empty(len(fb), np.int64)
-        for b in np.unique(fb):
-            sel = fb == b
-            s = int(np.searchsorted(bins_col, b, side="left"))
-            e = int(np.searchsorted(bins_col, b, side="right"))
-            p[sel] = s + np.searchsorted(key_col[s:e], fk[sel], side="right")
-        return p
-
-    def plan(self, ft: FeatureType, f: ir.Filter,
-             ranges_target: int = RANGES_TARGET) -> Optional[KeyPlan]:
+    def plan(self, ft, f, ranges_target=RANGES_TARGET):
         """None when the filter has no time bound (z3 cannot serve it)."""
         geoms = ir.extract_geometries(f, self.geom)
         intervals = ir.extract_intervals(f, self.dtg)
@@ -201,13 +259,11 @@ class Z3KeySpace:
         else:
             xy = [g.bounds() for g in geoms.values]
         # per-geometry covers over the full offset span (middle bins)
-        all_r: List[Tuple[int, int]] = []
-        for b in xy:
-            for r in self.sfc.ranges(
-                (b[0], b[2]), (b[1], b[3]), (0.0, max_off), ranges_target
-            ):
-                all_r.append((int(r.lo), int(r.hi)))
-        ranges = [ZRange(lo, hi) for lo, hi in _merge_zranges(all_r, ranges_target)]
+        ranges = _per_geom_ranges(
+            lambda b: self.sfc.ranges((b[0], b[2]), (b[1], b[3]), (0.0, max_off),
+                                      ranges_target),
+            xy, ranges_target,
+        )
         # edge-bin time tightening: the first/last bin of each interval
         # gets its own cover restricted to the interval's offsets there
         edge: Dict[int, List[Tuple[int, int]]] = {}
@@ -229,16 +285,16 @@ class Z3KeySpace:
                     )
                 ]
                 edge.setdefault(b, []).extend(rs)
+        cov = _coverage(ranges, 63) * min(1.0, len(bins) / max(len(bins), 1))
         return KeyPlan(
-            self, ranges=ranges, bins=bins.astype(np.int32),
+            self, ranges=ranges, bins=bins.astype(np.int32), coverage=cov,
             edge={b: _merge_zranges(rs, ranges_target) for b, rs in edge.items()},
         )
 
-    def resolve_windows(self, plan: KeyPlan, shard_cols, n: int, cap: int):
+    def resolve_windows(self, plan, shard_cols, n, cap):
         bins_col = shard_cols["__z3_bin"]
         z_col = shard_cols["__z3"]
-        shifts = shard_cols.get("__shifts__")
-        sh = 0 if shifts is None else shifts.get("__z3", 0)
+        sh = _shift_of(shard_cols, "__z3")
         bins = plan.bins
         if len(bins) > MAX_WINDOW_BINS:
             # collapse: one window spanning [first bin, last bin]
@@ -255,9 +311,7 @@ class Z3KeySpace:
                 [(r.lo >> sh, r.hi >> sh) for r in plan.ranges], per_bin_cap
             )
             esets = {
-                b: _merge_zranges(
-                    [(lo >> sh, hi >> sh) for lo, hi in rs], per_bin_cap
-                )
+                b: _merge_zranges([(lo >> sh, hi >> sh) for lo, hi in rs], per_bin_cap)
                 for b, rs in plan.edge.items()
             }
             sets = cache[(sh, cap)] = (base, esets)
@@ -283,7 +337,254 @@ class Z3KeySpace:
             starts.extend(ws[keep].tolist())
             ends.extend(we[keep].tolist())
         if not starts:
-            return np.zeros(1, np.int64), np.zeros(1, np.int64)
-        return _cap_windows(
-            np.asarray(starts, np.int64), np.asarray(ends, np.int64), cap,
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64), cap)
+
+
+class Z2KeySpace(KeySpace):
+    """z2 keys over point geometry."""
+
+    name = "z2"
+    kind = "z2"
+
+    def __init__(self, geom: str):
+        self.geom = geom
+        self.sfc = Z2SFC()
+        self.key_cols = ("__z2",)
+
+    def index_keys(self, ft, cols):
+        return {"__z2": self.sfc.index(cols[self.geom + "__x"], cols[self.geom + "__y"])}
+
+    def sort_order(self, cols):
+        return np.argsort(cols["__z2"], kind="stable")
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__z2")
+        out = packsort.pack_sort(cols["__z2"], 62, force_shift=fs)
+        if out is None:
+            return None
+        perm, zq, _, shift = out
+        return perm, {"__z2": zq}, {"__z2": shift}
+
+    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+        """A full scan when the filter has no spatial bound."""
+        geoms = ir.extract_geometries(f, self.geom)
+        if geoms.disjoint:
+            return KeyPlan(self, disjoint=True)
+        if geoms.is_empty:
+            return KeyPlan(self, full_scan=True)
+        ranges = _per_geom_ranges(
+            lambda b: self.sfc.ranges(*b, ranges_target),
+            [g.bounds() for g in geoms.values], ranges_target,
         )
+        return KeyPlan(self, ranges=ranges, coverage=_coverage(ranges, 62))
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        # every range its own window: disjoint query boxes scan only
+        # their own covers, not the [zmin, zmax] envelope
+        z_col = shard_cols["__z2"]
+        sh = _shift_of(shard_cols, "__z2")
+        rs = _merge_zranges([(r.lo >> sh, r.hi >> sh) for r in plan.ranges], cap)
+        if not rs:
+            return _empty_windows()
+        los = np.asarray([r[0] for r in rs], z_col.dtype)
+        his = np.asarray([r[1] for r in rs], z_col.dtype)
+        ws = np.searchsorted(z_col, los, side="left")
+        we = np.searchsorted(z_col, his, side="right")
+        keep = we > ws
+        if not keep.any():
+            return _empty_windows()
+        return _cap_windows(ws[keep].astype(np.int64), we[keep].astype(np.int64), cap)
+
+
+class IdKeySpace(KeySpace):
+    """Feature-id index, keyed by a 64-bit hash of the fid: the window of
+    hash(fid) is a superset (collisions included) and the ``IdIn`` mask
+    applies exact fid equality to the window rows."""
+
+    name = "id"
+    kind = "id"
+    key_cols = ("__idhash",)
+
+    def index_keys(self, ft, cols):
+        return {"__idhash": packsort.fid_hash64(cols["__fid__"])}
+
+    def sort_order(self, cols):
+        return np.argsort(cols["__idhash"], kind="stable")
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__idhash")
+        out = packsort.pack_sort(cols["__idhash"], 64, force_shift=fs)
+        if out is None:
+            return None
+        perm, hq, _, shift = out
+        return perm, {"__idhash": hq}, {"__idhash": shift}
+
+    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+        ids = ir.extract_ids(f)
+        if ids is None:
+            return None
+        return KeyPlan(self, coverage=0.0, ids=tuple(sorted(ids)))
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        col = shard_cols["__idhash"]
+        sh = _shift_of(shard_cols, "__idhash")
+        starts, ends = [], []
+        for fid in plan.ids:
+            h = np.uint64(packsort.fid_hash64_one(fid) >> sh)
+            s = np.searchsorted(col, h, side="left")
+            e = np.searchsorted(col, h, side="right")
+            if e > s:
+                starts.append(s)
+                ends.append(e)
+        if not starts:
+            return _empty_windows()
+        return np.asarray(starts, np.int64), np.asarray(ends, np.int64)
+
+
+class AttributeKeySpace(KeySpace):
+    """Per-attribute sorted index; rows of equal value are ordered by
+    their z2 key (a spatial-locality tiebreak). Strings sort by the rank
+    of their value in the dictionary, which the table builds."""
+
+    kind = "attr"
+    #: string ranks re-rank on dictionary growth and the tiebreak is a
+    #: second sort key: appends always rebuild
+    can_insert = False
+
+    #: attribute type -> numpy dtype of the stored column
+    _NP_TYPES = {
+        "int32": np.int32, "int64": np.int64, "float32": np.float32,
+        "float64": np.float64, "date": np.int64, "bool": np.bool_,
+    }
+
+    def __init__(self, attr: str, geom: Optional[str] = None,
+                 attr_type: Optional[str] = None):
+        self.attr = attr
+        self.geom = geom
+        self.attr_type = attr_type
+        self.name = f"attr:{attr}"
+        self.key_cols = (f"__attr_{attr}",)
+
+    @property
+    def sort_col(self) -> str:
+        return f"__attr_{self.attr}"
+
+    def index_keys(self, ft, cols):
+        vals = cols[self.attr]
+        if ft.attr(self.attr).type == "string":
+            # raw codes here; the table re-ranks them to value order
+            return {self.sort_col: vals.astype(np.int64)}
+        return {self.sort_col: vals}
+
+    def sort_order(self, cols):
+        if self.geom and "__z2" in cols:
+            return np.lexsort((cols["__z2"], cols[self.sort_col]))
+        return np.argsort(cols[self.sort_col], kind="stable")
+
+    def fast_build(self, cols, force_shifts=None):
+        col = cols[self.sort_col]
+        if self.attr_type == "string":
+            # rank column (small ints; -1 = null sorts first as 0)
+            key = (col.astype(np.int64) + 1).astype(np.uint64)
+            bits = packsort.bits_for(int(key.max()) + 1) if len(key) else 1
+        else:
+            try:
+                key, bits = packsort.to_ordered_u64(col)
+            except TypeError:
+                return None
+        tb, tb_bits = None, 0
+        if self.geom and "__z2" in cols:
+            tb = cols["__z2"].astype(np.uint64) << np.uint64(2)  # 62 bits -> top
+            tb_bits = 16  # spatial-locality tiebreak, best effort
+        fs = None if force_shifts is None else force_shifts.get(self.sort_col)
+        out = packsort.pack_sort(key, bits, tiebreak=tb, tiebreak_bits=tb_bits,
+                                 force_shift=fs)
+        if out is None:
+            return None
+        perm, kq, _, shift = out
+        return perm, {self.sort_col: kq}, {self.sort_col: shift}
+
+    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+        bounds = ir.extract_attr_bounds(f, self.attr)
+        if bounds.disjoint:
+            return KeyPlan(self, disjoint=True)
+        if bounds.is_empty:
+            return None
+        return KeyPlan(self, coverage=0.1, bounds=list(bounds.values))
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        col = shard_cols[self.sort_col]
+        shifts = shard_cols.get("__shifts__") or {}
+        # fast-built tables store the ordered-u64 quantized key; bounds go
+        # through the same transform (presence in shifts marks the path)
+        fastq = self.sort_col in shifts
+        sh = shifts.get(self.sort_col, 0)
+        np_type = self._NP_TYPES.get(self.attr_type)
+        starts, ends = [], []
+        for lo, hi in plan.bounds:
+            if self.attr_type == "string":
+                # bounds are strings: mapped through the rank dictionary
+                rank = shard_cols.get("__rank_lookup__")
+                if rank is None:
+                    return np.zeros(1, np.int64), np.full(1, n, np.int64)
+                lo2 = rank(lo, "lo") if lo is not None else None
+                hi2 = rank(hi, "hi") if hi is not None else None
+                if fastq:
+                    lo2 = None if lo2 is None else np.uint64((lo2 + 1) >> sh)
+                    hi2 = None if hi2 is None else np.uint64((hi2 + 1) >> sh)
+            elif fastq:
+                lo2 = None if lo is None else np.uint64(
+                    packsort.ordered_u64_scalar(lo, np_type) >> sh)
+                hi2 = None if hi is None else np.uint64(
+                    packsort.ordered_u64_scalar(hi, np_type) >> sh)
+            else:
+                lo2, hi2 = lo, hi
+                if self.attr_type == "date":
+                    lo2 = None if lo is None else np.int64(lo)
+                    hi2 = None if hi is None else np.int64(hi)
+            s = 0 if lo2 is None else int(np.searchsorted(col, lo2, side="left"))
+            e = n if hi2 is None else int(np.searchsorted(col, hi2, side="right"))
+            if e > s:
+                starts.append(s)
+                ends.append(e)
+        if not starts:
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                            MAX_WINDOW_BINS)
+
+
+def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
+    """The indices of a point schema: z3 (with a date) and z2 for the
+    geometry, id, and an attribute index for every ``index=true``
+    attribute. The ``geomesa.indices`` user-data key overrides them with a
+    comma-separated list of index kinds."""
+    geom = ft.geom_field
+    dtg = ft.dtg_field
+    explicit = ft.user_data.get("geomesa.indices")
+    if explicit:
+        wanted = [k.strip().lower() for k in explicit.split(",") if k.strip()]
+    else:
+        wanted = []
+        if geom is not None:
+            if dtg is not None:
+                wanted.append("z3")
+            wanted.append("z2")
+        wanted += ["id", "attr"]
+    out: List[KeySpace] = []
+    for kind in wanted:
+        if kind in ("xz2", "xz3", "s2", "s3"):
+            raise NotImplementedError(f"{kind} index: {LATER_ITEM}")
+        if kind == "z3" and geom and dtg:
+            out.append(Z3KeySpace(geom, dtg, ft.time_period))
+        elif kind == "z2" and geom:
+            out.append(Z2KeySpace(geom))
+        elif kind == "id":
+            out.append(IdKeySpace())
+        elif kind == "attr":
+            for a in ft.attributes:
+                if a.indexed and not a.is_geom:
+                    out.append(AttributeKeySpace(a.name, geom, a.type))
+    if not any(isinstance(k, IdKeySpace) for k in out):
+        out.append(IdKeySpace())
+    return out

@@ -1,24 +1,33 @@
 """Sharded, sorted columnar feature store on one device.
 
-Port of ``geomesa_tpu/index/store.py`` cut to one Z3 index table. The table
-is a sort permutation plus its sorted key columns over the store's master
-columns; a shard is a contiguous slab of the sort order, padded to a common
-length so the stacked [S, L] device columns have one static shape. Host
-master columns keep f64 coordinates (the exact values the f32 band
-correction needs); the device holds f32 coordinates and the int32 time
-pair, never int64 epoch-ms.
+Port of ``geomesa_tpu/index/store.py``: one index table per key space (z3,
+z2, id, attribute), a write buffer, the string dictionaries and the
+write-time sketches. A table is a sort permutation plus its sorted key
+columns over the store's master columns; a shard is a contiguous slab of
+the sort order, padded to a common length so the stacked [S, L] device
+columns have one static shape. Host master columns keep f64 coordinates
+and int64 values (the exact values the f32 band correction and the
+refinement read); the device holds f32 (int64 and f64 columns ride as
+f32), int32 and bool columns, never strings or 64-bit keys. Each table
+uploads the columns a query reads on its first query.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.index.keyspace import MAX_SHARD_WINDOWS, KeyPlan, Z3KeySpace
-from geomesa_tpu_torch.schema.columns import ColumnBatch, encode_batch
+from geomesa_tpu_torch.index.keyspace import (
+    MAX_SHARD_WINDOWS, AttributeKeySpace, KeyPlan, KeySpace, keyspaces_for_schema,
+)
+from geomesa_tpu_torch.schema.columns import (
+    ColumnBatch, DictionaryEncoder, encode_batch, schema_null_fills,
+)
 from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.stats import sketches as sk
 
 #: padded shard length rounds up to a multiple of this (the reference's
 #: geomesa.compact.shard.bucket), so small inserts keep one shape
@@ -26,6 +35,9 @@ SHARD_BUCKET = 8192
 
 #: floor of the padded per-shard window count (geomesa.compact.bucket.floor)
 WINDOW_BUCKET_FLOOR = 8
+
+#: column dtype kinds that never reach the device
+_HOST_ONLY_KINDS = ("O", "U", "S")
 
 
 def bucket_count(n: int, floor: int = WINDOW_BUCKET_FLOOR) -> int:
@@ -37,11 +49,12 @@ def bucket_count(n: int, floor: int = WINDOW_BUCKET_FLOOR) -> int:
 
 def device_view(a: np.ndarray) -> Optional[np.ndarray]:
     """Host column -> device-eligible array (int32 / float32 / bool), or
-    None for host-only columns (64-bit keys)."""
-    if a.dtype == np.float64:
-        return a.astype(np.float32)
-    if a.dtype in (np.int64, np.uint64):
+    None for host-only columns (strings, uint64 keys). int64 and float64
+    ride as float32."""
+    if a.dtype.kind in _HOST_ONLY_KINDS or a.dtype == np.uint64:
         return None
+    if a.dtype in (np.float64, np.int64):
+        return a.astype(np.float32)
     return a
 
 
@@ -50,8 +63,7 @@ class IndexTable:
     master column set. Attribute columns are gathered through ``order`` once
     per device upload."""
 
-    def __init__(self, keyspace: Z3KeySpace, n_shards: int,
-                 device: torch.device):
+    def __init__(self, keyspace: KeySpace, n_shards: int, device: torch.device):
         self.keyspace = keyspace
         self.n_shards = n_shards
         self.device = device
@@ -64,38 +76,70 @@ class IndexTable:
         self._master: Dict[str, np.ndarray] = {}
         self.n = 0
         self.shard_bounds = np.zeros(n_shards + 1, np.int64)
+        #: value-sorted dictionary of a string attribute index
+        self._rank_vocab: Optional[np.ndarray] = None
         #: column name -> [S, L] tensor on ``device``
         self._device_cache: Dict[str, torch.Tensor] = {}
 
-    def rebuild(self, columns: Dict[str, np.ndarray]) -> None:
+    # -- build ------------------------------------------------------------
+    def rebuild(self, columns: Dict[str, np.ndarray],
+                dicts: Dict[str, DictionaryEncoder]) -> None:
         """Re-sort by the key and re-shard. ``columns`` is the master
-        column dict (attributes + key columns)."""
-        self.order, self.key_columns, self.key_shifts = self.keyspace.build(columns)
-        self.set_state(columns, self.order, self.key_columns, self.key_shifts,
-                       np.linspace(0, len(self.order), self.n_shards + 1).astype(np.int64))
+        column dict (attributes + every index's key columns)."""
+        cols = dict(columns)
+        ks = self.keyspace
+        if isinstance(ks, AttributeKeySpace) and ks.attr_type == "string":
+            # dictionary codes are in first-seen order: a value-ordered
+            # rank column lets searchsorted windows serve string ranges
+            vocab = np.array(dicts[ks.attr].values, dtype=object)
+            order = np.argsort(vocab)
+            rank_of_code = np.empty(len(vocab), np.int64)
+            rank_of_code[order] = np.arange(len(vocab))
+            codes = columns[ks.attr]
+            cols[ks.sort_col] = np.where(codes >= 0,
+                                         rank_of_code[np.clip(codes, 0, None)], -1)
+            self._rank_vocab = vocab[order]
+        fb = ks.fast_build(cols)
+        if fb is not None:
+            order, keys, shifts = fb
+        else:
+            order = ks.sort_order(cols)
+            order = np.asarray(order, np.int32 if len(order) < 2**31 else np.int64)
+            key_names = set(ks.key_cols) | {getattr(ks, "sort_col", None)}
+            keys = {k: cols[k][order] for k in key_names if k in cols}
+            shifts = None
+        self.set_state(cols, order, keys, shifts,
+                       np.linspace(0, len(order), self.n_shards + 1).astype(np.int64))
 
     def append_rows(self, columns: Dict[str, np.ndarray],
+                    dicts: Dict[str, DictionaryEncoder],
                     fresh_cols: Dict[str, np.ndarray], n_fresh: int) -> None:
         """LSM append, as the reference's: sort the fresh rows alone, under
         the table's key shifts, and merge them into the existing order at
         their searchsorted insertion positions (O(old + fresh) instead of a
         full re-sort). ``columns`` is the master column dict with the fresh
         rows last; ``fresh_cols`` those rows' columns and keys. Falls back
-        to :meth:`rebuild` for an empty table, or when the fresh keys do not
-        fit the table's quantization."""
+        to :meth:`rebuild` for an empty table, a key space that cannot
+        insert, or fresh keys that do not fit the table's quantization."""
         ks = self.keyspace
-        if self.n == 0:
-            return self.rebuild(columns)
+        if self.n == 0 or not ks.can_insert:
+            return self.rebuild(columns, dicts)
+        key_names = list(self.key_columns)
+        if any(k not in fresh_cols for k in key_names):
+            return self.rebuild(columns, dicts)
         if self.key_shifts is not None:
             fb = ks.fast_build(fresh_cols, force_shifts=self.key_shifts)
             if fb is None or fb[2] != self.key_shifts:
-                return self.rebuild(columns)
+                return self.rebuild(columns, dicts)
             fresh_order, fresh_sorted, _ = fb
             fresh_order = fresh_order.astype(np.int64, copy=False)
         else:
             fresh_order = np.asarray(ks.sort_order(fresh_cols), np.int64)
-            fresh_sorted = {k: fresh_cols[k][fresh_order] for k in self.key_columns}
-        at = ks.insert_positions(self.key_columns, fresh_sorted) + np.arange(n_fresh)
+            fresh_sorted = {k: fresh_cols[k][fresh_order] for k in key_names}
+        p = ks.insert_positions(self.key_columns, fresh_sorted)
+        if p is None:
+            return self.rebuild(columns, dicts)
+        at = p + np.arange(n_fresh)
         total = self.n + n_fresh
         is_fresh = np.zeros(total, bool)
         is_fresh[at] = True
@@ -103,7 +147,8 @@ class IndexTable:
         order[is_fresh] = self.n + fresh_order  # master rows are [old | fresh]
         order[~is_fresh] = self.order
         keys = {}
-        for k, old in self.key_columns.items():
+        for k in key_names:
+            old = self.key_columns[k]
             merged = np.empty(total, old.dtype)
             merged[at] = fresh_sorted[k].astype(old.dtype, copy=False)
             merged[~is_fresh] = old
@@ -129,12 +174,32 @@ class IndexTable:
     def has_column(self, name: str) -> bool:
         return name in self.key_columns or name in self._master
 
+    def is_host_only(self, name: str) -> bool:
+        """Strings, fids and uint64 keys stay on the host."""
+        col = self.key_columns.get(name)
+        if col is None:
+            col = self._master.get(name)
+        return col is None or device_view(col[:0]) is None
+
     def col_sorted(self, name: str) -> np.ndarray:
-        """Full host column in sort order (exact master values)."""
+        """Full host column in sort order (key columns are stored sorted;
+        master columns gather through the permutation)."""
         col = self.key_columns.get(name)
         if col is not None:
             return col
         return self._master[name][self.order]
+
+    def rows(self, names: Sequence[str], pos: np.ndarray) -> Dict[str, np.ndarray]:
+        """Host rows at sorted-order positions ``pos``: exact master values
+        (key columns only where no master column has the name)."""
+        master_rows = self.order[pos]
+        out = {}
+        for k in names:
+            if k in self._master:
+                out[k] = self._master[k][master_rows]
+            elif k in self.key_columns:
+                out[k] = self.key_columns[k][pos]
+        return out
 
     @property
     def shard_len(self) -> int:
@@ -178,6 +243,8 @@ class IndexTable:
             shard_cols = {k: v[sl] for k, v in self.key_columns.items()}
             if self.key_shifts is not None:
                 shard_cols["__shifts__"] = self.key_shifts
+            if self._rank_vocab is not None:
+                shard_cols["__rank_lookup__"] = self._rank_lookup
             per_shard.append(plan.windows(shard_cols, sl.stop - sl.start, cap))
         K = bucket_count(max(len(s) for s, _ in per_shard))
         starts = np.zeros((self.n_shards, K), np.int32)
@@ -187,64 +254,111 @@ class IndexTable:
             ends[i, : len(e)] = e
         return starts, ends
 
+    def _rank_lookup(self, value, side: str) -> int:
+        """Rank bound of a string value in the value-sorted dictionary."""
+        if side == "lo":
+            return int(np.searchsorted(self._rank_vocab, value, side="left"))
+        return int(np.searchsorted(self._rank_vocab, value, side="right")) - 1
+
+
+def _init_stats(ft: FeatureType) -> Dict[str, object]:
+    """The write-time sketches the decider and ``bounds()`` read: row
+    count, geometry bounds, the z2 / z3 histograms, and per indexed
+    attribute an enumeration (strings) or min / max."""
+    out: Dict[str, object] = {"count": sk.CountStat()}
+    if ft.geom_field:
+        out["bounds"] = sk.MinMax(ft.geom_field)
+        out["z2-histogram"] = sk.Z2HistogramStat(ft.geom_field, 1024)
+    if ft.geom_field and ft.dtg_field:
+        out["z3-histogram"] = sk.Z3HistogramStat(ft.geom_field, ft.dtg_field,
+                                                 ft.time_period, 1024)
+    for a in ft.attributes:
+        if a.indexed and not a.is_geom:
+            if a.type == "string":
+                out[f"enum-{a.name}"] = sk.EnumerationStat(a.name)
+            else:
+                out[f"minmax-{a.name}"] = sk.MinMax(a.name)
+    return out
+
 
 class FeatureStore:
-    """The Z3 index table + write buffer for one schema on one device."""
+    """Every index table, the write buffer, the dictionaries and the
+    sketches of one schema on one device."""
 
     def __init__(self, ft: FeatureType, n_shards: int, device: torch.device):
-        geom, dtg = ft.geom_field, ft.dtg_field
-        if geom is None or dtg is None:
-            raise NotImplementedError(
-                "schemas without a point geometry and a date (z2 / id / attribute "
-                "indices): ROADMAP Queue 1, index key spaces and predicates"
-            )
         self.ft = ft
         self.n_shards = n_shards
         self.device = device
-        self.keyspace = Z3KeySpace(geom, dtg, ft.time_period)
-        self.table = IndexTable(self.keyspace, n_shards, device)
+        self.dicts: Dict[str, DictionaryEncoder] = {}
+        self.keyspaces = keyspaces_for_schema(ft)
+        self.tables: Dict[str, IndexTable] = {
+            ks.name: IndexTable(ks, n_shards, device) for ks in self.keyspaces
+        }
+        self.stats = _init_stats(ft)
         self._buffer: List[ColumnBatch] = []
         self._all: Optional[ColumnBatch] = None
-        #: z3 key columns of ``_all``'s rows, in master order (None: not
-        #: computed, e.g. for a store carried across from arrays)
-        self._key_cols: Optional[Dict[str, np.ndarray]] = None
+        #: index key columns of ``_all``'s rows, in master order
+        self._key_cols: Dict[str, np.ndarray] = {}
         #: bumped on every data mutation; keys the executor's caches
         self.version = 0
+        #: host seconds of the last flush by stage ("keys", "sketches",
+        #: then one entry per table)
+        self.flush_seconds: Dict[str, float] = {}
 
-    def append(self, data: Dict) -> int:
+    def append(self, data: Dict, fids=None) -> int:
         """Buffer an ingest batch (encoded now, indexed at flush)."""
-        batch = encode_batch(self.ft, data)
+        batch = encode_batch(self.ft, data, self.dicts, fids)
         self._buffer.append(batch)
         return batch.n
 
+    @property
+    def count(self) -> int:
+        return (self._all.n if self._all else 0) + sum(b.n for b in self._buffer)
+
     def flush(self) -> None:
-        """Merge the buffer into the table as the reference does: z3 keys
-        for the fresh rows only (the old rows' keys are kept), then the LSM
-        append of :meth:`IndexTable.append_rows`."""
+        """Merge the buffer into every table as the reference does: index
+        keys for the fresh rows only (the old rows' keys are kept), the
+        sketches observe the fresh rows, then each table's LSM append."""
         if not self._buffer:
             return
-        fresh = ColumnBatch.concat(self._buffer)
+        t0 = time.perf_counter()
+        fills = schema_null_fills(self.ft)
+        fresh = ColumnBatch.concat(self._buffer, fills)
         self._buffer = []
-        fresh_keys = self.keyspace.index_keys(self.ft, fresh.columns)
+        fresh_keys: Dict[str, np.ndarray] = {}
+        for ks in self.keyspaces:
+            fresh_keys.update(ks.index_keys(self.ft, fresh.columns))
+        seconds = {"keys": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        # the period marker tells the z3 histogram the keys match its own
+        stat_cols = {**fresh.columns, **fresh_keys}
+        if "__z3" in fresh_keys:
+            stat_cols["__z3_period"] = self.ft.time_period
+        for st in self.stats.values():
+            st.observe(stat_cols)
+        seconds["sketches"] = time.perf_counter() - t0
         if self._all is None:
-            merged, keys = fresh, fresh_keys
+            merged = fresh
+            key_cols = {**fresh.columns, **fresh_keys}
         else:
-            merged = ColumnBatch.concat([self._all, fresh])
-            if self._key_cols is None:
-                keys = self.keyspace.index_keys(self.ft, merged.columns)
-            else:
-                keys = {k: np.concatenate([self._key_cols[k], v])
-                        for k, v in fresh_keys.items()}
+            merged = ColumnBatch.concat([self._all, fresh], fills)
+            key_cols = dict(merged.columns)
+            for k, fv in fresh_keys.items():
+                key_cols[k] = np.concatenate([self._key_cols[k], fv])
         self._all = merged
-        self._key_cols = keys
-        self.table.append_rows({**merged.columns, **keys},
-                               {**fresh.columns, **fresh_keys}, fresh.n)
+        self._key_cols = {k: v for k, v in key_cols.items() if k not in merged.columns}
+        fresh_all = {**fresh.columns, **fresh_keys}
+        for ks in self.keyspaces:
+            t0 = time.perf_counter()
+            self.tables[ks.name].append_rows(key_cols, self.dicts, fresh_all, fresh.n)
+            seconds[ks.name] = time.perf_counter() - t0
+        self.flush_seconds = seconds
         self.version += 1
 
     def bounds(self) -> Optional[Tuple[float, float, float, float]]:
-        """Geometry bounds of the stored rows (None when empty)."""
-        if self.table.n == 0:
+        """Geometry bounds of the stored rows from the ``bounds`` sketch
+        (None when empty)."""
+        mm = self.stats.get("bounds")
+        if mm is None or mm.is_empty:
             return None
-        g = self.ft.geom_field
-        x, y = self.table._master[g + "__x"], self.table._master[g + "__y"]
-        return (float(x.min()), float(y.min()), float(x.max()), float(y.max()))
+        return (mm.lo[0], mm.lo[1], mm.hi[0], mm.hi[1])

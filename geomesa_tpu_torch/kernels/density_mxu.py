@@ -1,10 +1,10 @@
 """Host schedule for the grouped density kernel: (chunk, tile) candidates.
 
 Copy of the host half of ``geomesa_tpu/kernels/density_mxu.py`` (``ladder8``,
-``_chunk_boxes``, ``pair_candidates``), cut to the z3 key space. Chunks are
-B-row runs of the z-sorted order, so each spans a small spatial box computed
-from its own sorted keys; a chunk is paired only with the grid tiles its box
-overlaps.
+``_chunk_boxes``, ``pair_candidates``) for the z3 and z2 key spaces. Chunks
+are B-row runs of the z-sorted order, so each spans a small spatial box
+computed from its own sorted keys; a chunk is paired only with the grid
+tiles its box overlaps.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from geomesa_tpu_torch.curves.zorder import deinterleave3
+from geomesa_tpu_torch.curves.zorder import deinterleave2, deinterleave3
 
 
 def ladder8(n: int) -> int:
@@ -25,7 +25,7 @@ def ladder8(n: int) -> int:
     return b
 
 
-def _chunk_boxes(compact: Dict, table, col: str, shift: int,
+def _chunk_boxes(compact: Dict, table, col: str, dims: int, shift: int,
                  box_cache: Optional[Dict]):
     """Exact per-chunk normalized-index boxes from the sorted key column:
     deinterleave every window row's quantized key and take the per-chunk
@@ -47,12 +47,13 @@ def _chunk_boxes(compact: Dict, table, col: str, shift: int,
         return None
     cat = np.concatenate(segs).astype(np.uint64)
     sh = np.uint64(shift)
-    lo_parts = deinterleave3(cat << sh)
-    hi_parts = deinterleave3(((cat + np.uint64(1)) << sh) - np.uint64(1))
+    deinter = deinterleave2 if dims == 2 else deinterleave3
+    lo_parts = deinter(cat << sh)
+    hi_parts = deinter(((cat + np.uint64(1)) << sh) - np.uint64(1))
     starts = np.concatenate(([0], np.cumsum(valid[act].astype(np.int64))[:-1]))
     n_chunk = len(valid)
     out = []
-    for d in range(2):  # x, y only (the time dimension is irrelevant here)
+    for d in range(2):  # x, y only (z3's time dimension is irrelevant here)
         lo_d = np.minimum.reduceat(lo_parts[d], starts)
         hi_d = np.maximum.reduceat(hi_parts[d], starts)
         full_lo = np.zeros(n_chunk, np.uint64)
@@ -74,10 +75,15 @@ def pair_candidates(
     """(chunk, tile) candidate list for the compacted scan layout. Chunk
     boxes are conservative supersets (key quantization widens them by a
     cell; a one-cell pad covers the device's f32 pixel rounding). None
-    when the table has no z3 key column."""
-    if getattr(keyspace, "kind", None) != "z3":
+    when the index has no Morton key column (attribute and id tables take
+    the scatter rung)."""
+    kind = getattr(keyspace, "kind", None)
+    if kind == "z3":
+        col, dims = "__z3", 3
+    elif kind == "z2":
+        col, dims = "__z2", 2
+    else:
         return None
-    col = "__z3"
     key = table.key_columns.get(col)
     if key is None:
         return None
@@ -89,7 +95,7 @@ def pair_candidates(
 
     valid = compact["valid"]
     act = valid > 0
-    boxes = _chunk_boxes(compact, table, col, shift, box_cache)
+    boxes = _chunk_boxes(compact, table, col, dims, shift, box_cache)
     if boxes is None:
         return None
     (x0, x1), (y0, y1) = boxes

@@ -20,6 +20,9 @@ def window_mask(starts: torch.Tensor, ends: torch.Tensor, counts: torch.Tensor,
     one = torch.ones(starts.shape, dtype=torch.int32, device=starts.device)
     d.scatter_add_(1, starts.to(torch.int64), one)
     d.scatter_add_(1, ends.to(torch.int64), -one)
-    wm = torch.cumsum(d, dim=1)[:, :L] > 0
+    # each shard's +1/-1 marks cancel within its own L + 1 slots, so one
+    # flat scan gives every shard's running count (and runs as a device-wide
+    # scan instead of one long scan per shard)
+    wm = torch.cumsum(d.reshape(-1), 0).reshape(S, L + 1)[:, :L] > 0
     iota = torch.arange(L, dtype=torch.int32, device=starts.device)
     return wm & (iota[None, :] < counts[:, None])

@@ -1,11 +1,22 @@
-"""Query executor: run a QueryPlan against the store's device columns.
+"""Query executor: run a QueryPlan against the chosen index table.
 
-Port of the device path of ``geomesa_tpu/planning/executor.py``: resolve the
-z3 scan windows, choose the window-compacted [C, B] layout (or the padded
-[S, L] one), build the fused mask (window & compiled predicate & ~f32 band)
-and aggregate: ``count`` as a masked sum, ``density`` through the grouped
-CUDA kernel, else a scatter. Rows in the f32 uncertainty band are corrected
-exactly on the host from the f64 master columns.
+Port of ``geomesa_tpu/planning/executor.py``'s scan paths. Every plan
+scans the table of its chosen index. Resolve the scan windows; then:
+
+* ``device``: plans the device can answer whole (no host-only column, no
+  refinement beyond the f32 band) choose the window-compacted [C, B]
+  layout or the padded [S, L] one, build the fused mask (window & compiled
+  predicate & ~f32 band) and aggregate there: ``count`` as a masked sum,
+  ``density`` through the grouped CUDA kernel when the index has a Morton
+  key (z3, z2), else a scatter. Band rows are corrected exactly on the
+  host from the f64 master columns.
+* ``host+device-coarse``: refine-bearing plans (Long bounds beyond 2^24,
+  point and line literals, WITHIN / TOUCHES) compute the coarse mask on
+  the device over the padded layout, then refine and aggregate its rows on
+  the host, as the reference does.
+* ``host``: plans reading a host-only column (the feature id) evaluate the
+  predicate on the window rows on the host; id lookups are this path by
+  the reference's design.
 
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
@@ -13,12 +24,12 @@ from the host: a kernel that fails to build or launch raises.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.index.store import FeatureStore
+from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
 from geomesa_tpu_torch.kernels import density_grouped as kgrouped
 from geomesa_tpu_torch.kernels.density_mxu import ladder8
@@ -52,7 +63,7 @@ class Executor:
         self.device = store.device
         self.compact_min_rows = compact_min_rows
         self.compact_fraction = compact_fraction
-        #: gathered compact slabs by (windows, B, C, store version, column)
+        #: gathered compact slabs by (table, windows, B, C, version, column)
         self._gathered: Dict[tuple, torch.Tensor] = {}
 
     # -- per-plan caches ----------------------------------------------------
@@ -73,9 +84,15 @@ class Executor:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _table(self, plan: QueryPlan) -> IndexTable:
+        return self.store.tables[plan.index_name]
+
     # -- scan setup ---------------------------------------------------------
     def _scan_setup(self, plan: QueryPlan, extra_cols=()):
-        table = self.store.table
+        """Windows, needed columns and the path split; None for an empty
+        scan. ``use_device``: the device answers whole; ``coarse_device``:
+        the device computes the coarse mask a host refinement narrows."""
+        table = self._table(plan)
         if table.n == 0 or plan.is_empty:
             return None
         c = self._cache(plan)
@@ -86,11 +103,16 @@ class Executor:
         for name in needed:
             if not table.has_column(name):
                 raise KeyError(f"column {name!r} not in schema {plan.schema!r}")
+        host_only = any(table.is_host_only(n) for n in needed)
+        compiled = plan.compiled
         plan.__dict__["scanned_rows"] = int(np.maximum(ends - starts, 0).sum())
         return {
             "table": table, "starts": starts, "ends": ends,
             "counts": np.diff(table.shard_bounds).astype(np.int32),
             "L": table.shard_len, "needed": needed, "cache": c,
+            "use_device": not host_only and (compiled.refine is None
+                                             or compiled.refine_only_if_band),
+            "coarse_device": not host_only and compiled.refine is not None,
         }
 
     def _fine_windows(self, plan: QueryPlan, setup):
@@ -187,16 +209,17 @@ class Executor:
     # -- device columns and the fused mask -----------------------------------
     def _compact_cols(self, setup, names) -> Dict[str, torch.Tensor]:
         """Window rows of ``names`` as [C, B] slabs gathered from the padded
-        device columns, cached per (windows, store version) in a bounded
-        cache, as the reference caches its slab gathers."""
+        device columns, cached per (table, windows, store version) in a
+        bounded cache, as the reference caches its slab gathers."""
         d = setup["compact"]
-        key0 = (d["whash"], d["B"], d["C"], self.store.version)
+        table = setup["table"]
+        key0 = (table.keyspace.name, d["whash"], d["B"], d["C"], self.store.version)
         out, missing = {}, []
         for n in names:
             hit = self._gathered.get(key0 + (n,))
             (out.__setitem__(n, hit) if hit is not None else missing.append(n))
         if missing:
-            full = setup["table"].device_columns(missing)
+            full = table.device_columns(missing)
             cs = self._tensor(d["cstart"].astype(np.int64))
             idx = cs[:, None] + torch.arange(d["B"], device=self.device)[None, :]
             if len(self._gathered) + len(missing) > _GATHER_CACHE:
@@ -216,6 +239,14 @@ class Executor:
             return self._compact_cols(setup, list(names))
         return setup["table"].device_columns(names)
 
+    def _padded_window_mask(self, setup) -> torch.Tensor:
+        c = setup["cache"]
+        if "padded_win" not in c:
+            c["padded_win"] = tuple(
+                self._tensor(setup[k]) for k in ("starts", "ends", "counts")
+            )
+        return window_mask(*c["padded_win"], setup["L"])
+
     def _fused(self, plan: QueryPlan, setup, agg_cols):
         """(columns, mask): window & compiled predicate & ~band."""
         names = list(dict.fromkeys(setup["needed"] + list(agg_cols)))
@@ -230,11 +261,7 @@ class Executor:
             m = (iota >= lo[:, None]) & (iota < (lo + valid)[:, None])
         else:
             cols = setup["table"].device_columns(names)
-            if "padded_win" not in c:
-                c["padded_win"] = tuple(
-                    self._tensor(setup[k]) for k in ("starts", "ends", "counts")
-                )
-            m = window_mask(*c["padded_win"], setup["L"])
+            m = self._padded_window_mask(setup)
         compiled = plan.compiled
         m = m & compiled(cols, torch)
         if compiled.band is not None:
@@ -242,22 +269,6 @@ class Executor:
             # from their f64 values by the band correction
             m = m & ~compiled.band(cols, torch)
         return cols, m
-
-    def _scan(self, plan: QueryPlan, agg_cols=()):
-        """Setup + layout + fused mask; None for an empty scan."""
-        plan.__dict__["exec_path"] = {}
-        setup = self._scan_setup(plan, agg_cols)
-        if setup is None:
-            return None
-        info = self._band_info(plan, setup)
-        self._maybe_compact(plan, setup)
-        cols, m = self._fused(plan, setup, agg_cols)
-        d = setup["compact"]
-        self._note(plan, scan="device-compact" if d is not None else "device-padded",
-                   band_rows=0 if info is None else len(info))
-        if d is not None:
-            self._note(plan, B=d["B"])
-        return setup, cols, m, info
 
     # -- the f32 band --------------------------------------------------------
     def _band_info(self, plan: QueryPlan, setup) -> Optional[np.ndarray]:
@@ -274,13 +285,7 @@ class Executor:
         full = {n: table.col_sorted(n) for n in compiled.columns}
         idx = np.nonzero(np.asarray(compiled.band(full, np)).reshape(-1))[0]
         if len(idx):
-            s_of = np.clip(
-                np.searchsorted(table.shard_bounds, idx, side="right") - 1,
-                0, table.n_shards - 1,
-            )
-            local = (idx - table.shard_bounds[s_of])[:, None]
-            starts, ends = setup["starts"], setup["ends"]
-            idx = idx[((starts[s_of] <= local) & (local < ends[s_of])).any(axis=1)]
+            idx = idx[self._in_windows(setup, idx)]
         if len(idx):
             keep = np.asarray(compiled.refine({n: v[idx] for n, v in full.items()}, np))
             if keep.ndim == 0:
@@ -289,33 +294,101 @@ class Executor:
         c["band"] = idx.astype(np.int64)
         return c["band"]
 
-    def _band_correction(self, setup, info, agg_host, agg_cols):
-        """Exact host contribution of the surviving band rows, shaped for
-        adding to the device result."""
-        if info is None or len(info) == 0:
+    @staticmethod
+    def _in_windows(setup, pos: np.ndarray) -> np.ndarray:
+        """Which sorted-order positions lie inside the scan windows."""
+        table = setup["table"]
+        s_of = np.clip(np.searchsorted(table.shard_bounds, pos, side="right") - 1,
+                       0, table.n_shards - 1)
+        local = (pos - table.shard_bounds[s_of])[:, None]
+        starts, ends = setup["starts"], setup["ends"]
+        return ((starts[s_of] <= local) & (local < ends[s_of])).any(axis=1)
+
+    # -- the host paths ------------------------------------------------------
+    def _device_coarse_mask(self, plan: QueryPlan, setup) -> np.ndarray:
+        """Window mask & coarse predicate on the device over the padded
+        [S, L] layout; the sorted-order positions it keeps, on the host."""
+        cols = setup["table"].device_columns(setup["needed"])
+        m = (self._padded_window_mask(setup) & plan.compiled(cols, torch)).cpu().numpy()
+        return self._positions(setup, np.flatnonzero(m))
+
+    @staticmethod
+    def _positions(setup, flat: np.ndarray) -> np.ndarray:
+        """Flat [S, L] indices -> sorted-order row positions."""
+        s = flat // setup["L"]
+        return setup["table"].shard_bounds[s] + flat % setup["L"]
+
+    def _window_positions(self, setup) -> np.ndarray:
+        """Sorted-order positions of every scan-window row, once each (id
+        windows are not merged and may repeat)."""
+        table = setup["table"]
+        counts = setup["counts"][:, None]
+        starts = np.minimum(setup["starts"], counts).astype(np.int64)
+        ends = np.minimum(setup["ends"], counts).astype(np.int64)
+        lens = np.maximum(ends - starts, 0).reshape(-1)
+        base = (table.shard_bounds[:-1, None] + starts).reshape(-1)
+        n = int(lens.sum())
+        first = np.repeat(base, lens)
+        return np.unique(first + np.arange(n) - np.repeat(np.cumsum(lens) - lens, lens))
+
+    def _host_positions(self, plan: QueryPlan, setup) -> np.ndarray:
+        """The exact matches' sorted-order positions on the host: the
+        device's coarse rows, or the window rows under the predicate, then
+        the exact refinement on the rows kept."""
+        compiled = plan.compiled
+        table = setup["table"]
+        if setup["coarse_device"]:
+            pos = self._device_coarse_mask(plan, setup)
+        else:
+            pos = self._window_positions(setup)
+            if len(pos):
+                m = np.asarray(compiled(table.rows(setup["needed"], pos), np))
+                pos = pos if m.ndim == 0 and bool(m) else pos[np.broadcast_to(m, pos.shape)]
+        if compiled.refine is not None and len(pos):
+            names = list(dict.fromkeys(compiled.columns + compiled.refine_columns))
+            pos = pos[compiled.refine_rows(table.rows(names, pos), len(pos))]
+        return pos
+
+    # -- the scan ---------------------------------------------------------------
+    def _run(self, plan: QueryPlan, agg_cols, device_agg: Callable,
+             host_agg: Callable):
+        """One scan of ``plan``: ``device_agg(setup, cols, mask)`` on the
+        device path plus ``host_agg(rows)`` of the band rows, or
+        ``host_agg(rows)`` of the exact matches on a host path. None for an
+        empty scan."""
+        plan.__dict__["exec_path"] = {}
+        setup = self._scan_setup(plan, agg_cols)
+        if setup is None:
             return None
         table = setup["table"]
-        master_rows = table.order[info]
-        rows = {}
-        for n in dict.fromkeys(setup["needed"] + list(agg_cols)):
-            kc = table.key_columns.get(n)
-            rows[n] = kc[info] if kc is not None else table._master[n][master_rows]
-        return agg_host(rows, np.ones(len(info), bool))
+        if not setup["use_device"]:
+            pos = self._host_positions(plan, setup)
+            self._note(plan, scan="host+device-coarse" if setup["coarse_device"]
+                       else "host", band_rows=0)
+            return host_agg(table.rows(agg_cols, pos), len(pos))
+        info = self._band_info(plan, setup)
+        self._maybe_compact(plan, setup)
+        cols, m = self._fused(plan, setup, agg_cols)
+        d = setup["compact"]
+        self._note(plan, scan="device-compact" if d is not None else "device-padded",
+                   band_rows=0 if info is None else len(info))
+        if d is not None:
+            self._note(plan, B=d["B"])
+        out = device_agg(setup, cols, m)
+        if info is None or len(info) == 0:
+            return out
+        return out + host_agg(table.rows(agg_cols, info), len(info))
 
     # -- public operations ----------------------------------------------------
     def count(self, plan: QueryPlan) -> int:
-        s = self._scan(plan)
-        if s is None:
-            return 0
-        setup, _, m, info = s
-        n = int(m.sum())
-        corr = self._band_correction(setup, info, lambda rows, mask: mask.sum(), ())
-        return n if corr is None else n + int(corr)
+        out = self._run(plan, (), lambda setup, cols, m: int(m.sum()),
+                        lambda rows, n: n)
+        return 0 if out is None else int(out)
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
-        (plan, grid); None when the scan is not compacted or the pairs
-        exceed the duplication budget."""
+        (plan, grid); None when the scan is not compacted, the index has no
+        Morton key, or the pairs exceed the duplication budget."""
         d = setup["compact"]
         if d is None:
             return None
@@ -336,60 +409,58 @@ class Executor:
             c[key] = hit
         return hit or None
 
-    def _density_operands(self, plan, s, bbox, width, height, weight):
-        setup, cols, m, _ = s
-        sched = self._grouped_schedule(plan, setup, bbox, width, height)
-        if sched is None:
-            return None
+    def _density_cols(self, weight):
         geom = self.store.ft.geom_field
-        return {"x": cols[geom + "__x"], "y": cols[geom + "__y"], "mask": m,
-                "weight": None if weight is None else cols[weight].to(torch.float32),
-                "sched": sched}
+        return [geom + "__x", geom + "__y"] + ([weight] if weight else [])
 
     def density_inputs(self, plan: QueryPlan, bbox, width: int, height: int,
                        weight: Optional[str] = None):
         """The grouped kernel's operands for this query (compact x, y, the
         fused mask, the weight column or None, and the schedule), or None
-        when the query takes the scatter rung."""
-        s = self._scan(plan, self._density_cols(weight))
-        return None if s is None else self._density_operands(
-            plan, s, bbox, width, height, weight)
-
-    def _density_cols(self, weight):
-        geom = self.store.ft.geom_field
-        return [geom + "__x", geom + "__y"] + ([weight] if weight else [])
+        when the query takes another rung."""
+        agg_cols = self._density_cols(weight)
+        setup = self._scan_setup(plan, agg_cols)
+        if setup is None or not setup["use_device"]:
+            return None
+        self._maybe_compact(plan, setup)
+        cols, m = self._fused(plan, setup, agg_cols)
+        sched = self._grouped_schedule(plan, setup, bbox, width, height)
+        if sched is None:
+            return None
+        xc, yc = agg_cols[:2]
+        return {"x": cols[xc], "y": cols[yc], "mask": m,
+                "weight": None if weight is None else cols[weight].to(torch.float32),
+                "sched": sched}
 
     def density(self, plan: QueryPlan, bbox, width: int, height: int,
                 weight: Optional[str] = None) -> np.ndarray:
-        """(height, width) f32 density grid. Compacted scans with a pair
-        schedule run the grouped CUDA kernel; others the scatter (the
-        reference's XLA rungs)."""
-        xc, yc = self._density_cols(None)
+        """(height, width) f32 density grid. Compacted scans of a Morton
+        index with a pair schedule run the grouped CUDA kernel; other
+        device scans the scatter (the reference's XLA rungs); host paths
+        grid their exact rows on the host."""
         agg_cols = self._density_cols(weight)
-        s = self._scan(plan, agg_cols)
-        if s is None:
-            return np.zeros((height, width), np.float32)
-        setup, cols, m, info = s
-        ops = self._density_operands(plan, s, bbox, width, height, weight)
-        if ops is not None:
-            self._note(plan, density_kernel="grouped")
-            grid = kgrouped.density_grouped(
-                ops["x"], ops["y"], ops["mask"], ops["weight"], bbox, width,
-                height, ops["sched"],
-            )
-        else:
-            self._note(plan, density_kernel="scatter")
-            grid = kdensity.density_grid(
-                cols[xc], cols[yc], m, bbox, width, height,
-                cols[weight] if weight else None,
-            )
-        out = grid.cpu().numpy()
-        corr = self._band_correction(
-            setup, info,
-            lambda rows, mask: kdensity.density_grid_np(
-                rows[xc], rows[yc], mask, bbox, width, height,
+        xc, yc = agg_cols[:2]
+
+        def device_agg(setup, cols, m):
+            sched = self._grouped_schedule(plan, setup, bbox, width, height)
+            if sched is not None:
+                self._note(plan, density_kernel="grouped")
+                grid = kgrouped.density_grouped(
+                    cols[xc], cols[yc], m,
+                    None if weight is None else cols[weight].to(torch.float32),
+                    bbox, width, height, sched,
+                )
+            else:
+                self._note(plan, density_kernel="scatter")
+                grid = kdensity.density_grid(cols[xc], cols[yc], m, bbox, width,
+                                             height, cols[weight] if weight else None)
+            return grid.cpu().numpy()
+
+        def host_agg(rows, n):
+            return kdensity.density_grid_np(
+                rows[xc], rows[yc], np.ones(n, bool), bbox, width, height,
                 rows[weight] if weight else None,
-            ),
-            agg_cols,
-        )
-        return out if corr is None else out + corr
+            )
+
+        out = self._run(plan, agg_cols, device_agg, host_agg)
+        return np.zeros((height, width), np.float32) if out is None else out

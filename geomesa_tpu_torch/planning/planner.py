@@ -1,20 +1,27 @@
-"""Query planner: ECQL -> (z3 key plan, compiled predicate).
+"""Query planner: ECQL -> (index choice, key plan, compiled predicate).
 
-Port of ``geomesa_tpu/planning/planner.py`` cut to the z3 index: the JAX
-package's cost-based choice among z3 / z2 / id / attribute indices reduces
-to z3, which serves every query with a time bound. Queries it cannot serve
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Port of ``geomesa_tpu/planning/planner.py``'s ``QueryPlanner.plan`` with
+its cost-based decider: every key space of the store proposes a key plan,
+the write-time sketches estimate each plan's rows, index multipliers weigh
+them (id 0.5, z3 1.0, z2 1.5, attribute 2.0), and the cheapest wins; with
+no candidate, the first index scans in full. Interceptors, guards, hints
+and the explainer are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Tuple
 
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import CompiledFilter, compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.index.keyspace import KeyPlan
 from geomesa_tpu_torch.index.store import FeatureStore
+from geomesa_tpu_torch.stats import sketches as sk
+
+#: index preference multipliers of the decider
+_MULTIPLIER = {"id": 0.5, "z3": 1.0, "z2": 1.5, "attr": 2.0}
 
 
 @dataclass
@@ -25,6 +32,8 @@ class QueryPlan:
     filter: ir.Filter
     compiled: CompiledFilter
     key_plan: KeyPlan
+    index_name: str
+    est_count: float = 0.0
 
     @property
     def is_empty(self) -> bool:
@@ -34,10 +43,67 @@ class QueryPlan:
 def plan_query(store: FeatureStore, ecql: str) -> QueryPlan:
     ft = store.ft
     f = parse_ecql(ecql)
-    kp = store.keyspace.plan(ft, f)
-    if kp is None:
-        raise NotImplementedError(
-            "queries without a time bound (z2 / full-scan plans): "
-            "ROADMAP Queue 1, index key spaces and predicates"
-        )
-    return QueryPlan(ft.name, f, compile_filter(f, ft), kp)
+    candidates = [kp for kp in (ks.plan(ft, f) for ks in store.keyspaces)
+                  if kp is not None]
+    if not candidates:
+        candidates = [KeyPlan(store.keyspaces[0], full_scan=True)]
+    chosen, cost = _decide(store, candidates)
+    return QueryPlan(ft.name, f, compile_filter(f, ft, store.dicts), chosen,
+                     chosen.keyspace.name, cost)
+
+
+def _decide(store: FeatureStore, candidates: List[KeyPlan]) -> Tuple[KeyPlan, float]:
+    """The cheapest candidate by weighted estimate (the first on ties; a
+    disjoint plan always wins)."""
+    total = float(store.count)
+    best, best_cost = None, None
+    for kp in candidates:
+        weighted = (_estimate(store, kp, total) * _MULTIPLIER.get(kp.keyspace.kind, 2.0)
+                    if not kp.disjoint else -1.0)
+        if best_cost is None or weighted < best_cost:
+            best, best_cost = kp, weighted
+    return best, max(best_cost, 0.0)
+
+
+def _estimate(store: FeatureStore, kp: KeyPlan, total: float) -> float:
+    """Estimated rows of one key plan from the store's sketches."""
+    if kp.disjoint:
+        return 0.0
+    if kp.full_scan:
+        return total
+    kind = kp.keyspace.kind
+    if kind == "z3" and kp.bins is not None:
+        z3h = store.stats.get("z3-histogram")
+        if z3h is not None and not z3h.is_empty:
+            return z3h.estimate_count(kp.bins, kp.ranges)
+        return total * kp.coverage
+    if kind == "z2":
+        z2h = store.stats.get("z2-histogram")
+        if z2h is not None and not z2h.is_empty:
+            return z2h.estimate_count(kp.ranges)
+        return total * min(1.0, kp.coverage * 4)
+    if kind == "id":
+        return float(len(kp.ids))
+    if kind == "attr":
+        attr = kp.keyspace.attr
+        enum = store.stats.get(f"enum-{attr}")
+        if isinstance(enum, sk.EnumerationStat) and not enum.is_empty:
+            est = 0.0
+            d = store.dicts.get(attr)
+            for lo, hi in kp.bounds:
+                if lo == hi and d is not None:
+                    est += enum.counts.get(d.code_of(str(lo)), 0)
+                else:
+                    est += total * 0.1
+            return est
+        mm = store.stats.get(f"minmax-{attr}")
+        if isinstance(mm, sk.MinMax) and not mm.is_empty:
+            span = float(mm.hi) - float(mm.lo) or 1.0
+            est = 0.0
+            for lo, hi in kp.bounds:
+                lo2 = float(mm.lo) if lo is None else float(lo)
+                hi2 = float(mm.hi) if hi is None else float(hi)
+                est += total * max(0.0, min(hi2, float(mm.hi)) - max(lo2, float(mm.lo))) / span
+            return est
+        return total * 0.1
+    return total * kp.coverage

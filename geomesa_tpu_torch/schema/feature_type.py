@@ -1,8 +1,10 @@
 """Feature schema model: a named, typed attribute list plus user data.
 
 Copy of ``geomesa_tpu/schema/feature_type.py`` cut to the attribute types
-this port serves (Point, Date, Float, Integer). The spec-string format stays
-GeoMesa's (``name:Type:opt=val,*geom:Point;userdata='v'``).
+this port serves: Point, Date, String (UUID and Bytes are stored as
+strings), Integer, Long, Float, Double and Boolean. The spec-string format
+stays GeoMesa's (``name:Type:opt=val,*geom:Point;userdata='v'``);
+``index=true`` marks an attribute index.
 """
 
 from __future__ import annotations
@@ -12,26 +14,34 @@ from typing import Dict, List, Optional
 
 # spec type name -> canonical type
 _TYPES = {
+    "string": "string",
     "integer": "int32",
     "int": "int32",
+    "long": "int64",
     "float": "float32",
+    "double": "float64",
+    "boolean": "bool",
     "date": "date",
     "timestamp": "date",
+    "uuid": "string",
+    "bytes": "string",
     "point": "point",
 }
 
 #: spec types the JAX package accepts that this port does not serve yet
 _LATER = {
-    "string", "long", "double", "boolean", "uuid", "bytes", "json",
-    "linestring", "polygon", "multipoint", "multilinestring",
+    "json", "linestring", "polygon", "multipoint", "multilinestring",
     "multipolygon", "geometry", "geometrycollection",
 }
+
+#: ROADMAP item that ports the refused types
+LATER_ITEM = "ROADMAP Queue 1, extent geometries and expression predicates"
 
 
 @dataclass
 class AttributeSpec:
     name: str
-    type: str  # canonical: int32 | float32 | date | point
+    type: str  # canonical: string | int32 | int64 | float32 | float64 | bool | date | point
     default_geom: bool = False
     options: Dict[str, str] = field(default_factory=dict)
 
@@ -42,6 +52,10 @@ class AttributeSpec:
     @property
     def is_point(self) -> bool:
         return self.type == "point"
+
+    @property
+    def indexed(self) -> bool:
+        return self.options.get("index", "").lower() in ("true", "full", "join")
 
 
 @dataclass
@@ -119,10 +133,7 @@ class FeatureType:
                 raise ValueError(f"invalid attribute spec: {part!r}")
             aname, atype = pieces[0].strip(), pieces[1].strip().lower()
             if atype in _LATER:
-                raise NotImplementedError(
-                    f"attribute type {pieces[1]!r}: ROADMAP Queue 1, "
-                    "index key spaces and predicates"
-                )
+                raise NotImplementedError(f"attribute type {pieces[1]!r}: {LATER_ITEM}")
             if atype not in _TYPES:
                 raise ValueError(f"unknown attribute type {pieces[1]!r} for {aname!r}")
             options = {}

@@ -295,3 +295,96 @@ def test_polygon_count_kernel_matches_cpu(cuda):
     before = kpip.launches
     assert gpu.count("t", q) == cpu.count("t", q)
     assert kpip.launches > before
+
+
+# -- slice 3: the kernels under z2 plans, every index path on the card -----------
+SPEC3 = "name:String:index=true,code:Long,weight:Float,dtg:Date,*geom:Point"
+BOX3 = "BBOX(geom, -100, 30, -80, 45)"
+
+
+def _datasets3(cuda, n, seed=11):
+    rng = np.random.default_rng(seed)
+    lo = parse_iso_ms("2020-01-01")
+    zipf = 1.0 / np.arange(1, 257) ** 1.1
+    names = np.array([f"c{i:03d}" for i in range(256)])
+    data = {
+        "geom__x": rng.uniform(-120, -70, n),
+        "geom__y": rng.uniform(25, 50, n),
+        "dtg": rng.integers(lo, parse_iso_ms("2020-02-01"), n).astype("datetime64[ms]"),
+        "weight": rng.uniform(0, 1, n).astype(np.float32),
+        "name": names[rng.choice(256, n, p=zipf / zipf.sum())],
+        "code": rng.integers(0, 1 << 40, n),
+    }
+    fids = np.char.add("e", np.arange(n).astype(str))
+    out = []
+    for dev in (cuda, "cpu"):
+        ds = GeoDataset(n_shards=4, device=dev, compact_min_rows=1, compact_fraction=2.0)
+        ds.create_schema("t", SPEC3)
+        ds.insert("t", data, fids=fids)
+        ds.flush("t")
+        out.append(ds)
+    return out
+
+
+@pytest.mark.parametrize("weight", [None, "weight"], ids=["count", "weighted"])
+def test_density_kernel_on_a_z2_plan(cuda, weight):
+    gpu, cpu = _datasets3(cuda, 60_000)
+    plan = gpu._plan("t", BOX3)
+    assert plan.index_name == "z2"
+    ops = gpu._executor("t").density_inputs(plan, BBOX, 512, 512, weight)
+    assert ops is not None, "the z2 plan did not take the grouped rung"
+    args = (ops["x"], ops["y"], ops["mask"], ops["weight"], BBOX, 512, 512, ops["sched"])
+    before = kg.launches
+    got = kg.density_grouped(*args)
+    torch.cuda.synchronize()
+    assert kg.launches == before + 1
+    want = kg.density_grouped_plain(*args)
+    g_gpu = gpu.density("t", BOX3, bbox=BBOX, width=512, height=512, weight=weight)
+    g_cpu = cpu.density("t", BOX3, bbox=BBOX, width=512, height=512, weight=weight)
+    assert gpu._plan("t", BOX3).exec_path["density_kernel"] == "grouped"
+    if weight is None:
+        assert torch.equal(got, want)
+        assert np.array_equal(g_gpu, g_cpu)
+    else:
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+        assert np.allclose(g_gpu, g_cpu, rtol=1e-4, atol=1e-3)
+
+
+def test_pip_kernel_on_z2_compact_columns(cuda):
+    gpu, cpu = _datasets3(cuda, 60_000)
+    q = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)})"
+    plan = gpu._plan("t", q)
+    assert plan.index_name == "z2"
+    ex = gpu._executor("t")
+    cols = ex.scan_columns(plan, ["geom__x", "geom__y"])
+    x, y = cols["geom__x"], cols["geom__y"]
+    assert x.dim() == 2 and ex._cache(plan)["compact"] is not None
+    (x1, *_), packed = kpip.polygon_edge_tables(parse_wkt(_ngon(64, -90, 37, 6)))
+    edges = torch.from_numpy(packed).to(cuda)
+    before = kpip.launches
+    got = kpip.pip_mask(x, y, edges, len(x1))
+    assert kpip.launches == before + 1
+    assert torch.equal(got, kpip.pip_mask_plain(x, y, edges, len(x1)))
+    assert gpu.count("t", q) == cpu.count("t", q)
+
+
+@pytest.mark.parametrize("q", [
+    BOX3, "INCLUDE", f"name = 'c007' AND {BOX3}", f"name = 'c000' AND {BOX3}",
+    "IN ('e17', 'e4242')", f"code > 500000000000 AND {BOX3} AND {DURING}",
+    f"name IN ('c003', 'c010') AND weight BETWEEN 0.25 AND 0.75 AND {BOX3} AND {DURING}",
+    "name LIKE 'c01%' AND DWITHIN(geom, POINT(-90 40), 500, kilometers)",
+], ids=range(8))
+def test_every_index_path_matches_cpu(cuda, q):
+    """Counts and unweighted grids on the card equal the CPU dataset's on
+    the z2, attribute, id and z3 plans and all three scan paths (the
+    DWITHIN row may differ only on rows within 10 m of the radius)."""
+    gpu, cpu = _datasets3(cuda, 60_000)
+    assert gpu._plan("t", q).index_name == cpu._plan("t", q).index_name
+    cg, cc = gpu.count("t", q), cpu.count("t", q)
+    assert gpu._plan("t", q).exec_path["scan"] == cpu._plan("t", q).exec_path["scan"]
+    if "DWITHIN" in q:
+        assert abs(cg - cc) <= 2
+    else:
+        assert cg == cc
+        assert np.array_equal(gpu.density("t", q, bbox=BBOX, width=256, height=256),
+                              cpu.density("t", q, bbox=BBOX, width=256, height=256))

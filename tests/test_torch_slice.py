@@ -88,7 +88,7 @@ def _oracle_mask(data):
 # -- ingest --------------------------------------------------------------------
 def test_ingest_state_equal(pair):
     j, p, _ = pair
-    jt, pt = j._store("t").tables["z3"], p._store("t").table
+    jt, pt = j._store("t").tables["z3"], p._store("t").tables["z3"]
     assert jt.key_shifts == pt.key_shifts
     assert np.array_equal(jt.order, pt.order)
     assert np.array_equal(jt.shard_bounds, pt.shard_bounds)
@@ -109,13 +109,13 @@ def test_windows_equal(pair, name, cover):
     j, p, _ = pair
     jst, _, jplan = j._plan("t", QUERIES[name])
     assert jplan.index_name == "z3"
-    jt, pt = jst.tables["z3"], p._store("t").table
+    jt, pt = jst.tables["z3"], p._store("t").tables["z3"]
     with config.SCAN_RANGES_TARGET.scoped(cover), jks.window_cap(
             max(cover, jks.MAX_SHARD_WINDOWS)):
         jkp = jt.keyspace.plan(jst.ft, jplan.filter)
         want = jt.windows(jkp)
     pst = p._store("t")
-    pkp = pst.keyspace.plan(pst.ft, parse_ecql(QUERIES[name]), cover)
+    pkp = pt.keyspace.plan(pst.ft, parse_ecql(QUERIES[name]), cover)
     got = pt.windows(pkp, cap=max(cover, jks.MAX_SHARD_WINDOWS))
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and np.array_equal(a, b)
@@ -153,7 +153,7 @@ FILTERS = {
 def test_compiled_mask_and_band_equal(pair, name):
     _, p, data = pair
     text = FILTERS[name]
-    dcols = p._store("t").table._master  # ingest order, f64 coordinates
+    dcols = p._store("t").tables["z3"]._master  # ingest order, f64 coordinates
     cols64 = {k: dcols[k] for k in ("geom__x", "geom__y", "dtg__bin", "dtg__off")}
     cols32 = {k: (v.astype(np.float32) if v.dtype == np.float64 else v)
               for k, v in cols64.items()}
@@ -242,7 +242,7 @@ def test_chunk_at_the_table_end():
     assert ds.count("t", q) == want
     d = ds._plan("t", q).__dict__["_exec_cache"]["compact"]
     assert (d["lo"] > 0).any()
-    assert (d["cstart"].astype(np.int64) + d["B"] <= 4 * ds._store("t").table.shard_len).all()
+    assert (d["cstart"].astype(np.int64) + d["B"] <= 4 * ds._store("t").tables["z3"].shard_len).all()
     g = ds.density("t", q, bbox=(-110, 30, -75, 48), width=200, height=100)
     assert g.sum() == want
 
@@ -307,7 +307,7 @@ def test_lsm_append_state_equal(flushes):
         p.insert("t", part)
         p.flush("t")
         start += n
-        jt, pt = j._store("t").tables["z3"], p._store("t").table
+        jt, pt = j._store("t").tables["z3"], p._store("t").tables["z3"]
         assert jt.key_shifts == pt.key_shifts
         assert np.array_equal(jt.order, pt.order)
         assert np.array_equal(jt.shard_bounds, pt.shard_bounds)
@@ -359,12 +359,11 @@ def test_carry_across(pair):
     names = ("geom__x", "geom__y", "dtg", "dtg__bin", "dtg__off", "weight")
     arrays = {
         "master": {k: jt._master[k] for k in names},
-        "keys": dict(jt.key_columns),
-        "order": jt.order,
-        "shard_bounds": jt.shard_bounds,
-        "key_shifts": jt.key_shifts,
-        "device": {k: jt.col_sorted(k).astype(np.float32)
-                   for k in ("geom__x", "geom__y")},
+        "tables": {"z3": {"keys": dict(jt.key_columns), "order": jt.order,
+                          "shard_bounds": jt.shard_bounds,
+                          "key_shifts": jt.key_shifts}},
+        "device": {"z3": {k: jt.col_sorted(k).astype(np.float32)
+                          for k in ("geom__x", "geom__y")}},
     }
     st = store_from_arrays(SPEC, arrays, 4, device="cpu", name="t")
     p2 = GeoDataset(n_shards=4, device="cpu", compact_min_rows=1,
@@ -378,7 +377,7 @@ def test_carry_across(pair):
         assert np.allclose(got, want, rtol=1e-4, atol=1e-3)
         if w is None:
             assert np.array_equal(got, want)
-    bad = dict(arrays, device={"geom__x": arrays["device"]["geom__y"]})
+    bad = dict(arrays, device={"z3": {"geom__x": arrays["device"]["z3"]["geom__y"]}})
     with pytest.raises(ValueError):
         store_from_arrays(SPEC, bad, 4, device="cpu")
 
@@ -410,17 +409,19 @@ def test_cuda_without_a_card_raises(monkeypatch):
         GeoDataset()
 
 
-@pytest.mark.parametrize("call", ["no_time_bound", "attribute", "query_object",
-                                  "stats", "estimate", "fids"])
+@pytest.mark.parametrize("call", ["expression", "non_point_dwithin", "query_object",
+                                  "stats", "estimate", "extent_geometry"])
 def test_unserved_queries_name_the_roadmap(pair, call):
     _, p, _ = pair
     run = {
-        "no_time_bound": lambda: p.count("t", "BBOX(geom, -100, 30, -80, 45)"),
-        "attribute": lambda: p.count("t", f"weight > 0.5 AND {DURING}"),
+        "expression": lambda: p.count("t", f"weight * 2 > 1 AND {DURING}"),
+        "non_point_dwithin": lambda: p.count(
+            "t", "DWITHIN(geom, LINESTRING(-100 30, -90 40), 1000, meters)"),
         "query_object": lambda: p.count("t", object()),
         "stats": lambda: p.stats("t", "Count()", ECQL),
         "estimate": lambda: p.count("t", ECQL, exact=False),
-        "fids": lambda: p.insert("t", {}, fids=["a"]),
+        "extent_geometry": lambda: GeoDataset(device="cpu").create_schema(
+            "u", "dtg:Date,*geom:Polygon"),
     }[call]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run()
