@@ -49,6 +49,29 @@
    kernels' counters are zeroed before the phase and must both be > 0
    after; both kernels are held against their plain versions on the z2
    plans' operands.
+6. Slice 4, on slice 3's schema (no new ingest): ``query`` of the bbox +
+   time filter B, of a weight bound + time (no f32 band row, so the
+   features come from the device mask) and of the polygon, sorted queries (weight descending
+   with ``max_features`` 10 and 1000, name then weight, a sorted
+   projection; weight descending with 10 and 1000 and per-name sampling
+   again on the band-free filter, so the device top-k and sampling run),
+   ``sampling=10`` overall and per name, ``stats`` of B and of the
+   band-free filter (count, min / max, 64-bin histogram, enumeration,
+   top-k, descriptive) and of the polygon, ``Frequency(name,256)`` (host path), and ``knn``
+   (k 10, and k 100 under a name filter). Each runs cold once and warm
+   (``--reps``, a quarter of it for the calls that return or sort over a
+   million rows), with its ``exec_path``, rows, cold and warm p50, D2H
+   bytes and device busy / idle share per warm call; the calls with host
+   work over the matches also print a cProfile of one warm call. Each answer is held
+   against a NumPy oracle: rows and columns of the f64 predicate (f32
+   even-odd for the polygon) in table order; sorted results against a
+   ``lexsort`` of the matches; samples against the 1-in-10 counter over
+   the matches in table order, overall and per name; stats exact
+   (descriptive within rtol 1e-5 of f64 sums); the count-min grid
+   against a NumPy hash; kNN distance sets against the f64 brute force
+   (rtol 1e-9; rows within 1e-6 of the k-th distance may trade places,
+   and the boundary pairs are counted). The PIP counter is zeroed before
+   the phase and must be > 0 after.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
@@ -141,8 +164,9 @@ def timed(torch, fn):
 def profile_warm(torch, fn, reps: int, trace_path: Path):
     """Profile ``reps`` warm calls: (wall ms per call, device-busy ms per
     call or None when the trace holds no device activity, top device
-    kernels by total time). Busy time is the union of the kernel, memcpy
-    and memset intervals of the exported trace."""
+    kernels by total time, device-to-host bytes per call or None when the
+    trace records no copy sizes). Busy time is the union of the kernel,
+    memcpy and memset intervals of the exported trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -158,8 +182,11 @@ def profile_warm(torch, fn, reps: int, trace_path: Path):
     events = json.loads(trace_path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    d2h = [e.get("args", {}).get("bytes") for e in dev
+           if e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]]
+    d2h = sum(d2h) / reps if d2h and None not in d2h else None
     if not dev:
-        return wall / reps * 1e3, None, []
+        return wall / reps * 1e3, None, [], d2h
     busy, end = 0.0, -math.inf
     for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in dev):
         busy += max(0.0, e - max(s, end))
@@ -169,7 +196,23 @@ def profile_warm(torch, fn, reps: int, trace_path: Path):
         totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"]
     top = sorted(totals.items(), key=lambda kv: -kv[1])[:3]
     return (wall / reps * 1e3, busy / reps / 1e3,
-            [(name[:60], dur / reps / 1e3) for name, dur in top])
+            [(name[:60], dur / reps / 1e3) for name, dur in top], d2h)
+
+
+def host_profile(torch, fn, top: int = 6):
+    """One warm call under cProfile: its ``top`` functions by own time, as
+    (name (file:line), ms). Time inside NumPy and torch calls counts as
+    the calling built-in's own."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [(f"{f[2]} ({Path(f[0]).name}:{f[1]})", round(v[2] * 1e3, 3)) for f, v in rows]
 
 
 def make_data(n: int, seed: int):
@@ -222,24 +265,29 @@ def density_oracles(data, tm):
             g64.reshape(HEIGHT, WIDTH), int(m.sum()))
 
 
-def polygon_oracle(data, tm, packed, n_edges) -> int:
-    """f32 even-odd count over the packed edge table, NumPy (no FMA)."""
+def polygon_rows(data, tm, packed, n_edges) -> np.ndarray:
+    """f32 even-odd membership over the packed edge table, NumPy (no FMA):
+    the rows of ``tm`` inside."""
     x1, y1, y2, slope = (packed[i, :n_edges] for i in range(4))
     x32 = data["geom__x"].astype(np.float32)
     y32 = data["geom__y"].astype(np.float32)
     # rows far outside the polygon's bounds have even parity: skip them
     pad = np.float32(1e-3)
-    keep = tm & (x32 >= x1.min() - pad) & (x32 <= x1.max() + pad) \
-        & (y32 >= y1.min() - pad) & (y32 <= y1.max() + pad)
-    xs, ys = x32[keep], y32[keep]
-    total = 0
-    for lo in range(0, len(xs), 1 << 18):
-        xb = xs[lo:lo + (1 << 18), None]
-        yb = ys[lo:lo + (1 << 18), None]
+    cand = np.flatnonzero(tm & (x32 >= x1.min() - pad) & (x32 <= x1.max() + pad)
+                          & (y32 >= y1.min() - pad) & (y32 <= y1.max() + pad))
+    inside = np.zeros(len(tm), bool)
+    for lo in range(0, len(cand), 1 << 18):
+        rows = cand[lo:lo + (1 << 18)]
+        xb, yb = x32[rows, None], y32[rows, None]
         cond = (y1 > yb) != (y2 > yb)
         xint = x1 + (yb - y1) * slope
-        total += int(((cond & (xb < xint)).sum(axis=1) % 2).sum())
-    return total
+        inside[rows] = (cond & (xb < xint)).sum(axis=1) % 2 == 1
+    return inside
+
+
+def polygon_oracle(data, tm, packed, n_edges) -> int:
+    """f32 even-odd count over the packed edge table."""
+    return int(polygon_rows(data, tm, packed, n_edges).sum())
 
 
 SPEC3 = "name:String:index=true,code:Long,weight:Float,dtg:Date,*geom:Point"
@@ -260,6 +308,7 @@ def make_data3(n: int, seed: int):
 
 
 def haversine_m(x, y, px, py):
+    """Great-circle metres, f64."""
     rx1, ry1, rx2, ry2 = (np.radians(np.asarray(v, np.float64)) for v in (x, y, px, py))
     a = (np.sin((ry2 - ry1) / 2) ** 2
          + np.cos(ry1) * np.cos(ry2) * np.sin((rx2 - rx1) / 2) ** 2)
@@ -268,7 +317,8 @@ def haversine_m(x, y, px, py):
 
 def slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
     """The slice-3 phase (see the module docstring, 5). Returns the
-    launches of both kernels in the phase."""
+    launches of both kernels in the phase, and the schema's extra columns
+    and fids."""
     n = len(data["dtg"])
     extra, fids = make_data3(n, args.seed)
     data3 = {**data, **extra}
@@ -336,7 +386,8 @@ def slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
         f"{ {k: sorted(t._device_cache) for k, t in st.tables.items()} }")
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
     for key, fn in calls.items():
-        wall, busy, top = profile_warm(torch, fn, args.reps, out_dir / f"slice3_{key}.json")
+        wall, busy, top, _ = profile_warm(torch, fn, args.reps,
+                                          out_dir / f"slice3_{key}.json")
         share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
         log(f"[profile] slice3 {key}: wall {wall:.4f} ms/call, device busy "
             f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, "
@@ -423,6 +474,269 @@ def slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
                 raise AssertionError(f"{key}: weighted grid outside rtol 1e-4")
     log(f"[check] slice3: every count exact against its f64 oracle (DWITHIN as "
         f"above), grids match (unweighted exact, weighted within rtol 1e-4)")
+    return launches, extra, fids
+
+
+STATS_SPEC = ("Count();MinMax(weight);Histogram(weight,64,0,1);Enumeration(name);"
+              "TopK(name,10);DescriptiveStats(weight)")
+KNN_NAME = "c007"
+
+
+def count_min_grid(codes: np.ndarray, width: int) -> np.ndarray:
+    """The count-min grid of int codes: 4 multiplicative hashes (the
+    reference's constants), bucket ``(a * x mod 2^64) >> 33 mod width``."""
+    a = np.array([0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+                  0x27D4EB2F165667C5], dtype=np.uint64)
+    x = codes.astype(np.int64).view(np.uint64)
+    b = ((a[:, None] * x[None, :]) >> np.uint64(33)) % np.uint64(width)
+    return np.stack([np.bincount(r.astype(np.int64), minlength=width) for r in b])
+
+
+def knn_check(got_xy, x, y, keep, qx, qy, k):
+    """Distance set of the answer against the f64 brute force over the
+    rows ``keep`` selects: rtol 1e-9, except rows within 1e-6 (relative)
+    of the k-th distance, which may trade places. Returns (k-th metres,
+    boundary pairs, rows within 1e-6 of the k-th)."""
+    d_all = haversine_m(x[keep], y[keep], qx, qy)
+    want = np.sort(d_all)[:k]
+    got = np.sort(haversine_m(got_xy[0], got_xy[1], qx, qy))
+    if len(got) != len(want):
+        raise AssertionError(f"knn returned {len(got)} rows, want {len(want)}")
+    off = ~np.isclose(got, want, rtol=1e-9)
+    kth = want[-1]
+    if not (np.allclose(got[off], kth, rtol=1e-6) and np.allclose(want[off], kth, rtol=1e-6)):
+        raise AssertionError("knn distance set differs from the f64 brute force")
+    return float(kth), int(off.sum()), int(np.isclose(d_all, kth, rtol=1e-6).sum())
+
+
+def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
+    """The slice-4 phase (see the module docstring, 6)."""
+    from geomesa_tpu_torch.api.dataset import Query
+
+    n = len(data["dtg"])
+    q_b = f"{BOX} AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt})"
+    #: band-free (a Float bound and the interval): its calls stay on the device
+    q_wt = f"weight < 0.1 AND {DURING}"
+    queries = {
+        "query_bbox": q_b,
+        "query_weight_time": q_wt,
+        "query_polygon": q_poly,
+        "sort_weight_desc_10": Query(q_b, sort_by=[("weight", True)], max_features=10),
+        "sort_weight_desc_1000": Query(q_b, sort_by=[("weight", True)], max_features=1000),
+        "sort_name_weight_100": Query(q_b, sort_by=[("name", False), ("weight", True)],
+                                      max_features=100),
+        "projection_sorted_1000": Query(q_b, properties=["name", "weight"],
+                                        sort_by=[("weight", False)], max_features=1000),
+        "sample_10": Query(q_b, sampling=10),
+        "sample_10_by_name": Query(q_b, sampling=10, sample_by="name"),
+        # band-free: the device top-k routes and the device sampling counter
+        "wt_sort_desc_10": Query(q_wt, sort_by=[("weight", True)], max_features=10),
+        "wt_sort_desc_1000": Query(q_wt, sort_by=[("weight", True)], max_features=1000),
+        "wt_sample_10_by_name": Query(q_wt, sampling=10, sample_by="name"),
+    }
+    calls = {k: (lambda q=q: ds.query("gdelt3", q)) for k, q in queries.items()}
+    calls["stats_bbox"] = lambda: ds.stats("gdelt3", STATS_SPEC, q_b)
+    calls["wt_stats"] = lambda: ds.stats("gdelt3", STATS_SPEC, q_wt)
+    calls["stats_polygon"] = lambda: ds.stats("gdelt3", "Count();MinMax(weight)", q_poly)
+    calls["frequency_name"] = lambda: ds.stats("gdelt3", "Frequency(name,256)", q_b)
+    calls["knn_10"] = lambda: ds.knn("gdelt3", -90.0, 40.0, 10)
+    calls["knn_100_name"] = lambda: ds.knn("gdelt3", -90.0, 40.0, 100, f"name = '{KNN_NAME}'")
+    query_of = {**queries, "stats_bbox": q_b, "wt_stats": q_wt, "stats_polygon": q_poly,
+                "frequency_name": q_b}
+    #: calls that gather or sort over a million rows run a quarter of the reps
+    heavy = {"query_bbox", "query_weight_time", "query_polygon", "sort_name_weight_100",
+             "frequency_name"}
+
+    # the kNN plans are the search's own: record their paths as they run
+    ex = ds._executor("gdelt3")
+    knn_paths = []
+    real_knn = ex.knn
+
+    def traced_knn(plan, *a, **kw):
+        out = real_knn(plan, *a, **kw)
+        knn_paths.append(dict(plan.exec_path))
+        return out
+
+    ex.knn = traced_knn
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    results, latency, paths = {}, {}, {}
+    for key, fn in calls.items():
+        reps = max(3, args.reps // 4) if key in heavy else args.reps
+        knn_paths.clear()
+        results[key], cold = timed(torch, fn)
+        warm = [timed(torch, fn)[1] for _ in range(reps)]
+        latency[key] = (cold * 1e3, float(np.median(warm)) * 1e3, reps)
+        paths[key] = (dict(ds._plan("gdelt3", query_of[key]).exec_path) if key in query_of
+                      else {"attempts": len(knn_paths) // (reps + 1),
+                            "last": knn_paths[-1]})
+    launches = kpip.launches
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    for key, fn in calls.items():
+        ans = results[key]
+        rows = len(ans) if hasattr(ans, "columns") else (
+            ans.stats[0].count if hasattr(ans, "stats") else int(ans.counts[0].sum()))
+        cold, warm, reps = latency[key]
+        wall, busy, _, d2h = profile_warm(torch, fn, reps, out_dir / f"slice4_{key}.json")
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        log(f"[slice4] {key}: exec_path {paths[key]}, rows {rows}, cold {cold:.3f} ms, "
+            f"warm p50 {warm:.3f} ms ({reps} reps), D2H "
+            f"{'not measured' if d2h is None else f'{d2h:.0f} B'}/call, device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms'}/call, idle share "
+            f"{share} (profiled wall {wall:.3f} ms/call)")
+        if key in heavy or key.startswith(("sort", "sample", "stats_bbox", "wt_")):
+            log(f"[slice4] {key} host profile, top own times (ms): "
+                f"{host_profile(torch, fn)}")
+    ex.knn = real_knn
+    log(f"[slice4] pip launches {launches}; the phase's calls, profiles included, "
+        f"took {time.perf_counter() - t_phase:.3f} s")
+    if launches <= 0:
+        raise AssertionError("the pip kernel never launched in slice 4's phase")
+
+    # -- the answers against NumPy oracles --------------------------------------
+    st = ds._store("gdelt3")
+    x, y, w = data["geom__x"], data["geom__y"], data["weight"]
+    names, code = extra["name"], extra["code"]
+    tm = time_mask(data)
+    m_b = (x >= -100) & (x <= -80) & (y >= 30) & (y <= 45) & tm
+    m_poly = polygon_rows(data, np.ones(n, bool), packed, n_edges)
+    vocab = np.array(st.dicts["name"].values)
+    fid_row = {}
+
+    def rows_of(fc):
+        col = fc.columns["__fid__"]
+        key = id(col)
+        if key not in fid_row:
+            fid_row[key] = np.char.lstrip(col, b"e").astype(np.int64)
+        return fid_row[key]
+
+    def table_pos(index):
+        order = st.tables[index].order
+        pos = np.empty(len(order), np.int64)
+        pos[order] = np.arange(len(order))
+        return pos
+
+    def check_rows(key, fc, want_rows, cols=("weight", "geom__x", "geom__y", "name", "code",
+                                             "dtg")):
+        got = rows_of(fc)
+        if not np.array_equal(got, want_rows):
+            raise AssertionError(f"{key}: rows differ from the oracle ({len(got)} vs "
+                                 f"{len(want_rows)})")
+        ref = {"weight": w, "geom__x": x, "geom__y": y, "code": code,
+               "dtg": data["dtg"].astype(np.int64)}
+        for c in cols:
+            if c not in fc.columns:
+                continue
+            v = vocab[fc.columns[c]] if c == "name" else fc.columns[c]
+            want = names[want_rows] if c == "name" else ref[c][want_rows]
+            if not np.array_equal(v, want):
+                raise AssertionError(f"{key}: column {c} differs from the oracle")
+
+    pos_b = table_pos(ds._plan("gdelt3", q_b).index_name)
+    rows_b = np.flatnonzero(m_b)
+    rows_b = rows_b[np.argsort(pos_b[rows_b])]  # table order
+    check_rows("query_bbox", results["query_bbox"], rows_b)
+    pos_wt = table_pos(ds._plan("gdelt3", q_wt).index_name)
+    rows_wt = np.flatnonzero((w < np.float32(0.1)) & tm)
+    check_rows("query_weight_time", results["query_weight_time"],
+               rows_wt[np.argsort(pos_wt[rows_wt])])
+    pos_p = table_pos(ds._plan("gdelt3", q_poly).index_name)
+    rows_p = np.flatnonzero(m_poly)
+    check_rows("query_polygon", results["query_polygon"], rows_p[np.argsort(pos_p[rows_p])])
+    mb = np.flatnonzero(m_b)
+    pb = pos_b[mb]
+    pw = pos_wt[rows_wt]
+    want_sorted = {
+        "sort_weight_desc_10": mb[np.lexsort((pb, -w[mb]))][:10],
+        "sort_weight_desc_1000": mb[np.lexsort((pb, -w[mb]))][:1000],
+        "sort_name_weight_100": mb[np.lexsort((pb, -w[mb], names[mb]))][:100],
+        "projection_sorted_1000": mb[np.lexsort((pb, w[mb]))][:1000],
+        "wt_sort_desc_10": rows_wt[np.lexsort((pw, -w[rows_wt]))][:10],
+        "wt_sort_desc_1000": rows_wt[np.lexsort((pw, -w[rows_wt]))][:1000],
+    }
+    #: (exec_path sort, exec_path scan) each sorted call must take: a band
+    #: row in B sends its top-k to the host twin, as in the reference
+    b_scan = "host+device-coarse" if paths["query_bbox"]["band_rows"] else "device-padded"
+    device_sort = {"sort_weight_desc_10": ("device-topk(k=10)", b_scan),
+                   "sort_weight_desc_1000": ("device-topk(k=1000)", b_scan),
+                   "sort_name_weight_100": (None, None),
+                   "projection_sorted_1000": ("device-topk(k=1000)", b_scan),
+                   "wt_sort_desc_10": ("device-topk(k=10)", "device-padded"),
+                   "wt_sort_desc_1000": ("device-topk(k=1000)", "device-padded")}
+    for key, want_rows in want_sorted.items():
+        check_rows(key, results[key], want_rows)
+        got_path = (paths[key].get("sort"), paths[key].get("scan"))
+        if got_path != device_sort[key]:
+            raise AssertionError(f"{key}: sort / scan path {got_path}, want {device_sort[key]}")
+    if sorted(results["projection_sorted_1000"].columns) != ["__fid__", "name", "weight"]:
+        raise AssertionError("the projection kept other columns")
+    check_rows("sample_10", results["sample_10"], rows_b[::10])
+    for key, rows_in_order in (("sample_10_by_name", rows_b),
+                               ("wt_sample_10_by_name", rows_wt[np.argsort(pw)])):
+        keys = names[rows_in_order]
+        order = np.argsort(keys, kind="stable")
+        ks = keys[order]
+        start = np.maximum.accumulate(np.where(
+            np.concatenate(([True], ks[1:] != ks[:-1])), np.arange(len(ks)), 0))
+        keep = np.zeros(len(ks), bool)
+        keep[order] = (np.arange(len(ks)) - start) % 10 == 0
+        check_rows(key, results[key], rows_in_order[keep])
+        got_k, got_c = np.unique(names[rows_of(results[key])], return_counts=True)
+        all_k, all_c = np.unique(keys, return_counts=True)
+        if not (np.array_equal(got_k, all_k) and np.array_equal(got_c, -(-all_c // 10))):
+            raise AssertionError(f"{key}: a key's count is not ceil(matches / 10)")
+    if paths["wt_sample_10_by_name"].get("feature_scan") != "device-compact":
+        raise AssertionError("wt_sample_10_by_name did not sample in the device mask")
+
+    for key, m in (("stats_bbox", m_b), ("wt_stats", (w < np.float32(0.1)) & tm)):
+        leaves = results[key].stats
+        wb = w[m]
+        hist = np.bincount(np.clip(np.floor(wb * np.float32(64)), 0, 63).astype(np.int64),
+                           minlength=64)
+        en_k, en_c = np.unique(names[m], return_counts=True)
+        enum = dict(zip(en_k.tolist(), en_c.tolist()))
+        topk = sorted(enum.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+        exact = [
+            (leaves[0].value(), int(m.sum())),
+            (leaves[1].value(), {"min": float(wb.min()), "max": float(wb.max()),
+                                 "cardinality": len(wb)}),
+            (leaves[2].value()["counts"], hist.tolist()),
+            (leaves[3].value(), enum),
+            (leaves[4].value(), topk),
+            (leaves[5].count, len(wb)),
+        ]
+        for i, (got, want) in enumerate(exact):
+            if got != want:
+                raise AssertionError(f"{key} leaf {i}: {got} != {want}")
+        w64 = wb.astype(np.float64)
+        if not (np.allclose(leaves[5].s1, [w64.sum()], rtol=1e-5)
+                and np.allclose(leaves[5].s2, [[(w64 * w64).sum()]], rtol=1e-5)):
+            raise AssertionError(f"{key}: descriptive sums outside rtol 1e-5")
+    if paths["wt_stats"].get("scan") != "device-compact":
+        raise AssertionError("wt_stats did not reduce on the device")
+    m_b_names = names[m_b]
+    en_k = np.unique(m_b_names)
+    wp = w[m_poly]
+    st_p = results["stats_polygon"].stats
+    if (st_p[0].value(), st_p[1].value()) != (int(m_poly.sum()), {
+            "min": float(wp.min()), "max": float(wp.max()), "cardinality": len(wp)}):
+        raise AssertionError("stats_polygon differs from the f32 even-odd oracle")
+    codes = np.array([st.dicts["name"].code_of(v) for v in en_k])[
+        np.unique(m_b_names, return_inverse=True)[1]]
+    if not np.array_equal(results["frequency_name"].counts, count_min_grid(codes, 256)):
+        raise AssertionError("frequency_name: count-min grid differs from NumPy's")
+    for key, keep_rows, k in (("knn_10", np.ones(n, bool), 10),
+                              ("knn_100_name", names == KNN_NAME, 100)):
+        fc = results[key]
+        kth, pairs, near = knn_check((fc.columns["geom__x"], fc.columns["geom__y"]),
+                                     x, y, keep_rows, -90.0, 40.0, k)
+        log(f"[check] slice4 {key}: k-th distance {kth:.3f} m, boundary pairs {pairs}, "
+            f"rows within 1e-6 of the k-th distance {near}")
+    log(f"[check] slice4: query rows and columns equal the f64 (polygon: f32 even-odd) "
+        f"oracle in table order ({len(rows_b)} and {len(rows_p)} rows); sorted, projected "
+        f"and sampled results equal their NumPy lexsort / counters; stats exact "
+        f"(descriptive within rtol 1e-5); count-min grid equal; kNN distance sets equal")
     return launches
 
 
@@ -514,7 +828,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
     for qname, fn in queries.items():
-        wall, busy, top = profile_warm(torch, fn, args.reps, out_dir / f"{qname}.json")
+        wall, busy, top, _ = profile_warm(torch, fn, args.reps, out_dir / f"{qname}.json")
         share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
         log(f"[profile] {qname}: wall {wall:.4f} ms/call, device busy "
             f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, "
@@ -661,7 +975,10 @@ def main() -> int:
         f"{int((g_64 != g_u).sum())}")
 
     # -- 5. slice 3 ---------------------------------------------------------
-    slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+    _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+
+    # -- 6. slice 4 ---------------------------------------------------------
+    slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,12 +3,13 @@
 This package serves point schemas: ingest into sorted z3, z2, feature-id
 and attribute index shards; ECQL planning through the cost-based decider to
 scan windows; window compaction, the fused mask, and the ``count`` /
-``density`` aggregates, with the JAX package's two Pallas kernels rewritten
-as CUDA kernels (``csrc/``). It imports torch and numpy, and nothing of JAX
-or ``geomesa_tpu``.
+``density`` aggregates, feature queries (``Query``: projection, limit,
+sorting, sampling), stats and kNN, with the JAX package's two Pallas
+kernels rewritten as CUDA kernels (``csrc/``). It imports torch and numpy,
+and nothing of JAX or ``geomesa_tpu``.
 """
 
-from geomesa_tpu_torch.api.dataset import GeoDataset
+from geomesa_tpu_torch.api.dataset import FeatureCollection, GeoDataset, Query
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 
-__all__ = ["GeoDataset", "FeatureType"]
+__all__ = ["FeatureCollection", "GeoDataset", "FeatureType", "Query"]

@@ -2,24 +2,122 @@
 executor, on one CUDA device.
 
 Port of the ``geomesa_tpu/api/dataset.py::GeoDataset`` surface the port
-serves: ``create_schema``, ``insert`` (with feature ids), ``flush``,
-``count``, ``density`` and ``bounds`` with the JAX signatures. The layers
-the JAX ``GeoDataset`` wraps around its executor (aggregate cache, audit,
-serving, tracing, journal, fleet) are not part of this port yet: ``count``
-and ``density`` call the executor directly.
+serves, with the JAX signatures: ``create_schema``, ``insert`` (with
+feature ids), ``flush``, ``count`` (exact, or the planner's estimate),
+``density``, ``bounds``, feature queries (``query``, ``query_batches``,
+``sample``) with ``Query`` objects (projection, ``max_features``, sorting
+with the device top-k, sampling, a forced index), ``stats`` and its
+helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
+``top_k``), and ``knn``. The layers the JAX ``GeoDataset`` wraps around
+its executor (aggregate cache, audit, serving, tracing, journal, fleet)
+are not part of this port yet: every call goes to the executor directly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from geomesa_tpu_torch.filter import ir
+from geomesa_tpu_torch.filter.compile import compile_filter
+from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.index.store import FeatureStore
 from geomesa_tpu_torch.planning.executor import Executor
-from geomesa_tpu_torch.planning.planner import QueryPlan, plan_query
+from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
+from geomesa_tpu_torch.schema.columns import (
+    ColumnBatch, DictionaryEncoder, decode_batch, fid_strs,
+)
 from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.stats import parse_stat
+from geomesa_tpu_torch.stats import sketches as sk
+from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
+
+#: largest ``max_features`` a sorted query selects on the device (the JAX
+#: package's geomesa.topk.max; 0 disables the pushdown)
+TOPK_MAX = 100_000
+
+#: ROADMAP items the port refuses by name
+_HOST_LAYERS = "ROADMAP Queue 1, host layers"
+_REGIONS = "ROADMAP Queue 1, polygon regions and cache cells"
+_BATCHING = "ROADMAP Queue 1, query-axis batching"
+
+
+@dataclass
+class Query:
+    """A query: ECQL + hints (the GeoTools Query analog). ``auths`` and an
+    ``srid`` other than 4326 belong to the host layers and raise."""
+
+    ecql: str = "INCLUDE"
+    max_features: Optional[int] = None
+    properties: Optional[List[str]] = None
+    sort_by: Optional[List[Tuple[str, bool]]] = None  # (attr, descending)
+    sampling: Optional[int] = None
+    #: per-key sampling attribute: 1-in-``sampling`` per distinct value
+    sample_by: Optional[str] = None
+    index: Optional[str] = None
+    auths: Optional[List[str]] = None
+    srid: Optional[int] = None
+
+    def hints(self) -> QueryHints:
+        return QueryHints(
+            query_index=self.index,
+            sampling=self.sampling,
+            sample_by=self.sample_by,
+            max_features=self.max_features,
+            properties=self.properties,
+            sort_by=self.sort_by,
+        )
+
+
+class FeatureCollection:
+    """Query result: host columns + decode helpers."""
+
+    #: CRS of the geometry columns (the port does not reproject)
+    srid = 4326
+
+    def __init__(self, ft: FeatureType, batch: ColumnBatch,
+                 dicts: Dict[str, DictionaryEncoder]):
+        self.ft = ft
+        self.batch = batch
+        self.dicts = dicts
+
+    def __len__(self):
+        return self.batch.n
+
+    @property
+    def columns(self):
+        return self.batch.columns
+
+    @property
+    def fids(self) -> List[str]:
+        """Feature ids as ``str``."""
+        col = self.batch.columns.get("__fid__")
+        return [] if col is None else fid_strs(col).tolist()
+
+    def to_dict(self) -> Dict[str, Any]:
+        if self.batch.n == 0:
+            return {}
+        return decode_batch(self.ft, self.batch, self.dicts)
+
+    def to_pandas(self):
+        """A DataFrame of :meth:`to_dict` (needs pandas), points split into
+        ``<geom>_x`` / ``<geom>_y``."""
+        import pandas as pd
+
+        d = self.to_dict()
+        if not d:
+            return pd.DataFrame()
+        geom = self.ft.geom_field
+        if geom in d and d[geom]:
+            xs, ys = zip(*d[geom])
+            d[geom + "_x"], d[geom + "_y"] = list(xs), list(ys)
+            del d[geom]
+        return pd.DataFrame(d)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,35 +206,48 @@ class GeoDataset:
             st.flush()
 
     # -- queries ------------------------------------------------------------
-    def _plan(self, name: str, query) -> QueryPlan:
-        if not isinstance(query, str):
+    @staticmethod
+    def _as_query(query) -> Query:
+        q = Query(ecql=query) if isinstance(query, str) else query
+        if not isinstance(q, Query):
+            raise TypeError(f"query must be ECQL text or a Query, got {type(query)}")
+        if q.auths is not None:
+            raise NotImplementedError(f"query authorizations: {_HOST_LAYERS}")
+        if q.srid is not None and q.srid != 4326:
             raise NotImplementedError(
-                "Query objects (sampling, projections, sorting): "
-                "ROADMAP Queue 1, stats, kNN, top-k and sampling"
-            )
+                f"reprojecting results to EPSG:{q.srid}: {_HOST_LAYERS}")
+        return q
+
+    def _plan(self, name: str, query) -> QueryPlan:
+        """The plan of ECQL text or a ``Query``, cached per (query, store
+        version); its ``exec_path`` describes the last call that ran it."""
+        q = self._as_query(query)
         st = self._store(name)
         st.flush()
-        key = (name, query, id(st), st.version)
+        key = (name, repr(q), id(st), st.version)
         plan = self._plans.get(key)
         if plan is None:
             if len(self._plans) >= 256:
                 self._plans.clear()
-            plan = self._plans[key] = plan_query(st, query)
+            plan = self._plans[key] = plan_query(st, q.ecql, q.hints())
+        return plan
+
+    def _fresh_plan(self, name: str, query) -> QueryPlan:
+        """:meth:`_plan` with its ``exec_path`` cleared for a new call."""
+        plan = self._plan(name, query)
+        plan.__dict__["exec_path"] = {}
         return plan
 
     def count(self, name: str, query="INCLUDE", exact: bool = True,
               region=None) -> int:
-        """Exact feature count of ``query`` (ECQL text)."""
-        if not exact:
-            raise NotImplementedError(
-                "estimated counts (write-time sketches): "
-                "ROADMAP Queue 1, stats, kNN, top-k and sampling"
-            )
+        """Feature count of ``query``: exact, or (``exact=False``) the
+        planner's estimate from the write-time sketches, with no scan."""
         if region is not None:
-            raise NotImplementedError(
-                "region= aggregates: ROADMAP Queue 1, polygon regions and cache cells"
-            )
-        return self._executor(name).count(self._plan(name, query))
+            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
+        plan = self._fresh_plan(name, query)
+        if not exact:
+            return int(plan.est_count)
+        return self._executor(name).count(plan)
 
     def density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
                 height: int = 256, weight: Optional[str] = None,
@@ -144,13 +255,81 @@ class GeoDataset:
         """(height, width) f32 heatmap of ``query`` over ``bbox`` (default:
         the data's bounds), optionally summing the ``weight`` attribute."""
         if region is not None:
-            raise NotImplementedError(
-                "region= aggregates: ROADMAP Queue 1, polygon regions and cache cells"
-            )
-        plan = self._plan(name, query)
+            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
+        plan = self._fresh_plan(name, query)
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
         return self._executor(name).density(plan, tuple(bbox), width, height, weight)
+
+    def density_curve(self, name: str, query="INCLUDE", *args, **kw):
+        raise NotImplementedError("density_curve: ROADMAP Queue 1, density_curve")
+
+    def count_batch(self, name: str, queries, *args, **kw):
+        raise NotImplementedError(f"count_batch: {_BATCHING}")
+
+    def density_batch(self, name: str, queries, *args, **kw):
+        raise NotImplementedError(f"density_batch: {_BATCHING}")
+
+    def stats_batch(self, name: str, stat_spec: str, queries, *args, **kw):
+        raise NotImplementedError(f"stats_batch: {_BATCHING}")
+
+    def query(self, name: str, query="INCLUDE") -> FeatureCollection:
+        """Matching features. A sorted query with ``0 < max_features <=``
+        :data:`TOPK_MAX` first selects candidates on the device by the
+        primary sort key (every boundary tie included when there are more
+        keys), and the host gathers and sorts only those; then, as the
+        reference, sort -> limit -> projection."""
+        q = self._as_query(query)
+        plan = self._fresh_plan(name, q)
+        st = self._store(name)
+        ex = self._executor(name)
+        batch = None
+        if q.sort_by and q.max_features is not None and 0 < q.max_features <= TOPK_MAX:
+            attr, desc = q.sort_by[0]
+            names = None
+            if q.properties:
+                names = list(q.properties) + [a for a, _ in q.sort_by]
+            pos = ex.top_rows(plan, attr, desc, q.max_features,
+                              include_ties=len(q.sort_by) > 1)
+            if pos is not None:
+                batch = st.tables[plan.index_name].gather_sorted(pos, names)
+                plan.exec_path["sort"] = f"device-topk(k={q.max_features})"
+        if batch is None:
+            batch = ex.features(plan)
+        if q.sort_by and batch.n:
+            batch = _sort_batch(batch, q.sort_by, st.dicts)
+        if q.max_features is not None and batch.n > q.max_features:
+            batch = ColumnBatch(
+                {k: v[: q.max_features] for k, v in batch.columns.items()},
+                q.max_features,
+            )
+        if q.properties:
+            batch = _project(batch, q.properties)
+        return FeatureCollection(st.ft, batch, st.dicts)
+
+    def query_batches(self, name: str, query="INCLUDE",
+                      batch_rows: Optional[int] = None):
+        """Query results as ColumnBatch chunks. A sorted query yields one
+        materialized batch (a global sort needs every row); otherwise the
+        plan is made now (so a bad query raises here) and the chunks of the
+        executor's ``features_iter`` are projected one by one."""
+        q = self._as_query(query)
+        if q.sort_by:
+            fc = self.query(name, q)
+            return iter([fc.batch] if fc.batch.n else [])
+        plan = self._fresh_plan(name, q)
+        ex = self._executor(name)
+
+        def chunks():
+            for batch in ex.features_iter(plan, batch_rows):
+                yield _project(batch, q.properties) if q.properties else batch
+
+        return chunks()
+
+    def sample(self, name: str, one_in_n: int, query="INCLUDE") -> FeatureCollection:
+        """1-in-``one_in_n`` of the matches (``query`` with ``sampling``)."""
+        return self.query(name, dataclasses.replace(self._as_query(query),
+                                                    sampling=one_in_n))
 
     def bounds(self, name: str) -> Optional[Tuple[float, float, float, float]]:
         """Geometry bounds of the schema's rows (None when empty), from the
@@ -159,7 +338,166 @@ class GeoDataset:
         st.flush()
         return st.bounds()
 
-    def stats(self, name: str, stat_spec: str, query="INCLUDE"):
-        raise NotImplementedError(
-            "stats: ROADMAP Queue 1, stats, kNN, top-k and sampling"
-        )
+    # -- stats -------------------------------------------------------------
+    def stats(self, name: str, stat_spec: str, query="INCLUDE",
+              region=None) -> sk.Stat:
+        """Exact statistics of the matches, from the stat DSL
+        (``Count();MinMax(a);Histogram(a,bins,lo,hi);...``)."""
+        if region is not None:
+            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
+        plan = self._fresh_plan(name, query)
+        stat = parse_stat(stat_spec)
+        return self._executor(name).stats(plan, stat)
+
+    def unique(self, name: str, attribute: str, query="INCLUDE") -> List:
+        """Distinct values, sorted (None last)."""
+        vals = list(self.stats(name, f"Enumeration({attribute})", query).value())
+        return sorted(vals, key=lambda v: (v is None, v))
+
+    def min_max(self, name: str, attribute: str, query="INCLUDE",
+                exact: bool = True):
+        """``{"min", "max", "cardinality"}`` of an attribute. ``exact=False``
+        reads the write-time sketch of an indexed attribute (no scan)."""
+        if not exact:
+            st = self._store(name)
+            st.flush()
+            mm = st.stats.get(f"minmax-{attribute}")
+            if isinstance(mm, sk.MinMax) and not mm.is_empty:
+                return mm.value()
+        return self.stats(name, f"MinMax({attribute})", query).value()
+
+    def histogram(self, name: str, attribute: str, bins: int = 20,
+                  bounds: Optional[Tuple[float, float]] = None,
+                  query="INCLUDE") -> sk.Histogram:
+        """Binned histogram; ``bounds`` default to the attribute's min /
+        max (the write-time sketch when there is one)."""
+        if bounds is None:
+            mm = self.min_max(name, attribute, query, exact=False)
+            if not mm or mm.get("min") is None:
+                raise ValueError(f"no data to bound histogram on {attribute!r}")
+            bounds = (float(mm["min"]), float(mm["max"]))
+        lo, hi = bounds
+        if hi <= lo:
+            hi = lo + 1.0
+        return self.stats(name, f"Histogram({attribute},{bins},{lo},{hi})", query)
+
+    def frequency(self, name: str, attribute: str, width: int = 256,
+                  query="INCLUDE") -> sk.Frequency:
+        """Count-min frequency sketch."""
+        return self.stats(name, f"Frequency({attribute},{width})", query)
+
+    def top_k(self, name: str, attribute: str, k: int = 10,
+              query="INCLUDE") -> List:
+        """The k most frequent values with their counts."""
+        return self.stats(name, f"TopK({attribute},{k})", query).value()
+
+    # -- kNN ---------------------------------------------------------------
+    def knn(self, name: str, x: float, y: float, k: int = 10,
+            query="INCLUDE") -> FeatureCollection:
+        """The k nearest matches to (x, y) by great-circle distance, by the
+        reference's expanding-radius search: a first radius sized for about
+        4k points at the store's average density restricts the plan to its
+        box (split at the antimeridian) so the index prunes the scan, and
+        the radius doubles until the k-th candidate's exact f64 distance
+        lies inside the box's inscribed circle. Near a pole, with a radius
+        as wide as the data, or on the 16th attempt the search runs
+        unrestricted, so it never returns a truncated result."""
+        q = self._as_query(query)
+        st = self._store(name)
+        st.flush()
+        ex = self._executor(name)
+        if st.count == 0 or k <= 0:
+            return FeatureCollection(st.ft, ColumnBatch({}, 0), st.dicts)
+        geom = st.ft.geom_field
+        base = parse_ecql(q.ecql)
+        bounds = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
+        area = max((bounds[2] - bounds[0]) * (bounds[3] - bounds[1]), 1e-9)
+        full_span = max(bounds[2] - bounds[0], bounds[3] - bounds[1], 1e-6)
+        r = max(math.sqrt(4.0 * k * area / (math.pi * max(st.count, 1))), 1e-4)
+        deg_m = math.pi / 180.0 * EARTH_RADIUS_M
+        base_compiled = compile_filter(base, st.ft, st.dicts)
+        batch, order, prev_n = None, None, -1
+        for attempt in range(16):
+            # the lon half-width uses the band-edge cosine so every point
+            # within r * deg_m metres lies inside the box
+            pole = (y + r >= 89.99) or (y - r <= -89.99)
+            cos_edge = math.cos(math.radians(min(abs(y) + r, 89.99)))
+            restricted = r < full_span and not pole and cos_edge >= 0.05 \
+                and attempt < 15
+            if restricted:
+                boxes = _search_boxes(x, y, r, cos_edge)
+                bb = tuple(ir.BBox(geom, *b) for b in boxes)
+                f = ir.And((base, bb[0] if len(bb) == 1 else ir.Or(bb)))
+            else:
+                boxes, f = None, base
+            plan = plan_query(st, f, q.hints())
+            if restricted:
+                # the box prunes through the plan's windows and inside the
+                # scan; the predicate stays the location-free base filter
+                plan.compiled = base_compiled
+            pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
+            batch = st.tables[plan.index_name].gather_sorted(np.sort(pos))
+            order = np.zeros(0, np.int64)
+            kth_m = math.inf
+            if batch.n:
+                d = haversine_m(batch.columns[geom + "__x"],
+                                batch.columns[geom + "__y"], x, y)
+                order = np.argsort(d)[:k]
+                kth_m = float(d[order[-1]])
+            if not restricted:
+                break
+            # exact iff the k-th neighbour lies inside the box's inscribed
+            # circle (clamped edges hold no points beyond the domain)
+            if len(order) >= k and kth_m <= r * deg_m:
+                break
+            if batch.n == prev_n and batch.n < k:
+                # a doubling added nothing and k is still short: the base
+                # filter limits, not the box; go unrestricted
+                r = full_span
+            else:
+                r *= 2.0
+            prev_n = batch.n
+        batch = ColumnBatch({kk: v[order] for kk, v in batch.columns.items()},
+                            len(order))
+        return FeatureCollection(st.ft, batch, st.dicts)
+
+
+def _search_boxes(x: float, y: float, r: float, cos_edge: float):
+    """The kNN search box of radius ``r`` degrees around (x, y), split in
+    two where it crosses the antimeridian."""
+    half_lon = r / cos_edge
+    lat_lo, lat_hi = max(y - r, -90.0), min(y + r, 90.0)
+    lon_lo, lon_hi = x - half_lon, x + half_lon
+    if lon_hi - lon_lo >= 360.0:
+        return [(-180.0, lat_lo, 180.0, lat_hi)]
+    if lon_lo < -180.0:
+        return [(-180.0, lat_lo, lon_hi, lat_hi), (lon_lo + 360.0, lat_lo, 180.0, lat_hi)]
+    if lon_hi > 180.0:
+        return [(lon_lo, lat_lo, 180.0, lat_hi), (-180.0, lat_lo, lon_hi - 360.0, lat_hi)]
+    return [(lon_lo, lat_lo, lon_hi, lat_hi)]
+
+
+def _sort_batch(batch: ColumnBatch, sort_by, dicts) -> ColumnBatch:
+    """Stable multi-key sort, least significant key first; strings sort by
+    their decoded value (nulls as the empty string, so first)."""
+    order = np.arange(batch.n)
+    for attr, desc in reversed(sort_by):
+        col = batch.columns[attr][order]
+        if attr in dicts:
+            col = np.asarray([v if v is not None else ""
+                              for v in dicts[attr].decode(col)], dtype=object)
+        if desc:
+            o2 = (batch.n - 1) - np.argsort(col[::-1], kind="stable")[::-1]
+        else:
+            o2 = np.argsort(col, kind="stable")
+        order = order[o2]
+    return ColumnBatch({k: v[order] for k, v in batch.columns.items()}, batch.n)
+
+
+def _project(batch: ColumnBatch, properties) -> ColumnBatch:
+    """Keep the feature id, each property and its ``<name>__*``
+    companions."""
+    keep = set(properties) | {"__fid__"}
+    pref = tuple(p + "__" for p in properties)
+    return ColumnBatch({k: v for k, v in batch.columns.items()
+                        if k in keep or k.startswith(pref)}, batch.n)

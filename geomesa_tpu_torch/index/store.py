@@ -174,12 +174,21 @@ class IndexTable:
     def has_column(self, name: str) -> bool:
         return name in self.key_columns or name in self._master
 
-    def is_host_only(self, name: str) -> bool:
-        """Strings, fids and uint64 keys stay on the host."""
+    def dtype_of(self, name: str) -> Optional[np.dtype]:
         col = self.key_columns.get(name)
         if col is None:
             col = self._master.get(name)
-        return col is None or device_view(col[:0]) is None
+        return None if col is None else col.dtype
+
+    def is_host_only(self, name: str) -> bool:
+        """Strings, fids and uint64 keys stay on the host."""
+        dt = self.dtype_of(name)
+        return dt is None or device_view(np.zeros(0, dt)) is None
+
+    def column_names(self) -> List[str]:
+        names = dict.fromkeys(self._master)
+        names.update(dict.fromkeys(self.key_columns))
+        return list(names)
 
     def col_sorted(self, name: str) -> np.ndarray:
         """Full host column in sort order (key columns are stored sorted;
@@ -200,6 +209,31 @@ class IndexTable:
             elif k in self.key_columns:
                 out[k] = self.key_columns[k][pos]
         return out
+
+    # -- feature gathers ------------------------------------------------------
+    def gather_sorted(self, sel: np.ndarray,
+                      names: Optional[Sequence[str]] = None) -> ColumnBatch:
+        """Host rows at sorted-order positions ``sel`` as a ColumnBatch (the
+        reference's ``_gather_sorted``; its ``host_gather`` and
+        ``host_gather_positions`` map a padded mask or flat positions to
+        these positions first, which the executor does here). ``names``
+        projects: the feature id, each name, and every ``<name>__*``
+        companion column (x / y, time bins) gather; None gathers every
+        column. Master values win over key copies."""
+        sel = np.asarray(sel, np.int64)
+        rows = self.order[sel]
+        cols = self.column_names() if names is None else [
+            k for k in self.column_names()
+            if k == "__fid__" or k in names
+            or any(k.startswith(n + "__") for n in names)
+        ]
+        out = {}
+        for k in cols:
+            if k in self._master:
+                out[k] = self._master[k][rows]
+            else:
+                out[k] = self.key_columns[k][sel]
+        return ColumnBatch(out, len(sel))
 
     @property
     def shard_len(self) -> int:

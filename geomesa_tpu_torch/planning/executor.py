@@ -18,6 +18,19 @@ scans the table of its chosen index. Resolve the scan windows; then:
   predicate on the window rows on the host; id lookups are this path by
   the reference's design.
 
+Operations that cannot add the band rows' exact contribution to a device
+result (features, stats, top-k, kNN, and every sampled scan) take the
+host path when the band holds rows, as the reference does. Sampling (the
+``sampling`` / ``sample_by`` hints) runs in the fused device mask over the
+row order of the padded layout (the compacted chunks keep it), or after
+the refinement on a host path. ``features`` brings the device mask back
+and gathers the matching rows on the host; ``top_rows`` selects the
+candidate rows of a sorted, limited query on the device (argmin order for
+k <= 32, else a 48-step threshold search); ``stats`` reduces the device
+sketches in the scan (``kernels/stats_scan.py``) and observes the others
+on gathered rows; ``knn`` ranks f32 great-circle distances
+(``kernels/knn.py``).
+
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
 """
@@ -32,9 +45,13 @@ import torch
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
 from geomesa_tpu_torch.kernels import density_grouped as kgrouped
+from geomesa_tpu_torch.kernels import knn as kknn
+from geomesa_tpu_torch.kernels import masks as kmasks
+from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.kernels.density_mxu import ladder8
-from geomesa_tpu_torch.kernels.masks import window_mask
 from geomesa_tpu_torch.planning.planner import QueryPlan
+from geomesa_tpu_torch.schema.columns import ColumnBatch
+from geomesa_tpu_torch.stats import sketches as sk
 
 #: chunk sizes (rows) the compacted layout chooses among
 _B_LADDER = (128, 256, 512, 1024, 2048, 4096)
@@ -50,6 +67,18 @@ MAX_DUP = 4.0
 
 #: gathered [C, B] column slabs kept per executor before the cache clears
 _GATHER_CACHE = 64
+
+#: candidate rows beyond k the threshold top-k keeps for boundary ties
+#: (the JAX package's geomesa.topk.tie-slack)
+TOPK_TIE_SLACK = 4096
+
+#: the largest dictionary the exact per-key sampling counter serves; wider
+#: int32 keys hash into kmasks.SAMPLE_HASH_BUCKETS groups
+SAMPLE_EXACT_VOCAB = 256
+
+#: rows per chunk of features_iter (the JAX package's
+#: GEOMESA_ARROW_BATCH_ROWS default)
+BATCH_ROWS = 1_000_000
 
 
 class Executor:
@@ -100,6 +129,14 @@ class Executor:
             c["windows"] = table.windows(plan.key_plan)
         starts, ends = c["windows"]
         needed = list(dict.fromkeys(list(plan.compiled.columns) + list(extra_cols)))
+        sb = plan.hints.sample_by
+        if sb and not plan.hints.sampling:
+            raise ValueError("sample_by requires sampling (the 1-in-n rate)")
+        if sb and not table.has_column(sb):
+            raise KeyError(f"sample-by attribute {sb!r} not found")
+        sb_mode, sb_off, sb_vocab = self._sample_mode(table, sb, c)
+        if sb_mode is not None:
+            needed = list(dict.fromkeys(needed + [sb]))
         for name in needed:
             if not table.has_column(name):
                 raise KeyError(f"column {name!r} not in schema {plan.schema!r}")
@@ -110,10 +147,34 @@ class Executor:
             "table": table, "starts": starts, "ends": ends,
             "counts": np.diff(table.shard_bounds).astype(np.int32),
             "L": table.shard_len, "needed": needed, "cache": c,
-            "use_device": not host_only and (compiled.refine is None
-                                             or compiled.refine_only_if_band),
+            "use_device": not host_only and (sb is None or sb_mode is not None)
+            and (compiled.refine is None or compiled.refine_only_if_band),
             "coarse_device": not host_only and compiled.refine is not None,
+            "sb_mode": sb_mode, "sb_off": sb_off, "sb_vocab": sb_vocab,
         }
+
+    def _sample_mode(self, table: IndexTable, sb: Optional[str], c: Dict):
+        """(mode, offset, vocabulary) of per-key sampling on the device, as
+        the reference chooses: ``exact`` for a dictionary of at most
+        :data:`SAMPLE_EXACT_VOCAB` codes, ``exact-span`` for an int32 key
+        whose values span fewer than that (offset by the minimum), else
+        ``hash``; (None, 0, 0) for no key or a key the device cannot count
+        exactly (float, int64, host-only), which samples on the host."""
+        if not sb or table.is_host_only(sb) or table.dtype_of(sb) != np.int32:
+            return None, 0, 0
+        d = self.store.dicts.get(sb)
+        if d is not None:
+            if 0 < len(d) <= SAMPLE_EXACT_VOCAB:
+                return "exact", 0, len(d)
+            return "hash", 0, 0
+        span = c.setdefault("sb_span", {})
+        if sb not in span:
+            col = table.col_sorted(sb)
+            span[sb] = (int(col.min()), int(col.max())) if len(col) else (0, -1)
+        lo, hi = span[sb]
+        if 0 <= hi - lo < SAMPLE_EXACT_VOCAB:
+            return "exact-span", lo, hi - lo + 1
+        return "hash", 0, 0
 
     def _fine_windows(self, plan: QueryPlan, setup):
         """Windows re-resolved from a re-covered key plan under the much
@@ -245,7 +306,7 @@ class Executor:
             c["padded_win"] = tuple(
                 self._tensor(setup[k]) for k in ("starts", "ends", "counts")
             )
-        return window_mask(*c["padded_win"], setup["L"])
+        return kmasks.window_mask(*c["padded_win"], setup["L"])
 
     def _fused(self, plan: QueryPlan, setup, agg_cols):
         """(columns, mask): window & compiled predicate & ~band."""
@@ -268,6 +329,15 @@ class Executor:
             # f32-uncertain rows are excised here and added back exactly
             # from their f64 values by the band correction
             m = m & ~compiled.band(cols, torch)
+        h = plan.hints
+        if h.sampling and h.sample_by and setup["sb_mode"] == "hash":
+            m = kmasks.sampling_mask_by_key_hash(m, h.sampling, cols[h.sample_by],
+                                                 kmasks.SAMPLE_HASH_BUCKETS)
+        elif h.sampling and h.sample_by:
+            m = kmasks.sampling_mask_by_key_device(
+                m, h.sampling, cols[h.sample_by] - setup["sb_off"], setup["sb_vocab"])
+        elif h.sampling:
+            m = kmasks.sampling_mask(m, h.sampling)
         return cols, m
 
     # -- the f32 band --------------------------------------------------------
@@ -347,42 +417,74 @@ class Executor:
         if compiled.refine is not None and len(pos):
             names = list(dict.fromkeys(compiled.columns + compiled.refine_columns))
             pos = pos[compiled.refine_rows(table.rows(names, pos), len(pos))]
-        return pos
+        return self._host_sample(plan, setup, pos)
+
+    @staticmethod
+    def _host_sample(plan: QueryPlan, setup, pos: np.ndarray) -> np.ndarray:
+        """The sampled subset of the exact matches ``pos`` (sorted-order
+        positions, ascending: the padded layout's row order), as the
+        reference's host mask samples: hash-bucketed keys where the device
+        would hash, else an exact counter per distinct value."""
+        h = plan.hints
+        if not h.sampling or not len(pos):
+            return pos
+        keep = np.ones(len(pos), bool)
+        if h.sample_by:
+            key = setup["table"].rows([h.sample_by], pos)[h.sample_by]
+            if setup["sb_mode"] == "hash":
+                keep = kmasks.sampling_mask_by_key_hash_np(
+                    keep, h.sampling, key, kmasks.SAMPLE_HASH_BUCKETS)
+            else:
+                codes = np.unique(key, return_inverse=True)[1].reshape(-1)
+                keep = kmasks.sampling_mask_by_key(keep, h.sampling, codes)
+        else:
+            keep = kmasks.sampling_mask_np(keep, h.sampling)
+        return pos[keep]
 
     # -- the scan ---------------------------------------------------------------
     def _run(self, plan: QueryPlan, agg_cols, device_agg: Callable,
-             host_agg: Callable):
+             host_agg: Callable, additive: bool = True, compactable: bool = True,
+             path_key: str = "scan"):
         """One scan of ``plan``: ``device_agg(setup, cols, mask)`` on the
-        device path plus ``host_agg(rows)`` of the band rows, or
-        ``host_agg(rows)`` of the exact matches on a host path. None for an
-        empty scan."""
-        plan.__dict__["exec_path"] = {}
+        device path, plus ``host_agg(rows, pos)`` of the band rows when the
+        aggregate is ``additive``; or ``host_agg(rows, pos)`` of the exact
+        matches (sorted-order positions ``pos``) on a host path, which also
+        serves band rows of non-additive or sampled scans. Not
+        ``compactable``: the device scans the padded layout (its results
+        address flat [S, L] rows). ``exec_path[path_key]`` records the
+        path. None for an empty scan."""
         setup = self._scan_setup(plan, agg_cols)
         if setup is None:
             return None
+        self._note(plan, sampling=setup["sb_mode"] if plan.hints.sample_by else None)
         table = setup["table"]
-        if not setup["use_device"]:
+        info = self._band_info(plan, setup) if setup["use_device"] else None
+        band_rows = 0 if info is None else len(info)
+        if not setup["use_device"] or (
+                band_rows and (not additive or plan.hints.sampling)):
             pos = self._host_positions(plan, setup)
-            self._note(plan, scan="host+device-coarse" if setup["coarse_device"]
-                       else "host", band_rows=0)
-            return host_agg(table.rows(agg_cols, pos), len(pos))
-        info = self._band_info(plan, setup)
-        self._maybe_compact(plan, setup)
+            self._note(plan, **{path_key: "host+device-coarse" if setup["coarse_device"]
+                                else "host"}, band_rows=band_rows)
+            return host_agg(table.rows(agg_cols, pos), pos)
+        if compactable:
+            self._maybe_compact(plan, setup)
+        else:
+            setup["compact"] = None
         cols, m = self._fused(plan, setup, agg_cols)
         d = setup["compact"]
-        self._note(plan, scan="device-compact" if d is not None else "device-padded",
-                   band_rows=0 if info is None else len(info))
+        self._note(plan, **{path_key: "device-compact" if d is not None
+                            else "device-padded"}, band_rows=band_rows)
         if d is not None:
             self._note(plan, B=d["B"])
         out = device_agg(setup, cols, m)
-        if info is None or len(info) == 0:
+        if not band_rows:
             return out
-        return out + host_agg(table.rows(agg_cols, info), len(info))
+        return out + host_agg(table.rows(agg_cols, info), info)
 
     # -- public operations ----------------------------------------------------
     def count(self, plan: QueryPlan) -> int:
         out = self._run(plan, (), lambda setup, cols, m: int(m.sum()),
-                        lambda rows, n: n)
+                        lambda rows, pos: len(pos))
         return 0 if out is None else int(out)
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
@@ -456,11 +558,242 @@ class Executor:
                                              height, cols[weight] if weight else None)
             return grid.cpu().numpy()
 
-        def host_agg(rows, n):
+        def host_agg(rows, pos):
             return kdensity.density_grid_np(
-                rows[xc], rows[yc], np.ones(n, bool), bbox, width, height,
+                rows[xc], rows[yc], np.ones(len(pos), bool), bbox, width, height,
                 rows[weight] if weight else None,
             )
 
         out = self._run(plan, agg_cols, device_agg, host_agg)
         return np.zeros((height, width), np.float32) if out is None else out
+
+    # -- features --------------------------------------------------------------
+    def _mask_positions(self, setup, cols, m) -> np.ndarray:
+        """Device mask -> the sorted-order positions it keeps: the bool mask
+        comes back ([C, B] compact or [S, L] padded) and expands on the
+        host. Compact chunks are in global row order, so the positions
+        ascend as on the padded layout."""
+        flat = np.flatnonzero(m.cpu().numpy())
+        d = setup["compact"]
+        if d is not None:
+            flat = d["cstart"].astype(np.int64)[flat // d["B"]] + flat % d["B"]
+        return self._positions(setup, flat)
+
+    def features(self, plan: QueryPlan) -> ColumnBatch:
+        """Matching rows as a host ColumnBatch in table order (the caller
+        sorts and limits). With a projection, only the listed properties
+        (and the sort keys) gather. The path goes to
+        ``exec_path['feature_scan']``: the reference's feature scan records
+        none, so ``scan`` keeps what a top-k selection before it recorded."""
+        names = None
+        if plan.hints.properties:
+            names = list(plan.hints.properties) + [
+                a for a, _ in (plan.hints.sort_by or [])]
+        pos = self._run(plan, (), self._mask_positions, lambda rows, pos: pos,
+                        additive=False, path_key="feature_scan")
+        if pos is None:
+            return ColumnBatch({}, 0)
+        return self._table(plan).gather_sorted(pos, names)
+
+    def features_iter(self, plan: QueryPlan, batch_rows: Optional[int] = None):
+        """Matching rows as ColumnBatch chunks of at most ``batch_rows``
+        (default :data:`BATCH_ROWS`): one table materializes its result
+        once and re-slices it. ``max_features`` truncates unsorted
+        results."""
+        batch_rows = batch_rows or BATCH_ROWS
+        out = self.features(plan)
+        n = out.n
+        if plan.hints.max_features is not None and not plan.hints.sort_by:
+            n = min(n, plan.hints.max_features)
+        for lo in range(0, n, batch_rows):
+            hi = min(lo + batch_rows, n)
+            yield ColumnBatch({k: v[lo:hi] for k, v in out.columns.items()}, hi - lo)
+
+    # -- top-k ---------------------------------------------------------------
+    def top_rows(self, plan: QueryPlan, attr: str, descending: bool, k: int,
+                 include_ties: bool = False) -> Optional[np.ndarray]:
+        """Sorted-order positions of a superset of the top-k matches by one
+        attribute: the device half of a sorted, limited query. The caller
+        gathers them and sorts exactly on the host. None where the host
+        must sort everything, by the reference's design: a column that
+        cannot rank on the device (strings, host-only, bool), fewer than k
+        non-NaN candidates, or a tie group overflowing the threshold
+        buffer.
+
+        A native f32 column with k <= 32 and no tie inclusion takes the k
+        smallest keys in (key, row) order, the reference's argmin
+        iteration; otherwise :meth:`_top_rows_threshold`."""
+        table = self._table(plan)
+        if (not table.has_column(attr) or table.is_host_only(attr)
+                or attr in self.store.dicts or table.dtype_of(attr) == np.bool_):
+            return None
+        if include_ties or table.dtype_of(attr) != np.float32 or k > 32:
+            return self._top_rows_threshold(plan, attr, descending, k)
+
+        def device_agg(setup, cols, m):
+            v = cols[attr].reshape(-1).to(torch.float32)
+            # NaN keys never rank (argmin would take them first); a result
+            # left short of k sends the query to the host sort
+            ok = m.reshape(-1) & ~torch.isnan(v)
+            d = torch.where(ok, -v if descending else v, float("inf"))
+            flat = kknn.lowest_k(d, k)
+            vals = -d[flat] if descending else d[flat]
+            return self._positions(setup, flat.cpu().numpy()), vals.cpu().numpy()
+
+        def host_agg(rows, pos):
+            v = rows[attr].astype(np.float64)
+            v = v if descending else -v
+            idx = np.argsort(-v, kind="stable")[:k]
+            return pos[idx], v[idx]
+
+        out = self._run(plan, [attr], device_agg, host_agg, additive=False,
+                        compactable=False)
+        if out is None:
+            return np.zeros(0, np.int64)
+        pos, vals = out
+        pos = pos[np.isfinite(vals)].astype(np.int64)
+        return pos if len(pos) >= k else None
+
+    def _top_rows_threshold(self, plan: QueryPlan, attr: str, descending: bool,
+                            k: int) -> Optional[np.ndarray]:
+        """Threshold top-k (see :meth:`top_rows`): the smallest f32 key t
+        with at least k keys <= t by 48 halvings of ``(lo + hi) * 0.5``,
+        each a masked count, all on the device; then the rows with keys
+        <= t, in row order, into a buffer of k + :data:`TOPK_TIE_SLACK`.
+        f64 and int columns rank at f32, whose monotone rounding keeps the
+        selection a superset; the host sort restores exact order."""
+        B = int(k + TOPK_TIE_SLACK)
+
+        def device_agg(setup, cols, m):
+            v = cols[attr].reshape(-1).to(torch.float32)
+            key = -v if descending else v
+            ok = m.reshape(-1) & ~torch.isnan(v)
+            inf = torch.full((), float("inf"), dtype=torch.float32, device=v.device)
+            kv = torch.where(ok, key, inf)
+            n_ok = ok.sum()
+            lo = kv.min()
+            hi = torch.where(ok, key, -inf).max()
+            for _ in range(48):
+                mid = (lo + hi) * 0.5
+                ge = (kv <= mid).sum() >= k
+                lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+            t = torch.where(n_ok <= k, inf, hi)  # few matches: take all
+            flat = torch.nonzero(ok & (kv <= t)).reshape(-1)
+            return self._positions(setup, flat[:B].cpu().numpy()), flat.numel()
+
+        def host_agg(rows, pos):
+            v = rows[attr].astype(np.float64)
+            ok = ~np.isnan(v)
+            key = np.where(ok, -v if descending else v, np.inf)
+            n_ok = int(ok.sum())
+            if n_ok == 0:
+                return pos[:0], 0
+            kk = min(k, n_ok)
+            t = np.partition(key, kk - 1)[kk - 1]
+            sel = np.nonzero(key <= t)[0]
+            return pos[sel[:B]], len(sel)
+
+        out = self._run(plan, [attr], device_agg, host_agg, additive=False,
+                        compactable=False)
+        if out is None:
+            return np.zeros(0, np.int64)
+        pos, cnt = out
+        if cnt > B or cnt < k:
+            # the tie group overflowed the buffer, or NaN-keyed matches
+            # (which sort last but still fill an under-filled result) were
+            # left out: the host sorts
+            return None
+        return pos.astype(np.int64)
+
+    # -- stats ---------------------------------------------------------------
+    def _stats_bundle(self, plan: QueryPlan, stat: sk.Stat):
+        """(agg_cols, vocab_sizes) when every leaf of ``stat`` reduces on
+        the device over this table, else None (the gather path serves)."""
+        table = self._table(plan)
+        host_only = {c for c in table.column_names() if table.is_host_only(c)}
+        vocab_sizes = {a: max(len(d), 1) for a, d in self.store.dicts.items()}
+        leaves = kstats.leaf_stats(stat)
+        attrs = []
+        for leaf in leaves:
+            if isinstance(leaf, sk.DescriptiveStats):
+                attrs.extend(leaf.attributes)
+            elif getattr(leaf, "attribute", None) is not None:
+                attrs.append(leaf.attribute)
+        agg_cols = []
+        for a in attrs:
+            if table.has_column(a + "__x"):
+                agg_cols += [a + "__x", a + "__y"]
+            elif table.has_column(a):
+                agg_cols.append(a)
+        enum_ok = all(leaf.attribute in self.store.dicts for leaf in leaves
+                      if leaf.kind in ("enumeration", "topk"))
+        if not (kstats.device_supported(stat, host_only) and enum_ok):
+            return None
+        return agg_cols, vocab_sizes
+
+    def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
+        """Fill ``stat`` with the matches' statistics: device partial
+        states in the scan where every leaf has a device reduction, else
+        the host observes the gathered matches (Frequency, GroupBy,
+        Z3Frequency, enumerations of non-dictionary columns)."""
+        bundle = self._stats_bundle(plan, stat)
+        if bundle is None:
+            batch = self.features(plan)
+            if batch.n:
+                stat.observe(batch.columns)
+                kstats.decode_enum_keys(stat, self.store.dicts)
+            return stat
+        agg_cols, vocab = bundle
+        partials = self._run(
+            plan, agg_cols,
+            lambda setup, cols, m: kstats.device_update(stat, cols, m, vocab),
+            lambda rows, pos: kstats.device_update_np(
+                stat, rows, np.ones(len(pos), bool), vocab),
+            additive=False,
+        )
+        if partials is not None:
+            kstats.absorb_partials(stat, partials, self.store.dicts)
+        return stat
+
+    # -- kNN -----------------------------------------------------------------
+    def knn(self, plan: QueryPlan, qx: float, qy: float, k: int, boxes=None):
+        """(sorted-order positions, f32 metres) of the k nearest matches to
+        (qx, qy), nearest first. ``boxes``: up to two (x0, y0, x1, y1)
+        restriction boxes, rounded outward at f32 (a nearest-rounded bound
+        could shrink the box half an ulp and drop an edge neighbour the
+        caller's f64 exactness test counts as searched)."""
+        geom = self.store.ft.geom_field
+        xc, yc = geom + "__x", geom + "__y"
+        q32 = (np.float32(qx), np.float32(qy))
+        down, up = np.float32(-np.inf), np.float32(np.inf)
+        bb = [(np.nextafter(np.float32(x0), down), np.nextafter(np.float32(y0), down),
+               np.nextafter(np.float32(x1), up), np.nextafter(np.float32(y1), up))
+              for x0, y0, x1, y1 in (boxes or ())]
+
+        def in_boxes(x, y):
+            inb = None
+            for x0, y0, x1, y1 in bb:
+                mi = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+                inb = mi if inb is None else (inb | mi)
+            return inb
+
+        def device_agg(setup, cols, m):
+            if bb:
+                m = m & in_boxes(cols[xc], cols[yc])
+            idx, d = kknn.knn_indices(cols[xc], cols[yc], m, *q32, k)
+            return self._positions(setup, idx.cpu().numpy()), d.cpu().numpy()
+
+        def host_agg(rows, pos):
+            m = np.ones(len(pos), bool)
+            if bb:
+                m &= in_boxes(rows[xc], rows[yc])
+            idx, d = kknn.knn_indices_np(rows[xc], rows[yc], m, *q32, k)
+            return pos[idx], d
+
+        out = self._run(plan, [xc, yc], device_agg, host_agg, additive=False,
+                        compactable=False)
+        if out is None:
+            return np.zeros(0, np.int64), np.zeros(0)
+        pos, d = out
+        keep = np.isfinite(d)
+        return pos[keep], d[keep]

@@ -4,14 +4,15 @@ Port of ``geomesa_tpu/planning/planner.py``'s ``QueryPlanner.plan`` with
 its cost-based decider: every key space of the store proposes a key plan,
 the write-time sketches estimate each plan's rows, index multipliers weigh
 them (id 0.5, z3 1.0, z2 1.5, attribute 2.0), and the cheapest wins; with
-no candidate, the first index scans in full. Interceptors, guards, hints
-and the explainer are not ported.
+no candidate, the first index scans in full. ``QueryHints`` ride on the
+plan; the ``query_index`` hint restricts the candidates to one index.
+Interceptors, guards and the explainer are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple, Union
 
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import CompiledFilter, compile_filter
@@ -25,6 +26,24 @@ _MULTIPLIER = {"id": 0.5, "z3": 1.0, "z2": 1.5, "attr": 2.0}
 
 
 @dataclass
+class QueryHints:
+    """Per-query hints (the reference's QueryHints surface, less
+    ``loose_bbox``)."""
+
+    #: force a specific index by name (QUERY_INDEX hint)
+    query_index: Optional[str] = None
+    #: 1-in-n sampling (SAMPLING hint)
+    sampling: Optional[int] = None
+    #: per-key sampling attribute (SAMPLE_BY hint): 1-in-n per key value
+    sample_by: Optional[str] = None
+    max_features: Optional[int] = None
+    #: attribute projection
+    properties: Optional[List[str]] = None
+    #: sort: list of (attribute, descending)
+    sort_by: Optional[List[tuple]] = None
+
+
+@dataclass
 class QueryPlan:
     """Everything the executor needs for one query."""
 
@@ -34,22 +53,32 @@ class QueryPlan:
     key_plan: KeyPlan
     index_name: str
     est_count: float = 0.0
+    hints: QueryHints = field(default_factory=QueryHints)
 
     @property
     def is_empty(self) -> bool:
         return self.key_plan.disjoint or isinstance(self.filter, ir.Exclude)
 
 
-def plan_query(store: FeatureStore, ecql: str) -> QueryPlan:
+def plan_query(store: FeatureStore, ecql: Union[str, ir.Filter],
+               hints: Optional[QueryHints] = None) -> QueryPlan:
+    """Plan ECQL text or an already-parsed filter. With the
+    ``query_index`` hint only that index may serve, and a query it cannot
+    serve raises."""
     ft = store.ft
-    f = parse_ecql(ecql)
-    candidates = [kp for kp in (ks.plan(ft, f) for ks in store.keyspaces)
+    hints = hints or QueryHints()
+    f = ecql if isinstance(ecql, ir.Filter) else parse_ecql(ecql)
+    candidates = [kp for kp in (ks.plan(ft, f) for ks in store.keyspaces
+                                if not hints.query_index
+                                or ks.name == hints.query_index)
                   if kp is not None]
     if not candidates:
+        if hints.query_index:
+            raise ValueError(f"index {hints.query_index!r} cannot serve this query")
         candidates = [KeyPlan(store.keyspaces[0], full_scan=True)]
     chosen, cost = _decide(store, candidates)
     return QueryPlan(ft.name, f, compile_filter(f, ft, store.dicts), chosen,
-                     chosen.keyspace.name, cost)
+                     chosen.keyspace.name, cost, hints)
 
 
 def _decide(store: FeatureStore, candidates: List[KeyPlan]) -> Tuple[KeyPlan, float]:

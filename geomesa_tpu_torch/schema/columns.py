@@ -77,6 +77,9 @@ class DictionaryEncoder:
             out[i] = code
         return out
 
+    def decode(self, codes: np.ndarray) -> List[Optional[str]]:
+        return [None if c < 0 else self.values[c] for c in codes.tolist()]
+
     def code_of(self, v: str) -> int:
         """Lookup without growing; -2 if absent (matches nothing, nulls
         included)."""
@@ -261,3 +264,26 @@ def fid_strs(col: np.ndarray) -> np.ndarray:
     if not (by < 128).all():  # UTF-8 bytes from outside: decode right
         return np.array([s.decode("utf-8", "replace") for s in a.tolist()])
     return by.astype(np.uint32).view(f"U{w}").reshape(len(a))
+
+
+def decode_batch(ft: FeatureType, batch: ColumnBatch,
+                 dicts: Dict[str, DictionaryEncoder]) -> Dict[str, Any]:
+    """Columns -> user-facing values (strings decoded, dates as
+    datetime64[ms], points as (x, y) tuples). Attributes projected out of
+    the batch (``Query.properties``) are skipped."""
+    out: Dict[str, Any] = {"__fid__": fid_strs(batch.columns["__fid__"]).tolist()}
+    for a in ft.attributes:
+        if a.is_geom:
+            if a.name + "__x" in batch.columns:
+                xs = batch.columns[a.name + "__x"]
+                ys = batch.columns[a.name + "__y"]
+                out[a.name] = list(zip(xs.tolist(), ys.tolist()))
+        elif a.name not in batch.columns:
+            continue
+        elif a.type == "date":
+            out[a.name] = batch.columns[a.name].astype("datetime64[ms]")
+        elif a.type == "string":
+            out[a.name] = dicts[a.name].decode(batch.columns[a.name])
+        else:
+            out[a.name] = batch.columns[a.name]
+    return out

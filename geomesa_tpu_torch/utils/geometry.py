@@ -3,8 +3,8 @@
 Copy of ``geomesa_tpu/utils/geometry.py`` cut to what point-column
 predicates need: ``Point`` / ``MultiPoint`` / ``LineString`` /
 ``MultiLineString`` / ``Polygon`` / ``MultiPolygon`` with bounds, the
-rectangle test and exact f64 point membership, the great-circle constants,
-WKT parsing, and (from ``geomesa_tpu/geofn.py``) boundary edges and the
+rectangle test and exact f64 point membership, the great-circle constants
+and ``haversine_m``, WKT parsing, and (from ``geomesa_tpu/geofn.py``) boundary edges and the
 on-boundary test. Coordinates are (x=lon, y=lat) degrees.
 """
 
@@ -293,3 +293,12 @@ def parse_wkt(text: str) -> Geometry:
 
 def bbox_polygon(xmin: float, ymin: float, xmax: float, ymax: float) -> Polygon:
     return Polygon(((xmin, ymin), (xmax, ymin), (xmax, ymax), (xmin, ymax), (xmin, ymin)))
+
+
+def haversine_m(x1, y1, x2, y2):
+    """Great-circle distance in metres, vectorized (degrees in, f64)."""
+    rx1, ry1, rx2, ry2 = (np.radians(np.asarray(v, np.float64)) for v in (x1, y1, x2, y2))
+    dlat = ry2 - ry1
+    dlon = rx2 - rx1
+    a = np.sin(dlat / 2) ** 2 + np.cos(ry1) * np.cos(ry2) * np.sin(dlon / 2) ** 2
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))

@@ -388,3 +388,87 @@ def test_every_index_path_matches_cpu(cuda, q):
         assert cg == cc
         assert np.array_equal(gpu.density("t", q, bbox=BBOX, width=256, height=256),
                               cpu.density("t", q, bbox=BBOX, width=256, height=256))
+
+
+# -- slice 4: feature queries, stats, sampling and kNN on the card -------------------
+@pytest.fixture(scope="module")
+def pair4():
+    """About 1M rows of slice 3's schema on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _datasets3(torch.device("cuda"), 1 << 20, seed=13)
+
+
+Q4 = f"{BOX3} AND {DURING}"
+POLY4 = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)})"
+
+
+@pytest.mark.parametrize("q", [
+    Q4, POLY4,
+    ("sort", [("weight", True)], 10), ("sort", [("weight", True)], 1000),
+    ("sort", [("name", False), ("weight", True)], 100),
+    ("sort", [("code", False)], 50), ("sample", None, 10), ("sample", "name", 10),
+    ("project", ["name"], 25),
+], ids=["bbox", "polygon", "top10", "top1000", "two_keys", "long_key", "sample",
+        "sample_by_name", "projection"])
+def test_query_matches_cpu(pair4, q):
+    """The card's features equal the CPU dataset's: rows, order, values,
+    and the sort path; the polygon query launches the PIP kernel."""
+    from geomesa_tpu_torch.api.dataset import Query
+
+    gpu, cpu = pair4
+    if isinstance(q, tuple):
+        kind, arg, k = q
+        q = {"sort": lambda: Query(Q4, sort_by=arg, max_features=k),
+             "sample": lambda: Query(Q4, sampling=k, sample_by=arg),
+             "project": lambda: Query(Q4, properties=arg, max_features=k)}[kind]()
+    before = kpip.launches
+    got, want = gpu.query("t", q), cpu.query("t", q)
+    if q == POLY4:
+        assert kpip.launches > before
+    assert len(got) == len(want) > 0
+    assert got.fids == want.fids
+    for k, v in want.columns.items():
+        assert np.array_equal(got.columns[k], v), k
+    pg, pc = gpu._plan("t", q).exec_path, cpu._plan("t", q).exec_path
+    assert pg.get("sort") == pc.get("sort")
+    assert pg.get("feature_scan", pg.get("scan")) == pc.get("feature_scan", pc.get("scan"))
+
+
+def test_stats_match_cpu(pair4):
+    """Counts, min / max, histogram, enumeration and top-k exact; the
+    descriptive sums within rtol 1e-5 of an f64 oracle and of the CPU."""
+    gpu, cpu = pair4
+    spec = ("Count();MinMax(weight);MinMax(geom);Histogram(weight,64,0,1);Enumeration(name);"
+            "TopK(name,10);DescriptiveStats(weight)")
+    for q in (Q4, POLY4, BOX3):
+        g, c = gpu.stats("t", spec, q), cpu.stats("t", spec, q)
+        assert gpu._plan("t", q).exec_path["scan"] == cpu._plan("t", q).exec_path["scan"]
+        for a, b in zip(g.stats[:-1], c.stats[:-1]):
+            assert a.value() == b.value(), a.kind
+        w = cpu.query("t", q).columns["weight"].astype(np.float64)
+        d, dc = g.stats[-1], c.stats[-1]
+        assert d.count == dc.count == len(w)
+        np.testing.assert_allclose(d.s1, [w.sum()], rtol=1e-5)
+        np.testing.assert_allclose(d.s2, [[(w * w).sum()]], rtol=1e-5)
+        np.testing.assert_allclose(d.s1, dc.s1, rtol=1e-5)
+        np.testing.assert_allclose(d.s2, dc.s2, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", [(-90.0, 40.0, 10, "INCLUDE"), (-90.0, 40.0, 100, "name = 'c007'"),
+                                  (-75.0, 30.0, 40, Q4)], ids=["k10", "k100_name", "k40_bbox"])
+def test_knn_matches_cpu(pair4, case):
+    """The card's kNN distance set equals the CPU's and the f64 brute
+    force's at rtol 1e-9, but for rows within 1e-6 (relative) of the k-th
+    distance (f32 transcendentals on the card and on the CPU)."""
+    from geomesa_tpu_torch.utils.geometry import haversine_m
+
+    gpu, cpu = pair4
+    x, y, k, q = case
+    rows = cpu.query("t", q)
+    d_all = np.sort(haversine_m(rows.columns["geom__x"], rows.columns["geom__y"], x, y))[:k]
+    for fc in (gpu.knn("t", x, y, k, q), cpu.knn("t", x, y, k, q)):
+        d = np.sort(haversine_m(fc.columns["geom__x"], fc.columns["geom__y"], x, y))
+        assert len(d) == len(d_all) == k
+        off = ~np.isclose(d, d_all, rtol=1e-9)
+        assert np.allclose(d[off], d_all[-1], rtol=1e-6)

@@ -22,6 +22,7 @@ from geomesa_tpu.filter import parse_ecql as jparse
 from geomesa_tpu.index import keyspace as jks
 from geomesa_tpu.schema.feature_type import FeatureType as JFeatureType
 from geomesa_tpu_torch import GeoDataset
+from geomesa_tpu_torch.api.dataset import Query
 from geomesa_tpu_torch.convert import store_from_arrays
 from geomesa_tpu_torch.curves.cover import zcover
 from geomesa_tpu_torch.filter.compile import compile_filter
@@ -409,6 +410,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
         GeoDataset()
 
 
+REGION = "POLYGON((-95 32, -85 32, -90 40, -95 32))"
+
+
 @pytest.mark.parametrize("call", ["expression", "non_point_dwithin", "query_object",
                                   "stats", "estimate", "extent_geometry"])
 def test_unserved_queries_name_the_roadmap(pair, call):
@@ -417,9 +421,9 @@ def test_unserved_queries_name_the_roadmap(pair, call):
         "expression": lambda: p.count("t", f"weight * 2 > 1 AND {DURING}"),
         "non_point_dwithin": lambda: p.count(
             "t", "DWITHIN(geom, LINESTRING(-100 30, -90 40), 1000, meters)"),
-        "query_object": lambda: p.count("t", object()),
-        "stats": lambda: p.stats("t", "Count()", ECQL),
-        "estimate": lambda: p.count("t", ECQL, exact=False),
+        "query_object": lambda: p.query("t", Query(ECQL, srid=3857)),
+        "stats": lambda: p.stats("t", "Count()", ECQL, region=REGION),
+        "estimate": lambda: p.count_batch("t", [ECQL], exact=False),
         "extent_geometry": lambda: GeoDataset(device="cpu").create_schema(
             "u", "dtg:Date,*geom:Polygon"),
     }[call]
