@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of geomesa_tpu_torch (one NVIDIA H100).
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--seed S] [--reps R] [--part-rows N5]
 
 1. Device: the card's name and power limit; builds the CUDA kernels from
    ``geomesa_tpu_torch/csrc`` with nvcc (in parallel) and prints the build
@@ -72,6 +72,29 @@
    (rtol 1e-9; rows within 1e-6 of the k-th distance may trade places,
    and the boundary pairs are counted). The PIP counter is zeroed before
    the phase and must be > 0 after.
+7. Slice 5, a time-partitioned store (``...;geomesa.partition='time'``) at
+   BASELINE config #3's scale: N5 (default 100,000,000) points from the
+   bench's generator (20M a month, so five months of ``dtg``; seed as
+   above), ingested in the bench's 25M-row chunks with ``fids`` 0..N5-1;
+   23 weekly partitions under the default budget of 4 resident, the rest
+   spilled to ``chiprun_out/chip_smoke/spill`` (removed at the end). On B
+   (the bbox + 10 days, 2 partitions): count, density, weighted density,
+   the polygon count, weight descending with ``max_features`` 1000 (each
+   partition's top-k candidates), stats and ``knn(-90, 40, 10)``; on the
+   long window (the box over 2020-01-01/2020-06-01, every partition, spill
+   reloads on each call): count and density. Each call prints partitions
+   pruned and scanned, snapshot writes and reloads, the path each
+   partition's scan took, cold (after ``spill_all()``) and warm p50, and a
+   profile's device busy / idle share; the long window's warm calls run
+   with the prefetch pipeline on and off in turns (answers equal to the
+   cold call's), and kNN and the long count print a cProfile. Peak
+   device memory over the long window is held to (budget + 1) x one
+   partition's cold peak + the merge's grids, and spilling every partition
+   must give the device memory back. Both kernels' counters are zeroed
+   before the calls and must be > 0 after; both are timed against their
+   plain versions at one partition's shapes. Answers against NumPy oracles
+   as in 4 and 6 (the top 1000: the same weights and the same rows above
+   the boundary weight).
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
@@ -161,15 +184,17 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def profile_warm(torch, fn, reps: int, trace_path: Path):
-    """Profile ``reps`` warm calls: (wall ms per call, device-busy ms per
-    call or None when the trace holds no device activity, top device
-    kernels by total time, device-to-host bytes per call or None when the
-    trace records no copy sizes). Busy time is the union of the kernel,
-    memcpy and memset intervals of the exported trace."""
+def profile_warm(torch, fn, reps: int, trace_path: Path, warmup: bool = True):
+    """Profile ``reps`` warm calls (after one more unless ``warmup`` is
+    False): (wall ms per call, device-busy ms per call or None when the
+    trace holds no device activity, top device kernels by total time,
+    device-to-host bytes per call or None when the trace records no copy
+    sizes). Busy time is the union of the kernel, memcpy and memset
+    intervals of the exported trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -215,12 +240,40 @@ def host_profile(torch, fn, top: int = 6):
     return [(f"{f[2]} ({Path(f[0]).name}:{f[1]})", round(v[2] * 1e3, 3)) for f, v in rows]
 
 
+def pip_work(kpip, py, packed, n_edges):
+    """(bytes, f32 operations, crossing tests) the PIP kernel needs on these
+    points: x and y read, the verdict written, the edge table read once,
+    and 6 operations for each crossing test whose edge y-span holds the
+    point (the kernel's culling skips the rest exactly)."""
+    spans = kpip.span_pairs(py.cpu().numpy(), packed, n_edges)
+    return 9 * py.numel() + packed.nbytes, 6 * spans, spans
+
+
+def density_work(o):
+    """(bytes, f32 operations, masked-in rows) the density kernel needs on
+    its operands ``o``: every scheduled row's mask byte, x and y only where
+    the mask is true, the schedule once, and the grid written."""
+    rows = o["x"].numel()
+    live = int(o["mask"].sum())
+    sched_bytes = sum(o["sched"][k].nbytes for k in ("chunks", "seg_tile", "seg_begin", "seg_end"))
+    return rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT, 8 * live, live
+
+
+def bound(nbytes: int, nops: int):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    o_ms = nops / PEAK_F32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
 def make_data(n: int, seed: int):
+    """The bench's generator (bench.py:1086-1105): uniform over CONUS at
+    20M points a month of ``dtg`` (never less than one month)."""
     from geomesa_tpu_torch.filter.ecql import parse_iso_ms
 
     rng = np.random.default_rng(seed)
     lo = parse_iso_ms("2020-01-01")
-    span = parse_iso_ms("2020-02-01") - lo
+    span = int((parse_iso_ms("2020-02-01") - lo) * max(n / 20_000_000, 1.0))
     return {
         "geom__x": rng.uniform(-125, -66, n),
         "geom__y": rng.uniform(24, 49, n),
@@ -229,12 +282,12 @@ def make_data(n: int, seed: int):
     }
 
 
-def time_mask(data):
+def time_mask(data, lo="2020-01-05T00:00:00", hi="2020-01-15T00:00:00"):
+    """Rows whose ``dtg`` lies in [lo, hi] (DURING's closed interval)."""
     from geomesa_tpu_torch.filter.ecql import parse_iso_ms
 
     t = data["dtg"].astype(np.int64)
-    return (t >= parse_iso_ms("2020-01-05T00:00:00")) & (
-        t <= parse_iso_ms("2020-01-15T00:00:00"))
+    return (t >= parse_iso_ms(lo)) & (t <= parse_iso_ms(hi))
 
 
 def density_oracles(data, tm):
@@ -740,11 +793,322 @@ def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
     return launches
 
 
+PART_SPEC = "weight:Float,dtg:Date,*geom:Point;geomesa.partition='time'"
+#: BASELINE config #3's scale; the JAX bench partitions from 50M rows on
+#: (bench.py:1082), the least this phase may be cut to
+PART_ROWS = 100_000_000
+PART_MIN_ROWS = 50_000_000
+#: the bench's ingest chunk (bench.py:1120)
+PART_CHUNK = 25_000_000
+LONG_LO, LONG_HI = "2020-01-01T00:00:00", "2020-06-01T00:00:00"
+LONG = f"dtg DURING {LONG_LO}Z/{LONG_HI}Z"
+PART_STATS = "Count();MinMax(weight);Histogram(weight,64,0,1);DescriptiveStats(weight)"
+WEEK_MS = 7 * 86_400_000
+
+
+def paths_by_partition(parts):
+    """{per-partition exec_path: [bins]}: the partitions grouped by the path
+    their scan took."""
+    out = {}
+    for b, p in parts.items():
+        out.setdefault(json.dumps(p, sort_keys=True), []).append(b)
+    return out
+
+
+def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
+    """The slice-5 phase (see the module docstring, 7). Returns its
+    launches of both kernels."""
+    import shutil
+
+    from geomesa_tpu_torch import GeoDataset, Query
+    from geomesa_tpu_torch.index import partitioned
+
+    n = args.part_rows
+    if n != PART_ROWS:
+        log(f"[slice5] cut: {n} rows instead of {PART_ROWS}"
+            + ("" if n >= PART_MIN_ROWS else f", below the bench's {PART_MIN_ROWS}"))
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    spill = out_dir / "spill"
+    shutil.rmtree(spill, ignore_errors=True)
+    spill.mkdir(parents=True)
+    partitioned.SPILL_DIR = str(spill)
+    try:
+        return _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Query)
+    finally:
+        partitioned.SPILL_DIR = None
+        shutil.rmtree(spill, ignore_errors=True)
+
+
+def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Query):
+    t0 = time.perf_counter()
+    data = make_data(n, args.seed)
+    gen_s = time.perf_counter() - t0
+    ds = GeoDataset(n_shards=8)
+    ds.create_schema("gdelt5", PART_SPEC)
+    st = ds._store("gdelt5")
+    t0 = time.perf_counter()
+    for lo in range(0, n, PART_CHUNK):
+        hi = min(lo + PART_CHUNK, n)
+        ds.insert("gdelt5", {k: v[lo:hi] for k, v in data.items()},
+                  fids=np.arange(lo, hi).astype(str))
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.flush("gdelt5")
+    flush_s = time.perf_counter() - t0
+    bins = st.partition_bins()
+    log(f"[slice5] ingest {n} rows: generate {gen_s:.3f} s, encode {encode_s:.3f} s, "
+        f"route + index + spill {flush_s:.3f} s; {len(bins)} weekly partitions "
+        f"{bins[0]}-{bins[-1]}, rows {min(st.part_counts.values())}-"
+        f"{max(st.part_counts.values())}; resident {list(st.partitions)} (budget "
+        f"{st.max_resident}), {len(st.spilled)} spilled, {st.spills} snapshot writes")
+
+    q_b = f"{BOX} AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    q_long = f"{BOX} AND {LONG}"
+    grid = dict(bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+    calls = {
+        "count_b": (q_b, lambda: ds.count("gdelt5", q_b)),
+        "density_b": (q_b, lambda: ds.density("gdelt5", q_b, **grid)),
+        "density_b_weighted": (q_b, lambda: ds.density("gdelt5", q_b, weight="weight", **grid)),
+        "count_polygon_b": (q_poly, lambda: ds.count("gdelt5", q_poly)),
+        "sort_weight_desc_1000_b": (
+            Query(q_b, sort_by=[("weight", True)], max_features=1000),
+            lambda: ds.query("gdelt5", Query(q_b, sort_by=[("weight", True)],
+                                             max_features=1000))),
+        "stats_b": (q_b, lambda: ds.stats("gdelt5", PART_STATS, q_b)),
+        "knn_10_b": (None, lambda: ds.knn("gdelt5", -90.0, 40.0, 10, q_b)),
+        "count_long": (q_long, lambda: ds.count("gdelt5", q_long)),
+        "density_long": (q_long, lambda: ds.density("gdelt5", q_long, **grid)),
+    }
+    ex = ds._executor("gdelt5")
+    knn_paths = []
+    real_knn = ex.knn_features
+
+    def traced_knn(plan, *a, **kw):
+        got = real_knn(plan, *a, **kw)
+        knn_paths.append(dict(plan.exec_path))
+        return got
+
+    ex.knn_features = traced_knn
+    #: the long window's warm calls: prefetch on (True) and off, in turns
+    turns = {"count_long": (True, False), "density_long": (True, False, False, True)}
+
+    def reps_of(key):  # kNN's host work runs about a second a call
+        return max(3, args.reps // 4) if key == "knn_10_b" else args.reps
+
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    results, rec, prefetch = {}, {}, {}
+    peak = None
+    for key, (q, fn) in calls.items():
+        st.spill_all()
+        s0, l0 = st.spills, st.loads
+        knn_paths.clear()
+        if key == "density_long":  # the streaming peak, from cold
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # settles frees deferred by record_stream
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        results[key], cold = timed(torch, fn)
+        if key == "density_long":
+            peak = torch.cuda.max_memory_allocated() - base
+        cold_io = (st.spills - s0, st.loads - l0)
+        s0, l0 = st.spills, st.loads
+        if key in turns:
+            walls = {True: [], False: []}
+            for on in turns[key]:
+                ex.prefetch = on
+                try:
+                    ans, sec = timed(torch, fn)
+                finally:
+                    ex.prefetch = True
+                walls[on].append(sec * 1e3)
+                if not np.array_equal(np.asarray(ans), np.asarray(results[key])):
+                    raise AssertionError(f"{key}: prefetch {'on' if on else 'off'} "
+                                         "disagrees with the cold call")
+            prefetch[key] = walls
+            warm = [w / 1e3 for w in walls[True]]
+        else:
+            warm = [timed(torch, fn)[1] for _ in range(reps_of(key))]
+        n_warm = len(turns.get(key, warm))
+        path = dict(ds._plan("gdelt5", q).exec_path) if q is not None else knn_paths[-1]
+        rec[key] = {
+            "cold_ms": cold * 1e3, "warm_p50_ms": float(np.median(warm)) * 1e3,
+            "reps": len(warm), "cold_spills_loads": cold_io,
+            "warm_spills_loads": ((st.spills - s0) / n_warm, (st.loads - l0) / n_warm),
+            "pruned": path.get("partitions_pruned"), "scanned": path.get("partitions_scanned"),
+            "paths": paths_by_partition(path.get("partitions", {})),
+            "sort": path.get("sort"),
+        }
+    ex.knn_features = real_knn
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    for key, r in rec.items():
+        log(f"[slice5] {key}: partitions pruned {r['pruned']}, scanned {r['scanned']}; "
+            f"cold {r['cold_ms']:.3f} ms (after spill_all: {r['cold_spills_loads'][0]} "
+            f"snapshot writes, {r['cold_spills_loads'][1]} reloads), warm p50 "
+            f"{r['warm_p50_ms']:.3f} ms ({r['reps']} reps; per warm call "
+            f"{r['warm_spills_loads'][0]:.2f} writes, {r['warm_spills_loads'][1]:.2f} "
+            f"reloads){'; sort ' + r['sort'] if r['sort'] else ''}; exec_path by "
+            f"partition {r['paths']}")
+    for key, walls in prefetch.items():
+        log(f"[slice5] {key} prefetch on {walls[True]} ms, off {walls[False]} ms (in turns "
+            f"{['on' if t else 'off' for t in turns[key]]}): mean on "
+            f"{np.mean(walls[True]):.3f} ms, off {np.mean(walls[False]):.3f} ms; answers "
+            "equal to the cold call's")
+    up = ex.uploader
+    log(f"[slice5] launches {launches}; side-stream uploads {up.bytes} B, pinned buffers "
+        f"allocated {up.pool.allocations}, pooled {up.pool.buffers()}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in slice 5's phase: {launches}")
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    for key, (_, fn) in calls.items():
+        # a long-window call reloads its partitions anyway: no warm-up call
+        long = key in turns
+        trace = out_dir / f"slice5_{key}.json"
+        wall, busy, top, d2h = profile_warm(torch, fn, 1 if long else reps_of(key), trace,
+                                            warmup=not long)
+        trace.unlink(missing_ok=True)  # the long window's traces alone outgrow the output cap
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        log(f"[profile] slice5 {key}: wall {wall:.4f} ms/call, device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, idle share "
+            f"{share}, D2H {'not measured' if d2h is None else f'{d2h:.0f} B'}/call, "
+            f"top device work (ms/call) {top}")
+    for key in ("knn_10_b", "count_long"):
+        log(f"[slice5] {key} host profile, top own times (ms): "
+            f"{host_profile(torch, calls[key][1], top=8)}")
+
+    # device residency: the long window's cold peak (above) against the
+    # largest partition's own cold peak
+    big = max(st.part_counts, key=st.part_counts.get)
+    lo_ms = big * WEEK_MS + 3_600_000
+    q_one = f"{BOX} AND dtg DURING {_iso(lo_ms)}/{_iso(lo_ms + WEEK_MS - 7_200_000)}"
+    st.spill_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ds.density("gdelt5", q_one, **grid)
+    torch.cuda.synchronize()
+    one = torch.cuda.max_memory_allocated() - base
+    if ds._plan("gdelt5", q_one).exec_path["partitions_scanned"] != 1:
+        raise AssertionError("the one-partition query scanned another partition")
+    child = st.partitions[big]
+    cols = sum(t.device_bytes() for t in child.tables.values())
+    slabs = sum(v.nbytes for v in child.device_state.get("gathered", {}).values())
+    every = peak
+    grids = (math.ceil(math.log2(len(bins))) + 1) * WIDTH * HEIGHT * 4
+    limit = (st.max_resident + 1) * one + grids
+    st.spill_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"[slice5] peak device memory: long window {every} B over {len(bins)} partitions "
+        f"(budget {st.max_resident}); one partition (bin {big}, {st.part_counts[big]} "
+        f"rows) {one} B, of it columns {cols} B and gathered slabs {slabs} B; bound "
+        f"(budget + 1) x one + {grids} B of grids = {limit} B; after spill_all "
+        f"{left} B above the baseline")
+    if every > limit:
+        raise AssertionError(f"streaming peak {every} B above the residency bound {limit} B")
+    if left > 0:
+        raise AssertionError(f"{left} B of device memory outlived spill_all")
+
+    # both kernels at one partition's shapes, against their plain versions
+    st.spill_all()
+    calls["density_b"][1]()
+    calls["count_polygon_b"][1]()
+    plan_b, plan_p = ds._plan("gdelt5", q_b), ds._plan("gdelt5", q_poly)
+    b0 = ex.prune(plan_b)[0]
+    cex = ex._executor_for(b0, st.child(b0))
+    o = cex.density_inputs(plan_b, QUERY_BBOX, WIDTH, HEIGHT)
+    if o is None:
+        raise AssertionError(f"partition {b0} did not take the grouped rung")
+    a = (o["x"], o["y"], o["mask"], o["weight"], QUERY_BBOX, WIDTH, HEIGHT, o["sched"])
+    if not torch.equal(kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)):
+        raise AssertionError("density kernel disagrees with its plain version on a partition")
+    d_ms, d_plain, _ = in_turns(torch, lambda: kgrouped.density_grouped(*a),
+                                lambda: kgrouped.density_grouped_plain(*a), 20, 3)
+    d_bound = bound(*density_work(o)[:2])
+    pc = cex.scan_columns(plan_p, ["geom__x", "geom__y"])
+    px, py = pc["geom__x"], pc["geom__y"]
+    edges = torch.from_numpy(packed).cuda()
+    bad = int((kpip.pip_mask(px, py, edges, n_edges)
+               != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+    if bad:
+        raise AssertionError(f"pip kernel disagrees with its plain version on {bad} points")
+    p_ms, p_plain, _ = in_turns(torch, lambda: kpip.pip_mask(px, py, edges, n_edges),
+                                lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 20, 3)
+    p_bound = bound(*pip_work(kpip, py, packed, n_edges)[:2])
+    log(f"[slice5] kernels at partition {b0}'s shapes: density_grouped on "
+        f"{tuple(o['x'].shape)} rows, {o['sched']['chunks'].numel()} pairs: {d_ms:.6f} ms "
+        f"(plain {d_plain:.6f} ms, bound {d_bound[0]:.6f} ms by {d_bound[1]}); pip on "
+        f"{tuple(px.shape)} points: {p_ms:.6f} ms (plain {p_plain:.6f} ms, bound "
+        f"{p_bound[0]:.6f} ms by {p_bound[1]}); both equal their plain versions")
+
+    # the answers against NumPy oracles
+    x, y, w = data["geom__x"], data["geom__y"], data["weight"]
+    tm = time_mask(data)
+    m_b = (x >= -100) & (x <= -80) & (y >= 30) & (y <= 45) & tm
+    g_u, g_w, _, n_b = density_oracles(data, tm)
+    want = {"count_b": n_b, "count_polygon_b": polygon_oracle(data, tm, packed, n_edges)}
+    tm_long = time_mask(data, LONG_LO, LONG_HI)
+    g_long, _, _, want["count_long"] = density_oracles(data, tm_long)
+    for key, v in want.items():
+        if results[key] != v:
+            raise AssertionError(f"{key}: {results[key]} != oracle {v}")
+    for key, oracle in (("density_b", g_u), ("density_long", g_long)):
+        g = results[key]
+        if g.shape != (HEIGHT, WIDTH) or not np.array_equal(g.astype(np.float64), oracle):
+            raise AssertionError(f"{key}: unweighted grid differs from the oracle")
+    gw = results["density_b_weighted"]
+    if not (np.isfinite(gw).all() and np.allclose(gw, g_w, rtol=1e-4, atol=1e-3)):
+        raise AssertionError("density_b_weighted outside rtol 1e-4 / atol 1e-3")
+    fc = results["sort_weight_desc_1000_b"]
+    rows = np.char.decode(fc.columns["__fid__"]).astype(np.int64)
+    wb = np.sort(w[m_b])[::-1][:1000]
+    edge = wb[-1]
+    above = np.flatnonzero(m_b & (w > edge))
+    if not (m_b[rows].all() and np.array_equal(w[rows], wb)
+            and np.array_equal(np.sort(rows[w[rows] > edge]), above)):
+        raise AssertionError("sort_weight_desc_1000_b differs from the NumPy top 1000")
+    leaves = results["stats_b"].stats
+    wm = w[m_b]
+    hist = np.bincount(np.clip(np.floor(wm * np.float32(64)), 0, 63).astype(np.int64),
+                       minlength=64)
+    exact = [(leaves[0].value(), int(m_b.sum())),
+             (leaves[1].value(), {"min": float(wm.min()), "max": float(wm.max()),
+                                  "cardinality": len(wm)}),
+             (leaves[2].value()["counts"], hist.tolist()), (leaves[3].count, len(wm))]
+    for i, (got, v) in enumerate(exact):
+        if got != v:
+            raise AssertionError(f"stats_b leaf {i}: {got} != {v}")
+    w64 = wm.astype(np.float64)
+    if not (np.allclose(leaves[3].s1, [w64.sum()], rtol=1e-5)
+            and np.allclose(leaves[3].s2, [[(w64 * w64).sum()]], rtol=1e-5)):
+        raise AssertionError("stats_b: descriptive sums outside rtol 1e-5")
+    fc = results["knn_10_b"]
+    kth, pairs, near = knn_check((fc.columns["geom__x"], fc.columns["geom__y"]),
+                                 x, y, m_b, -90.0, 40.0, 10)
+    log(f"[check] slice5: counts exact (B {n_b}, polygon {want['count_polygon_b']}, long "
+        f"window {want['count_long']}); unweighted grids exact, weighted within rtol 1e-4; "
+        f"the top 1000 by weight equal NumPy's; stats exact (descriptive within rtol "
+        f"1e-5); kNN k-th distance {kth:.3f} m, boundary pairs {pairs}, rows within 1e-6 "
+        f"of it {near}; the phase took {time.perf_counter() - t_phase:.3f} s after ingest")
+    return launches
+
+
+def _iso(ms: int) -> str:
+    return str(np.datetime64(int(ms), "ms")) + "Z"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--reps", type=int, default=20, help="warm runs per query")
+    ap.add_argument("--reps", type=int, default=10, help="warm runs per query")
+    ap.add_argument("--part-rows", type=int, default=PART_ROWS,
+                    help="rows of slice 5's partitioned dataset")
     args = ap.parse_args()
 
     import torch
@@ -852,13 +1216,8 @@ def main() -> int:
         f"{pip_err} mismatches")
     if pip_err:
         raise AssertionError(f"pip kernel disagrees with its plain version on {pip_err} points")
-    # x and y read, the verdict written, the edge table read once; 6 f32
-    # operations for each crossing test the data needs (the culling skips
-    # the rest exactly); the first kernel's count took every point against
-    # every edge
-    pip_bytes = 9 * npts + packed.nbytes
-    spans = kpip.span_pairs(py.cpu().numpy(), packed, n_edges)
-    pip_ops = 6 * spans
+    # the first kernel's count took every point against every edge
+    pip_bytes, pip_ops, spans = pip_work(kpip, py, packed, n_edges)
     log(f"[kernel] pip work: {spans} crossing tests of {npts * n_edges} "
         f"point-edge pairs; operations counted {pip_ops} (every point against every edge: "
         f"{6 * npts * n_edges})")
@@ -906,16 +1265,10 @@ def main() -> int:
                 raise AssertionError(f"weighted density sum off by {rel}")
     o = ops_u
     rows = o["x"].numel()
-    # the least the kernel must read: every scheduled row's mask byte, x and
-    # y only where the mask is true, the schedule once; and write the grid
-    live = int(o["mask"].sum())
-    sched_bytes = sum(o["sched"][k].nbytes
-                      for k in ("chunks", "seg_tile", "seg_begin", "seg_end"))
-    d_bytes = rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT
+    d_bytes, d_ops, live = density_work(o)
     log(f"[kernel] density_grouped: {live} of {rows} scheduled rows are masked "
         f"in; bytes counted {d_bytes} (the first kernel's count, a 4-byte weight for every "
-        f"row: {4 * rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT}; "
-        f"weighted adds {4 * live})")
+        f"row: {d_bytes + 4 * rows}; weighted adds {4 * live})")
     cx, cy = pixel_coords(o["x"], o["y"], QUERY_BBOX, WIDTH, HEIGHT)
     flat = (cy.to(torch.int64) * WIDTH + cx).reshape(-1)
     wflat = o["mask"].reshape(-1).to(torch.float32)
@@ -933,16 +1286,13 @@ def main() -> int:
         "launches": launches["density_grouped"], "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain_ms,
         "bytes": d_bytes,
-        "ops": 8 * live,
+        "ops": d_ops,
         "library_ms": cuda_ms(torch, lambda: torch.bincount(
             flat, weights=wflat, minlength=WIDTH * HEIGHT), 20),
     })
     for k in kernels:
         nbytes, nops = k.pop("bytes"), k.pop("ops")
-        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        o_ms = nops / PEAK_F32_OPS_PER_S * 1e3
-        k["bound_ms"] = max(b_ms, o_ms)
-        k["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        k["bound_ms"], k["bound_by"] = bound(nbytes, nops)
         log(f"[kernel] {k['name']}: {k['ms']:.6f} ms (plain {k['plain_ms']:.6f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.6f} ms by "
             f"{k['bound_by']}: {nbytes} B, {nops} f32 operations)")
@@ -979,6 +1329,13 @@ def main() -> int:
 
     # -- 6. slice 4 ---------------------------------------------------------
     slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip)
+
+    # -- 7. slice 5, on a partitioned store of its own -----------------------
+    # the earlier phases' stores and operands leave the card first
+    del ds, data, extra, fids, ex, cols, px, py, o, ops_u, ops_w, got, want
+    del edges, cx, cy, flat, wflat
+    torch.cuda.empty_cache()
+    slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

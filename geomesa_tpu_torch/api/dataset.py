@@ -8,9 +8,12 @@ feature ids), ``flush``, ``count`` (exact, or the planner's estimate),
 ``sample``) with ``Query`` objects (projection, ``max_features``, sorting
 with the device top-k, sampling, a forced index), ``stats`` and its
 helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
-``top_k``), and ``knn``. The layers the JAX ``GeoDataset`` wraps around
-its executor (aggregate cache, audit, serving, tracing, journal, fleet)
-are not part of this port yet: every call goes to the executor directly.
+``top_k``), and ``knn``. A schema with ``geomesa.partition='time'`` gets
+a time-partitioned, out-of-core store and serves the same calls partition
+at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
+The layers the JAX ``GeoDataset`` wraps around its executor (aggregate
+cache, audit, serving, tracing, journal, fleet) are not part of this port
+yet: every call goes to the executor directly.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import torch
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
+from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
 from geomesa_tpu_torch.planning.executor import Executor
+from geomesa_tpu_torch.planning.partitioned_exec import PartitionedExecutor
 from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
 from geomesa_tpu_torch.schema.columns import (
     ColumnBatch, DictionaryEncoder, decode_batch, fid_strs,
@@ -151,7 +156,7 @@ class GeoDataset:
         self.compact_min_rows = compact_min_rows
         self.compact_fraction = compact_fraction
         self._stores: Dict[str, FeatureStore] = {}
-        self._executors: Dict[str, Executor] = {}
+        self._executors: Dict[str, Any] = {}
         self._plans: Dict[tuple, QueryPlan] = {}
 
     # -- schemas ------------------------------------------------------------
@@ -160,7 +165,8 @@ class GeoDataset:
               else FeatureType.from_spec(name_or_ft, spec))
         if ft.name in self._stores:
             raise ValueError(f"schema {ft.name!r} already exists")
-        self._stores[ft.name] = FeatureStore(ft, self.n_shards, self.device)
+        store_cls = PartitionedFeatureStore if is_partitioned_schema(ft) else FeatureStore
+        self._stores[ft.name] = store_cls(ft, self.n_shards, self.device)
         return ft
 
     def attach_store(self, store: FeatureStore) -> None:
@@ -180,11 +186,15 @@ class GeoDataset:
             )
         return st
 
-    def _executor(self, name: str) -> Executor:
+    def _executor(self, name: str):
+        """The schema's Executor, or PartitionedExecutor for a partitioned
+        store."""
         ex = self._executors.get(name)
-        if ex is None or ex.store is not self._store(name):
-            ex = self._executors[name] = Executor(
-                self._store(name), compact_min_rows=self.compact_min_rows,
+        st = self._store(name)
+        if ex is None or ex.store is not st:
+            cls = PartitionedExecutor if isinstance(st, PartitionedFeatureStore) else Executor
+            ex = self._executors[name] = cls(
+                st, compact_min_rows=self.compact_min_rows,
                 compact_fraction=self.compact_fraction,
             )
         return ex
@@ -289,10 +299,16 @@ class GeoDataset:
             names = None
             if q.properties:
                 names = list(q.properties) + [a for a, _ in q.sort_by]
-            pos = ex.top_rows(plan, attr, desc, q.max_features,
-                              include_ties=len(q.sort_by) > 1)
-            if pos is not None:
-                batch = st.tables[plan.index_name].gather_sorted(pos, names)
+            ties = len(q.sort_by) > 1
+            if isinstance(ex, PartitionedExecutor):
+                # each partition's candidates; the exact sort below finishes
+                batch = ex.top_batch(plan, attr, desc, q.max_features, names,
+                                     include_ties=ties)
+            else:
+                pos = ex.top_rows(plan, attr, desc, q.max_features, include_ties=ties)
+                if pos is not None:
+                    batch = st.tables[plan.index_name].gather_sorted(pos, names)
+            if batch is not None:
                 plan.exec_path["sort"] = f"device-topk(k={q.max_features})"
         if batch is None:
             batch = ex.features(plan)
@@ -312,7 +328,8 @@ class GeoDataset:
         """Query results as ColumnBatch chunks. A sorted query yields one
         materialized batch (a global sort needs every row); otherwise the
         plan is made now (so a bad query raises here) and the chunks of the
-        executor's ``features_iter`` are projected one by one."""
+        executor's ``features_iter`` are projected one by one (a
+        partitioned store yields partition at a time)."""
         q = self._as_query(query)
         if q.sort_by:
             fc = self.query(name, q)
@@ -435,8 +452,11 @@ class GeoDataset:
                 # the box prunes through the plan's windows and inside the
                 # scan; the predicate stays the location-free base filter
                 plan.compiled = base_compiled
-            pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
-            batch = st.tables[plan.index_name].gather_sorted(np.sort(pos))
+            if isinstance(ex, PartitionedExecutor):  # each partition's k nearest
+                batch = ex.knn_features(plan, x, y, k, boxes=boxes)
+            else:
+                pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
+                batch = st.tables[plan.index_name].gather_sorted(np.sort(pos))
             order = np.zeros(0, np.int64)
             kth_m = math.inf
             if batch.n:

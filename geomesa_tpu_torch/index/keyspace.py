@@ -185,23 +185,28 @@ def _empty_windows():
     return np.zeros(1, np.int64), np.zeros(1, np.int64)
 
 
-def _bin_windows(bins_col: np.ndarray, z_col: np.ndarray, bins: np.ndarray,
-                 zlo: int, zhi: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-time-bin [zlo, zhi] windows over (bin, z)-sorted columns; only
-    the non-empty ones."""
-    starts, ends = [], []
+def _range_bin_windows(bins_col: np.ndarray, z_col: np.ndarray, bins: np.ndarray,
+                       ranges) -> Tuple[np.ndarray, np.ndarray]:
+    """[zlo, zhi] windows of every range in every time bin over (bin, z)-
+    sorted columns, only the non-empty ones, in range-major order (a loop
+    over the ranges, then the bins); one vectorized search per bin."""
+    los = np.asarray([r[0] for r in ranges], np.uint64)
+    his = np.asarray([r[1] for r in ranges], np.uint64)
+    ws, we = [], []
     for b in bins.tolist():
         s = int(np.searchsorted(bins_col, b, side="left"))
         e = int(np.searchsorted(bins_col, b, side="right"))
         if e <= s:
             continue
         seg = z_col[s:e]
-        s2 = s + int(np.searchsorted(seg, np.uint64(zlo), side="left"))
-        e2 = s + int(np.searchsorted(seg, np.uint64(zhi), side="right"))
-        if e2 > s2:
-            starts.append(s2)
-            ends.append(e2)
-    return np.asarray(starts, np.int64), np.asarray(ends, np.int64)
+        ws.append(s + np.searchsorted(seg, los, side="left"))
+        we.append(s + np.searchsorted(seg, his, side="right"))
+    if not ws or not len(los):
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    ws = np.stack(ws, axis=1).reshape(-1).astype(np.int64)
+    we = np.stack(we, axis=1).reshape(-1).astype(np.int64)
+    keep = we > ws
+    return ws[keep], we[keep]
 
 
 class Z3KeySpace(KeySpace):
@@ -319,10 +324,9 @@ class Z3KeySpace(KeySpace):
         starts: List[int] = []
         ends: List[int] = []
         plain = np.asarray([b for b in bins.tolist() if b not in esets], np.int32)
-        for lo, hi in base:
-            ws, we = _bin_windows(bins_col, z_col, plain, lo, hi)
-            starts.extend(ws.tolist())
-            ends.extend(we.tolist())
+        ws, we = _range_bin_windows(bins_col, z_col, plain, base)
+        starts.extend(ws.tolist())
+        ends.extend(we.tolist())
         for b, rs in esets.items():
             s = int(np.searchsorted(bins_col, b, side="left"))
             e = int(np.searchsorted(bins_col, b, side="right"))

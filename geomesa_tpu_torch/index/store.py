@@ -23,6 +23,7 @@ import torch
 from geomesa_tpu_torch.index.keyspace import (
     MAX_SHARD_WINDOWS, AttributeKeySpace, KeyPlan, KeySpace, keyspaces_for_schema,
 )
+from geomesa_tpu_torch.index.staging import Staged, Uploader
 from geomesa_tpu_torch.schema.columns import (
     ColumnBatch, DictionaryEncoder, encode_batch, schema_null_fills,
 )
@@ -80,6 +81,12 @@ class IndexTable:
         self._rank_vocab: Optional[np.ndarray] = None
         #: column name -> [S, L] tensor on ``device``
         self._device_cache: Dict[str, torch.Tensor] = {}
+        #: staged columns of the partition pipeline, consumed (and freed)
+        #: by device_columns: stacked host arrays, or side-stream uploads
+        self._host_stage: Dict[str, object] = {}
+        #: the padded shard length rounds up to a multiple of this;
+        #: partition children use 65536 (geomesa.partition.shard.bucket)
+        self.shard_len_multiple = SHARD_BUCKET
 
     # -- build ------------------------------------------------------------
     def rebuild(self, columns: Dict[str, np.ndarray],
@@ -168,7 +175,12 @@ class IndexTable:
             raise ValueError(
                 f"{len(self.shard_bounds)} shard bounds for {self.n_shards} shards"
             )
+        self.drop_device()
+
+    def drop_device(self) -> None:
+        """Forget the device columns and anything staged for them."""
         self._device_cache.clear()
+        self._host_stage.clear()
 
     # -- column access -----------------------------------------------------
     def has_column(self, name: str) -> bool:
@@ -238,33 +250,85 @@ class IndexTable:
     @property
     def shard_len(self) -> int:
         """Padded per-shard length: the largest shard, rounded up to
-        :data:`SHARD_BUCKET`."""
+        :attr:`shard_len_multiple`."""
         if self.n == 0:
             return 0
         m = int(np.max(np.diff(self.shard_bounds)))
-        return -(-m // SHARD_BUCKET) * SHARD_BUCKET
+        b = self.shard_len_multiple
+        return -(-m // b) * b
 
     def shard_slice(self, s: int) -> slice:
         return slice(int(self.shard_bounds[s]), int(self.shard_bounds[s + 1]))
 
+    def _stack_host(self, name: str, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """One column's padded [S, L] host array (into ``out`` when given):
+        the host half of a device upload."""
+        view = device_view(self.col_sorted(name))
+        if view is None:
+            raise TypeError(f"column {name!r} cannot ride the device")
+        if out is None:
+            out = np.empty((self.n_shards, self.shard_len), dtype=view.dtype)
+        for s in range(self.n_shards):
+            sl = self.shard_slice(s)
+            k = sl.stop - sl.start
+            out[s, :k] = view[sl]
+            out[s, k:] = 0
+        return out
+
+    def stage_host(self, names: Sequence[str], uploader: Optional[Uploader] = None) -> int:
+        """Stage ``names`` for a later :meth:`device_columns`: the partition
+        pipeline's prefetch thread runs this for the next partition while
+        the current one executes. Without an ``uploader`` the stacked host
+        arrays wait here; with one (a CUDA table) each column is stacked
+        into pinned memory and its copy starts on the uploader's side
+        stream. Columns already on the device or staged, absent or
+        host-only are skipped, and so is a column whose host assembly fails
+        (the consumer assembles it again); errors of CUDA calls propagate.
+        Returns the bytes staged by this call."""
+        L = self.shard_len
+        staged = 0
+        for name in sorted(set(names)):
+            if name in self._device_cache or name in self._host_stage:
+                continue
+            try:
+                if not self.has_column(name) or self.is_host_only(name):
+                    continue
+                dt = device_view(np.zeros(0, self.dtype_of(name))).dtype
+                arr = None if uploader is not None else self._stack_host(name)
+            except Exception:  # host work only: device_columns redoes it
+                continue
+            if arr is not None:
+                self._host_stage[name] = arr
+                staged += arr.nbytes
+                continue
+            up = uploader.upload((self.n_shards, L), dt,
+                                 lambda out, name=name: self._stack_host(name, out))
+            if up is not None:
+                self._host_stage[name] = up
+                staged += self.n_shards * L * dt.itemsize
+        return staged
+
     def device_columns(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Stacked, padded [S, L] tensors for ``names`` on the table's
-        device (cached per column)."""
-        L = self.shard_len
+        device (cached per column): a staged upload after its copy, a staged
+        host array copied now, or the column stacked and copied now."""
         out = {}
         for name in dict.fromkeys(names):
             t = self._device_cache.get(name)
             if t is None:
-                view = device_view(self.col_sorted(name))
-                if view is None:
-                    raise TypeError(f"column {name!r} cannot ride the device")
-                stacked = np.zeros((self.n_shards, L), dtype=view.dtype)
-                for s in range(self.n_shards):
-                    sl = self.shard_slice(s)
-                    stacked[s, : sl.stop - sl.start] = view[sl]
-                t = self._device_cache[name] = torch.from_numpy(stacked).to(self.device)
+                staged = self._host_stage.pop(name, None)
+                if isinstance(staged, Staged):
+                    t = staged.take()
+                else:
+                    host = self._stack_host(name) if staged is None else staged
+                    t = torch.from_numpy(host).to(self.device)
+                self._device_cache[name] = t
             out[name] = t
         return out
+
+    def device_bytes(self) -> int:
+        """Bytes of the device columns this table holds."""
+        return sum(t.nbytes for t in self._device_cache.values())
 
     # -- scan windows ------------------------------------------------------
     def windows(self, plan: KeyPlan,
@@ -338,6 +402,9 @@ class FeatureStore:
         #: host seconds of the last flush by stage ("keys", "sketches",
         #: then one entry per table)
         self.flush_seconds: Dict[str, float] = {}
+        #: the executor's caches of device artefacts made from this store
+        #: (gathered slabs; a partition child's per-plan caches)
+        self.device_state: Dict[str, Dict] = {}
 
     def append(self, data: Dict, fids=None) -> int:
         """Buffer an ingest batch (encoded now, indexed at flush)."""
@@ -388,6 +455,13 @@ class FeatureStore:
             seconds[ks.name] = time.perf_counter() - t0
         self.flush_seconds = seconds
         self.version += 1
+
+    def drop_device(self) -> None:
+        """Free every device tensor made from this store: the tables'
+        columns and staging, and the executor's caches."""
+        for t in self.tables.values():
+            t.drop_device()
+        self.device_state.clear()
 
     def bounds(self) -> Optional[Tuple[float, float, float, float]]:
         """Geometry bounds of the stored rows from the ``bounds`` sketch

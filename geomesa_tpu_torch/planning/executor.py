@@ -33,6 +33,12 @@ on gathered rows; ``knn`` ranks f32 great-circle distances
 
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
+
+A time partition's child store runs under its own executor
+(``version_source`` = the partitioned parent): its per-plan caches live in
+the child's device state, so they go when the partition is spilled, and
+``count_partial``, ``density(as_numpy=False)`` and ``stats_partials``
+return partials the partitioned executor merges.
 """
 
 from __future__ import annotations
@@ -80,6 +86,9 @@ SAMPLE_EXACT_VOCAB = 256
 #: GEOMESA_ARROW_BATCH_ROWS default)
 BATCH_ROWS = 1_000_000
 
+#: plans whose caches a partition child's executor keeps
+_PLAN_CACHES = 64
+
 
 class Executor:
     """Runs plans over one store. ``compact_min_rows`` /
@@ -87,22 +96,41 @@ class Executor:
     / ``geomesa.compact.fraction``."""
 
     def __init__(self, store: FeatureStore, compact_min_rows: int = 1 << 20,
-                 compact_fraction: float = 0.5):
+                 compact_fraction: float = 0.5, version_source=None):
         self.store = store
         self.device = store.device
         self.compact_min_rows = compact_min_rows
         self.compact_fraction = compact_fraction
-        #: gathered compact slabs by (table, windows, B, C, version, column)
-        self._gathered: Dict[tuple, torch.Tensor] = {}
+        #: the store whose version also keys the caches: the partitioned
+        #: parent for a partition child, else the store itself
+        self.version_source = version_source or store
+
+    @property
+    def _gathered(self) -> Dict[tuple, torch.Tensor]:
+        """Gathered compact slabs by (table, windows, B, C, version,
+        column), kept with the store's device state."""
+        return self.store.device_state.setdefault("gathered", {})
 
     # -- per-plan caches ----------------------------------------------------
     def _cache(self, plan: QueryPlan) -> Dict:
         """Host and device artefacts of one plan (windows, compaction
         descriptor, gathered columns, schedules) for the current store
-        version."""
-        c = plan.__dict__.get("_exec_cache")
-        if c is None or c["version"] != self.store.version:
-            c = plan.__dict__["_exec_cache"] = {"version": self.store.version}
+        versions. They ride on the plan, except under a partition child:
+        one plan scans many children, so each child keeps its own with its
+        device state, which goes when the child is spilled."""
+        holder = plan.__dict__
+        if self.version_source is not self.store:
+            plans = self.store.device_state.setdefault("plans", {})
+            ent = plans.get(id(plan))
+            if ent is None or ent[0] is not plan:
+                if len(plans) >= _PLAN_CACHES:
+                    plans.clear()
+                ent = plans[id(plan)] = (plan, {})
+            holder = ent[1]
+        version = (self.store.version, self.version_source.version)
+        c = holder.get("_exec_cache")
+        if c is None or c["version"] != version:
+            c = holder["_exec_cache"] = {"version": version}
         return c
 
     @staticmethod
@@ -143,6 +171,8 @@ class Executor:
         host_only = any(table.is_host_only(n) for n in needed)
         compiled = plan.compiled
         plan.__dict__["scanned_rows"] = int(np.maximum(ends - starts, 0).sum())
+        # the partition pipeline stages these columns of the next partition
+        plan.__dict__["needed_cols"] = tuple(needed)
         return {
             "table": table, "starts": starts, "ends": ends,
             "counts": np.diff(table.shard_bounds).astype(np.int32),
@@ -184,7 +214,13 @@ class Executor:
         c = setup["cache"]
         if "fine" not in c:
             table = setup["table"]
-            kp = table.keyspace.plan(self.store.ft, plan.filter, COMPACT_COVER)
+            # the fine cover depends on the filter and the index alone: it
+            # rides on the plan, shared by every partition a plan scans
+            covers = plan.__dict__.setdefault("_fine_key_plans", {})
+            if plan.index_name not in covers:
+                covers[plan.index_name] = table.keyspace.plan(
+                    self.store.ft, plan.filter, COMPACT_COVER)
+            kp = covers[plan.index_name]
             c["fine"] = (None, None) if kp is None else table.windows(
                 kp, cap=COMPACT_COVER
             )
@@ -482,9 +518,14 @@ class Executor:
         return out + host_agg(table.rows(agg_cols, info), info)
 
     # -- public operations ----------------------------------------------------
+    def count_partial(self, plan: QueryPlan):
+        """:meth:`count` before the device sync: a device scalar (plus the
+        band rows), a host int, or None for an empty scan."""
+        return self._run(plan, (), lambda setup, cols, m: m.sum(),
+                         lambda rows, pos: len(pos))
+
     def count(self, plan: QueryPlan) -> int:
-        out = self._run(plan, (), lambda setup, cols, m: int(m.sum()),
-                        lambda rows, pos: len(pos))
+        out = self.count_partial(plan)
         return 0 if out is None else int(out)
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
@@ -535,11 +576,12 @@ class Executor:
                 "sched": sched}
 
     def density(self, plan: QueryPlan, bbox, width: int, height: int,
-                weight: Optional[str] = None) -> np.ndarray:
+                weight: Optional[str] = None, as_numpy: bool = True):
         """(height, width) f32 density grid. Compacted scans of a Morton
         index with a pair schedule run the grouped CUDA kernel; other
         device scans the scatter (the reference's XLA rungs); host paths
-        grid their exact rows on the host."""
+        grid their exact rows on the host. ``as_numpy=False`` returns the
+        grid as a tensor on the device (None for an empty scan)."""
         agg_cols = self._density_cols(weight)
         xc, yc = agg_cols[:2]
 
@@ -556,16 +598,18 @@ class Executor:
                 self._note(plan, density_kernel="scatter")
                 grid = kdensity.density_grid(cols[xc], cols[yc], m, bbox, width,
                                              height, cols[weight] if weight else None)
-            return grid.cpu().numpy()
+            return grid
 
         def host_agg(rows, pos):
-            return kdensity.density_grid_np(
+            return self._tensor(kdensity.density_grid_np(
                 rows[xc], rows[yc], np.ones(len(pos), bool), bbox, width, height,
                 rows[weight] if weight else None,
-            )
+            ))
 
         out = self._run(plan, agg_cols, device_agg, host_agg)
-        return np.zeros((height, width), np.float32) if out is None else out
+        if not as_numpy:
+            return out
+        return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
 
     # -- features --------------------------------------------------------------
     def _mask_positions(self, setup, cols, m) -> np.ndarray:
@@ -731,26 +775,35 @@ class Executor:
             return None
         return agg_cols, vocab_sizes
 
-    def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
-        """Fill ``stat`` with the matches' statistics: device partial
-        states in the scan where every leaf has a device reduction, else
-        the host observes the gathered matches (Frequency, GroupBy,
-        Z3Frequency, enumerations of non-dictionary columns)."""
+    def stats_partials(self, plan: QueryPlan, stat: sk.Stat):
+        """``(supported, partials)``: the partial states of ``stat`` over the
+        matches, without touching ``stat``. ``supported`` is False where a
+        leaf has no device reduction (the gather path serves); ``partials``
+        is None for an empty scan."""
         bundle = self._stats_bundle(plan, stat)
         if bundle is None:
-            batch = self.features(plan)
-            if batch.n:
-                stat.observe(batch.columns)
-                kstats.decode_enum_keys(stat, self.store.dicts)
-            return stat
+            return False, None
         agg_cols, vocab = bundle
-        partials = self._run(
+        return True, self._run(
             plan, agg_cols,
             lambda setup, cols, m: kstats.device_update(stat, cols, m, vocab),
             lambda rows, pos: kstats.device_update_np(
                 stat, rows, np.ones(len(pos), bool), vocab),
             additive=False,
         )
+
+    def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
+        """Fill ``stat`` with the matches' statistics: device partial
+        states in the scan where every leaf has a device reduction, else
+        the host observes the gathered matches (Frequency, GroupBy,
+        Z3Frequency, enumerations of non-dictionary columns)."""
+        supported, partials = self.stats_partials(plan, stat)
+        if not supported:
+            batch = self.features(plan)
+            if batch.n:
+                stat.observe(batch.columns)
+                kstats.decode_enum_keys(stat, self.store.dicts)
+            return stat
         if partials is not None:
             kstats.absorb_partials(stat, partials, self.store.dicts)
         return stat

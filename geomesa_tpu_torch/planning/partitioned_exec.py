@@ -1,0 +1,306 @@
+"""Partition-at-a-time query execution over a PartitionedFeatureStore.
+
+Port of ``geomesa_tpu/planning/partitioned_exec.py`` on one card: prune the
+time partitions by the plan's time bounds, stream each pruned partition
+through host memory and the device (reloading spilled ones, evicting over
+the budget), run an ordinary :class:`Executor` on it, and merge the
+partials in pruned-bin order: counts as exact host integers, density grids
+on the device through :class:`TreeReducer` (the JAX package's association),
+stats by absorbing each partition in turn, features, top-k candidates and
+kNN candidates by concatenation.
+
+The prefetch pipeline keeps the reference's bound: one worker thread, one
+partition in flight, consumed in pruned-bin order. While partition i runs,
+the worker loads partition i+1 and stages the columns the plan reads
+(``IndexTable.stage_host``); on a CUDA card they are stacked into pinned
+buffers of a reused pool and copied on a side stream, and the query thread
+waits on each copy's event before it reads the column. A host error while
+staging is dropped (the scan stacks the column itself); CUDA errors and
+load errors reach the query thread.
+
+Not ported yet (ROADMAP Queue 1): the multi-device sharded scan, the
+degradation contract (``allow_partial``, fault points, retries), the lake
+tier's pruned loads, ``density_curve`` and the query-axis batches.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from geomesa_tpu_torch.filter import ir
+from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
+from geomesa_tpu_torch.index.staging import Uploader
+from geomesa_tpu_torch.parallel.devices import TreeReducer
+from geomesa_tpu_torch.planning.executor import Executor
+from geomesa_tpu_torch.planning.planner import QueryPlan
+from geomesa_tpu_torch.schema.columns import ColumnBatch
+from geomesa_tpu_torch.stats import sketches as sk
+
+#: stage the next partition while the current one runs
+#: (geomesa.pipeline.prefetch)
+PIPELINE_PREFETCH = True
+
+#: exec_path entries a child executor writes per partition
+_PART_KEYS = ("scan", "feature_scan", "B", "band_rows", "density_kernel", "sampling")
+
+
+class PartitionedExecutor:
+    """The Executor surface over a partitioned store. ``compact_min_rows``
+    and ``compact_fraction`` go to every child's executor; ``prefetch``
+    (default :data:`PIPELINE_PREFETCH`) turns the pipeline's worker on or
+    off, with the same results."""
+
+    def __init__(self, store: PartitionedFeatureStore, compact_min_rows: int = 1 << 20,
+                 compact_fraction: float = 0.5):
+        self.store = store
+        self.device = store.device
+        self.compact_min_rows = compact_min_rows
+        self.compact_fraction = compact_fraction
+        self.prefetch = PIPELINE_PREFETCH
+        self._execs: Dict[int, Executor] = {}
+        self._uploader: Optional[Uploader] = None
+
+    @property
+    def uploader(self) -> Optional[Uploader]:
+        """The side-stream uploader of a CUDA store (None on the CPU)."""
+        if self._uploader is None and self.device.type == "cuda":
+            self._uploader = Uploader(self.device)
+        return self._uploader
+
+    # -- partition pruning ----------------------------------------------------
+    def prune(self, plan: QueryPlan) -> List[int]:
+        """The partitions ``plan`` can match, in bin order: the z3 plan's
+        bins when the partition period is the z3 interval, else the bins
+        of the filter's time intervals; every partition without a bound."""
+        store = self.store
+        bins = store.partition_bins()
+        if plan.is_empty:
+            return []
+        kp = plan.key_plan
+        if kp.bins is not None and store.partition_period == store.ft.time_period:
+            sel = {int(x) for x in np.asarray(kp.bins).ravel()}
+            return [b for b in bins if b in sel]
+        dtg = store.ft.dtg_field
+        iv = ir.extract_intervals(plan.filter, dtg)
+        if not iv.is_empty:
+            sel = set()
+            for lo, hi in iv.values:
+                if lo is None or hi is None:
+                    return bins
+                sel.update(int(x) for x in store.binned.bins_between(int(lo), int(hi)))
+            return [b for b in bins if b in sel]
+        return bins
+
+    def _executor_for(self, b: int, child) -> Executor:
+        ex = self._execs.get(b)
+        if ex is None or ex.store is not child:
+            ex = self._execs[b] = Executor(
+                child, compact_min_rows=self.compact_min_rows,
+                compact_fraction=self.compact_fraction, version_source=self.store,
+            )
+        return ex
+
+    # -- the prefetch pipeline -------------------------------------------------
+    def _stage(self, child, plan: QueryPlan) -> None:
+        """The worker's half: stage the columns the plan's scan read on the
+        previous partition (none before the first scan)."""
+        names = plan.__dict__.get("needed_cols")
+        if child is None or not names:
+            return
+        t = child.tables.get(plan.index_name)
+        if t is not None and t.n:
+            t.stage_host(names, self.uploader)
+
+    def _pipeline(self, plan: QueryPlan, bins: List[int]):
+        """(bin, child) over ``bins`` in order. With prefetch on and two or
+        more bins, one worker loads and stages the next partition while the
+        caller runs the current one (one partition in flight); a load error
+        re-raises here, where a sequential load would have raised. An
+        early exit joins the worker and frees what it staged."""
+        if len(bins) < 2 or not self.prefetch:
+            for b in bins:
+                yield b, self.store.child(b)
+            return
+        out: "queue.Queue" = queue.Queue()
+        stop = threading.Event()
+        slot = threading.Semaphore(0)  # one permit per granted load
+
+        def worker():
+            try:
+                for b in bins:
+                    while not slot.acquire(timeout=0.1):
+                        if stop.is_set():
+                            return
+                    if stop.is_set():
+                        return
+                    child = err = None
+                    try:
+                        child = self.store.child(b)
+                    except BaseException as e:  # re-raised on the query thread
+                        err = e
+                    if err is None:
+                        try:
+                            self._stage(child, plan)
+                        except BaseException as e:  # CUDA errors included
+                            err = e
+                    out.put((b, child, err))
+            finally:
+                out.put(None)
+
+        t = threading.Thread(target=worker, daemon=True, name="geomesa-part-prefetch")
+        t.start()
+        slot.release()  # the first load starts now
+        try:
+            while True:
+                item = out.get()
+                if item is None:
+                    return
+                # grant the next load: it overlaps this partition's run
+                slot.release()
+                b, child, err = item
+                if err is not None:
+                    raise err
+                yield b, child
+        finally:
+            stop.set()
+            t.join()
+            # free what was staged for partitions never run
+            while True:
+                try:
+                    item = out.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None and item[1] is not None:
+                    tb = item[1].tables.get(plan.index_name)
+                    if tb is not None:
+                        tb._host_stage.clear()
+
+    def _each(self, plan: QueryPlan,
+              bins: Optional[List[int]] = None) -> Iterator[Tuple[int, Executor]]:
+        """(bin, executor) over the pruned partitions under the residency
+        budget. Sums the selectivity counters and records each partition's
+        path in ``exec_path['partitions']``; after each partition its
+        unused staging is freed, the store evicts to its budget, and the
+        executors (with their device caches) of evicted children go."""
+        if bins is None:
+            bins = self.prune(plan)
+        path = plan.__dict__.setdefault("exec_path", {})
+        path["partitions_pruned"] = len(self.store.partition_bins()) - len(bins)
+        path["partitions_scanned"] = len(bins)
+        parts = path["partitions"] = {}
+        tot_scanned = 0
+        try:
+            for b, child in self._pipeline(plan, bins):
+                if child is None or child.count == 0:
+                    continue
+                plan.__dict__.pop("scanned_rows", None)
+                for k in _PART_KEYS:
+                    path.pop(k, None)
+                yield b, self._executor_for(b, child)
+                tot_scanned += plan.__dict__.pop("scanned_rows", 0)
+                parts[b] = {k: path[k] for k in _PART_KEYS if path.get(k) is not None}
+                t = child.tables.get(plan.index_name)
+                if t is not None:
+                    t._host_stage.clear()
+                self.store.evict()
+                resident = self.store.partitions
+                for bb in list(self._execs):
+                    if self._execs[bb].store is not resident.get(bb):
+                        del self._execs[bb]
+        finally:
+            # an early exit closes the generator at the yield: fold in the
+            # counters of the partition that was running
+            plan.__dict__["scanned_rows"] = tot_scanned + plan.__dict__.get("scanned_rows", 0)
+
+    # -- additive operations -----------------------------------------------------
+    def count(self, plan: QueryPlan) -> int:
+        """Exact host integers, summed in pruned-bin order."""
+        total = 0
+        for _, ex in self._each(plan):
+            p = ex.count_partial(plan)
+            if p is not None:
+                total += int(p)
+        return total
+
+    def density(self, plan: QueryPlan, bbox, width: int, height: int,
+                weight: Optional[str] = None) -> np.ndarray:
+        """Per-partition grids merged on the device by :class:`TreeReducer`
+        (the reference's association: unweighted grids are exact, weighted
+        ones add in the same order), then one copy to the host."""
+        red = TreeReducer(lambda a, b: a + b)
+        for _, ex in self._each(plan):
+            red.push(ex.density(plan, bbox, width, height, weight, as_numpy=False))
+        out = red.result()
+        return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
+
+    def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
+        """Each partition's scan absorbs into ``stat`` in pruned-bin order."""
+        for _, ex in self._each(plan):
+            ex.stats(plan, stat)
+        return stat
+
+    # -- features ---------------------------------------------------------------
+    def features_iter(self, plan: QueryPlan, batch_rows: Optional[int] = None):
+        """Matching rows partition at a time (peak memory is one
+        partition's matches); ``max_features`` ends an unsorted stream."""
+        got = 0
+        limit = plan.hints.max_features if not plan.hints.sort_by else None
+        for _, ex in self._each(plan):
+            for batch in ex.features_iter(plan, batch_rows):
+                if not batch.n:
+                    continue
+                if limit is not None:
+                    if got >= limit:
+                        return
+                    if got + batch.n > limit:
+                        keep = limit - got
+                        yield ColumnBatch({k: v[:keep] for k, v in batch.columns.items()},
+                                          keep)
+                        return
+                got += batch.n
+                yield batch
+            if limit is not None and got >= limit:
+                return
+
+    def features(self, plan: QueryPlan) -> ColumnBatch:
+        batches = list(self.features_iter(plan))
+        return ColumnBatch.concat(batches) if batches else ColumnBatch({}, 0)
+
+    def top_batch(self, plan: QueryPlan, attr: str, descending: bool, k: int,
+                  names=None, include_ties: bool = False) -> Optional[ColumnBatch]:
+        """Candidate rows of a sorted, limited query: each partition's own
+        device top-k candidates (ties included when asked), or its full
+        match set where its selection declines, so the union holds the
+        global top-k; the caller sorts and truncates. None when no
+        partition selected on the device."""
+        parts: List[ColumnBatch] = []
+        pushed = 0
+        for _, ex in self._each(plan):
+            pos = ex.top_rows(plan, attr, descending, k, include_ties=include_ties)
+            if pos is None:
+                batch = ex.features(plan)
+            else:
+                pushed += 1
+                if not len(pos):
+                    continue
+                batch = ex.store.tables[plan.index_name].gather_sorted(pos, names)
+            if batch.n:
+                parts.append(batch)
+        if pushed == 0:
+            return None
+        return ColumnBatch.concat(parts) if parts else ColumnBatch({}, 0)
+
+    def knn_features(self, plan: QueryPlan, x: float, y: float, k: int,
+                     boxes=None) -> ColumnBatch:
+        """Each partition's k nearest rows, gathered in table order; the
+        union holds the global k nearest (the caller orders and cuts)."""
+        parts = []
+        for _, ex in self._each(plan):
+            pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
+            if len(pos):
+                parts.append(ex.store.tables[plan.index_name].gather_sorted(np.sort(pos)))
+        return ColumnBatch.concat(parts) if parts else ColumnBatch({}, 0)

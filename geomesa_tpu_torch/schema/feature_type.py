@@ -116,10 +116,6 @@ class FeatureType:
                     continue
                 k, v = kv.split("=", 1)
                 user_data[k.strip()] = v.strip().strip("'\"")
-        if "geomesa.partition" in user_data:
-            raise NotImplementedError(
-                "partitioned schemas: ROADMAP Queue 1, partitioned executor"
-            )
         attrs = []
         for part in _split_top(spec, ","):
             part = part.strip()

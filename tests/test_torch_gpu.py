@@ -7,6 +7,7 @@ only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import gc
 import math
 import os
 import subprocess
@@ -472,3 +473,136 @@ def test_knn_matches_cpu(pair4, case):
         assert len(d) == len(d_all) == k
         off = ~np.isclose(d, d_all, rtol=1e-9)
         assert np.allclose(d[off], d_all[-1], rtol=1e-6)
+
+
+# -- slice 5: time-partitioned stores, the staged uploads ----------------------------
+PSPEC = SPEC + ";geomesa.partition='time'"
+#: nine weekly partitions (epoch weeks 2608-2616, Thursday to Thursday)
+P_ROWS = 1 << 20
+WEEKS = "dtg DURING 2020-01-01T00:00:00Z/2020-02-26T00:00:00Z"
+#: inside epoch week 2611 alone
+ONE_WEEK = "dtg DURING 2020-01-17T00:00:00Z/2020-01-22T00:00:00Z"
+
+
+def _partitioned(dev, max_resident, tmp_path, seed=17):
+    rng = np.random.default_rng(seed)
+    lo = parse_iso_ms("2020-01-01")
+    data = {
+        "geom__x": rng.uniform(-120, -70, P_ROWS),
+        "geom__y": rng.uniform(25, 50, P_ROWS),
+        "dtg": rng.integers(lo, parse_iso_ms("2020-02-26"), P_ROWS).astype("datetime64[ms]"),
+        "weight": rng.uniform(0, 1, P_ROWS).astype(np.float32),
+    }
+    ds = GeoDataset(n_shards=4, device=dev, compact_min_rows=1, compact_fraction=2.0)
+    ds.create_schema("t", PSPEC)
+    st = ds._store("t")
+    st.max_resident = max_resident
+    st._spill_dir = str(tmp_path / f"spill_{dev}")
+    ds.insert("t", data, fids=np.arange(P_ROWS).astype(str))
+    ds.flush("t")
+    return ds
+
+
+@pytest.mark.parametrize("name", ["geom__x", "geom__y", "dtg", "weight", "__z3_bin"])
+def test_staged_upload_equals_synchronous_copy(cuda, name):
+    """A column stacked into a pooled pinned buffer and copied on the side
+    stream equals a synchronous upload byte for byte; a second staging
+    reuses the pool's buffer."""
+    from geomesa_tpu_torch.index.staging import Uploader
+
+    gpu, _ = _datasets(cuda, 300_000, seed=23)
+    table = gpu._store("t").tables["z3"]
+    up = Uploader(cuda)
+    for rep in range(2):
+        table.drop_device()
+        assert table.stage_host([name], up) > 0
+        got = table.device_columns([name])[name]
+        want = torch.from_numpy(table._stack_host(name)).cuda()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.contiguous().view(torch.uint8), want.view(torch.uint8))
+    assert up.pool.allocations == 1 and up.pool.buffers() == 1
+
+
+def test_partitioned_density_prefetch_on_equals_off(cuda, tmp_path, monkeypatch):
+    """Nine partitions streamed through a budget of 2: counts, grids and
+    rows with the prefetch pipeline on equal those with it off and the
+    CPU's; both kernels launch once per partition. (At about 116k rows a
+    week the grouped rung's duplication budget would send the box's
+    full-week scans to the scatter; it is lifted so the kernel runs.)"""
+    from geomesa_tpu_torch.api.dataset import Query
+    from geomesa_tpu_torch.planning import executor as pexec
+
+    monkeypatch.setattr(pexec, "MAX_DUP", 1e9)
+    gpu = _partitioned(cuda, 2, tmp_path)
+    cpu = _partitioned("cpu", 2, tmp_path)
+    ex = gpu._executor("t")
+    poly = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)}) AND {WEEKS}"
+    box = f"BBOX(geom, -100, 30, -80, 45) AND {WEEKS}"
+    calls = {
+        "count": lambda ds: ds.count("t", box),
+        "density": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512),
+        "weighted": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512,
+                                          weight="weight"),
+        "polygon": lambda ds: ds.count("t", poly),
+        "sorted": lambda ds: ds.query("t", Query(WEEKS, sort_by=[("weight", True)],
+                                                 max_features=100)).fids,
+    }
+    for key, fn in calls.items():
+        pip0, den0 = kpip.launches, kg.launches
+        on = fn(gpu)
+        launched = (kpip.launches - pip0, kg.launches - den0)
+        ex.prefetch = False
+        try:
+            off = fn(gpu)
+        finally:
+            ex.prefetch = True
+        want = fn(cpu)
+        if key == "weighted":
+            np.testing.assert_allclose(on, off, rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(on, want, rtol=1e-4, atol=1e-3)
+        elif key == "density":
+            np.testing.assert_array_equal(on, off)
+            np.testing.assert_array_equal(on, want)
+        else:
+            assert on == off == want, key
+        if key in ("density", "weighted"):
+            # one launch for each partition whose scan took the grouped rung
+            parts = gpu._plan("t", box).exec_path["partitions"]
+            assert len(parts) == 9
+            assert all(p["density_kernel"] == "grouped" for p in parts.values()), parts
+            assert launched[1] == 9, launched
+        if key == "polygon":
+            assert launched[0] == 9, launched
+    assert ex.uploader.pool.allocations <= 2 * ex.uploader.pool.max_buffers
+
+
+def test_partitioned_device_memory_is_bounded(cuda, tmp_path):
+    """Streaming nine partitions through a budget of 2 peaks at no more
+    than (budget + 1) times one partition's own peak plus the grids the
+    merge holds (at most five 1 MB grids for nine partials), and spilling
+    every partition gives their device memory back."""
+    gpu = _partitioned(cuda, 2, tmp_path)
+    st = gpu._store("t")
+
+    def peak_of(q):
+        st.spill_all()
+        gc.collect()  # earlier tests' tensors must not free inside the window
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # settles frees deferred by record_stream
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gpu.density("t", q, bbox=BBOX, width=512, height=512)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, base
+
+    one, base = peak_of(ONE_WEEK)
+    assert gpu._plan("t", ONE_WEEK).exec_path["partitions_scanned"] == 1
+    every, _ = peak_of(WEEKS)
+    assert gpu._plan("t", WEEKS).exec_path["partitions_scanned"] == 9
+    grids = 5 * 512 * 512 * 4
+    assert 0 < one and every <= (st.max_resident + 1) * one + grids, (every, one)
+    st.spill_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() <= base
