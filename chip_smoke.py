@@ -2,6 +2,7 @@
 """On-card smoke test of geomesa_tpu_torch (one NVIDIA H100).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--reps R] [--part-rows N5]
+                          [--poly-rows N6] [--line-rows L6]
 
 1. Device: the card's name and power limit; builds the CUDA kernels from
    ``geomesa_tpu_torch/csrc`` with nvcc (in parallel) and prints the build
@@ -72,7 +73,43 @@
    (rtol 1e-9; rows within 1e-6 of the k-th distance may trade places,
    and the boundary pairs are counted). The PIP counter is zeroed before
    the phase and must be > 0 after.
-7. Slice 5, a time-partitioned store (``...;geomesa.partition='time'``) at
+7. Slice 6, extent geometries, on two more schemas of the same
+   ``GeoDataset``: N6 (default 1,100,000, about the count of NYC Open Data's
+   "Building Footprints" layer) footprint polygons
+   (``name:String,height:Float,dtg:Date,*geom:Polygon``: star-convex rings
+   of 4-8 vertices, radius 5-30 m, centres uniform over NYC's box, one in
+   50 a 2-part MultiPolygon, one in 50 with a hole; ``dtg`` uniform over a
+   month, ``name`` Zipf over 256 values) and L6 (default 200,000) street
+   polylines (``dtg:Date,*geom:LineString``, 3-6 vertices), both with the
+   default indices xz3, xz2 and id, generated from the seed. Calls: an exact
+   BBOX of a 0.06 x 0.05 degree viewport V over 10 days as count, ``query``
+   (WKT out) and 512x512 density; the same under ``geomesa.loose.bbox`` as
+   count and 256x256 density (the grouped kernel's rung); INTERSECTS and
+   WITHIN of a 40-vertex borough-like polygon with a hole, CONTAINS of a
+   point, DWITHIN 100 m of a 10-vertex line; ``height * 3 > 60`` and
+   ``st_area(geom) > <about the median>`` with BBOX V; INTERSECTS and
+   CROSSES of the streets against the borough; and on slice 3's points
+   (no new ingest) ``INTERSECTS(polygon) AND weight * 2 > 1.2`` and the
+   interval as count and density (the PIP kernel in the coarse mask, host
+   refinement after). Each call runs cold once and warm (``--reps``, 3 for
+   calls that refine more than 10k rows) and prints its index,
+   ``exec_path`` (with the host refinement's rows and milliseconds), rows,
+   cold and warm p50, and device busy / idle share; ``count_v`` prints a
+   cProfile; per-table ingest seconds and device bytes follow. Oracles,
+   independent of index, plan and coarse mask: an f64 envelope prefilter
+   over every row, then the port's ``geofn`` predicate (held to the JAX
+   package's on the CPU); loose BBOX the f32 envelope overlap; expressions
+   f64 NumPy; grids from the oracle rows (host f64 pixels, or the device's
+   f32 pixels for the loose grid); features the oracle's fids with WKT equal
+   to the stored. The counters are zeroed before the phase; the grouped
+   kernel must launch in the loose density and PIP in the points' call.
+   Then both kernels are held against their plain versions on the phase's
+   own operands (the loose density's xz chunks exact, the points'
+   expression plan's rows exact) and timed in turns with them, beside the
+   scatter rung on the same operands; and the loose density runs end to
+   end on the scatter rung (``geomesa.density.pallas.max.dup`` 0, the
+   reference's rung for xz) and the grouped rung in turns, with equal grids.
+8. Slice 5, a time-partitioned store (``...;geomesa.partition='time'``) at
    BASELINE config #3's scale: N5 (default 100,000,000) points from the
    bench's generator (20M a month, so five months of ``dtg``; seed as
    above), ingested in the bench's 25M-row chunks with ``fids`` 0..N5-1;
@@ -249,14 +286,16 @@ def pip_work(kpip, py, packed, n_edges):
     return 9 * py.numel() + packed.nbytes, 6 * spans, spans
 
 
-def density_work(o):
+def density_work(o, width: int = None, height: int = None):
     """(bytes, f32 operations, masked-in rows) the density kernel needs on
     its operands ``o``: every scheduled row's mask byte, x and y only where
-    the mask is true, the schedule once, and the grid written."""
+    the mask is true, the schedule once, and the grid (default 512x512)
+    written."""
     rows = o["x"].numel()
     live = int(o["mask"].sum())
     sched_bytes = sum(o["sched"][k].nbytes for k in ("chunks", "seg_tile", "seg_begin", "seg_end"))
-    return rows + 8 * live + sched_bytes + 4 * WIDTH * HEIGHT, 8 * live, live
+    cells = (width or WIDTH) * (height or HEIGHT)
+    return rows + 8 * live + sched_bytes + 4 * cells, 8 * live, live
 
 
 def bound(nbytes: int, nops: int):
@@ -793,6 +832,443 @@ def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
     return launches
 
 
+POLY_SPEC6 = "name:String,height:Float,dtg:Date,*geom:Polygon"
+LINE_SPEC6 = "dtg:Date,*geom:LineString"
+#: about the count of NYC Open Data's "Building Footprints" layer
+POLY_ROWS = 1_100_000
+#: the order of NYC's street centreline layer
+LINE_ROWS = 200_000
+NYC = (-74.26, 40.49, -73.70, 40.92)
+#: the viewport: 0.06 x 0.05 degrees over Midtown to Downtown Brooklyn
+VIEW = (-73.99, 40.70, -73.93, 40.75)
+#: the loose-BBOX density's grid: an xz3 chunk's rows spread over a whole
+#: depth-12 cell (0.088 x 0.044 degrees, wider than the viewport), so at
+#: 512 x 512 every chunk pairs with all 16 tiles (over the duplication
+#: budget of 4) and the grouped rung declines; at 256 x 256 it pairs with
+#: at most the 4 tiles there are
+LOOSE_GRID = 256
+M_PER_DEG = 111_319.49079327358
+
+
+def make_polys(n: int, seed: int):
+    """Building-footprint-like polygons over NYC's box: star-convex rings
+    of 4-8 vertices of radius 5-30 m around uniform centres; one in 50 a
+    2-part MultiPolygon (a 4-vertex annex 40 m east), one in 50 with a hole
+    (the ring scaled by 0.3 toward its centre). Returns the Geometry
+    objects and per-row f64 arrays: bounds, the shoelace area, centres."""
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed + 6)
+    K = 8
+    cx, cy = rng.uniform(NYC[0], NYC[2], n), rng.uniform(NYC[1], NYC[3], n)
+    k = rng.integers(4, K + 1, n)
+    j = np.arange(K)
+    ang = rng.uniform(0, 2 * np.pi, n)[:, None] + (
+        j[None, :] + rng.uniform(0.1, 0.9, (n, K))) * (2 * np.pi / k[:, None])
+    r = rng.uniform(5, 30, (n, K))
+    mx = 1.0 / (M_PER_DEG * np.cos(np.radians(cy)))[:, None]
+    vx = cx[:, None] + r * np.cos(ang) * mx
+    vy = cy[:, None] + r * np.sin(ang) / M_PER_DEG
+    used = j[None, :] < k[:, None]
+    multi = np.arange(n) % 50 == 17
+    holed = np.arange(n) % 50 == 33
+    # the annex: a 4-vertex ring of radius 6 m, 40 m east of the centre
+    aa = np.arange(4) * (np.pi / 2) + 0.3
+    ax = cx[:, None] + (40 + 6 * np.cos(aa))[None, :] * mx
+    ay = cy[:, None] + 6 * np.sin(aa)[None, :] / M_PER_DEG
+    xmin = np.where(used, vx, np.inf).min(1)
+    xmax = np.where(used, vx, -np.inf).max(1)
+    ymin = np.where(used, vy, np.inf).min(1)
+    ymax = np.where(used, vy, -np.inf).max(1)
+    xmin = np.where(multi, np.minimum(xmin, ax.min(1)), xmin)
+    xmax = np.where(multi, np.maximum(xmax, ax.max(1)), xmax)
+    ymin = np.where(multi, np.minimum(ymin, ay.min(1)), ymin)
+    ymax = np.where(multi, np.maximum(ymax, ay.max(1)), ymax)
+
+    def shoelace(x, y, m):  # |ring area|, rows of x / y padded past m
+        x2 = np.where(m, x, x[:, :1])
+        y2 = np.where(m, y, y[:, :1])
+        return 0.5 * np.abs((x2 * np.roll(y2, -1, 1) - np.roll(x2, -1, 1) * y2).sum(1))
+
+    area = shoelace(vx, vy, used)
+    area = np.where(holed, area * (1 - 0.3 ** 2), area)
+    area = np.where(multi, area + shoelace(ax, ay, np.ones_like(ax, bool)), area)
+    xs, ys, axs, ays = vx.tolist(), vy.tolist(), ax.tolist(), ay.tolist()
+    geoms = []
+    for i in range(n):
+        ki = int(k[i])
+        shell = tuple(zip(xs[i][:ki], ys[i][:ki]))
+        shell += shell[:1]
+        if holed[i]:
+            hole = tuple((cx[i] + 0.3 * (x - cx[i]), cy[i] + 0.3 * (y - cy[i])) for x, y in shell)
+            geoms.append(geo.Polygon(shell, (hole,)))
+        elif multi[i]:
+            annex = tuple(zip(axs[i], ays[i]))
+            geoms.append(geo.MultiPolygon((geo.Polygon(shell), geo.Polygon(annex + annex[:1]))))
+        else:
+            geoms.append(geo.Polygon(shell))
+    return geoms, {"xmin": xmin, "ymin": ymin, "xmax": xmax, "ymax": ymax,
+                   "area": area, "cx": cx, "cy": cy, "holed": holed}
+
+
+def make_lines(n: int, seed: int):
+    """Street-segment-like polylines: 3-6 vertices, steps of 30-150 m in
+    random directions from a uniform start over NYC's box. Returns the
+    LineStrings and their f64 bounds."""
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed + 7)
+    K = 6
+    k = rng.integers(3, K + 1, n)
+    x0, y0 = rng.uniform(NYC[0], NYC[2], n), rng.uniform(NYC[1], NYC[3], n)
+    step = rng.uniform(30, 150, (n, K - 1)) / M_PER_DEG
+    th = rng.uniform(0, 2 * np.pi, (n, K - 1))
+    coslat = np.cos(np.radians(y0))[:, None]
+    vx = np.concatenate([x0[:, None], x0[:, None] + np.cumsum(step * np.cos(th) / coslat, 1)], 1)
+    vy = np.concatenate([y0[:, None], y0[:, None] + np.cumsum(step * np.sin(th), 1)], 1)
+    used = np.arange(K)[None, :] < k[:, None]
+    xs, ys = vx.tolist(), vy.tolist()
+    lines = [geo.LineString(tuple(zip(xs[i][:int(k[i])], ys[i][:int(k[i])])))
+             for i in range(n)]
+    return lines, {"xmin": np.where(used, vx, np.inf).min(1),
+                   "xmax": np.where(used, vx, -np.inf).max(1),
+                   "ymin": np.where(used, vy, np.inf).min(1),
+                   "ymax": np.where(used, vy, -np.inf).max(1)}
+
+
+def borough_wkt() -> str:
+    """A borough-like polygon, neighbourhood-sized so the host refinement
+    stays in the phase's budget: a 40-vertex wavy shell about 1.6 km across
+    with an 8-vertex hole (a park)."""
+    def ring(n, rx, ry, wave, ph):
+        pts = []
+        for i in range(n):
+            a = 2 * math.pi * i / n + ph
+            r = 1 + wave * math.sin(3 * a)
+            pts.append((round(-73.955 + rx * r * math.cos(a), 6),
+                        round(40.685 + ry * r * math.sin(a), 6)))
+        pts.append(pts[0])
+        return "(" + ", ".join(f"{x} {y}" for x, y in pts) + ")"
+
+    return f"POLYGON ({ring(40, 0.0105, 0.008, 0.2, 0.0)}, {ring(8, 0.003, 0.0022, 0.0, 0.1)})"
+
+
+LINE_LIT = ("LINESTRING (" + ", ".join(
+    f"{-73.975 + 0.0035 * i} {40.72 + 0.002 * math.sin(i)}" for i in range(10)) + ")")
+
+
+def env_overlap(b, box):
+    """f64 envelope overlap of per-row bounds ``b`` with ``box``."""
+    return ((b["xmin"] <= box[2]) & (b["xmax"] >= box[0])
+            & (b["ymin"] <= box[3]) & (b["ymax"] >= box[1]))
+
+
+def host_grid(x, y, bbox, w, h):
+    """The host path's grid of exact f64 rows: f64 pixels, edge-clipped."""
+    xmin, ymin, xmax, ymax = bbox
+    px = np.clip(((x - xmin) / (xmax - xmin) * w).astype(np.int32), 0, w - 1)
+    py = np.clip(((y - ymin) / (ymax - ymin) * h).astype(np.int32), 0, h - 1)
+    return np.bincount(py * w + px, minlength=w * h).reshape(h, w)
+
+
+def device_grid(x, y, bbox, w, h):
+    """The device's grid of f32 rows: the reference's f32 pixel mapping
+    (origin and span rounded to f32), edge-clipped."""
+    f = np.float32
+    xmin, ymin, xmax, ymax = bbox
+    x32, y32 = x.astype(f), y.astype(f)
+    px = np.clip(((x32 - f(xmin)) / f(xmax - xmin) * f(w)).astype(np.int32), 0, w - 1)
+    py = np.clip(((y32 - f(ymin)) / f(ymax - ymin) * f(h)).astype(np.int32), 0, h - 1)
+    return np.bincount(py * w + px, minlength=w * h).reshape(h, w)
+
+
+def slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
+    """The slice-6 phase (see the module docstring, 7). Returns its
+    launches of both kernels."""
+    from geomesa_tpu_torch import config, geofn
+    from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    t_phase = time.perf_counter()
+    n, n_lines = args.poly_rows, args.line_rows
+    if n != POLY_ROWS or n_lines != LINE_ROWS:
+        log(f"[slice6] cut: {n} polygons, {n_lines} lines instead of {POLY_ROWS}, {LINE_ROWS}")
+    t0 = time.perf_counter()
+    geoms, pb = make_polys(n, args.seed)
+    lines, lb = make_lines(n_lines, args.seed)
+    rng = np.random.default_rng(args.seed + 8)
+    zipf = 1.0 / np.arange(1, 257) ** 1.1
+    lo = parse_iso_ms("2020-01-01")
+    month = parse_iso_ms("2020-02-01") - lo
+    pdata = {"name": np.array([f"n{i:03d}" for i in range(256)])[
+                 rng.choice(256, n, p=zipf / zipf.sum())],
+             "height": rng.uniform(2, 50, n).astype(np.float32),
+             "dtg": rng.integers(lo, lo + month, n).astype("datetime64[ms]"),
+             "geom": geoms}
+    ldata = {"dtg": rng.integers(lo, lo + month, n_lines).astype("datetime64[ms]"),
+             "geom": lines}
+    gen_s = time.perf_counter() - t0
+    ingest = {}
+    for schema, spec, d, rows in (("nyc_buildings", POLY_SPEC6, pdata, n),
+                                  ("nyc_streets", LINE_SPEC6, ldata, n_lines)):
+        t0 = time.perf_counter()
+        ds.create_schema(schema, spec)
+        ds.insert(schema, d, fids=np.arange(rows).astype(str))
+        encode_s = time.perf_counter() - t0
+        ds.flush(schema)
+        st = ds._store(schema)
+        ingest[schema] = (encode_s, dict(st.flush_seconds))
+        log(f"[slice6] ingest {schema}: {rows} rows, encode {encode_s:.3f} s, flush "
+            f"{sum(st.flush_seconds.values()):.3f} s by stage "
+            f"{ {k: round(v, 3) for k, v in st.flush_seconds.items()} }; tables {list(st.tables)}")
+    log(f"[slice6] generated {n} polygons and {n_lines} lines in {gen_s:.3f} s")
+
+    view = ", ".join(str(v) for v in VIEW)
+    borough = borough_wkt()
+    bpoly = geo.parse_wkt(borough)
+    q_v = f"BBOX(geom, {view}) AND {DURING}"
+    # a point inside a footprint with no hole
+    i_pt = next(i for i in range(12345, n) if not pb["holed"][i])
+    pt = (float(pb["cx"][i_pt]), float(pb["cy"][i_pt]))
+    areas = np.sort(pb["area"][env_overlap(pb, VIEW)])
+    a_cut = float((areas[len(areas) // 2 - 1] + areas[len(areas) // 2]) / 2)
+    pts_q = f"INTERSECTS(geom, {wkt}) AND weight * 2 > 1.2 AND {DURING}"
+    grid = dict(bbox=VIEW, width=WIDTH, height=HEIGHT)
+    lgrid = dict(bbox=VIEW, width=LOOSE_GRID, height=LOOSE_GRID)
+
+    def loose(fn):
+        def run():
+            with config.LOOSE_BBOX.scoped(True):
+                return fn()
+        return run
+
+    #: key -> (schema, query, call)
+    calls = {
+        "count_v": ("nyc_buildings", q_v, lambda: ds.count("nyc_buildings", q_v)),
+        "query_v": ("nyc_buildings", q_v, lambda: ds.query("nyc_buildings", q_v)),
+        "density_v": ("nyc_buildings", q_v,
+                      lambda: ds.density("nyc_buildings", q_v, **grid)),
+        "loose_count_v": ("nyc_buildings", q_v,
+                          loose(lambda: ds.count("nyc_buildings", q_v))),
+        "loose_density_v": ("nyc_buildings", q_v,
+                            loose(lambda: ds.density("nyc_buildings", q_v, **lgrid))),
+        "intersects_borough": ("nyc_buildings", f"INTERSECTS(geom, {borough}) AND {DURING}",
+                               None),
+        "within_borough": ("nyc_buildings", f"WITHIN(geom, {borough}) AND {DURING}", None),
+        "contains_point": ("nyc_buildings", f"CONTAINS(geom, POINT ({pt[0]} {pt[1]}))",
+                           "query"),
+        "dwithin_line": ("nyc_buildings",
+                         f"DWITHIN(geom, {LINE_LIT}, 100, meters) AND {DURING}", None),
+        "expr_height": ("nyc_buildings", f"height * 3 > 60 AND BBOX(geom, {view})", None),
+        "expr_area": ("nyc_buildings", f"st_area(geom) > {a_cut!r} AND BBOX(geom, {view})",
+                      None),
+        "streets_intersects": ("nyc_streets", f"INTERSECTS(geom, {borough})", None),
+        "streets_crosses": ("nyc_streets", f"CROSSES(geom, {borough})", None),
+        "points_expr_count": ("gdelt3", pts_q, None),
+        "points_expr_density": ("gdelt3", pts_q, lambda: ds.density(
+            "gdelt3", pts_q, bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)),
+    }
+    for key, (schema, q, fn) in list(calls.items()):
+        if fn is None:
+            fn = lambda schema=schema, q=q: ds.count(schema, q)  # noqa: E731
+        elif fn == "query":
+            fn = lambda schema=schema, q=q: ds.query(schema, q)  # noqa: E731
+        calls[key] = (schema, q, fn)
+
+    kpip.launches = 0
+    kgrouped.launches = 0
+    results, rec, at = {}, {}, {}
+    for key, (schema, q, fn) in calls.items():
+        results[key], cold = timed(torch, fn)
+        at[key] = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+        if key.startswith("loose"):
+            with config.LOOSE_BBOX.scoped(True):
+                plan = ds._plan(schema, q)
+        else:
+            plan = ds._plan(schema, q)
+        path = dict(plan.exec_path)
+        reps = 3 if path.get("refined_rows", 0) > 10_000 else args.reps
+        warm = [timed(torch, fn)[1] for _ in range(reps)]
+        ans = results[key]
+        rows = (ans if isinstance(ans, int) else len(ans) if hasattr(ans, "columns")
+                else int(ans.sum()))
+        rec[key] = {"index": plan.index_name, "path": path, "rows": rows,
+                    "cold_ms": cold * 1e3, "warm_ms": float(np.median(warm)) * 1e3,
+                    "reps": reps}
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    for key, (schema, q, fn) in calls.items():
+        r = rec[key]
+        # a host-bound call's share is read off one call
+        prof_reps = 1 if r["path"].get("refined_rows") else min(r["reps"], 3)
+        wall, busy, top, _ = profile_warm(torch, fn, prof_reps,
+                                          out_dir / f"slice6_{key}.json")
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        ref = r["path"].get("refined_rows")
+        per_row = (f", host refine {r['path']['refine_ms'] / ref * 1e3:.2f} us/row over "
+                   f"{ref} rows" if ref else "")
+        log(f"[slice6] {key}: index {r['index']}, exec_path {r['path']}, rows {r['rows']}, "
+            f"cold {r['cold_ms']:.3f} ms, warm p50 {r['warm_ms']:.3f} ms ({r['reps']} reps)"
+            f"{per_row}; device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms'}/call, idle share "
+            f"{share} (profiled wall {wall:.3f} ms/call), top device work (ms/call) {top}")
+    log(f"[slice6] count_v host profile, top own times (ms): "
+        f"{host_profile(torch, calls['count_v'][2], top=8)}")
+    for schema in ("nyc_buildings", "nyc_streets"):
+        st = ds._store(schema)
+        log(f"[slice6] {schema}: encode {ingest[schema][0]:.3f} s, flush "
+            f"{ {k: round(v, 3) for k, v in ingest[schema][1].items()} } s; device bytes by "
+            f"table { {name: t.device_bytes() for name, t in st.tables.items()} }")
+    log(f"[slice6] launches {launches}; after loose_density_v "
+        f"{at['loose_density_v']}, after points_expr_count {at['points_expr_count']}")
+    if rec["loose_density_v"]["path"].get("density_kernel") != "grouped" \
+            or at["loose_density_v"]["density_grouped"] <= at["loose_count_v"]["density_grouped"]:
+        raise AssertionError("the loose-BBOX density did not run the grouped kernel: "
+                             f"{rec['loose_density_v']['path']}, {at}")
+    if at["points_expr_count"]["pip"] <= at["streets_crosses"]["pip"]:
+        raise AssertionError(f"the expression on the points did not run the pip kernel: {at}")
+
+    # both kernels against their plain versions on this phase's operands:
+    # the loose density's xz chunks paired by centroid boxes, and the
+    # points' expression plan's scanned rows
+    from geomesa_tpu_torch.kernels.density import density_grid
+
+    with config.LOOSE_BBOX.scoped(True):
+        o = ds._executor("nyc_buildings").density_inputs(
+            ds._plan("nyc_buildings", q_v), VIEW, LOOSE_GRID, LOOSE_GRID)
+    if o is None:
+        raise AssertionError("the loose-BBOX plan did not take the grouped rung")
+    a = (o["x"], o["y"], o["mask"], o["weight"], VIEW, LOOSE_GRID, LOOSE_GRID, o["sched"])
+    g_k, g_p = kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)
+    torch.cuda.synchronize()
+    d_err = float((g_k - g_p).abs().max())
+    d_ms, d_plain, _ = in_turns(torch, lambda: kgrouped.density_grouped(*a),
+                                lambda: kgrouped.density_grouped_plain(*a), 20, 3)
+    # the scatter rung (the reference's for xz) on the same operands
+    d_scatter = cuda_ms(torch, lambda: density_grid(o["x"], o["y"], o["mask"], VIEW,
+                                                    LOOSE_GRID, LOOSE_GRID), 20)
+    d_bound = bound(*density_work(o, LOOSE_GRID, LOOSE_GRID)[:2])
+    log(f"[slice6] density_grouped on the loose density's {tuple(o['x'].shape)} rows, "
+        f"{o['sched']['chunks'].numel()} pairs: max abs err {d_err}; {d_ms:.6f} ms (plain "
+        f"{d_plain:.6f} ms, scatter rung {d_scatter:.6f} ms, bound {d_bound[0]:.6f} ms by "
+        f"{d_bound[1]})")
+    if d_err != 0.0:
+        raise AssertionError("density kernel disagrees with its plain version on xz chunks")
+    pc = ds._executor("gdelt3").scan_columns(ds._plan("gdelt3", pts_q), ["geom__x", "geom__y"])
+    px, py = pc["geom__x"], pc["geom__y"]
+    edges = torch.from_numpy(packed).cuda()
+    bad = int((kpip.pip_mask(px, py, edges, n_edges)
+               != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+    p_ms, p_plain, _ = in_turns(torch, lambda: kpip.pip_mask(px, py, edges, n_edges),
+                                lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 20, 3)
+    log(f"[slice6] pip on the points' expression plan's {tuple(px.shape)} points: {bad} "
+        f"mismatches; {p_ms:.6f} ms (plain {p_plain:.6f} ms)")
+    if bad:
+        raise AssertionError("pip kernel disagrees with its plain version on the expression plan")
+
+    # the loose density end to end on each rung, in turns: scatter
+    # (`geomesa.density.pallas.max.dup` 0, as the reference runs xz), grouped
+    def rung(dup):
+        def run():
+            with config.LOOSE_BBOX.scoped(True), config.DENSITY_PALLAS_MAX_DUP.scoped(dup):
+                return ds.density("nyc_buildings", q_v, **lgrid)
+        return run
+
+    scatter_run, grouped_run = rung(0.0), rung(config.DENSITY_PALLAS_MAX_DUP.to_float())
+    g_scatter = scatter_run()
+    with config.LOOSE_BBOX.scoped(True):
+        kern = ds._plan("nyc_buildings", q_v).exec_path.get("density_kernel")
+    if kern != "scatter" or not np.array_equal(g_scatter, results["loose_density_v"]):
+        raise AssertionError(f"the scatter rung's loose density differs ({kern})")
+    ab = {"scatter": [], "grouped": []}
+    for name in ("scatter", "grouped", "grouped", "scatter"):
+        fn = scatter_run if name == "scatter" else grouped_run
+        ab[name] += [timed(torch, fn)[1] * 1e3 for _ in range(args.reps)]
+    log(f"[slice6] loose density 256x256 warm p50, rungs in turns ({2 * args.reps} calls "
+        f"each): scatter {float(np.median(ab['scatter'])):.3f} ms, grouped "
+        f"{float(np.median(ab['grouped'])):.3f} ms")
+
+    # -- the answers against oracles independent of index, plan and coarse mask
+    tm = time_mask(pdata)
+
+    def exact(b, box, keep, pred, objs):
+        rows = np.flatnonzero(env_overlap(b, box) & keep)
+        return rows[np.array([bool(pred(objs[i])) for i in rows], bool)] if len(rows) \
+            else rows
+
+    vpoly = geo.bbox_polygon(*VIEW)
+    all_p, all_l = np.ones(n, bool), np.ones(n_lines, bool)
+    rows_v = exact(pb, VIEW, tm, lambda g: geofn.st_intersects(g, vpoly), geoms)
+    bb = bpoly.bounds()
+    lb_ = geo.parse_wkt(LINE_LIT).bounds()
+    pad = 2 * 100 / M_PER_DEG / math.cos(math.radians(40.92))
+    h64 = pdata["height"].astype(np.float64)
+    rows_vall = exact(pb, VIEW, all_p, lambda g: geofn.st_intersects(g, vpoly), geoms)
+    want = {
+        "count_v": len(rows_v),
+        "intersects_borough": len(exact(pb, bb, tm, lambda g: geofn.st_intersects(g, bpoly),
+                                        geoms)),
+        "within_borough": len(exact(pb, bb, tm, lambda g: geofn.st_within(g, bpoly), geoms)),
+        "dwithin_line": len(exact(
+            pb, (lb_[0] - pad, lb_[1] - pad, lb_[2] + pad, lb_[3] + pad), tm,
+            lambda g: geofn.st_distanceSphere(g, geo.parse_wkt(LINE_LIT)) <= 100.0, geoms)),
+        "expr_height": int((h64[rows_vall] * 3 > 60).sum()),
+        "expr_area": int((pb["area"][rows_vall] > a_cut).sum()),
+        "streets_intersects": len(exact(lb, bb, all_l,
+                                        lambda g: geofn.st_intersects(g, bpoly), lines)),
+        "streets_crosses": len(exact(lb, bb, all_l,
+                                     lambda g: geofn.st_crosses(g, bpoly), lines)),
+    }
+    f = np.float32
+    loose_m = ((pb["xmin"].astype(f) <= f(VIEW[2])) & (pb["xmax"].astype(f) >= f(VIEW[0]))
+               & (pb["ymin"].astype(f) <= f(VIEW[3])) & (pb["ymax"].astype(f) >= f(VIEW[1]))
+               & tm)
+    want["loose_count_v"] = int(loose_m.sum())
+    # the points: the device's f32 even-odd coarse mask, then the exact f64
+    # tree (ring membership, the expression in f64, the interval)
+    x, y, w = data["geom__x"], data["geom__y"], data["weight"]
+    tm3 = time_mask(data)
+    coarse = np.flatnonzero(polygon_rows(data, tm3, packed, n_edges))
+    keep = geo.parse_wkt(wkt).contains_points(x[coarse], y[coarse]) \
+        & (w[coarse].astype(np.float64) * 2 > 1.2)
+    pts_rows = coarse[keep]
+    want["points_expr_count"] = len(pts_rows)
+    for key, v in want.items():
+        if results[key] != v:
+            raise AssertionError(f"slice6 {key}: {results[key]} != oracle {v}")
+    fc = results["query_v"]
+    got_rows = np.asarray(fc.fids, np.int64)
+    if sorted(got_rows.tolist()) != rows_v.tolist():
+        raise AssertionError("query_v: fids differ from the oracle's")
+    wkts = fc.to_dict()["geom"]
+    if any(wk != geoms[i].wkt() for wk, i in zip(wkts, got_rows.tolist())):
+        raise AssertionError("query_v: a WKT differs from the stored geometry's")
+    fc = results["contains_point"]
+    want_pt = exact(pb, (pt[0], pt[1], pt[0], pt[1]), all_p,
+                    lambda g: geofn.st_contains(g, geo.Point(*pt)), geoms)
+    if sorted(int(v) for v in fc.fids) != want_pt.tolist() or i_pt not in want_pt:
+        raise AssertionError("contains_point: fids differ from the oracle's")
+    # the stored reference point of an extent: its bounds' centre
+    mx, my = (pb["xmin"] + pb["xmax"]) / 2, (pb["ymin"] + pb["ymax"]) / 2
+    grids = {
+        "density_v": host_grid(mx[rows_v], my[rows_v], VIEW, WIDTH, HEIGHT),
+        "loose_density_v": device_grid(mx[loose_m], my[loose_m], VIEW, LOOSE_GRID,
+                                       LOOSE_GRID),
+        "points_expr_density": host_grid(x[pts_rows], y[pts_rows], QUERY_BBOX, WIDTH, HEIGHT),
+    }
+    for key, g in grids.items():
+        got = results[key]
+        if got.shape != g.shape or not np.array_equal(got.astype(np.float64), g):
+            raise AssertionError(f"slice6 {key}: grid differs from the oracle "
+                                 f"({int((got != g).sum())} cells)")
+    log(f"[check] slice6: counts exact against envelope-prefiltered geofn oracles "
+        f"{ {k: want[k] for k in sorted(want)} }; query_v fids and WKT equal the stored "
+        f"geometries' ({len(rows_v)} rows); contains_point {want_pt.tolist()}; grids "
+        f"equal (exact: host f64 pixels; loose: f32 pixels); the phase took "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 PART_SPEC = "weight:Float,dtg:Date,*geom:Point;geomesa.partition='time'"
 #: BASELINE config #3's scale; the JAX bench partitions from 50M rows on
 #: (bench.py:1082), the least this phase may be cut to
@@ -816,12 +1292,11 @@ def paths_by_partition(parts):
 
 
 def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
-    """The slice-5 phase (see the module docstring, 7). Returns its
+    """The slice-5 phase (see the module docstring, 8). Returns its
     launches of both kernels."""
     import shutil
 
-    from geomesa_tpu_torch import GeoDataset, Query
-    from geomesa_tpu_torch.index import partitioned
+    from geomesa_tpu_torch import GeoDataset, Query, config
 
     n = args.part_rows
     if n != PART_ROWS:
@@ -831,15 +1306,17 @@ def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
     spill = out_dir / "spill"
     shutil.rmtree(spill, ignore_errors=True)
     spill.mkdir(parents=True)
-    partitioned.SPILL_DIR = str(spill)
     try:
-        return _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Query)
+        with config.SPILL_DIR.scoped(str(spill)):
+            return _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped,
+                           GeoDataset, Query)
     finally:
-        partitioned.SPILL_DIR = None
         shutil.rmtree(spill, ignore_errors=True)
 
 
 def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Query):
+    from geomesa_tpu_torch.kernels.density import pixel_coords
+
     t0 = time.perf_counter()
     data = make_data(n, args.seed)
     gen_s = time.perf_counter() - t0
@@ -1030,6 +1507,13 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
     d_ms, d_plain, _ = in_turns(torch, lambda: kgrouped.density_grouped(*a),
                                 lambda: kgrouped.density_grouped_plain(*a), 20, 3)
     d_bound = bound(*density_work(o)[:2])
+    # the library yardstick at these shapes, as at the main path's:
+    # torch.bincount over precomputed cell ids, the mask as the weight
+    cx, cy = pixel_coords(o["x"], o["y"], QUERY_BBOX, WIDTH, HEIGHT)
+    flat = (cy.to(torch.int64) * WIDTH + cx).reshape(-1)
+    wflat = o["mask"].reshape(-1).to(torch.float32)
+    d_lib = cuda_ms(torch, lambda: torch.bincount(flat, weights=wflat,
+                                                  minlength=WIDTH * HEIGHT), 20)
     pc = cex.scan_columns(plan_p, ["geom__x", "geom__y"])
     px, py = pc["geom__x"], pc["geom__y"]
     edges = torch.from_numpy(packed).cuda()
@@ -1042,7 +1526,8 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
     p_bound = bound(*pip_work(kpip, py, packed, n_edges)[:2])
     log(f"[slice5] kernels at partition {b0}'s shapes: density_grouped on "
         f"{tuple(o['x'].shape)} rows, {o['sched']['chunks'].numel()} pairs: {d_ms:.6f} ms "
-        f"(plain {d_plain:.6f} ms, bound {d_bound[0]:.6f} ms by {d_bound[1]}); pip on "
+        f"(plain {d_plain:.6f} ms, torch.bincount {d_lib:.6f} ms, bound {d_bound[0]:.6f} ms "
+        f"by {d_bound[1]}); pip on "
         f"{tuple(px.shape)} points: {p_ms:.6f} ms (plain {p_plain:.6f} ms, bound "
         f"{p_bound[0]:.6f} ms by {p_bound[1]}); both equal their plain versions")
 
@@ -1109,6 +1594,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10, help="warm runs per query")
     ap.add_argument("--part-rows", type=int, default=PART_ROWS,
                     help="rows of slice 5's partitioned dataset")
+    ap.add_argument("--poly-rows", type=int, default=POLY_ROWS,
+                    help="polygons of slice 6's building-footprint schema")
+    ap.add_argument("--line-rows", type=int, default=LINE_ROWS,
+                    help="lines of slice 6's street-segment schema")
     args = ap.parse_args()
 
     import torch
@@ -1330,7 +1819,10 @@ def main() -> int:
     # -- 6. slice 4 ---------------------------------------------------------
     slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip)
 
-    # -- 7. slice 5, on a partitioned store of its own -----------------------
+    # -- 7. slice 6: extent schemas beside slice 3's points -------------------
+    slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+
+    # -- 8. slice 5, on a partitioned store of its own -----------------------
     # the earlier phases' stores and operands leave the card first
     del ds, data, extra, fids, ex, cols, px, py, o, ops_u, ops_w, got, want
     del edges, cx, cy, flat, wflat

@@ -1,12 +1,15 @@
 """PyTorch / CUDA port of geomesa_tpu for one NVIDIA H100.
 
-This package serves point schemas: ingest into sorted z3, z2, feature-id
-and attribute index shards; ECQL planning through the cost-based decider to
-scan windows; window compaction, the fused mask, and the ``count`` /
-``density`` aggregates, feature queries (``Query``: projection, limit,
-sorting, sampling), stats and kNN, with the JAX package's two Pallas
-kernels rewritten as CUDA kernels (``csrc/``). It imports torch and numpy,
-and nothing of JAX or ``geomesa_tpu``.
+This package serves point and extent-geometry schemas: ingest into sorted
+z3, z2 (points), xz3, xz2 (lines, polygons, Multi*), feature-id and
+attribute index shards; ECQL planning (expression comparisons and ``st_*``
+functions included) through the cost-based decider to scan windows; window
+compaction, the fused mask, exact refinement on the host, and the
+``count`` / ``density`` aggregates, feature queries (``Query``: projection,
+limit, sorting, sampling), stats and kNN, with the JAX package's two
+Pallas kernels rewritten as CUDA kernels (``csrc/``). Its tunables are in
+``config``. It imports torch and numpy, and nothing of JAX or
+``geomesa_tpu``.
 """
 
 from geomesa_tpu_torch.api.dataset import FeatureCollection, GeoDataset, Query

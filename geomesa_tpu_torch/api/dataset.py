@@ -11,7 +11,8 @@ helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
 ``top_k``), and ``knn``. A schema with ``geomesa.partition='time'`` gets
 a time-partitioned, out-of-core store and serves the same calls partition
 at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
-The layers the JAX ``GeoDataset`` wraps around its executor (aggregate
+Extent-geometry columns take WKT strings or geometry objects on insert
+and come back as WKT. The layers the JAX ``GeoDataset`` wraps around its executor (aggregate
 cache, audit, serving, tracing, journal, fleet) are not part of this port
 yet: every call goes to the executor directly.
 """
@@ -26,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
@@ -41,10 +43,6 @@ from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import parse_stat
 from geomesa_tpu_torch.stats import sketches as sk
 from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
-
-#: largest ``max_features`` a sorted query selects on the device (the JAX
-#: package's geomesa.topk.max; 0 disables the pushdown)
-TOPK_MAX = 100_000
 
 #: ROADMAP items the port refuses by name
 _HOST_LAYERS = "ROADMAP Queue 1, host layers"
@@ -234,7 +232,10 @@ class GeoDataset:
         q = self._as_query(query)
         st = self._store(name)
         st.flush()
-        key = (name, repr(q), id(st), st.version)
+        # the knobs planning reads key the cache too, so a scoped change
+        # never serves a plan compiled under another setting
+        key = (name, repr(q), id(st), st.version, config.LOOSE_BBOX.get(),
+               config.SCAN_RANGES_TARGET.get())
         plan = self._plans.get(key)
         if plan is None:
             if len(self._plans) >= 256:
@@ -285,7 +286,7 @@ class GeoDataset:
 
     def query(self, name: str, query="INCLUDE") -> FeatureCollection:
         """Matching features. A sorted query with ``0 < max_features <=``
-        :data:`TOPK_MAX` first selects candidates on the device by the
+        ``geomesa.topk.max`` (0 disables) first selects candidates on the device by the
         primary sort key (every boundary tie included when there are more
         keys), and the host gathers and sorts only those; then, as the
         reference, sort -> limit -> projection."""
@@ -294,7 +295,8 @@ class GeoDataset:
         st = self._store(name)
         ex = self._executor(name)
         batch = None
-        if q.sort_by and q.max_features is not None and 0 < q.max_features <= TOPK_MAX:
+        topk_max = config.TOPK_MAX.to_int() or 0
+        if q.sort_by and q.max_features is not None and 0 < q.max_features <= topk_max:
             attr, desc = q.sort_by[0]
             names = None
             if q.properties:

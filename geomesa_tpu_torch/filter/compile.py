@@ -11,24 +11,40 @@ Where f32 cannot decide a row exactly, the compiled filter says so: the
 ``band`` marks rows whose f64 value collides with the f32 image of a query
 bound (BBOX, Double compares), and ``refine`` holds the exact host tree for
 coarse device masks (Long bounds beyond 2^24, point and line literals,
-WITHIN / TOUCHES). The executor corrects or refines those rows on the host.
+WITHIN / TOUCHES, DWITHIN with a line or polygon literal). The executor
+corrects or refines those rows on the host.
+
+Extent columns (LineString, Polygon, Multi*, Geometry) compile to a coarse
+envelope mask over their f32 ``__xmin/__ymin/__xmax/__ymax`` device
+columns, a superset of the exact matches under even NOT-polarity and a
+subset under odd, plus the exact host tree over the ``__wkt`` column
+(``geofn``'s ``st_*`` relations on each candidate's parsed WKT, through a
+bounded, locked LRU). Under ``geomesa.loose.bbox`` a BBOX on an extent
+column is the envelope overlap alone. Expression comparisons
+(``ExprCompare``: arithmetic, property against property, ``st_*``
+functions) get the exact host tree and, when they call no function and
+read no string or geometry, an error-bounded f32 interval mask on the
+device.
 """
 
 from __future__ import annotations
 
 import math
 import re
+from collections import OrderedDict
 from dataclasses import dataclass, field
+from threading import Lock
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config, geofn
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.kernels import pip as kpip
 from geomesa_tpu_torch.schema.columns import DictionaryEncoder
-from geomesa_tpu_torch.schema.feature_type import LATER_ITEM, FeatureType
+from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.utils import geometry as geo
 
 
@@ -271,8 +287,8 @@ def _point_exact_fns(g: geo.Geometry, dim: int, xc: str, yc: str):
         }
 
     def on_bnd(cols, xp=np):
-        return geo.on_boundary_of(g, np.asarray(cols[xc], np.float64),
-                                  np.asarray(cols[yc], np.float64))
+        return geofn._on_boundary_of(g, np.asarray(cols[xc], np.float64),
+                                     np.asarray(cols[yc], np.float64))
 
     return {
         "intersects": inside,  # boundary-inclusive ring containment
@@ -324,7 +340,7 @@ def _point_spatial_fn(node: ir.Spatial, xc: str, yc: str, exact: bool,
         if op == "disjoint":
             return _TRUE
         # intersects / within / touches: all lie on the (relaxed) segments
-        return _on_segments_fn(geo.edges(g), xc, yc)
+        return _on_segments_fn(geofn._edges(g), xc, yc)
     if op in ("contains", "crosses", "overlaps", "equals"):
         return _FALSE  # a point cannot contain/cross/overlap/equal an area
     band = None if exact else need_band
@@ -343,7 +359,440 @@ def _point_spatial_fn(node: ir.Spatial, xc: str, yc: str, exact: bool,
         return _FALSE
     if op == "within":
         return pip  # superset of the interior
-    return _on_segments_fn(geo.edges(g), xc, yc)  # touches: relaxed boundary
+    return _on_segments_fn(geofn._edges(g), xc, yc)  # touches: relaxed boundary
+
+
+def _geom_cols(ft: FeatureType, prop: str) -> Dict[str, str]:
+    """Column names of a geometry attribute: ``x`` / ``y`` (a point, or an
+    extent's bounds centroid) and, for extents, the bounds."""
+    a = ft.attr(prop)
+    if not a.is_geom:
+        raise ValueError(f"attribute {prop!r} is not a geometry")
+    if a.is_point:
+        return {"x": prop + "__x", "y": prop + "__y", "point": "1"}
+    return {
+        "x": prop + "__x", "y": prop + "__y",
+        "xmin": prop + "__xmin", "ymin": prop + "__ymin",
+        "xmax": prop + "__xmax", "ymax": prop + "__ymax",
+    }
+
+
+#: parsed-geometry LRU of the refinement: candidate rows repeat across
+#: refine calls, and parsing WKT dominates the host refine cost. Bounded
+#: and evicting in LRU order; locked, since the partition pipeline's
+#: worker and the query thread may refine at once.
+_GEOM_CACHE: "OrderedDict[str, geo.Geometry]" = OrderedDict()
+_GEOM_CACHE_MAX = 8192
+_GEOM_CACHE_LOCK = Lock()
+
+
+def _parse_wkt_cached(w) -> geo.Geometry:
+    if isinstance(w, geo.Geometry):
+        return w
+    s = str(w)
+    with _GEOM_CACHE_LOCK:
+        g = _GEOM_CACHE.get(s)
+        if g is not None:
+            _GEOM_CACHE.move_to_end(s)
+            return g
+    g = geo.parse_wkt(s)
+    with _GEOM_CACHE_LOCK:
+        while len(_GEOM_CACHE) >= _GEOM_CACHE_MAX:
+            _GEOM_CACHE.popitem(last=False)
+        _GEOM_CACHE[s] = g
+    return g
+
+
+def _exact_extent_fn(op: str, prop: str, literal: geo.Geometry):
+    """Exact host evaluator of an extent column: each candidate row's WKT
+    (an object or, after a partition reload, a unicode array), parsed
+    through the LRU, against the literal by the scalar ``geofn``
+    relation."""
+    wcol = prop + "__wkt"
+    ops = {
+        "intersects": geofn.st_intersects,
+        "within": geofn.st_within,
+        "contains": geofn.st_contains,
+        "crosses": geofn.st_crosses,
+        "overlaps": geofn.st_overlaps,
+        "touches": geofn.st_touches,
+        "equals": geofn.st_equals,
+    }
+
+    def fn(cols, xp=np):
+        wkts = cols[wcol]
+        out = np.zeros(len(wkts), bool)
+        for i, w in enumerate(wkts):
+            g = _parse_wkt_cached(w)
+            if op == "disjoint":
+                out[i] = not geofn.st_intersects(g, literal)
+            else:
+                out[i] = bool(ops[op](g, literal))
+        return out
+
+    return fn
+
+
+def _exact_extent_dwithin_fn(prop: str, literal: geo.Geometry, dist_m: float):
+    """Exact host DWITHIN of an extent column: the great-circle distance
+    from the literal to the row geometry's closest point."""
+    wcol = prop + "__wkt"
+
+    def fn(cols, xp=np):
+        wkts = cols[wcol]
+        out = np.zeros(len(wkts), bool)
+        for i, w in enumerate(wkts):
+            g = _parse_wkt_cached(w)
+            out[i] = float(geofn.st_distanceSphere(g, literal)) <= dist_m
+        return out
+
+    return fn
+
+
+def _extent_overlap_fn(ks, b):
+    """Envelope overlap of extent rows (bounds columns ``ks``) with the box
+    ``b``; the bounds are Python floats, so a device column compares at
+    f32, as the reference's weakly typed scalars do."""
+    b0, b1, b2, b3 = (float(v) for v in b)
+
+    def overlap(cols, xp):
+        return ((cols[ks[0]] <= b2) & (cols[ks[2]] >= b0)
+                & (cols[ks[1]] <= b3) & (cols[ks[3]] >= b1))
+
+    return overlap
+
+
+# -- expression comparisons (ExprCompare) --------------------------------------
+def _expr_mark_needs(node: ir.ExprCompare, ft: FeatureType, need, need_refine) -> bool:
+    """Register the columns an expression comparison reads; True when it
+    can only be evaluated on the host (functions, strings or geometries)."""
+    host_only = ir.expr_has_fn(node.left) or ir.expr_has_fn(node.right)
+    for p in node.props():
+        a = ft.attr(p)  # raises KeyError naming unknown attributes
+        if a.is_geom:
+            host_only = True
+            if a.is_point:
+                need(p + "__x", p + "__y")
+            else:
+                need_refine(p + "__wkt")
+        elif a.type == "string":
+            host_only = True
+            need(p)
+        else:
+            need(p)
+    return host_only
+
+
+def _expr_resolve_fn(name: str):
+    fn = getattr(geofn, name, None)
+    if fn is None and not name.startswith("st_"):
+        fn = getattr(geofn, "st_" + name, None)
+    if fn is None or not callable(fn):
+        raise ValueError(f"unknown filter function {name!r} (available: geofn st_*)")
+    return fn
+
+
+def _expr_eval_exact(e: ir.Expr, ft: FeatureType,
+                     dicts: Dict[str, DictionaryEncoder], cols, n: int):
+    """Exact host evaluation: an f64 array, an object array (strings,
+    geometries), or a scalar for literal subtrees."""
+    if isinstance(e, ir.Lit):
+        return e.value
+    if isinstance(e, ir.Prop):
+        a = ft.attr(e.name)
+        if a.is_geom:
+            if a.is_point:
+                x = np.asarray(cols[e.name + "__x"], np.float64)
+                y = np.asarray(cols[e.name + "__y"], np.float64)
+                out = np.empty(len(x), dtype=object)
+                for i in range(len(x)):
+                    out[i] = geo.Point(float(x[i]), float(y[i]))
+                return out
+            wkt = cols[e.name + "__wkt"]
+            out = np.empty(len(wkt), dtype=object)
+            for i, w in enumerate(wkt):
+                out[i] = None if w is None else geo.parse_wkt(str(w))
+            return out
+        if a.type == "string":
+            d = dicts.setdefault(e.name, DictionaryEncoder())
+            codes = np.asarray(cols[e.name])
+            vocab = np.array(list(d.values) + [None], dtype=object)
+            return vocab[np.where(codes >= 0, codes, len(d.values))]
+        col = np.asarray(cols[e.name])
+        if col.dtype.kind in "iu":
+            # int64 stays exact (an f64 cast loses beyond 2^53)
+            return col.astype(np.int64, copy=False)
+        return np.asarray(col, np.float64)
+    if isinstance(e, ir.Arith):
+        left = _expr_eval_exact(e.left, ft, dicts, cols, n)
+        right = _expr_eval_exact(e.right, ft, dicts, cols, n)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            if e.op == "+":
+                return left + right
+            if e.op == "-":
+                return left - right
+            if e.op == "*":
+                return left * right
+            # scalar / scalar divides as f64 (x / 0 -> inf / nan, as the
+            # array path), not with Python's ZeroDivisionError
+            if not isinstance(left, np.ndarray) and not isinstance(right, np.ndarray):
+                try:
+                    left, right = np.float64(left), np.float64(right)
+                except (TypeError, ValueError) as exc:
+                    raise ValueError(f"non-numeric operands in division: {e!r}") from exc
+            return left / right
+    if isinstance(e, ir.FnCall):
+        return _expr_eval_fn(e, ft, dicts, cols, n)
+    raise ValueError(f"cannot evaluate expression node {e!r}")
+
+
+def _expr_eval_fn(e: ir.FnCall, ft: FeatureType,
+                  dicts: Dict[str, DictionaryEncoder], cols, n: int):
+    """A function call over rows: vectorized where ``geofn`` takes arrays
+    or (xs, ys) point columns, else mapped row by row (a row whose call
+    fails is null)."""
+    fn = _expr_resolve_fn(e.name)
+    # point-geometry arguments keep their raw (x, y) column form, so the
+    # vectorized geofn paths run in one call
+    xy_forms: Dict[int, tuple] = {}
+    args: list = []
+    for i, a in enumerate(e.args):
+        if isinstance(a, ir.Prop) and ft.has(a.name) and ft.attr(a.name).is_point:
+            xy_forms[i] = (np.asarray(cols[a.name + "__x"], np.float64),
+                           np.asarray(cols[a.name + "__y"], np.float64))
+            args.append(None)  # object array built below if needed
+        else:
+            args.append(_expr_eval_exact(a, ft, dicts, cols, n))
+    if not xy_forms and not any(isinstance(a, np.ndarray) for a in args):
+        return fn(*args)  # a literal subtree: one call
+    # distance functions are symmetric and vectorize their second argument
+    # as an (xs, ys) tuple: one haversine for the whole window
+    if e.name in ("st_distance", "st_distanceSphere", "st_distanceSpheroid") \
+            and len(e.args) == 2 and len(xy_forms) == 1:
+        i = next(iter(xy_forms))
+        other = args[1 - i]
+        if not isinstance(other, np.ndarray):
+            try:
+                out = np.asarray(fn(other, xy_forms[i]), np.float64)
+                if out.shape == (n,):
+                    return out
+            except Exception:  # the row-wise map below decides
+                pass
+    if xy_forms:
+        try:  # some geofn functions take (xs, ys) tuples directly
+            out = fn(*[xy_forms.get(i, v) for i, v in enumerate(args)])
+            if isinstance(out, np.ndarray) and out.shape[:1] == (n,):
+                return out if out.dtype.kind == "O" else np.asarray(out, np.float64)
+        except Exception:  # the row-wise map below decides
+            pass
+        for i, (x, y) in xy_forms.items():
+            pts = np.empty(n, dtype=object)
+            for j in range(n):
+                pts[j] = geo.Point(float(x[j]), float(y[j]))
+            args[i] = pts
+    try:
+        out = fn(*args)
+        if isinstance(out, np.ndarray) and out.shape[:1] == (n,):
+            return out if out.dtype.kind == "O" else np.asarray(out, np.float64)
+    except Exception:  # a scalar function: mapped row by row below
+        pass
+    vals = np.empty(n, dtype=object)
+    for i in range(n):
+        row = [a[i] if isinstance(a, np.ndarray) else a for a in args]
+        if any(r is None for r in row):
+            continue
+        try:
+            vals[i] = fn(*row)
+        except Exception:  # a row that fails is null, so excluded
+            pass
+    try:
+        return np.array([np.nan if v is None else float(v) for v in vals], np.float64)
+    except (TypeError, ValueError):
+        return vals  # geometry or string results stay objects
+
+
+def _expr_const_fold(node: ir.ExprCompare, ft: FeatureType,
+                     dicts: Dict[str, DictionaryEncoder]) -> bool:
+    """Truth value of a property-free comparison, evaluated once at
+    compile time."""
+    def scalar(v):
+        if isinstance(v, np.ndarray):
+            return v.reshape(-1)[0] if v.size else None
+        return v
+
+    left = scalar(_expr_eval_exact(node.left, ft, dicts, {}, 1))
+    right = scalar(_expr_eval_exact(node.right, ft, dicts, {}, 1))
+    op = node.op
+    try:
+        if op == "=":
+            return bool(left == right)
+        if op == "<>":
+            return bool(left != right)
+        if left is None or right is None:
+            return False
+        if op == "<":
+            return bool(left < right)
+        if op == "<=":
+            return bool(left <= right)
+        if op == ">":
+            return bool(left > right)
+        return bool(left >= right)
+    except TypeError as e:
+        raise ValueError(f"incomparable constant operands in {node!r}") from e
+
+
+def _expr_exact_fn(node: ir.ExprCompare, ft: FeatureType,
+                   dicts: Dict[str, DictionaryEncoder]):
+    """The exact host tree of an expression comparison: f64 (int64 where
+    both sides are integers); NaN and null rows compare false."""
+    op = node.op
+
+    def fn(cols, xp=np):
+        probe = None
+        for p in node.props():
+            a = ft.attr(p)
+            key = p + "__x" if a.is_point else (p + "__wkt" if a.is_geom else p)
+            if key in cols:
+                probe = cols[key]
+                break
+        if probe is None:
+            raise ValueError(f"expression references no resolvable column: {node!r}")
+        n = len(probe)
+        left = _expr_eval_exact(node.left, ft, dicts, cols, n)
+        right = _expr_eval_exact(node.right, ft, dicts, cols, n)
+        lobj = isinstance(left, np.ndarray) and left.dtype.kind == "O"
+        robj = isinstance(right, np.ndarray) and right.dtype.kind == "O"
+        if lobj or robj or isinstance(left, str) or isinstance(right, str):
+            if op not in ("=", "<>"):
+                raise ValueError(f"ordering comparison {op!r} is not defined for "
+                                 "string/geometry expressions")
+            la = left if isinstance(left, np.ndarray) else np.full(n, left, dtype=object)
+            ra = right if isinstance(right, np.ndarray) else np.full(n, right, dtype=object)
+            valid = np.array([a is not None and b is not None for a, b in zip(la, ra)])
+            eqm = np.array([a == b for a, b in zip(la, ra)], dtype=bool)
+            return (eqm if op == "=" else ~eqm) & valid
+        lint = (np.asarray(left).dtype.kind in "iub" if isinstance(left, np.ndarray)
+                else isinstance(left, (int, np.integer)))
+        rint = (np.asarray(right).dtype.kind in "iub" if isinstance(right, np.ndarray)
+                else isinstance(right, (int, np.integer)))
+        if lint and rint:
+            left = np.asarray(left, np.int64)
+            right = np.asarray(right, np.int64)
+            valid = np.asarray(True)
+        else:
+            left = np.asarray(left, np.float64)
+            right = np.asarray(right, np.float64)
+            valid = ~(np.isnan(left) | np.isnan(right))
+        if op == "=":
+            m = left == right
+        elif op == "<>":
+            m = left != right
+        elif op == "<":
+            m = left < right
+        elif op == "<=":
+            m = left <= right
+        elif op == ">":
+            m = left > right
+        else:
+            m = left >= right
+        return m & valid
+
+    return fn
+
+
+#: relative f32 ulp with a 4x safety factor that absorbs the rounding of
+#: the error arithmetic itself
+_EXPR_EPS = 4.0 * 2.0 ** -23
+
+
+def _xabs(v):
+    return v.abs() if isinstance(v, torch.Tensor) else np.abs(v)
+
+
+def _xmax(v, lo: float):
+    return v.clamp(min=lo) if isinstance(v, torch.Tensor) else np.maximum(v, lo)
+
+
+def _xwhere(cond, a, b):
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    if isinstance(cond, np.ndarray) and cond.ndim:
+        return np.where(cond, a, b)
+    return a if bool(cond) else b
+
+
+def _expr_eval_coarse(e: ir.Expr, cols, xp):
+    """Interval evaluation over the scan columns (f32 on the device, the
+    f64 masters on the host): (value, absolute error bound)."""
+    if isinstance(e, ir.Lit):
+        v = float(e.value)
+        return v, abs(v) * _EXPR_EPS
+    if isinstance(e, ir.Prop):
+        v = cols[e.name] * 1.0  # ints and bools promote to float
+        return v, _xabs(v) * _EXPR_EPS
+    if isinstance(e, ir.Arith):
+        lv, le = _expr_eval_coarse(e.left, cols, xp)
+        rv, re_ = _expr_eval_coarse(e.right, cols, xp)
+        if e.op == "+":
+            v = lv + rv
+            return v, le + re_ + _xabs(v) * _EXPR_EPS
+        if e.op == "-":
+            v = lv - rv
+            return v, le + re_ + _xabs(v) * _EXPR_EPS
+        if e.op == "*":
+            v = lv * rv
+            return v, (_xabs(lv) * re_ + _xabs(rv) * le + le * re_
+                       + _xabs(v) * _EXPR_EPS)
+        # division: a denominator interval that holds zero makes the bound
+        # infinite (the row stays a candidate); literal / literal divides
+        # as f64 (x / 0 -> inf / nan), as the column path does
+        if isinstance(lv, float) and isinstance(rv, float):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                v = float(np.float64(lv) / np.float64(rv))
+        else:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                v = lv / rv
+        den = _xmax(_xabs(rv) - re_, 0.0)
+        err = _xwhere(den > 0,
+                      (le + _xabs(v) * re_) / _xmax(den, 1e-30) + _xabs(v) * _EXPR_EPS,
+                      math.inf)
+        return v, err
+    raise ValueError(f"cannot device-evaluate expression node {e!r}")
+
+
+def _expr_coarse_fn(node: ir.ExprCompare, neg: bool):
+    """Device prefilter: a superset of the exact matches under even
+    NOT-polarity (every possibly-true row), a subset under odd (only the
+    certainly-true rows). NaN rows compare false either way, as the exact
+    tree's validity mask."""
+    op = node.op
+
+    def fn(cols, xp):
+        lv, le = _expr_eval_coarse(node.left, cols, xp)
+        rv, re_ = _expr_eval_coarse(node.right, cols, xp)
+        slack = le + re_
+        if not neg:  # possibly true
+            if op == "=":
+                return _xabs(lv - rv) <= slack
+            if op == "<>":
+                return ~((_xabs(lv - rv) == 0) & (slack == 0))
+            if op in ("<", "<="):
+                return lv - slack <= rv
+            return lv + slack >= rv
+        # certainly true (the enclosing NOT inverts it)
+        if op == "=":
+            return (_xabs(lv - rv) == 0) & (slack == 0)
+        if op == "<>":
+            return _xabs(lv - rv) > slack
+        if op == "<":
+            return lv + slack < rv
+        if op == "<=":
+            return lv + slack <= rv
+        if op == ">":
+            return lv - slack > rv
+        return lv - slack >= rv
+
+    return fn
 
 
 def _like_regex(pattern: str, ci: bool):
@@ -486,12 +935,6 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
 
         bands.append(bfn)
 
-    def geom_cols(prop: str):
-        a = ft.attr(prop)
-        if not a.is_point:
-            raise ValueError(f"attribute {prop!r} is not a geometry")
-        return prop + "__x", prop + "__y"
-
     def compile_node(node: ir.Filter, neg: bool = False,
                      exact: bool = False) -> Callable:
         if isinstance(node, ir.Include):
@@ -513,9 +956,22 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
             fn = compile_node(node.child, not neg, exact)
             return lambda cols, xp: ~fn(cols, xp)
         if isinstance(node, ir.BBox):
-            xc, yc = geom_cols(node.prop)
-            need(xc, yc)
+            gc = _geom_cols(ft, node.prop)
             xmin, ymin, xmax, ymax = node.xmin, node.ymin, node.xmax, node.ymax
+            if "point" not in gc:
+                if config.LOOSE_BBOX.to_bool():
+                    # envelope overlap only, no refinement (exact either
+                    # way when a stored geometry is its envelope)
+                    ks = (gc["xmin"], gc["ymin"], gc["xmax"], gc["ymax"])
+                    need(*ks)
+                    return _extent_overlap_fn(ks, (xmin, ymin, xmax, ymax))
+                # exact semantics: INTERSECTS with the box polygon
+                return compile_node(
+                    ir.Spatial("intersects", node.prop,
+                               geo.bbox_polygon(xmin, ymin, xmax, ymax)),
+                    neg, exact)
+            xc, yc = gc["x"], gc["y"]
+            need(xc, yc)
             if exact:
 
                 def bbox_exact(cols, xp):
@@ -527,14 +983,18 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
             band_eq(yc, ymin, ymax)
             return _f32_box_fn(xc, yc, (xmin, ymin, xmax, ymax), neg)
         if isinstance(node, ir.Spatial):
-            xc, yc = geom_cols(node.prop)
-            need(xc, yc)
-            return _point_spatial_fn(node, xc, yc, exact, neg, need_refine, band_eq)
+            gc = _geom_cols(ft, node.prop)
+            if "point" in gc:
+                need(gc["x"], gc["y"])
+                return _point_spatial_fn(node, gc["x"], gc["y"], exact, neg,
+                                         need_refine, band_eq)
+            return compile_extent(node, gc, neg, exact)
         if isinstance(node, ir.DWithin):
-            xc, yc = geom_cols(node.prop)
+            gc = _geom_cols(ft, node.prop)
+            if "point" not in gc or not isinstance(node.geom, geo.Point):
+                return compile_dwithin_box(node, gc, neg, exact)
+            xc, yc = gc["x"], gc["y"]
             need(xc, yc)
-            if not isinstance(node.geom, geo.Point):
-                raise NotImplementedError(f"DWITHIN with a non-point literal: {LATER_ITEM}")
             # great-circle test, fused into the device mask
             px, py, dist = node.geom.x, node.geom.y, node.distance_m
             rx2, ry2 = float(np.radians(px)), float(np.radians(py))
@@ -593,7 +1053,105 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
         if isinstance(node, ir.IdIn):
             need("__fid__")
             return _fid_fn([str(i) for i in node.ids])
+        if isinstance(node, ir.ExprCompare):
+            if not node.props():
+                # both sides fold to constants
+                const = _expr_const_fold(node, ft, dicts)
+                return compile_node(ir.Include() if const else ir.Exclude(), neg, exact)
+            host_only = _expr_mark_needs(node, ft, need, need_refine)
+            if exact:
+                return _expr_exact_fn(node, ft, dicts)
+            need_refine(None)
+            if host_only:
+                # functions, strings and geometries: every candidate goes
+                # to the host tree
+                return _FALSE if neg else _TRUE
+            return _expr_coarse_fn(node, neg)
         raise ValueError(f"cannot compile filter node: {node!r}")
+
+    def compile_extent(node: ir.Spatial, gc: Dict[str, str], neg: bool,
+                       exact: bool) -> Callable:
+        """A spatial relation of an extent column: the exact host tree, or
+        the coarse envelope mask (a superset under even NOT-polarity, the
+        certain-match subset under odd) with the refinement registered."""
+        need_refine(node.prop + "__wkt")
+        if exact:
+            return _exact_extent_fn(node.op, node.prop, node.geom)
+        ks = (gc["xmin"], gc["ymin"], gc["xmax"], gc["ymax"])
+        need(*ks)
+        b = tuple(float(v) for v in node.geom.bounds())
+        overlap = _extent_overlap_fn(ks, b)
+        op = node.op
+        if neg:
+            return (lambda cols, xp: ~overlap(cols, xp)) if op == "disjoint" else _FALSE
+        if op == "disjoint":
+            return _TRUE  # an envelope overlap cannot prove intersection
+        if op == "within":  # the row's envelope inside the literal's
+
+            def within(cols, xp):
+                return ((cols[ks[0]] >= b[0]) & (cols[ks[2]] <= b[2])
+                        & (cols[ks[1]] >= b[1]) & (cols[ks[3]] <= b[3]))
+
+            return within
+        if op == "contains":  # the literal's envelope inside the row's
+
+            def contains(cols, xp):
+                return ((cols[ks[0]] <= b[0]) & (cols[ks[2]] >= b[2])
+                        & (cols[ks[1]] <= b[1]) & (cols[ks[3]] >= b[3]))
+
+            return contains
+        if op == "equals":
+
+            def equals(cols, xp):
+                return ((xp.abs(cols[ks[0]] - b[0]) <= 1e-9)
+                        & (xp.abs(cols[ks[1]] - b[1]) <= 1e-9)
+                        & (xp.abs(cols[ks[2]] - b[2]) <= 1e-9)
+                        & (xp.abs(cols[ks[3]] - b[3]) <= 1e-9))
+
+            return equals
+        return overlap  # intersects / crosses / overlaps / touches
+
+    def compile_dwithin_box(node: ir.DWithin, gc: Dict[str, str], neg: bool,
+                            exact: bool) -> Callable:
+        """DWITHIN of an extent column, or of a point column against a line
+        or polygon literal: the coarse test against the literal's bounds
+        widened by the distance (longitude by the cosine of the widest
+        latitude), then the exact great-circle distance to the geometry on
+        the host."""
+        d_deg = node.distance_m / geo.METERS_PER_DEGREE
+        bb = node.geom.bounds()
+        maxlat = min(89.0, max(abs(bb[1]), abs(bb[3])))
+        dxp = d_deg / max(np.cos(np.radians(maxlat)), 1e-3)
+        ex = tuple(float(v) for v in
+                   (bb[0] - dxp, bb[1] - d_deg, bb[2] + dxp, bb[3] + d_deg))
+        if "point" in gc:
+            xc, yc = gc["x"], gc["y"]
+            need(xc, yc)
+            if exact:
+                lit, dist = node.geom, node.distance_m
+
+                def dw_exact(cols, xp=np):
+                    d = geofn.st_distanceSphere(
+                        lit, (np.asarray(cols[xc], np.float64),
+                              np.asarray(cols[yc], np.float64)))
+                    return np.asarray(d) <= dist
+
+                return dw_exact
+            need_refine(None)
+            if neg:
+                return _FALSE
+
+            def dwithin_box(cols, xp):
+                x, y = cols[xc], cols[yc]
+                return (x >= ex[0]) & (x <= ex[2]) & (y >= ex[1]) & (y <= ex[3])
+
+            return dwithin_box
+        need_refine(node.prop + "__wkt")
+        if exact:
+            return _exact_extent_dwithin_fn(node.prop, node.geom, node.distance_m)
+        ks = (gc["xmin"], gc["ymin"], gc["xmax"], gc["ymax"])
+        need(*ks)
+        return _FALSE if neg else _extent_overlap_fn(ks, ex)
 
     def compile_compare(node: ir.Compare, neg: bool, exact: bool) -> Callable:
         a = ft.attr(node.prop)

@@ -1,22 +1,27 @@
-"""(E)CQL text -> predicate IR.
+"""ECQL (Extended CQL) text -> predicate IR.
 
-Copy of the recursive-descent parser in ``geomesa_tpu/filter/ecql.py`` cut to
-the grammar this port serves::
+Copy of the recursive-descent parser in ``geomesa_tpu/filter/ecql.py``::
 
     INCLUDE | EXCLUDE
-    BBOX(geom, xmin, ymin, xmax, ymax)
+    BBOX(geom, minx, miny, maxx, maxy)
     INTERSECTS/CONTAINS/WITHIN/DISJOINT/...(geom, WKT)
     DWITHIN/BEYOND(geom, WKT, distance, units)
     a = | <> | != | < | <= | > | >= literal   (or literal op a)
     a BETWEEN x AND y | a IN (v1, v2) | a LIKE 'pat%' | a ILIKE 'pat%'
-    a IS [NOT] NULL
+    a IS NULL | a IS NOT NULL
     dtg DURING t1/t2 | dtg BEFORE t | dtg AFTER t | dtg TEQUALS t
-    IN ('id1', 'id2')              -- feature-id filter
-    AND / OR / NOT, parentheses
+    IN ('fid1', 'fid2')                       -- feature ids
+    expr CMP expr                             -- property against property,
+                                              -- arithmetic, functions:
+        speed > heading
+        weight * 2 < limit
+        (a + b) * 2 >= c - 1
+        st_area(geom) > 0.5
+    NOT p | p AND q | p OR q | ( p )
 
-Expression operands (property against property, arithmetic, functions,
-``jsonPath``) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Functions resolve against the port's ``geofn`` ``st_*`` library. Dates are
+ISO-8601 (bare or quoted). ``jsonPath(...)`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ _KEYWORDS = {
     "ILIKE", "IS", "NULL",
 }
 
-#: ROADMAP item that ports the expressions this parser refuses
+
+#: ROADMAP item that ports the JSON paths this parser refuses
 _LATER = "ROADMAP Queue 1, extent geometries and expression predicates"
 
 #: DWITHIN / BEYOND distance units -> meters
@@ -137,14 +143,16 @@ class _Parser:
 
     # expr := term (OR term)*
     def expr(self) -> ir.Filter:
-        terms = [self.term()]
+        left = self.term()
+        terms = [left]
         while self.accept("kw", "OR"):
             terms.append(self.term())
         return terms[0] if len(terms) == 1 else ir.Or(tuple(terms))
 
     # term := factor (AND factor)*
     def term(self) -> ir.Filter:
-        factors = [self.factor()]
+        left = self.factor()
+        factors = [left]
         while self.accept("kw", "AND"):
             factors.append(self.factor())
         return factors[0] if len(factors) == 1 else ir.And(tuple(factors))
@@ -152,12 +160,22 @@ class _Parser:
     def factor(self) -> ir.Filter:
         if self.accept("kw", "NOT"):
             return ir.Not(self.factor())
-        if self.accept("sym", "("):
-            e = self.expr()
-            self.expect("sym", ")")
-            return e
+        t = self.peek()
+        if t and t.kind == "sym" and t.text == "(":
+            # '(' opens either a boolean group or an arithmetic group
+            # ('(a + b) * 2 >= c'): try boolean, backtrack to the
+            # expression-led predicate parse on failure
+            mark = self.pos
+            try:
+                self.next()
+                e = self.expr()
+                self.expect("sym", ")")
+                return e
+            except ValueError:
+                self.pos = mark
         return self.predicate()
 
+    # -- literals ---------------------------------------------------------
     def literal(self):
         t = self.next()
         if t.kind == "num":
@@ -174,28 +192,12 @@ class _Parser:
             return t.text.lower() == "true"
         raise ValueError(f"ECQL: expected literal, got {t!r}")
 
-    def is_literal(self) -> bool:
-        t = self.peek()
-        return t is not None and (
-            t.kind in ("num", "str", "date")
-            or (t.kind == "id" and t.text.lower() in ("true", "false")))
-
-    def time_literal(self) -> int:
-        t = self.next()
-        if t.kind == "date":
-            return parse_iso_ms(t.text)
-        if t.kind == "str" and re.fullmatch(_ISO, t.text[1:-1]):
-            return parse_iso_ms(t.text[1:-1])
-        if t.kind == "num":
-            return int(float(t.text))
-        raise ValueError(f"ECQL: expected a time literal, got {t!r}")
-
     def wkt_literal(self) -> geo.Geometry:
         t = self.next()
         if t.kind == "str":
             return geo.parse_wkt(t.text[1:-1])
-        # bare WKT: TYPE ( ... ), re-assembled by paren matching
-        if t.kind in ("id", "kw"):
+        # bare WKT: TYPE ( ... ) — re-lex from source text by paren matching
+        if t.kind == "id" or (t.kind == "kw"):
             tag = t.text
             self.expect("sym", "(")
             depth = 1
@@ -210,6 +212,92 @@ class _Parser:
             return geo.parse_wkt(tag + " " + " ".join(parts))
         raise ValueError(f"ECQL: expected WKT geometry, got {t!r}")
 
+    # -- scalar expressions (FastFilterFactory.scala:395 parity) ----------
+    @staticmethod
+    def _mk_arith(op: str, left, right):
+        """Build an Arith node; literal-only subtrees fold to a literal (so
+        'speed < 1 + 1' and unary minus keep the plain Compare IR and its
+        device pushdown)."""
+        if isinstance(left, ir.Lit) and isinstance(right, ir.Lit) \
+                and isinstance(left.value, (int, float, np.integer)) \
+                and isinstance(right.value, (int, float, np.integer)):
+            lv, rv = left.value, right.value
+            if op == "+":
+                return ir.Lit(lv + rv)
+            if op == "-":
+                return ir.Lit(lv - rv)
+            if op == "*":
+                return ir.Lit(lv * rv)
+            if rv != 0:
+                v = lv / rv
+                return ir.Lit(int(v) if isinstance(lv, (int, np.integer))
+                              and isinstance(rv, (int, np.integer))
+                              and v == int(v) else v)
+        return ir.Arith(op, left, right)
+
+    # additive := multiplicative (('+'|'-') multiplicative)*
+    def expr_operand(self):
+        left = self.expr_mul()
+        while True:
+            t = self.peek()
+            if t and t.kind == "sym" and t.text in "+-":
+                self.next()
+                left = self._mk_arith(t.text, left, self.expr_mul())
+            elif t and t.kind == "num" and t.text[0] in "+-":
+                # 'a -5' lexes the sign into the number: it is really a
+                # binary minus (a + (-5))
+                self.next()
+                v = float(t.text)
+                v = int(v) if v.is_integer() and "." not in t.text else v
+                left = self._mk_arith("+", left, ir.Lit(v))
+            else:
+                return left
+
+    def expr_mul(self):
+        left = self.expr_unary()
+        while True:
+            t = self.peek()
+            if t and t.kind == "sym" and t.text in "*/":
+                self.next()
+                left = self._mk_arith(t.text, left, self.expr_unary())
+            else:
+                return left
+
+    def expr_unary(self):
+        t = self.peek()
+        if t is None:
+            raise ValueError("ECQL: expected expression operand")
+        if t.kind == "sym" and t.text == "(":
+            self.next()
+            e = self.expr_operand()
+            self.expect("sym", ")")
+            return e
+        if t.kind == "sym" and t.text == "-":
+            self.next()
+            return self._mk_arith("-", ir.Lit(0), self.expr_unary())
+        if t.kind in ("num", "str", "date"):
+            return ir.Lit(self.literal())
+        if t.kind == "id":
+            name = self.next().text
+            if name.lower() in ("true", "false"):
+                return ir.Lit(name.lower() == "true")
+            nt = self.peek()
+            if nt and nt.kind == "sym" and nt.text == "(":
+                if name.lower() == "jsonpath":
+                    raise NotImplementedError(f"jsonPath: {_LATER}")
+                self.next()
+                args = []
+                if not self.accept("sym", ")"):
+                    while True:
+                        args.append(self.expr_operand())
+                        if not self.accept("sym", ","):
+                            break
+                    self.expect("sym", ")")
+                return ir.FnCall(name, tuple(args))
+            return ir.Prop(name)
+        raise ValueError(f"ECQL: expected expression operand, got {t!r}")
+
+    # -- predicates -------------------------------------------------------
     def predicate(self) -> ir.Filter:
         t = self.peek()
         if t is None:
@@ -232,8 +320,9 @@ class _Parser:
                     nums.append(float(self.expect("num").text))
                     if i < 3:
                         self.expect("sym", ",")
+                # optional CRS arg
                 if self.accept("sym", ","):
-                    self.next()  # ignore the CRS argument
+                    self.next()  # ignore crs string
                 self.expect("sym", ")")
                 return ir.BBox(prop, nums[0], nums[1], nums[2], nums[3])
             if kw in ("INTERSECTS", "CONTAINS", "WITHIN", "DISJOINT", "CROSSES",
@@ -263,45 +352,68 @@ class _Parser:
                 self.expect("sym", "(")
                 ids = []
                 while True:
-                    ids.append(str(self.literal()))
+                    lit = self.literal()
+                    ids.append(str(lit))
                     if not self.accept("sym", ","):
                         break
                 self.expect("sym", ")")
                 return ir.IdIn(tuple(ids))
-            raise ValueError(f"ECQL parse error at {kw} in {self.text!r}")
-        if self.is_literal():
-            # literal op property: flipped into property op literal
-            value = self.literal()
-            op = self.expect("op").text
-            if self.peek() is None or self.peek().kind != "id":
-                raise NotImplementedError(f"ECQL expressions: {_LATER}")
-            flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "!=": "<>"}
-            return ir.Compare(self.next().text, flip.get(op, op), value)
-        if t.kind != "id":
-            raise NotImplementedError(f"ECQL expressions: {_LATER}")
-        prop = self.next().text
+        # property-led predicates: the left side is a full scalar
+        # expression (property, arithmetic, st_* call); plain property
+        # against literal keeps the Compare IR (and its device pushdown),
+        # anything richer becomes ExprCompare
+        lhs = self.expr_operand()
+        prop = lhs.name if isinstance(lhs, ir.Prop) else None
         t = self.peek()
-        if t is not None and t.kind == "sym" and t.text == "(":
-            raise NotImplementedError(f"ECQL functions: {_LATER}")
-        if t is not None and t.kind == "op":
+        if t and t.kind == "op":
             op = self.next().text
             if op == "!=":
                 op = "<>"
-            if not self.is_literal():
-                raise NotImplementedError(f"ECQL expressions: {_LATER}")
-            value = self.literal()
-            nt = self.peek()
-            if nt is not None and (nt.kind == "sym" and nt.text in "+-*/"
-                                   or nt.kind == "num" and nt.text[0] in "+-"):
-                raise NotImplementedError(f"ECQL expressions: {_LATER}")
-            return ir.Compare(prop, op, value)
-        kw = self.accept("kw")
-        if kw is not None:
-            if kw.text == "BETWEEN":
+            rhs = self.expr_operand()
+            if prop is not None and isinstance(rhs, ir.Lit):
+                return ir.Compare(prop, op, rhs.value)
+            if isinstance(lhs, ir.Lit) and isinstance(rhs, ir.Prop):
+                flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+                return ir.Compare(rhs.name, flip.get(op, op), lhs.value)
+            if isinstance(lhs, ir.Lit) and isinstance(rhs, ir.Lit):
+                # constant comparison folds at parse time ('1 + 1 = 2').
+                # Dispatch on the op — eagerly building a table of all six
+                # evaluated '1 < "a"' even for '1 = "a"', leaking TypeError
+                # past parser backtracking
+                a, b = lhs.value, rhs.value
+                try:
+                    if op == "=":
+                        res = a == b
+                    elif op == "<>":
+                        res = a != b
+                    elif op == "<":
+                        res = a < b
+                    elif op == "<=":
+                        res = a <= b
+                    elif op == ">":
+                        res = a > b
+                    else:
+                        res = a >= b
+                except TypeError as e:
+                    raise ValueError(
+                        f"incomparable literal types in {self.text!r}: "
+                        f"{a!r} {op} {b!r}"
+                    ) from e
+                return ir.Include() if res else ir.Exclude()
+            return ir.ExprCompare(op, lhs, rhs)
+        if prop is None:
+            raise ValueError(
+                f"ECQL: expression must be followed by a comparison "
+                f"operator in {self.text!r}"
+            )
+        if t and t.kind == "kw":
+            kw = self.next().text
+            if kw == "BETWEEN":
                 lo = self.literal()
                 self.expect("kw", "AND")
-                return ir.Between(prop, lo, self.literal())
-            if kw.text == "IN":
+                hi = self.literal()
+                return ir.Between(prop, lo, hi)
+            if kw == "IN":
                 self.expect("sym", "(")
                 vals = []
                 while True:
@@ -310,28 +422,25 @@ class _Parser:
                         break
                 self.expect("sym", ")")
                 return ir.In(prop, tuple(vals))
-            if kw.text in ("LIKE", "ILIKE"):
-                return ir.Like(prop, str(self.literal()),
-                               case_insensitive=kw.text == "ILIKE")
-            if kw.text == "IS":
+            if kw in ("LIKE", "ILIKE"):
+                pat = self.literal()
+                return ir.Like(prop, str(pat), case_insensitive=(kw == "ILIKE"))
+            if kw == "IS":
                 neg = bool(self.accept("kw", "NOT"))
                 self.expect("kw", "NULL")
                 return ir.IsNull(prop, negate=neg)
-            if kw.text == "DURING":
-                lo = self.time_literal()
+            if kw == "DURING":
+                lo = self.literal()
                 self.expect("sym", "/")
-                hi = self.time_literal()
-                return ir.During(prop, lo, hi)
-            if kw.text == "BEFORE":
-                return ir.During(prop, ir.MIN_MS, self.time_literal() - 1)
-            if kw.text == "AFTER":
-                return ir.During(prop, self.time_literal() + 1, ir.MAX_MS)
-            if kw.text == "TEQUALS":
-                v = self.time_literal()
+                hi = self.literal()
+                return ir.During(prop, int(lo), int(hi))
+            if kw == "BEFORE":
+                return ir.During(prop, ir.MIN_MS, int(self.literal()) - 1)
+            if kw == "AFTER":
+                return ir.During(prop, int(self.literal()) + 1, ir.MAX_MS)
+            if kw == "TEQUALS":
+                v = int(self.literal())
                 return ir.During(prop, v, v)
-        if t is not None and (t.kind == "sym" and t.text in "+-*/"
-                              or t.kind == "num" and t.text[0] in "+-"):
-            raise NotImplementedError(f"ECQL expressions: {_LATER}")
         raise ValueError(f"ECQL parse error near {prop!r} in {self.text!r}")
 
 

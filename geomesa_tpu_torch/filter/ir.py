@@ -4,9 +4,10 @@ Copy of ``geomesa_tpu/filter/ir.py`` cut to the nodes this port serves:
 INCLUDE / EXCLUDE, AND / OR / NOT, BBOX, spatial relations and DWITHIN
 against a geometry literal, attribute comparisons (``Compare``,
 ``Between``, ``In``, ``Like``, ``IsNull``), DURING intervals (BEFORE /
-AFTER / TEQUALS parse to DURING) and feature-id ``IdIn``; with the
-plan-time extraction of geometries, intervals, ids and attribute bounds.
-Expression comparisons and JSON paths are not part of it.
+AFTER / TEQUALS parse to DURING), feature-id ``IdIn`` and expression
+comparisons (``ExprCompare`` over ``Prop`` / ``Lit`` / ``Arith`` /
+``FnCall`` trees); with the plan-time extraction of geometries,
+intervals, ids and attribute bounds. JSON paths are not part of it.
 """
 
 from __future__ import annotations
@@ -83,6 +84,76 @@ class Compare(Filter):
     prop: str
     op: str
     value: object  # float | int | str | bool | np.int64 epoch-ms for dates
+
+
+# -- expression trees: property against property, arithmetic, functions ------
+@dataclass(frozen=True)
+class Expr:
+    """Scalar expression node."""
+
+
+@dataclass(frozen=True)
+class Prop(Expr):
+    name: str
+
+
+@dataclass(frozen=True)
+class Lit(Expr):
+    value: object
+
+
+@dataclass(frozen=True)
+class Arith(Expr):
+    """Binary arithmetic: + - * /"""
+
+    op: str
+    left: Expr
+    right: Expr
+
+
+@dataclass(frozen=True)
+class FnCall(Expr):
+    """Filter-function call, e.g. ``st_area(geom)``, resolved against
+    ``geofn``'s ``st_*`` functions."""
+
+    name: str
+    args: Tuple[Expr, ...]
+
+
+def expr_props(e: Expr) -> List[str]:
+    """Attribute names an expression tree reads."""
+    if isinstance(e, Prop):
+        return [e.name]
+    if isinstance(e, Arith):
+        return expr_props(e.left) + expr_props(e.right)
+    if isinstance(e, FnCall):
+        out: List[str] = []
+        for a in e.args:
+            out.extend(expr_props(a))
+        return out
+    return []
+
+
+def expr_has_fn(e: Expr) -> bool:
+    if isinstance(e, FnCall):
+        return True
+    if isinstance(e, Arith):
+        return expr_has_fn(e.left) or expr_has_fn(e.right)
+    return False
+
+
+@dataclass(frozen=True)
+class ExprCompare(Filter):
+    """A comparison where either side is more than a property or a
+    literal: ``speed > heading``, ``weight * 2 < limit``,
+    ``st_area(geom) > 0.5``."""
+
+    op: str  # = <> < <= > >=
+    left: Expr
+    right: Expr
+
+    def props(self) -> List[str]:
+        return expr_props(self.left) + expr_props(self.right)
 
 
 @dataclass(frozen=True)

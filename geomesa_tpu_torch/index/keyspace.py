@@ -1,14 +1,16 @@
 """Key spaces: feature batch -> sort keys (ingest) and filter -> scan
 windows (plan time).
 
-Copy of ``geomesa_tpu/index/keyspace.py`` cut to the point-schema key
-spaces: ``Z3KeySpace`` (point geometry + time), ``Z2KeySpace`` (point
-geometry), ``IdKeySpace`` (feature-id hash) and ``AttributeKeySpace`` (one
-attribute, with a z2 tiebreak), with ``KeyPlan`` (full scans included),
-range merging, window capping and the LSM append's insert positions.
-Per-bin window resolution is NumPy ``searchsorted`` (the JAX package may
-use native C++ there; both give the same windows). The range budget and
-the per-shard window cap are explicit arguments instead of scoped
+Copy of ``geomesa_tpu/index/keyspace.py`` cut to ``Z3KeySpace`` (point
+geometry + time), ``Z2KeySpace`` (point geometry), ``XZ3KeySpace`` and
+``XZ2KeySpace`` (extent geometries, + time for xz3), ``IdKeySpace``
+(feature-id hash) and ``AttributeKeySpace`` (one attribute, with a z2
+tiebreak), with ``KeyPlan`` (full scans included), range merging, window
+capping and the LSM append's insert positions. The s2 / s3 key spaces are
+not ported yet. Per-bin window resolution is NumPy ``searchsorted`` (the
+JAX package may use native C++ there; both give the same windows). The
+range budget is ``geomesa.scan.ranges.target`` unless a caller passes one;
+the per-shard window cap is an explicit argument instead of scoped
 configuration.
 """
 
@@ -19,8 +21,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.binned_time import TimePeriod
 from geomesa_tpu_torch.curves.cover import ZRange
+from geomesa_tpu_torch.curves.xz import XZ2SFC, XZ3SFC
 from geomesa_tpu_torch.curves.zorder import Z2SFC, Z3SFC
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index import packsort
@@ -31,9 +35,6 @@ MAX_WINDOW_BINS = 64  # collapse per-bin windows beyond this many time bins
 #: per-shard budget for resolved scan windows (bins x z-ranges); beyond it
 #: windows gap-union down (over-cover; the fine mask restores exactness)
 MAX_SHARD_WINDOWS = 256
-
-#: default z-range budget of a query cover
-RANGES_TARGET = 2000
 
 
 @dataclass
@@ -76,6 +77,10 @@ class KeySpace:
     #: False when appends always rebuild the table
     can_insert = True
 
+    def supports(self, ft: FeatureType) -> bool:
+        """Whether this key space can index the schema."""
+        raise NotImplementedError
+
     def index_keys(self, ft: FeatureType, cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Vectorized key encode for an ingest batch."""
         raise NotImplementedError
@@ -92,8 +97,10 @@ class KeySpace:
         return None
 
     def plan(self, ft: FeatureType, f: ir.Filter,
-             ranges_target: int = RANGES_TARGET) -> Optional[KeyPlan]:
-        """None when this key space cannot serve the filter at all."""
+             ranges_target: Optional[int] = None) -> Optional[KeyPlan]:
+        """None when this key space cannot serve the filter at all.
+        ``ranges_target``: the cover's range budget (None:
+        ``geomesa.scan.ranges.target``)."""
         raise NotImplementedError
 
     def resolve_windows(self, plan: KeyPlan, shard_cols, n: int, cap: int):
@@ -171,6 +178,10 @@ def _cap_windows(starts: np.ndarray, ends: np.ndarray, cap: int):
     return _merge_cap(starts, ends, cap, adjacent=0)
 
 
+def _ranges_target(ranges_target: Optional[int]) -> int:
+    return ranges_target or config.SCAN_RANGES_TARGET.to_int() or 2000
+
+
 def _shift_of(shard_cols: Dict, col: str) -> int:
     """Quantization shift of a stored key column (0 on the argsort path)."""
     shifts = shard_cols.get("__shifts__")
@@ -245,8 +256,13 @@ class Z3KeySpace(KeySpace):
         perm, zq, bins_sorted, shift = out
         return perm, {"__z3_bin": bins_sorted, "__z3": zq}, {"__z3": shift}
 
-    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+    def supports(self, ft):
+        return (ft.has(self.geom) and ft.attr(self.geom).is_point
+                and ft.has(self.dtg) and ft.attr(self.dtg).type == "date")
+
+    def plan(self, ft, f, ranges_target=None):
         """None when the filter has no time bound (z3 cannot serve it)."""
+        ranges_target = _ranges_target(ranges_target)
         geoms = ir.extract_geometries(f, self.geom)
         intervals = ir.extract_intervals(f, self.dtg)
         if geoms.disjoint or intervals.disjoint:
@@ -370,8 +386,12 @@ class Z2KeySpace(KeySpace):
         perm, zq, _, shift = out
         return perm, {"__z2": zq}, {"__z2": shift}
 
-    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+    def supports(self, ft):
+        return ft.has(self.geom) and ft.attr(self.geom).is_point
+
+    def plan(self, ft, f, ranges_target=None):
         """A full scan when the filter has no spatial bound."""
+        ranges_target = _ranges_target(ranges_target)
         geoms = ir.extract_geometries(f, self.geom)
         if geoms.disjoint:
             return KeyPlan(self, disjoint=True)
@@ -401,6 +421,171 @@ class Z2KeySpace(KeySpace):
         return _cap_windows(ws[keep].astype(np.int64), we[keep].astype(np.int64), cap)
 
 
+class XZ2KeySpace(KeySpace):
+    """xz2 codes over extent geometries' bounds."""
+
+    name = "xz2"
+    kind = "xz2"
+
+    def __init__(self, geom: str, g: int = 12):
+        self.geom = geom
+        self.sfc = XZ2SFC(g=g)
+        self.key_cols = ("__xz2",)
+
+    def supports(self, ft):
+        a = ft.attr(self.geom) if ft.has(self.geom) else None
+        return a is not None and a.is_geom and not a.is_point
+
+    def index_keys(self, ft, cols):
+        return {"__xz2": self.sfc.index(
+            cols[self.geom + "__xmin"], cols[self.geom + "__ymin"],
+            cols[self.geom + "__xmax"], cols[self.geom + "__ymax"])}
+
+    def sort_order(self, cols):
+        return np.argsort(cols["__xz2"], kind="stable")
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__xz2")
+        code = cols["__xz2"].astype(np.uint64)  # sequence codes, nonnegative
+        bits = int(self.sfc.subtree_size[0]).bit_length()
+        out = packsort.pack_sort(code, bits, force_shift=fs)
+        if out is None:
+            return None
+        perm, cq, _, shift = out
+        return perm, {"__xz2": cq}, {"__xz2": shift}
+
+    def plan(self, ft, f, ranges_target=None):
+        """One cover of the query geometries' bounding box (the xz covers
+        keep their own 2000-range budget)."""
+        geoms = ir.extract_geometries(f, self.geom)
+        if geoms.disjoint:
+            return KeyPlan(self, disjoint=True)
+        if geoms.is_empty:
+            return KeyPlan(self, full_scan=True)
+        bs = np.asarray([g.bounds() for g in geoms.values])
+        bbox = (bs[:, 0].min(), bs[:, 1].min(), bs[:, 2].max(), bs[:, 3].max())
+        ranges = self.sfc.ranges(*bbox)
+        span = sum(r.hi - r.lo + 1 for r in ranges)
+        return KeyPlan(self, ranges=ranges, coverage=span / self.sfc.subtree_size[0])
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        # xz ranges are not contiguous (singleton parent codes interleave):
+        # each merged range resolves to its own window, capped at
+        # MAX_WINDOW_BINS by uniting the smallest gaps
+        col = shard_cols["__xz2"]
+        sh = _shift_of(shard_cols, "__xz2")
+        starts, ends = [], []
+        for r in plan.ranges:
+            s = np.searchsorted(col, r.lo >> sh, side="left")
+            e = np.searchsorted(col, r.hi >> sh, side="right")
+            if e > s:
+                starts.append(s)
+                ends.append(e)
+        if not starts:
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                            MAX_WINDOW_BINS)
+
+
+class XZ3KeySpace(KeySpace):
+    """(bin, xz3) codes over extent geometries' bounds + time."""
+
+    name = "xz3"
+    kind = "xz3"
+
+    def __init__(self, geom: str, dtg: str,
+                 period: "str | TimePeriod" = TimePeriod.WEEK, g: int = 12):
+        self.geom = geom
+        self.dtg = dtg
+        self.sfc = XZ3SFC(period, g=g)
+        self.binned = self.sfc.binned
+        self.key_cols = ("__xz3_bin", "__xz3")
+
+    def supports(self, ft):
+        a = ft.attr(self.geom) if ft.has(self.geom) else None
+        return (a is not None and a.is_geom and not a.is_point
+                and ft.has(self.dtg) and ft.attr(self.dtg).type == "date")
+
+    def index_keys(self, ft, cols):
+        """Reuses the batch's ``<dtg>__bin`` column when its period
+        matches."""
+        bin_col = self.dtg + "__bin"
+        if bin_col in cols and ft.time_period == self.binned.period:
+            b = cols[bin_col]
+            off = self.binned.offset_from_bin(cols[self.dtg], b)
+        else:
+            b, off = self.binned.to_bin_and_offset(cols[self.dtg])
+        code = self.sfc.index(
+            cols[self.geom + "__xmin"], cols[self.geom + "__ymin"], off,
+            cols[self.geom + "__xmax"], cols[self.geom + "__ymax"], off)
+        return {"__xz3_bin": np.asarray(b, np.int32), "__xz3": code}
+
+    def sort_order(self, cols):
+        return np.lexsort((cols["__xz3"], cols["__xz3_bin"]))
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__xz3")
+        bits = int(self.sfc.subtree_size[0]).bit_length()
+        out = packsort.pack_sort(cols["__xz3"].astype(np.uint64), bits,
+                                 prefix=cols["__xz3_bin"], force_shift=fs)
+        if out is None:
+            return None
+        perm, cq, bins_sorted, shift = out
+        return perm, {"__xz3_bin": bins_sorted, "__xz3": cq}, {"__xz3": shift}
+
+    def plan(self, ft, f, ranges_target=None):
+        """None when the filter has no time bound; one cover of the
+        geometries' bounding box over the whole offset span."""
+        geoms = ir.extract_geometries(f, self.geom)
+        intervals = ir.extract_intervals(f, self.dtg)
+        if geoms.disjoint or intervals.disjoint:
+            return KeyPlan(self, disjoint=True)
+        if intervals.is_empty:
+            return None
+        CLAMP = 2**45
+        iv = [(max(lo, -CLAMP), min(hi, CLAMP)) for lo, hi in intervals.values]
+        bins = np.unique(
+            np.concatenate([self.binned.bins_between(lo, hi) for lo, hi in iv])
+        )
+        if geoms.is_empty:
+            bbox = (-180.0, -90.0, 180.0, 90.0)
+        else:
+            bs = np.asarray([g.bounds() for g in geoms.values])
+            bbox = (bs[:, 0].min(), bs[:, 1].min(), bs[:, 2].max(), bs[:, 3].max())
+        ranges = self.sfc.ranges((bbox[0], bbox[2]), (bbox[1], bbox[3]),
+                                 (0.0, float(self.binned.max_offset_ms)))
+        span = sum(r.hi - r.lo + 1 for r in ranges)
+        return KeyPlan(self, ranges=ranges, bins=bins.astype(np.int32),
+                       coverage=span / self.sfc.subtree_size[0])
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        bins_col = shard_cols["__xz3_bin"]
+        code_col = shard_cols["__xz3"]
+        sh = _shift_of(shard_cols, "__xz3")
+        bins = plan.bins
+        if len(bins) > 8:  # xz windows multiply per bin: collapse earlier
+            s = np.searchsorted(bins_col, bins[0], side="left")
+            e = np.searchsorted(bins_col, bins[-1], side="right")
+            return np.asarray([s], np.int64), np.asarray([e], np.int64)
+        starts, ends = [], []
+        for b in bins.tolist():
+            s = np.searchsorted(bins_col, b, side="left")
+            e = np.searchsorted(bins_col, b, side="right")
+            if e <= s:
+                continue
+            seg = code_col[s:e]
+            for r in plan.ranges:
+                s2 = s + np.searchsorted(seg, r.lo >> sh, side="left")
+                e2 = s + np.searchsorted(seg, r.hi >> sh, side="right")
+                if e2 > s2:
+                    starts.append(s2)
+                    ends.append(e2)
+        if not starts:
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                            MAX_WINDOW_BINS)
+
+
 class IdKeySpace(KeySpace):
     """Feature-id index, keyed by a 64-bit hash of the fid: the window of
     hash(fid) is a superset (collisions included) and the ``IdIn`` mask
@@ -424,7 +609,10 @@ class IdKeySpace(KeySpace):
         perm, hq, _, shift = out
         return perm, {"__idhash": hq}, {"__idhash": shift}
 
-    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+    def supports(self, ft):
+        return True
+
+    def plan(self, ft, f, ranges_target=None):
         ids = ir.extract_ids(f)
         if ids is None:
             return None
@@ -509,7 +697,10 @@ class AttributeKeySpace(KeySpace):
         perm, kq, _, shift = out
         return perm, {self.sort_col: kq}, {self.sort_col: shift}
 
-    def plan(self, ft, f, ranges_target=RANGES_TARGET):
+    def supports(self, ft):
+        return ft.has(self.attr) and not ft.attr(self.attr).is_geom
+
+    def plan(self, ft, f, ranges_target=None):
         bounds = ir.extract_attr_bounds(f, self.attr)
         if bounds.disjoint:
             return KeyPlan(self, disjoint=True)
@@ -559,10 +750,11 @@ class AttributeKeySpace(KeySpace):
 
 
 def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
-    """The indices of a point schema: z3 (with a date) and z2 for the
-    geometry, id, and an attribute index for every ``index=true``
-    attribute. The ``geomesa.indices`` user-data key overrides them with a
-    comma-separated list of index kinds."""
+    """The indices of a schema: z3 (with a date) and z2 for a point
+    geometry, xz3 (with a date) and xz2 for an extent geometry, id, and an
+    attribute index for every ``index=true`` attribute. The
+    ``geomesa.indices`` user-data key overrides them with a comma-separated
+    list of index kinds; kinds the schema cannot carry drop out."""
     geom = ft.geom_field
     dtg = ft.dtg_field
     explicit = ft.user_data.get("geomesa.indices")
@@ -571,18 +763,27 @@ def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
     else:
         wanted = []
         if geom is not None:
-            if dtg is not None:
-                wanted.append("z3")
-            wanted.append("z2")
+            if ft.attr(geom).is_point:
+                if dtg is not None:
+                    wanted.append("z3")
+                wanted.append("z2")
+            else:
+                if dtg is not None:
+                    wanted.append("xz3")
+                wanted.append("xz2")
         wanted += ["id", "attr"]
     out: List[KeySpace] = []
     for kind in wanted:
-        if kind in ("xz2", "xz3", "s2", "s3"):
+        if kind in ("s2", "s3"):
             raise NotImplementedError(f"{kind} index: {LATER_ITEM}")
         if kind == "z3" and geom and dtg:
             out.append(Z3KeySpace(geom, dtg, ft.time_period))
         elif kind == "z2" and geom:
             out.append(Z2KeySpace(geom))
+        elif kind == "xz3" and geom and dtg:
+            out.append(XZ3KeySpace(geom, dtg, ft.time_period))
+        elif kind == "xz2" and geom:
+            out.append(XZ2KeySpace(geom))
         elif kind == "id":
             out.append(IdKeySpace())
         elif kind == "attr":
@@ -591,4 +792,4 @@ def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
                     out.append(AttributeKeySpace(a.name, geom, a.type))
     if not any(isinstance(k, IdKeySpace) for k in out):
         out.append(IdKeySpace())
-    return out
+    return [k for k in out if k.supports(ft)]

@@ -11,7 +11,9 @@ Queries stream the pruned partitions one at a time
 The partition key is the time bin of ``geomesa.partition.period`` (default:
 the schema's z3 interval). Children share the parent's dictionaries, so
 string codes and compiled predicates hold in every partition, and each
-child table rounds its padded shard length up to :data:`SHARD_BUCKET`.
+child table rounds its padded shard length up to
+``geomesa.partition.shard.bucket``. The budget, the spill directory and
+the bucket are read from ``config`` when the store is made.
 
 Snapshots use the JAX package's npz layout (its ``geomesa.lake.enabled=
 false`` branch): ``data.npz`` with ``c/<column>`` master columns,
@@ -38,22 +40,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.index.store import FeatureStore, _init_stats
 from geomesa_tpu_torch.schema.columns import ColumnBatch
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import sketches as sk
-
-#: spill directory of cold partitions; None makes a temporary directory per
-#: store, removed with it (geomesa.partition.spill.dir)
-SPILL_DIR: Optional[str] = None
-
-#: partitions kept resident per store (geomesa.partition.max.resident)
-MAX_RESIDENT = 4
-
-#: child tables round their padded shard length up to a multiple of this
-#: (geomesa.partition.shard.bucket)
-SHARD_BUCKET = 65536
 
 
 def is_partitioned_schema(ft: FeatureType) -> bool:
@@ -136,8 +128,10 @@ class PartitionedFeatureStore(FeatureStore):
         self._dirty: set = set()
         #: bin -> the snapshot dir a clean resident child was loaded from
         self._snapshot_paths: Dict[int, str] = {}
-        self.max_resident = max(1, MAX_RESIDENT)
-        self._spill_dir = SPILL_DIR
+        self.max_resident = max(1, config.MAX_RESIDENT_PARTITIONS.to_int() or 4)
+        #: None makes a temporary directory, removed with the store
+        self._spill_dir: Optional[str] = config.SPILL_DIR.get()
+        self._shard_bucket = config.SHARD_LEN_BUCKET.to_int() or 1
         self._owns_spill_dir = False
         #: guards the partition map: the query pipeline's prefetch thread
         #: loads partition i+1 while the query thread evicts after i
@@ -164,7 +158,7 @@ class PartitionedFeatureStore(FeatureStore):
         child = FeatureStore(self.ft, self.n_shards, self.device)
         child.dicts = self.dicts  # shared: codes hold across partitions
         for t in child.tables.values():
-            t.shard_len_multiple = SHARD_BUCKET
+            t.shard_len_multiple = self._shard_bucket
         return child
 
     def _touch(self, b: int) -> None:
@@ -224,7 +218,9 @@ class PartitionedFeatureStore(FeatureStore):
         arrs: Dict[str, np.ndarray] = {}
         if st._all is not None:
             for k, v in st._all.columns.items():
-                arrs["c/" + k] = v
+                # object columns (extent WKT) spill as unicode, so the
+                # snapshot loads without pickle
+                arrs["c/" + k] = v.astype("U") if v.dtype.kind == "O" else v
         for k, v in st._key_cols.items():
             arrs["k/" + k] = v
         shifts: Dict[str, Dict[str, int]] = {}

@@ -1,15 +1,15 @@
 """Sharded, sorted columnar feature store on one device.
 
 Port of ``geomesa_tpu/index/store.py``: one index table per key space (z3,
-z2, id, attribute), a write buffer, the string dictionaries and the
+z2, xz3, xz2, id, attribute), a write buffer, the string dictionaries and the
 write-time sketches. A table is a sort permutation plus its sorted key
 columns over the store's master columns; a shard is a contiguous slab of
 the sort order, padded to a common length so the stacked [S, L] device
 columns have one static shape. Host master columns keep f64 coordinates
 and int64 values (the exact values the f32 band correction and the
 refinement read); the device holds f32 (int64 and f64 columns ride as
-f32), int32 and bool columns, never strings or 64-bit keys. Each table
-uploads the columns a query reads on its first query.
+f32), int32 and bool columns, never strings, extent WKT or 64-bit keys.
+Each table uploads the columns a query reads on its first query.
 """
 
 from __future__ import annotations
@@ -311,11 +311,14 @@ class IndexTable:
     def device_columns(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Stacked, padded [S, L] tensors for ``names`` on the table's
         device (cached per column): a staged upload after its copy, a staged
-        host array copied now, or the column stacked and copied now."""
+        host array copied now, or the column stacked and copied now.
+        Host-only columns (fids, extent WKT, strings) are skipped."""
         out = {}
         for name in dict.fromkeys(names):
             t = self._device_cache.get(name)
             if t is None:
+                if self.has_column(name) and self.is_host_only(name):
+                    continue
                 staged = self._host_stage.pop(name, None)
                 if isinstance(staged, Staged):
                     t = staged.take()
@@ -361,13 +364,18 @@ class IndexTable:
 
 def _init_stats(ft: FeatureType) -> Dict[str, object]:
     """The write-time sketches the decider and ``bounds()`` read: row
-    count, geometry bounds, the z2 / z3 histograms, and per indexed
+    count, geometry bounds (of the points, or of extents' bounds centroids),
+    time bounds, the z2 / z3 histograms of a point schema, and per indexed
     attribute an enumeration (strings) or min / max."""
     out: Dict[str, object] = {"count": sk.CountStat()}
     if ft.geom_field:
         out["bounds"] = sk.MinMax(ft.geom_field)
+    if ft.dtg_field:
+        out["time-bounds"] = sk.MinMax(ft.dtg_field)
+    point = ft.geom_field is not None and ft.attr(ft.geom_field).is_point
+    if point:
         out["z2-histogram"] = sk.Z2HistogramStat(ft.geom_field, 1024)
-    if ft.geom_field and ft.dtg_field:
+    if point and ft.dtg_field:
         out["z3-histogram"] = sk.Z3HistogramStat(ft.geom_field, ft.dtg_field,
                                                  ft.time_period, 1024)
     for a in ft.attributes:

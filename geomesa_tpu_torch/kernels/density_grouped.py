@@ -48,9 +48,9 @@ def build_grouped(
     max_dup: float = 4.0, box_cache: Optional[Dict] = None,
 ) -> Optional[Dict]:
     """Host pair schedule: (superchunk, tile) pairs sorted by tile id.
-    None when the index has no Morton (z3 / z2) key or the pairs would
-    duplicate rows beyond ``max_dup`` times the real chunk count (the
-    caller scatters)."""
+    None when the index has neither a Morton (z3 / z2) key nor xz codes, or
+    the pairs would duplicate rows beyond ``max_dup`` times the real chunk
+    count (the caller scatters)."""
     cand = pair_candidates(
         compact, table, keyspace, bbox, width, height, TILE, TILE, box_cache,
     )

@@ -5,6 +5,12 @@ Copy of the host half of ``geomesa_tpu/kernels/density_mxu.py`` (``ladder8``,
 are B-row runs of the z-sorted order, so each spans a small spatial box
 computed from its own sorted keys; a chunk is paired only with the grid
 tiles its box overlaps.
+
+The xz3 / xz2 key spaces get chunk boxes too, which the JAX package does
+not give them (it scatters there): an xz code bounds an element only by
+its node's doubled cell, 0.18 x 0.09 degrees at the default resolution,
+wider than a city viewport. So an xz chunk's box is taken from the f64
+bounds-centroid columns the density grids, the min / max of its rows.
 """
 
 from __future__ import annotations
@@ -68,6 +74,48 @@ def _chunk_boxes(compact: Dict, table, col: str, dims: int, shift: int,
     return out
 
 
+#: where a NaN coordinate stands in a chunk box: below every grid, as the
+#: device puts a NaN row in cell 0 (the int cast of NaN is 0 on the card,
+#: and INT_MIN clamped to 0 on the host)
+_NAN_AT = -720.0
+
+
+def _chunk_data_boxes(compact: Dict, table, geom: str, box_cache: Optional[Dict]):
+    """Per-chunk (x0, x1), (y0, y1) degree boxes of the f64 ``<geom>__x`` /
+    ``<geom>__y`` values of each chunk's valid rows (zeros for padding
+    chunks; a NaN value counts as :data:`_NAN_AT`)."""
+    ckey = (compact["whash"], compact["B"], geom, table.n)
+    if box_cache is not None:
+        hit = box_cache.get(ckey)
+        if hit is not None:
+            return hit
+    L = table.shard_len
+    cstart, lo, valid = compact["cstart"], compact["lo"], compact["valid"]
+    act = valid > 0
+    if not act.any():
+        return None
+    cs = (cstart + lo).astype(np.int64)
+    g0 = table.shard_bounds[cs // L] + (cs % L)
+    lens = valid[act].astype(np.int64)
+    starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    pos = np.repeat(g0[act], lens) + np.arange(int(lens.sum())) - np.repeat(starts, lens)
+    rows = table.rows([geom + "__x", geom + "__y"], pos)
+    out = []
+    for c in (geom + "__x", geom + "__y"):
+        v = np.asarray(rows[c], np.float64)
+        v = np.where(np.isnan(v), _NAN_AT, v)
+        full_lo = np.zeros(len(valid))
+        full_hi = np.zeros(len(valid))
+        full_lo[act] = np.minimum.reduceat(v, starts)
+        full_hi[act] = np.maximum.reduceat(v, starts)
+        out.append((full_lo, full_hi))
+    if box_cache is not None:
+        if len(box_cache) >= 64:
+            box_cache.clear()
+        box_cache[ckey] = out
+    return out
+
+
 def pair_candidates(
     compact: Dict, table, keyspace, bbox, width: int, height: int,
     TY: int, TX: int, box_cache: Optional[Dict] = None,
@@ -75,50 +123,60 @@ def pair_candidates(
     """(chunk, tile) candidate list for the compacted scan layout. Chunk
     boxes are conservative supersets (key quantization widens them by a
     cell; a one-cell pad covers the device's f32 pixel rounding). None
-    when the index has no Morton key column (attribute and id tables take
-    the scatter rung)."""
+    when the index has neither a Morton key column nor xz codes
+    (attribute and id tables take the scatter rung)."""
     kind = getattr(keyspace, "kind", None)
-    if kind == "z3":
-        col, dims = "__z3", 3
-    elif kind == "z2":
-        col, dims = "__z2", 2
-    else:
-        return None
-    key = table.key_columns.get(col)
-    if key is None:
-        return None
-    shift = 0
-    if table.key_shifts is not None:
-        shift = int(table.key_shifts.get(col, 0))
-    lon, lat = keyspace.sfc.lon, keyspace.sfc.lat
-    bits = lon.bits
-
     valid = compact["valid"]
     act = valid > 0
-    boxes = _chunk_boxes(compact, table, col, dims, shift, box_cache)
-    if boxes is None:
-        return None
-    (x0, x1), (y0, y1) = boxes
-
     xmin, ymin, xmax, ymax = (float(v) for v in bbox)
     cellw = (xmax - xmin) / width
     cellh = (ymax - ymin) / height
-    scale_x = (lon.hi - lon.lo) / (1 << bits)
-    scale_y = (lat.hi - lat.lo) / (1 << bits)
-    x0 = x0.astype(np.float64)
-    x1 = x1.astype(np.float64)
-    y0 = y0.astype(np.float64)
-    y1 = y1.astype(np.float64)
+    if kind in ("xz3", "xz2"):
+        boxes = _chunk_data_boxes(compact, table, keyspace.geom, box_cache)
+        if boxes is None:
+            return None
+        (bx0, bx1), (by0, by1) = boxes
+        lon_ext, lat_ext = 180.0, 90.0
+    else:
+        if kind == "z3":
+            col, dims = "__z3", 3
+        elif kind == "z2":
+            col, dims = "__z2", 2
+        else:
+            return None
+        key = table.key_columns.get(col)
+        if key is None:
+            return None
+        shift = 0
+        if table.key_shifts is not None:
+            shift = int(table.key_shifts.get(col, 0))
+        lon, lat = keyspace.sfc.lon, keyspace.sfc.lat
+        bits = lon.bits
+        boxes = _chunk_boxes(compact, table, col, dims, shift, box_cache)
+        if boxes is None:
+            return None
+        (x0, x1), (y0, y1) = boxes
+        scale_x = (lon.hi - lon.lo) / (1 << bits)
+        scale_y = (lat.hi - lat.lo) / (1 << bits)
+        x0 = x0.astype(np.float64)
+        x1 = x1.astype(np.float64)
+        y0 = y0.astype(np.float64)
+        y1 = y1.astype(np.float64)
+        # each quantized cell contributes its full extent
+        bx0, bx1 = lon.lo + x0 * scale_x, lon.lo + (x1 + 1) * scale_x
+        by0, by1 = lat.lo + y0 * scale_y, lat.lo + (y1 + 1) * scale_y
+        lon_ext = max(abs(lon.lo), abs(lon.hi))
+        lat_ext = max(abs(lat.lo), abs(lat.hi))
     # the pad covers the device's f32 px/py rounding and f32 coordinate
     # representation error (|x| * 2^-24), which at deep zoom exceeds a cell
-    ulp_x = max(abs(lon.lo), abs(lon.hi)) * 2.0 ** -24
-    ulp_y = max(abs(lat.lo), abs(lat.hi)) * 2.0 ** -24
+    ulp_x = lon_ext * 2.0 ** -24
+    ulp_y = lat_ext * 2.0 ** -24
     pad_x = 1 + int(np.ceil(ulp_x / max(cellw, 1e-300)))
     pad_y = 1 + int(np.ceil(ulp_y / max(cellh, 1e-300)))
-    cx0 = np.floor((lon.lo + x0 * scale_x - xmin) / cellw).astype(np.int64) - pad_x
-    cx1 = np.floor((lon.lo + (x1 + 1) * scale_x - xmin) / cellw).astype(np.int64) + pad_x
-    cy0 = np.floor((lat.lo + y0 * scale_y - ymin) / cellh).astype(np.int64) - pad_y
-    cy1 = np.floor((lat.lo + (y1 + 1) * scale_y - ymin) / cellh).astype(np.int64) + pad_y
+    cx0 = np.floor((bx0 - xmin) / cellw).astype(np.int64) - pad_x
+    cx1 = np.floor((bx1 - xmin) / cellw).astype(np.int64) + pad_x
+    cy0 = np.floor((by0 - ymin) / cellh).astype(np.int64) - pad_y
+    cy1 = np.floor((by1 - ymin) / cellh).astype(np.int64) + pad_y
     cx0 = np.clip(cx0, 0, width - 1)
     cx1 = np.clip(cx1, 0, width - 1)
     cy0 = np.clip(cy0, 0, height - 1)

@@ -8,12 +8,15 @@ scans the table of its chosen index. Resolve the scan windows; then:
   layout or the padded [S, L] one, build the fused mask (window & compiled
   predicate & ~f32 band) and aggregate there: ``count`` as a masked sum,
   ``density`` through the grouped CUDA kernel when the index has a Morton
-  key (z3, z2), else a scatter. Band rows are corrected exactly on the
-  host from the f64 master columns.
+  key (z3, z2) or xz codes (xz3, xz2: chunk boxes from the centroid
+  columns, which the reference does not pair), else a scatter. Band rows
+  are corrected exactly on the host from the f64 master columns.
 * ``host+device-coarse``: refine-bearing plans (Long bounds beyond 2^24,
-  point and line literals, WITHIN / TOUCHES) compute the coarse mask on
-  the device over the padded layout, then refine and aggregate its rows on
-  the host, as the reference does.
+  point and line literals, WITHIN / TOUCHES, every exact relation of an
+  extent column, expression comparisons) compute the coarse mask on the
+  device over the padded layout, then refine and aggregate its rows on
+  the host, as the reference does; ``exec_path`` records the refined rows
+  and the refinement's milliseconds.
 * ``host``: plans reading a host-only column (the feature id) evaluate the
   predicate on the window rows on the host; id lookups are this path by
   the reference's design.
@@ -43,11 +46,13 @@ return partials the partitioned executor merges.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
 from geomesa_tpu_torch.kernels import density_grouped as kgrouped
@@ -61,15 +66,6 @@ from geomesa_tpu_torch.stats import sketches as sk
 
 #: chunk sizes (rows) the compacted layout chooses among
 _B_LADDER = (128, 256, 512, 1024, 2048, 4096)
-
-#: range budget (and per-shard window cap) of the fine cover the compacted
-#: layout re-plans with (the JAX package's geomesa.compact.cover)
-COMPACT_COVER = 32768
-
-#: the grouped density schedule may pair at most this many (chunk, tile)
-#: pairs per real chunk; beyond it the scan scatters (the JAX package's
-#: geomesa.density.pallas.max.dup)
-MAX_DUP = 4.0
 
 #: gathered [C, B] column slabs kept per executor before the cache clears
 _GATHER_CACHE = 64
@@ -208,7 +204,7 @@ class Executor:
 
     def _fine_windows(self, plan: QueryPlan, setup):
         """Windows re-resolved from a re-covered key plan under the much
-        larger :data:`COMPACT_COVER` range budget (and window cap): the
+        larger ``geomesa.compact.cover`` range budget (and window cap): the
         compacted layout costs per admitted row and the density schedule
         wants spatially tight chunks."""
         c = setup["cache"]
@@ -217,13 +213,15 @@ class Executor:
             # the fine cover depends on the filter and the index alone: it
             # rides on the plan, shared by every partition a plan scans
             covers = plan.__dict__.setdefault("_fine_key_plans", {})
-            if plan.index_name not in covers:
-                covers[plan.index_name] = table.keyspace.plan(
-                    self.store.ft, plan.filter, COMPACT_COVER)
-            kp = covers[plan.index_name]
-            c["fine"] = (None, None) if kp is None else table.windows(
-                kp, cap=COMPACT_COVER
-            )
+            cover = config.COMPACT_COVER.to_int() or 0
+            if cover <= (config.SCAN_RANGES_TARGET.to_int() or 2000):
+                c["fine"] = (None, None)  # no finer than the planner's cover
+                return c["fine"]
+            if (plan.index_name, cover) not in covers:
+                covers[(plan.index_name, cover)] = table.keyspace.plan(
+                    self.store.ft, plan.filter, cover)
+            kp = covers[(plan.index_name, cover)]
+            c["fine"] = (None, None) if kp is None else table.windows(kp, cap=cover)
         return c["fine"]
 
     def _compact_candidates(self, plan: QueryPlan, setup):
@@ -451,8 +449,13 @@ class Executor:
                 m = np.asarray(compiled(table.rows(setup["needed"], pos), np))
                 pos = pos if m.ndim == 0 and bool(m) else pos[np.broadcast_to(m, pos.shape)]
         if compiled.refine is not None and len(pos):
+            t0 = time.perf_counter()
             names = list(dict.fromkeys(compiled.columns + compiled.refine_columns))
-            pos = pos[compiled.refine_rows(table.rows(names, pos), len(pos))]
+            n_cand = len(pos)
+            pos = pos[compiled.refine_rows(table.rows(names, pos), n_cand)]
+            # the host refinement's share of the call
+            self._note(plan, refined_rows=n_cand,
+                       refine_ms=(time.perf_counter() - t0) * 1e3)
         return self._host_sample(plan, setup, pos)
 
     @staticmethod
@@ -530,18 +533,20 @@ class Executor:
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
-        (plan, grid); None when the scan is not compacted, the index has no
-        Morton key, or the pairs exceed the duplication budget."""
+        (plan, grid); None when the scan is not compacted, the index has
+        neither a Morton key nor xz codes, or the pairs exceed the
+        duplication budget."""
         d = setup["compact"]
         if d is None:
             return None
         c = setup["cache"]
-        key = ("grouped", tuple(float(v) for v in bbox), width, height)
+        max_dup = config.DENSITY_PALLAS_MAX_DUP.to_float()
+        key = ("grouped", tuple(float(v) for v in bbox), width, height, max_dup)
         hit = c.get(key)
         if hit is None:
             table = setup["table"]
             gr = kgrouped.build_grouped(
-                d, table, table.keyspace, bbox, width, height, MAX_DUP,
+                d, table, table.keyspace, bbox, width, height, max_dup,
                 box_cache=c.setdefault("boxes", {}),
             )
             hit = False

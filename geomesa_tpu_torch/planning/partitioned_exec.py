@@ -20,7 +20,9 @@ load errors reach the query thread.
 
 Not ported yet (ROADMAP Queue 1): the multi-device sharded scan, the
 degradation contract (``allow_partial``, fault points, retries), the lake
-tier's pruned loads, ``density_curve`` and the query-axis batches.
+tier's pruned loads (the reference pushes down point geometries only: an
+extent schema always loads whole partitions), ``density_curve`` and the
+query-axis batches.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
@@ -40,10 +43,6 @@ from geomesa_tpu_torch.planning.planner import QueryPlan
 from geomesa_tpu_torch.schema.columns import ColumnBatch
 from geomesa_tpu_torch.stats import sketches as sk
 
-#: stage the next partition while the current one runs
-#: (geomesa.pipeline.prefetch)
-PIPELINE_PREFETCH = True
-
 #: exec_path entries a child executor writes per partition
 _PART_KEYS = ("scan", "feature_scan", "B", "band_rows", "density_kernel", "sampling")
 
@@ -51,8 +50,8 @@ _PART_KEYS = ("scan", "feature_scan", "B", "band_rows", "density_kernel", "sampl
 class PartitionedExecutor:
     """The Executor surface over a partitioned store. ``compact_min_rows``
     and ``compact_fraction`` go to every child's executor; ``prefetch``
-    (default :data:`PIPELINE_PREFETCH`) turns the pipeline's worker on or
-    off, with the same results."""
+    turns the pipeline's worker on or off, with the same results (unset,
+    ``geomesa.pipeline.prefetch`` decides at each call)."""
 
     def __init__(self, store: PartitionedFeatureStore, compact_min_rows: int = 1 << 20,
                  compact_fraction: float = 0.5):
@@ -60,9 +59,19 @@ class PartitionedExecutor:
         self.device = store.device
         self.compact_min_rows = compact_min_rows
         self.compact_fraction = compact_fraction
-        self.prefetch = PIPELINE_PREFETCH
+        self._prefetch: Optional[bool] = None
         self._execs: Dict[int, Executor] = {}
         self._uploader: Optional[Uploader] = None
+
+    @property
+    def prefetch(self) -> bool:
+        if self._prefetch is None:
+            return bool(config.PIPELINE_PREFETCH.to_bool())
+        return self._prefetch
+
+    @prefetch.setter
+    def prefetch(self, on: Optional[bool]) -> None:
+        self._prefetch = on
 
     @property
     def uploader(self) -> Optional[Uploader]:
@@ -128,8 +137,11 @@ class PartitionedExecutor:
         out: "queue.Queue" = queue.Queue()
         stop = threading.Event()
         slot = threading.Semaphore(0)  # one permit per granted load
+        ov = config.snapshot_overrides()
 
         def worker():
+            # the worker resolves every knob as the query thread does
+            config.adopt_overrides(ov)
             try:
                 for b in bins:
                     while not slot.acquire(timeout=0.1):

@@ -3,7 +3,9 @@
 Port of ``geomesa_tpu/planning/planner.py``'s ``QueryPlanner.plan`` with
 its cost-based decider: every key space of the store proposes a key plan,
 the write-time sketches estimate each plan's rows, index multipliers weigh
-them (id 0.5, z3 1.0, z2 1.5, attribute 2.0), and the cheapest wins; with
+them (id 0.5, z3 / xz3 1.0, z2 / xz2 1.5, attribute 2.0), and the
+cheapest wins (extent schemas carry no z histograms: xz plans estimate
+from their cover's share of the key space); with
 no candidate, the first index scans in full. ``QueryHints`` ride on the
 plan; the ``query_index`` hint restricts the candidates to one index.
 Interceptors, guards and the explainer are not ported.
@@ -22,7 +24,7 @@ from geomesa_tpu_torch.index.store import FeatureStore
 from geomesa_tpu_torch.stats import sketches as sk
 
 #: index preference multipliers of the decider
-_MULTIPLIER = {"id": 0.5, "z3": 1.0, "z2": 1.5, "attr": 2.0}
+_MULTIPLIER = {"id": 0.5, "z3": 1.0, "xz3": 1.0, "z2": 1.5, "xz2": 1.5, "attr": 2.0}
 
 
 @dataclass
@@ -110,6 +112,8 @@ def _estimate(store: FeatureStore, kp: KeyPlan, total: float) -> float:
         z2h = store.stats.get("z2-histogram")
         if z2h is not None and not z2h.is_empty:
             return z2h.estimate_count(kp.ranges)
+        return total * min(1.0, kp.coverage * 4)
+    if kind == "xz2":
         return total * min(1.0, kp.coverage * 4)
     if kind == "id":
         return float(len(kp.ids))

@@ -1,6 +1,7 @@
 """Columnar feature encoding (struct of arrays).
 
-Copy of ``geomesa_tpu/schema/columns.py`` cut to the types this port serves:
+Copy of ``geomesa_tpu/schema/columns.py`` cut to the types this port serves
+(JSON documents are left out):
 
 * scalar attribute ``a``  -> column ``a`` (int32 / int64 / float32 / float64
                               / bool)
@@ -8,6 +9,10 @@ Copy of ``geomesa_tpu/schema/columns.py`` cut to the types this port serves:
 * date attribute ``d``    -> column ``d`` = int64 epoch-ms, plus the device
                               time pair ``d__bin`` / ``d__off`` (int32)
 * point geometry ``g``    -> columns ``g__x``, ``g__y`` (float64)
+* extent geometry ``g``   -> bounds ``g__xmin/__ymin/__xmax/__ymax``
+                              (float64), the bounds' centroid as ``g__x`` /
+                              ``g__y``, and the host-only object column
+                              ``g__wkt`` (full-precision WKT)
 * feature id              -> host-only fixed-width bytes column ``__fid__``
                               ('S'; 'U' for non-ASCII ids)
 
@@ -25,6 +30,7 @@ import numpy as np
 
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.utils import geometry as geo
 
 #: ``DictionaryEncoder.encode`` takes its vectorized path from this many
 #: values of a numpy unicode array
@@ -162,9 +168,11 @@ def encode_batch(ft: FeatureType, data: Dict[str, Any],
                  fids: Optional[Sequence[str]] = None) -> ColumnBatch:
     """Encode raw attribute arrays into the columnar layout.
 
-    Point attributes take separate ``<name>__x``/``<name>__y`` arrays or an
-    array of (x, y) pairs under the attribute's own name. Strings grow the
-    attribute's dictionary in ``dicts``; ``None`` is null."""
+    Point attributes take separate ``<name>__x``/``<name>__y`` arrays, or
+    under the attribute's own name (x, y) pairs, Point objects or WKT
+    strings; extent attributes take Geometry objects or WKT strings.
+    Strings grow the attribute's dictionary in ``dicts``; ``None`` is
+    null."""
     cols: Dict[str, np.ndarray] = {}
     n = None
 
@@ -185,10 +193,26 @@ def encode_batch(ft: FeatureType, data: Dict[str, Any],
                 vals = data.get(a.name)
                 if vals is None:
                     raise KeyError(f"missing geometry attribute {a.name!r}")
-                xy = np.asarray(vals, np.float64).reshape(-1, 2)
-                xs, ys = xy[:, 0].copy(), xy[:, 1].copy()
+                xs, ys = _point_xy(vals)
             set_n(len(xs))
             cols[xk], cols[yk] = xs, ys
+        elif a.is_geom:
+            vals = data.get(a.name)
+            if vals is None:
+                raise KeyError(f"missing geometry attribute {a.name!r}")
+            geoms = [v if isinstance(v, geo.Geometry) else geo.parse_wkt(str(v))
+                     for v in vals]
+            set_n(len(geoms))
+            b = np.asarray([g.bounds() for g in geoms], np.float64).reshape(-1, 4)
+            cols[a.name + "__xmin"] = b[:, 0]
+            cols[a.name + "__ymin"] = b[:, 1]
+            cols[a.name + "__xmax"] = b[:, 2]
+            cols[a.name + "__ymax"] = b[:, 3]
+            # the bounds' centroid: the reference point of distance, kNN
+            # and density
+            cols[a.name + "__x"] = (b[:, 0] + b[:, 2]) / 2
+            cols[a.name + "__y"] = (b[:, 1] + b[:, 3]) / 2
+            cols[a.name + "__wkt"] = np.array([g.wkt() for g in geoms], dtype=object)
         elif a.type == "date":
             vals = data.get(a.name)
             if vals is None:
@@ -266,15 +290,37 @@ def fid_strs(col: np.ndarray) -> np.ndarray:
     return by.astype(np.uint32).view(f"U{w}").reshape(len(a))
 
 
+def _point_xy(vals):
+    """(xs, ys) f64 of (x, y) pairs, Point objects or WKT strings."""
+    if isinstance(vals, np.ndarray) and vals.dtype.kind in "fiu":
+        xy = np.asarray(vals, np.float64).reshape(-1, 2)
+        return xy[:, 0].copy(), xy[:, 1].copy()
+    vals = list(vals)
+    xs = np.empty(len(vals), np.float64)
+    ys = np.empty(len(vals), np.float64)
+    for i, v in enumerate(vals):
+        if isinstance(v, geo.Point):
+            xs[i], ys[i] = v.x, v.y
+        elif isinstance(v, str):
+            p = geo.parse_wkt(v)
+            xs[i], ys[i] = p.x, p.y
+        else:
+            xs[i], ys[i] = float(v[0]), float(v[1])
+    return xs, ys
+
+
 def decode_batch(ft: FeatureType, batch: ColumnBatch,
                  dicts: Dict[str, DictionaryEncoder]) -> Dict[str, Any]:
     """Columns -> user-facing values (strings decoded, dates as
-    datetime64[ms], points as (x, y) tuples). Attributes projected out of
-    the batch (``Query.properties``) are skipped."""
+    datetime64[ms], points as (x, y) tuples, extent geometries as WKT
+    strings). Attributes projected out of the batch (``Query.properties``)
+    are skipped."""
     out: Dict[str, Any] = {"__fid__": fid_strs(batch.columns["__fid__"]).tolist()}
     for a in ft.attributes:
         if a.is_geom:
-            if a.name + "__x" in batch.columns:
+            if a.name + "__wkt" in batch.columns:
+                out[a.name] = batch.columns[a.name + "__wkt"].tolist()
+            elif a.name + "__x" in batch.columns:
                 xs = batch.columns[a.name + "__x"]
                 ys = batch.columns[a.name + "__y"]
                 out[a.name] = list(zip(xs.tolist(), ys.tolist()))

@@ -1,8 +1,10 @@
 """Feature schema model: a named, typed attribute list plus user data.
 
 Copy of ``geomesa_tpu/schema/feature_type.py`` cut to the attribute types
-this port serves: Point, Date, String (UUID and Bytes are stored as
-strings), Integer, Long, Float, Double and Boolean. The spec-string format
+this port serves: Point, the extent geometries (LineString, Polygon,
+MultiPoint, MultiLineString, MultiPolygon, Geometry; GeometryCollection is
+stored as Geometry), Date, String (UUID and Bytes are stored as strings),
+Integer, Long, Float, Double and Boolean. The spec-string format
 stays GeoMesa's (``name:Type:opt=val,*geom:Point;userdata='v'``);
 ``index=true`` marks an attribute index.
 """
@@ -26,13 +28,22 @@ _TYPES = {
     "uuid": "string",
     "bytes": "string",
     "point": "point",
+    "linestring": "linestring",
+    "polygon": "polygon",
+    "multipoint": "multipoint",
+    "multilinestring": "multilinestring",
+    "multipolygon": "multipolygon",
+    "geometry": "geometry",
+    "geometrycollection": "geometry",
+}
+
+GEOM_TYPES = {
+    "point", "linestring", "polygon", "multipoint", "multilinestring",
+    "multipolygon", "geometry",
 }
 
 #: spec types the JAX package accepts that this port does not serve yet
-_LATER = {
-    "json", "linestring", "polygon", "multipoint", "multilinestring",
-    "multipolygon", "geometry", "geometrycollection",
-}
+_LATER = {"json"}
 
 #: ROADMAP item that ports the refused types
 LATER_ITEM = "ROADMAP Queue 1, extent geometries and expression predicates"
@@ -41,13 +52,13 @@ LATER_ITEM = "ROADMAP Queue 1, extent geometries and expression predicates"
 @dataclass
 class AttributeSpec:
     name: str
-    type: str  # canonical: string | int32 | int64 | float32 | float64 | bool | date | point
+    type: str  # canonical: string | int32 | int64 | float32 | float64 | bool | date | <geom>
     default_geom: bool = False
     options: Dict[str, str] = field(default_factory=dict)
 
     @property
     def is_geom(self) -> bool:
-        return self.type == "point"
+        return self.type in GEOM_TYPES
 
     @property
     def is_point(self) -> bool:
@@ -70,6 +81,9 @@ class FeatureType:
         self._by_name = {a.name: a for a in self.attributes}
         if len(self._by_name) != len(self.attributes):
             raise ValueError(f"duplicate attribute names in schema {self.name!r}")
+
+    def has(self, name: str) -> bool:
+        return name in self._by_name
 
     def attr(self, name: str) -> AttributeSpec:
         a = self._by_name.get(name)

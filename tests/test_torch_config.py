@@ -1,0 +1,209 @@
+"""The port's configuration knobs against the JAX package's: each knob's
+name and default, its resolution order (thread-local override, then the
+environment, then the default), ``scoped()`` nesting, and that the module
+reading it reads it at call time."""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu import config as jconfig
+from geomesa_tpu_torch import GeoDataset, Query
+from geomesa_tpu_torch import config
+from geomesa_tpu_torch.filter.compile import compile_filter
+from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
+
+#: port knob -> the JAX package's SystemProperty of the same rule
+KNOBS = {
+    "SCAN_RANGES_TARGET": "SCAN_RANGES_TARGET",
+    "LOOSE_BBOX": "LOOSE_BBOX",
+    "SPILL_DIR": "SPILL_DIR",
+    "MAX_RESIDENT_PARTITIONS": "MAX_RESIDENT_PARTITIONS",
+    "SHARD_LEN_BUCKET": "SHARD_LEN_BUCKET",
+    "COMPACT_COVER": "COMPACT_COVER",
+    "PIPELINE_PREFETCH": "PIPELINE_PREFETCH",
+    "DENSITY_PALLAS_MAX_DUP": "DENSITY_PALLAS_MAX_DUP",
+    "TOPK_MAX": "TOPK_MAX",
+}
+
+
+def test_registry_is_the_knobs():
+    assert sorted(p.name for p in config.registry().values()) == sorted(
+        getattr(config, k).name for k in KNOBS)
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_name_and_default_equal_the_reference(knob):
+    p, j = getattr(config, knob), getattr(jconfig, KNOBS[knob])
+    assert p.name == j.name
+    assert p.default == j.default
+    assert p.env_name == j.env_name
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_override_then_env_then_default(knob, monkeypatch):
+    p = getattr(config, knob)
+    monkeypatch.delenv(p.env_name, raising=False)
+    assert p.get() == p.default
+    monkeypatch.setenv(p.env_name, "17")
+    assert p.get() == "17" and p.to_int() == 17
+    with p.scoped("23"):
+        assert p.get() == "23"
+        with p.scoped(5):  # scopes nest
+            assert p.to_int() == 5
+        assert p.get() == "23"
+        seen = []
+        t = threading.Thread(target=lambda: seen.append(p.get()))
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive() and seen == ["17"]  # overrides are per thread
+    assert p.get() == "17"
+    p.set(9)
+    try:
+        assert p.to_float() == 9.0
+    finally:
+        p.set(None)
+    monkeypatch.delenv(p.env_name)
+    assert p.get() == p.default
+
+
+def test_typed_accessors():
+    p = config.LOOSE_BBOX
+    for v, want in (("true", True), ("1", True), ("On", True), ("false", False), ("0", False)):
+        with p.scoped(v):
+            assert p.to_bool() is want
+    assert config.SPILL_DIR.to_int() is None
+
+
+def test_snapshot_and_adopt_overrides():
+    with config.TOPK_MAX.scoped(3):
+        snap = config.snapshot_overrides()
+    seen = []
+
+    def worker():
+        config.adopt_overrides(snap)
+        seen.append(config.TOPK_MAX.to_int())
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive() and seen == [3]
+    assert config.TOPK_MAX.to_int() == 100000
+
+
+# -- each module reads its knob when it runs ------------------------------------------
+PSPEC = "name:String,weight:Float,dtg:Date,*geom:Point;geomesa.partition='time'"
+SPEC = "name:String,weight:Float,dtg:Date,*geom:Point"
+DURING = "dtg DURING 2020-01-05T00:00:00Z/2020-01-25T00:00:00Z"
+BOX = "BBOX(geom, -100, 30, -80, 45)"
+
+
+def _data(n=4000, seed=5):
+    rng = np.random.default_rng(seed)
+    lo = parse_iso_ms("2020-01-01")
+    return {"name": list(rng.choice(np.array(["a", "b", "c"], object), n)),
+            "weight": rng.uniform(0, 1, n).astype(np.float32),
+            "dtg": rng.integers(lo, parse_iso_ms("2020-02-01"), n).astype("datetime64[ms]"),
+            "geom__x": rng.uniform(-120, -70, n), "geom__y": rng.uniform(25, 50, n)}
+
+
+def _ds(spec=SPEC, n=4000):
+    ds = GeoDataset(n_shards=4, device="cpu", compact_min_rows=1, compact_fraction=2.0)
+    ds.create_schema("t", spec)
+    ds.insert("t", _data(n))
+    ds.flush("t")
+    return ds
+
+
+def test_partition_knobs_read_when_the_store_is_made(tmp_path):
+    with config.SPILL_DIR.scoped(str(tmp_path)), config.MAX_RESIDENT_PARTITIONS.scoped(2), \
+            config.SHARD_LEN_BUCKET.scoped(4096):
+        ds = _ds(PSPEC)
+    st = ds._store("t")
+    assert st.max_resident == 2 and len(st.partitions) <= 2
+    assert st.spill_dir == str(tmp_path) and st.spilled
+    assert all(t.shard_len_multiple == 4096 for c in st.partitions.values()
+               for t in c.tables.values())
+    assert all(c.tables["z3"].shard_len % 4096 == 0 for c in st.partitions.values())
+    default = _ds(PSPEC)._store("t")
+    assert default.max_resident == 4 and default._shard_bucket == 65536
+
+
+def test_prefetch_read_at_each_call(tmp_path):
+    with config.SPILL_DIR.scoped(str(tmp_path)), config.MAX_RESIDENT_PARTITIONS.scoped(1):
+        ds = _ds(PSPEC)
+    ex = ds._executor("t")
+    assert ex.prefetch is True
+    with config.PIPELINE_PREFETCH.scoped(False):
+        assert ex.prefetch is False
+        off = ds.count("t", DURING)
+    assert ds.count("t", DURING) == off
+    ex.prefetch = True  # an explicit setting wins over the knob
+    with config.PIPELINE_PREFETCH.scoped(False):
+        assert ex.prefetch is True
+    ex.prefetch = None
+    assert ex.prefetch is True
+
+
+def test_ranges_target_read_at_plan_time():
+    ds = _ds()
+    st = ds._store("t")
+    z2 = st.tables["z2"].keyspace
+    f = parse_ecql(BOX)
+    assert len(z2.plan(st.ft, f).ranges) > 8
+    with config.SCAN_RANGES_TARGET.scoped(8):
+        assert len(z2.plan(st.ft, f).ranges) <= 8
+        small = ds.count("t", BOX)
+    assert ds.count("t", BOX) == small
+
+
+def test_compact_cover_read_at_scan_time():
+    ds = _ds()
+    ex = ds._executor("t")
+    q = f"{BOX} AND {DURING}"
+    with config.COMPACT_COVER.scoped(1000):  # not finer than the planner's cover
+        plan = ds._plan("t", q)
+        setup = ex._scan_setup(plan)
+        assert ex._fine_windows(plan, setup) == (None, None)
+        n_coarse = ds.count("t", q)
+    plan = ds._plan("t", q)
+    plan.__dict__.pop("_exec_cache", None)
+    setup = ex._scan_setup(plan)
+    fs, fe = ex._fine_windows(plan, setup)
+    assert fs is not None and fs.shape[1] >= setup["starts"].shape[1]
+    assert ds.count("t", q) == n_coarse
+
+
+def test_max_dup_read_at_density_time():
+    ds = _ds(n=40_000)
+    q = f"{BOX} AND {DURING}"
+    bbox = (-100.0, 30.0, -80.0, 45.0)
+    grouped = ds.density("t", q, bbox=bbox, width=64, height=64)
+    assert ds._plan("t", q).exec_path["density_kernel"] == "grouped"
+    with config.DENSITY_PALLAS_MAX_DUP.scoped(0.0):
+        scatter = ds.density("t", q, bbox=bbox, width=64, height=64)
+        assert ds._plan("t", q).exec_path["density_kernel"] == "scatter"
+    assert np.array_equal(grouped, scatter)
+
+
+def test_topk_max_read_at_query_time():
+    ds = _ds()
+    q = Query(BOX, sort_by=[("weight", True)], max_features=10)
+    top = ds.query("t", q).fids
+    assert ds._plan("t", q).exec_path["sort"] == "device-topk(k=10)"
+    with config.TOPK_MAX.scoped(0):
+        assert ds.query("t", q).fids == top
+        assert "sort" not in ds._plan("t", q).exec_path
+
+
+def test_loose_bbox_read_at_compile_time():
+    from geomesa_tpu_torch.schema.feature_type import FeatureType
+
+    ft = FeatureType.from_spec("t", "dtg:Date,*geom:Polygon")
+    f = parse_ecql("BBOX(geom, 0, 0, 1, 1)")
+    assert compile_filter(f, ft).refine is not None
+    with config.LOOSE_BBOX.scoped(True):
+        assert compile_filter(f, ft).refine is None
+    assert compile_filter(f, ft).refine is not None

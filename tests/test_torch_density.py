@@ -17,7 +17,7 @@ from geomesa_tpu.kernels import density_pallas as jdp
 from geomesa_tpu_torch import GeoDataset
 from geomesa_tpu_torch.filter.ecql import parse_iso_ms
 from geomesa_tpu_torch.kernels import density_grouped as kg
-from geomesa_tpu_torch.planning import executor
+from geomesa_tpu_torch import config as pconfig
 
 ECQL = (
     "BBOX(geom, -100, 30, -80, 45) AND "
@@ -195,7 +195,7 @@ def test_tile_segments_partition_the_pairs(pair, target):
     assert empty_seen > 0
 
 
-def test_scatter_rung_over_the_duplication_budget(pair, monkeypatch):
+def test_scatter_rung_over_the_duplication_budget(pair):
     """Over the pair budget the port scatters, as the reference leaves the
     Pallas rung there; unweighted counts are the same either way."""
     _, p = pair
@@ -207,8 +207,8 @@ def test_scatter_rung_over_the_duplication_budget(pair, monkeypatch):
                        compact_fraction=2.0)
     tight.attach_store(p._store("t"))
     ex_tight = tight._executor("t")
-    monkeypatch.setattr(executor, "MAX_DUP", 0.01)
     plan_t = tight._plan("t", ECQL)
-    g_scatter = ex_tight.density(plan_t, BBOX, 256, 256)
+    with pconfig.DENSITY_PALLAS_MAX_DUP.scoped(0.01):
+        g_scatter = ex_tight.density(plan_t, BBOX, 256, 256)
     assert plan_t.exec_path["density_kernel"] == "scatter"
     assert np.array_equal(g_grouped, g_scatter)

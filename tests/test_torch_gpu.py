@@ -524,57 +524,57 @@ def test_staged_upload_equals_synchronous_copy(cuda, name):
     assert up.pool.allocations == 1 and up.pool.buffers() == 1
 
 
-def test_partitioned_density_prefetch_on_equals_off(cuda, tmp_path, monkeypatch):
+def test_partitioned_density_prefetch_on_equals_off(cuda, tmp_path):
     """Nine partitions streamed through a budget of 2: counts, grids and
     rows with the prefetch pipeline on equal those with it off and the
     CPU's; both kernels launch once per partition. (At about 116k rows a
     week the grouped rung's duplication budget would send the box's
     full-week scans to the scatter; it is lifted so the kernel runs.)"""
+    from geomesa_tpu_torch import config
     from geomesa_tpu_torch.api.dataset import Query
-    from geomesa_tpu_torch.planning import executor as pexec
 
-    monkeypatch.setattr(pexec, "MAX_DUP", 1e9)
-    gpu = _partitioned(cuda, 2, tmp_path)
-    cpu = _partitioned("cpu", 2, tmp_path)
-    ex = gpu._executor("t")
-    poly = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)}) AND {WEEKS}"
-    box = f"BBOX(geom, -100, 30, -80, 45) AND {WEEKS}"
-    calls = {
-        "count": lambda ds: ds.count("t", box),
-        "density": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512),
-        "weighted": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512,
-                                          weight="weight"),
-        "polygon": lambda ds: ds.count("t", poly),
-        "sorted": lambda ds: ds.query("t", Query(WEEKS, sort_by=[("weight", True)],
-                                                 max_features=100)).fids,
-    }
-    for key, fn in calls.items():
-        pip0, den0 = kpip.launches, kg.launches
-        on = fn(gpu)
-        launched = (kpip.launches - pip0, kg.launches - den0)
-        ex.prefetch = False
-        try:
-            off = fn(gpu)
-        finally:
-            ex.prefetch = True
-        want = fn(cpu)
-        if key == "weighted":
-            np.testing.assert_allclose(on, off, rtol=1e-4, atol=1e-3)
-            np.testing.assert_allclose(on, want, rtol=1e-4, atol=1e-3)
-        elif key == "density":
-            np.testing.assert_array_equal(on, off)
-            np.testing.assert_array_equal(on, want)
-        else:
-            assert on == off == want, key
-        if key in ("density", "weighted"):
-            # one launch for each partition whose scan took the grouped rung
-            parts = gpu._plan("t", box).exec_path["partitions"]
-            assert len(parts) == 9
-            assert all(p["density_kernel"] == "grouped" for p in parts.values()), parts
-            assert launched[1] == 9, launched
-        if key == "polygon":
-            assert launched[0] == 9, launched
-    assert ex.uploader.pool.allocations <= 2 * ex.uploader.pool.max_buffers
+    with config.DENSITY_PALLAS_MAX_DUP.scoped(1e9):
+        gpu = _partitioned(cuda, 2, tmp_path)
+        cpu = _partitioned("cpu", 2, tmp_path)
+        ex = gpu._executor("t")
+        poly = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)}) AND {WEEKS}"
+        box = f"BBOX(geom, -100, 30, -80, 45) AND {WEEKS}"
+        calls = {
+            "count": lambda ds: ds.count("t", box),
+            "density": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512),
+            "weighted": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512,
+                                              weight="weight"),
+            "polygon": lambda ds: ds.count("t", poly),
+            "sorted": lambda ds: ds.query("t", Query(WEEKS, sort_by=[("weight", True)],
+                                                     max_features=100)).fids,
+        }
+        for key, fn in calls.items():
+            pip0, den0 = kpip.launches, kg.launches
+            on = fn(gpu)
+            launched = (kpip.launches - pip0, kg.launches - den0)
+            ex.prefetch = False
+            try:
+                off = fn(gpu)
+            finally:
+                ex.prefetch = True
+            want = fn(cpu)
+            if key == "weighted":
+                np.testing.assert_allclose(on, off, rtol=1e-4, atol=1e-3)
+                np.testing.assert_allclose(on, want, rtol=1e-4, atol=1e-3)
+            elif key == "density":
+                np.testing.assert_array_equal(on, off)
+                np.testing.assert_array_equal(on, want)
+            else:
+                assert on == off == want, key
+            if key in ("density", "weighted"):
+                # one launch for each partition whose scan took the grouped rung
+                parts = gpu._plan("t", box).exec_path["partitions"]
+                assert len(parts) == 9
+                assert all(p["density_kernel"] == "grouped" for p in parts.values()), parts
+                assert launched[1] == 9, launched
+            if key == "polygon":
+                assert launched[0] == 9, launched
+        assert ex.uploader.pool.allocations <= 2 * ex.uploader.pool.max_buffers
 
 
 def test_partitioned_device_memory_is_bounded(cuda, tmp_path):
@@ -606,3 +606,108 @@ def test_partitioned_device_memory_is_bounded(cuda, tmp_path):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() <= base
+
+
+# -- slice 6: extent geometries and expressions on the card -------------------------
+POLY_SPEC = "name:String,height:Float,dtg:Date,*geom:Polygon"
+VIEW = (-2.0, -2.0, 3.0, 3.0)
+
+
+def _poly_wkts(rng, n):
+    out = []
+    for i in range(n):
+        cx, cy = rng.uniform(-10, 10, 2)
+        k = int(rng.integers(3, 7))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(0.05, 0.4, k)
+        ring = [(float(cx + a * np.cos(t)), float(cy + a * np.sin(t)))
+                for t, a in zip(ang, r)]
+        body = ", ".join(f"{x!r} {y!r}" for x, y in ring + ring[:1])
+        out.append(f"POLYGON (({body}))" if i % 10 != 3 else
+                   f"POLYGON (({body}), ("
+                   + ", ".join(f"{float(cx + 0.3 * (x - cx))!r} {float(cy + 0.3 * (y - cy))!r}"
+                               for x, y in ring + ring[:1]) + "))")
+    return out
+
+
+def _poly_datasets(cuda, n, spec=POLY_SPEC, seed=13, tmp_path=None):
+    rng = np.random.default_rng(seed)
+    lo = parse_iso_ms("2020-01-01")
+    data = {"name": [f"a{i % 20}" for i in range(n)],
+            "height": rng.uniform(0, 40, n).astype(np.float32),
+            "dtg": rng.integers(lo, parse_iso_ms("2020-03-01"), n).astype("datetime64[ms]"),
+            "geom": _poly_wkts(rng, n)}
+    fids = np.char.add("p", np.arange(n).astype(str))
+    out = []
+    for dev in (cuda, "cpu"):
+        ds = GeoDataset(n_shards=4, device=dev, compact_min_rows=1, compact_fraction=2.0)
+        ds.create_schema("t", spec)
+        if tmp_path is not None:
+            st = ds._store("t")
+            st.max_resident = 2
+            st._spill_dir = str(tmp_path / f"poly_{dev}")
+        ds.insert("t", data, fids=fids)
+        ds.flush("t")
+        out.append(ds)
+    return out
+
+
+def test_loose_bbox_density_kernel_on_a_polygon_schema(cuda):
+    """Loose BBOX on an extent column runs the grouped kernel over the xz
+    plan's chunks (boxes from the centroid columns): the kernel equals its
+    plain version, and the grids and counts equal the CPU's."""
+    from geomesa_tpu_torch import config
+
+    gpu, cpu = _poly_datasets(cuda, 60_000)
+    q = f"BBOX(geom, {', '.join(str(v) for v in VIEW)}) AND {DURING}"
+    with config.LOOSE_BBOX.scoped(True):
+        plan = gpu._plan("t", q)
+        assert plan.index_name in ("xz3", "xz2") and plan.compiled.refine is None
+        ops = gpu._executor("t").density_inputs(plan, VIEW, 256, 256)
+        assert ops is not None, "the loose BBOX did not take the grouped rung"
+        args = (ops["x"], ops["y"], ops["mask"], ops["weight"], VIEW, 256, 256, ops["sched"])
+        before = kg.launches
+        got = kg.density_grouped(*args)
+        torch.cuda.synchronize()
+        assert kg.launches == before + 1
+        assert torch.equal(got, kg.density_grouped_plain(*args))
+        g_gpu = gpu.density("t", q, bbox=VIEW, width=256, height=256)
+        assert gpu._plan("t", q).exec_path["density_kernel"] == "grouped"
+        assert np.array_equal(g_gpu, cpu.density("t", q, bbox=VIEW, width=256, height=256))
+        assert gpu.count("t", q) == cpu.count("t", q)
+
+
+def test_pip_kernel_under_an_expression_plan(cuda):
+    """A point schema's INTERSECTS(polygon) AND an expression refines on
+    the host after a coarse device mask that runs the PIP kernel; the
+    answers equal the CPU's."""
+    gpu, cpu = _datasets3(cuda, 60_000)
+    q = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)}) AND weight * 2 > 1.2 AND {DURING}"
+    before = kpip.launches
+    assert gpu.count("t", q) == cpu.count("t", q)
+    assert kpip.launches > before
+    assert gpu._plan("t", q).exec_path["scan"] == "host+device-coarse"
+    assert np.array_equal(gpu.density("t", q, bbox=BBOX, width=256, height=256),
+                          cpu.density("t", q, bbox=BBOX, width=256, height=256))
+    assert sorted(gpu.query("t", q).fids) == sorted(cpu.query("t", q).fids)
+
+
+@pytest.mark.parametrize("q", [
+    f"INTERSECTS(geom, POLYGON ((-2 -2, 4 -1, 5 4, -1 5, -3 1, -2 -2))) AND {DURING}",
+    "NOT BBOX(geom, -2, -2, 3, 3) AND dtg DURING 2020-01-01T00:00:00Z/2020-03-01T00:00:00Z",
+    "DWITHIN(geom, LINESTRING (-8 -8, 0 0, 3 6), 30, kilometers)",
+    "height * 2 > 40 AND BBOX(geom, -5, -5, 5, 5)",
+    "st_area(geom) > 0.1 AND BBOX(geom, -5, -5, 5, 5)",
+], ids=["intersects", "not_bbox", "dwithin", "expr", "st_area"])
+def test_partitioned_polygon_store_matches_cpu(cuda, tmp_path, q):
+    """A partitioned polygon store with 2 of 9 partitions resident: counts,
+    fids, grids and WKT on the card equal the CPU's."""
+    gpu, cpu = _poly_datasets(cuda, 20_000, POLY_SPEC + ";geomesa.partition='time'",
+                              tmp_path=tmp_path)
+    assert gpu.count("t", q) == cpu.count("t", q)
+    got, want = gpu.query("t", q).to_dict(), cpu.query("t", q).to_dict()
+    assert dict(zip(got.get("__fid__", []), got.get("geom", []))) == \
+        dict(zip(want.get("__fid__", []), want.get("geom", [])))
+    assert np.array_equal(gpu.density("t", q, bbox=(-12, -12, 12, 12), width=64, height=64),
+                          cpu.density("t", q, bbox=(-12, -12, 12, 12), width=64, height=64))
+    assert gpu._store("t").loads > 0

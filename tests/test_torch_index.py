@@ -381,15 +381,56 @@ def test_store_from_arrays_builds_every_table(pair):
         assert p2.count("t", q) == j.count("t", q)
 
 
-@pytest.mark.parametrize("kind", ["xz2", "xz3", "s2", "s3"])
+@pytest.mark.parametrize("kind", ["s2", "s3"])
 def test_other_key_spaces_name_the_roadmap(kind):
     p = GeoDataset(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, extent geometries"):
         p.create_schema("t", f"dtg:Date,*geom:Point;geomesa.indices='{kind},id'")
 
 
-@pytest.mark.parametrize("spec", ["doc:Json,*geom:Point", "dtg:Date,*geom:LineString"],
-                         ids=["json", "extent"])
+def _served_pair(spec):
+    """A schema made on both sides with 300 lines of one seed: the tables
+    it gets and their state, as the JAX package's."""
+    rng = np.random.default_rng(3)
+    x, y = rng.uniform(-10, 10, (2, 300))
+    lo = parse_iso_ms("2020-01-01")
+    data = {"dtg": rng.integers(lo, lo + 20 * 86_400_000, 300).astype("datetime64[ms]")}
+    if "Point" in spec:
+        data.update({"geom__x": x, "geom__y": y})
+    else:
+        data["geom"] = [f"LINESTRING ({a} {b}, {a + 0.5} {b - 0.25})" for a, b in zip(x, y)]
+    j = JGeoDataset(n_shards=4)
+    j.create_schema("t", spec)
+    p = GeoDataset(n_shards=4, device="cpu")
+    p.create_schema("t", spec)
+    for ds in (j, p):
+        ds.insert("t", data, fids=fids_for(300))
+        ds.flush("t")
+    jst, pst = j._store("t"), p._store("t")
+    assert list(pst.tables) == list(jst.tables)
+    for name in jst.tables:
+        _assert_tables_equal(jst, pst, name)
+    q = "BBOX(geom, -5, -5, 5, 5) AND dtg DURING 2020-01-03T00:00:00Z/2020-01-09T00:00:00Z"
+    assert p.count("t", q) == j.count("t", q)
+    return list(pst.tables)
+
+
+@pytest.mark.parametrize("kind", ["xz2", "xz3"])
+def test_extent_key_spaces_are_served(kind):
+    """``geomesa.indices`` naming an xz index is served: a point schema
+    drops it (it indexes extents only) and a line schema builds it, both
+    as the JAX package does."""
+    assert _served_pair(f"dtg:Date,*geom:Point;geomesa.indices='{kind},id'") == ["id"]
+    assert _served_pair(f"dtg:Date,*geom:LineString;geomesa.indices='{kind},id'") == \
+        [kind, "id"]
+
+
+@pytest.mark.parametrize("spec", ["doc:Json,*geom:Point"], ids=["json"])
 def test_other_types_name_the_roadmap(spec):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, extent geometries"):
         GeoDataset(device="cpu").create_schema("t", spec)
+
+
+@pytest.mark.parametrize("spec", ["dtg:Date,*geom:LineString"], ids=["extent"])
+def test_extent_types_are_served(spec):
+    assert _served_pair(spec) == ["xz3", "xz2", "id"]

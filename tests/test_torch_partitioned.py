@@ -443,3 +443,121 @@ def test_tree_reducer_matches_tree_merge_and_the_reference(n):
     for v in parts:
         jred.push(v)
     assert got == jred.result() == jdevices.tree_merge(parts, lambda a, b: np.float32(a + b))
+
+
+# -- extent geometries on a partitioned store -------------------------------------------
+POLY_PSPEC = "name:String,height:Float,dtg:Date,*geom:Polygon;geomesa.partition='time'"
+LIT = "POLYGON ((-2 -2, 4 -1, 5 4, -1 5, -3 1, -2 -2))"
+POLY_QUERIES = {
+    "intersects": f"INTERSECTS(geom, {LIT})",
+    "intersects_time": f"INTERSECTS(geom, {LIT}) AND {DURING}",
+    "bbox_time": f"BBOX(geom, -2, -2, 3, 3) AND {DURING}",
+    "not_bbox": "NOT BBOX(geom, -2, -2, 3, 3)",
+    "within": "WITHIN(geom, POLYGON ((-6 -6, 6 -6, 6 6, -6 6, -6 -6)))",
+    "touches": f"TOUCHES(geom, {LIT})",
+    "dwithin": "DWITHIN(geom, LINESTRING (-8 -8, 0 0, 3 6), 30, kilometers)",
+    "expr": f"height * 2 > 40 AND {DURING}",
+    "st_area": "st_area(geom) > 1.0 AND BBOX(geom, -5, -5, 5, 5)",
+}
+
+
+def _poly_wkts(n, seed=19):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        cx, cy = rng.uniform(-10, 10, 2)
+        k = int(rng.integers(3, 7))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(0.3, 1.6, k)
+        ring = [(cx + a * np.cos(t), cy + a * np.sin(t)) for t, a in zip(ang, r)]
+        body = ", ".join(f"{x} {y}" for x, y in ring + ring[:1])
+        if i % 10 == 3:
+            hole = ", ".join(f"{cx + 0.3 * (x - cx)} {cy + 0.3 * (y - cy)}"
+                             for x, y in ring + ring[:1])
+            out.append(f"POLYGON (({body}), ({hole}))")
+        else:
+            out.append(f"POLYGON (({body}))")
+    return out
+
+
+@pytest.fixture(scope="module")
+def poly_trio(tmp_path_factory):
+    """(JAX partitioned, port partitioned, port flat) polygon stores with
+    max_resident 1: every query streams spilled partitions back."""
+    n = 1500
+    rng = np.random.default_rng(23)
+    lo, hi = parse_iso_ms("2020-01-01"), parse_iso_ms("2020-03-01")
+    data = {"name": [f"a{i % 20}" for i in range(n)],
+            "height": rng.uniform(0, 40, n).astype(np.float32),
+            "dtg": rng.integers(lo, hi, n).astype("datetime64[ms]"),
+            "geom": _poly_wkts(n)}
+    fids = np.char.add("g", np.arange(n).astype(str))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GEOMESA_PALLAS_INTERPRET", "1")
+        config.COMPACT_MIN_ROWS.set(1)
+        config.COMPACT_FRACTION.set(2.0)
+        config.MESH_DEVICES.set(1)
+        try:
+            j = JGeoDataset(n_shards=2)
+            j.create_schema("t", POLY_PSPEC)
+            js = j._store("t")
+            js.max_resident = 1
+            js._spill_dir = str(tmp_path_factory.mktemp("jpoly"))
+            j.insert("t", data, fids=fids)
+            j.flush("t")
+            p = GeoDataset(n_shards=2, device="cpu", compact_min_rows=1,
+                           compact_fraction=2.0)
+            p.create_schema("t", POLY_PSPEC)
+            ps = p._store("t")
+            ps.max_resident = 1
+            ps._spill_dir = str(tmp_path_factory.mktemp("ppoly"))
+            p.insert("t", data, fids=fids)
+            p.flush("t")
+            f = GeoDataset(n_shards=2, device="cpu", compact_min_rows=1,
+                           compact_fraction=2.0)
+            f.create_schema("t", POLY_PSPEC.split(";")[0])
+            f.insert("t", data, fids=fids)
+            f.flush("t")
+            yield j, p, f
+        finally:
+            config.COMPACT_MIN_ROWS.set(None)
+            config.COMPACT_FRACTION.set(None)
+            config.MESH_DEVICES.set(None)
+
+
+def test_polygon_partitions_spill_as_unicode(poly_trio):
+    """Spilled extent partitions keep their WKT as a unicode array (no
+    pickle); a reload serves it back to the refinement."""
+    _, p, _ = poly_trio
+    ps = p._store("t")
+    assert len(ps.partitions) == 1 and len(ps.spilled) >= 8
+    d = next(iter(ps.spilled.values()))
+    with np.load(f"{d}/data.npz", allow_pickle=False) as z:
+        assert z["c/geom__wkt"].dtype.kind == "U"
+    assert list(ps.partitions.values())[0].tables.keys() == {"xz3", "xz2", "id"}
+
+
+@pytest.mark.parametrize("key", sorted(POLY_QUERIES))
+def test_polygon_partitioned_equal(poly_trio, key):
+    """Counts and fids equal the JAX partitioned store's and the port's
+    flat store's, with spilled partitions reloaded on the way."""
+    j, p, f = poly_trio
+    q = POLY_QUERIES[key]
+    ps = p._store("t")
+    loads = ps.loads
+    want = j.count("t", q)
+    assert p.count("t", q) == want == f.count("t", q)
+    got_fids = sorted(p.query("t", q).fids)
+    assert got_fids == sorted(j.query("t", q).fids) == sorted(f.query("t", q).fids)
+    assert ps.loads > loads
+    bbox = (-12.0, -12.0, 12.0, 12.0)
+    assert np.array_equal(p.density("t", q, bbox=bbox, width=32, height=32),
+                          j.density("t", q, bbox=bbox, width=32, height=32))
+
+
+def test_polygon_partitioned_features_are_wkt(poly_trio):
+    j, p, _ = poly_trio
+    q = POLY_QUERIES["intersects_time"]
+    got, want = p.query("t", q).to_dict(), j.query("t", q).to_dict()
+    assert dict(zip(got["__fid__"], got["geom"])) == dict(zip(want["__fid__"], want["geom"]))
+    assert all(isinstance(w, str) for w in got["geom"])
