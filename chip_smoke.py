@@ -2,7 +2,7 @@
 """On-card smoke test of geomesa_tpu_torch (one NVIDIA H100).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--reps R] [--part-rows N5]
-                          [--poly-rows N6] [--line-rows L6]
+                          [--poly-rows N6] [--line-rows L6] [--trip-rows N7]
 
 1. Device: the card's name and power limit; builds the CUDA kernels from
    ``geomesa_tpu_torch/csrc`` with nvcc (in parallel) and prints the build
@@ -133,6 +133,37 @@
    as in 4 and 6 (the top 1000: the same weights and the same rows above
    the boundary weight).
 
+9. Slice 7, spatial joins and ``region=`` aggregates, on a dataset of its
+   own (after slice 6's stores leave the card, before slice 5): N7
+   (default 3,000,000, about a month of NYC yellow-taxi trips) pickups and
+   as many dropoffs (``fare:Float,dtg:Date,*geom:Point``, an invented
+   Manhattan-heavy demand mixture over NYC's box, January 2024), 1,900 subway-entrance
+   stations, 5 borough-like MultiPolygons (holes and islands, 5,340 edges)
+   and 195 NTA-like polygons tiling the box (``nta:String,*geom:Polygon``).
+   Calls: ``spatial_join`` of 10 days of pickups with the boroughs, fare
+   summed (BASELINE #4, the ``pip_assign`` kernel); ``join_spatial`` and
+   ``join_count`` of those pickups with the stations within 100 m
+   (``dwithin_meters``: split and brute cells); ``join_count`` of one day
+   of pickups with one day of dropoffs by ``dwithin`` 0.0005 and ``bbox``
+   0.0005 (pairwise tiles), and ``join_spatial`` of each once; ``join_count``
+   and ``join_spatial`` of the 10 days with the NTAs (``pip``: interior
+   cells wholesale, ``polygon_verdict`` on the boundary cells) and
+   ``poly_bbox`` once; ``count``, 512x512 ``density`` and ``stats`` with
+   ``region=`` the Bronx; ``explain_join`` of the stations and NTA joins.
+   Each call runs cold once and 3 times warm under the profiler (p50, busy
+   and idle share), with its ``JoinStats``. Oracles: the pairs of a
+   2,000-row left sample equal the NumPy brute force of those rows
+   against the whole right side; every count equals its ``join_spatial``
+   pair count; the assignment of a 100k-row sample equals an f32 parity
+   oracle; the ``region=`` count, grid and stats equal a NumPy f32 parity
+   oracle over the Bronx's parts. The six counters are zeroed before the
+   calls and must all be > 0 after; the PIP and grouped density kernels are
+   then held against their plain versions on the ``region=`` plan's own
+   operands, and each join kernel on the largest operands the calls gave
+   it (masks, counts and assignments exact), each timed in turns with its
+   plain version, with ``torch.cdist`` as the planar tiles' library
+   yardstick.
+
 Output: a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
@@ -221,13 +252,15 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def profile_warm(torch, fn, reps: int, trace_path: Path, warmup: bool = True):
+def profile_warm(torch, fn, reps: int, trace_path: Path, warmup: bool = True,
+                 walls=None):
     """Profile ``reps`` warm calls (after one more unless ``warmup`` is
     False): (wall ms per call, device-busy ms per call or None when the
     trace holds no device activity, top device kernels by total time,
     device-to-host bytes per call or None when the trace records no copy
     sizes). Busy time is the union of the kernel, memcpy and memset
-    intervals of the exported trace."""
+    intervals of the exported trace. ``walls``, when given, receives each
+    call's seconds (synchronized)."""
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
@@ -236,7 +269,11 @@ def profile_warm(torch, fn, reps: int, trace_path: Path, warmup: bool = True):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
+            t1 = time.perf_counter()
             fn()
+            if walls is not None:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     trace_path.parent.mkdir(parents=True, exist_ok=True)
@@ -329,16 +366,16 @@ def time_mask(data, lo="2020-01-05T00:00:00", hi="2020-01-15T00:00:00"):
     return (t >= parse_iso_ms(lo)) & (t <= parse_iso_ms(hi))
 
 
-def density_oracles(data, tm):
-    """(unweighted, weighted) f64 grids of the bbox rows that the row mask
-    ``tm`` keeps, with the reference's semantics:
-    exact f64 membership; pixel cells computed in f32 op by op, except for
-    rows colliding with an f32 bound (the band), which the host corrects
-    from f64 values."""
+def density_oracles(data, tm, bbox=None, weight="weight"):
+    """(unweighted, weighted) f64 grids of the rows of ``bbox`` (default
+    QUERY_BBOX) that the row mask ``tm`` keeps, with the reference's
+    semantics: exact f64 membership; pixel cells computed in f32 op by op,
+    except for rows colliding with an f32 bound (the band), which the host
+    corrects from f64 values."""
     x, y = data["geom__x"], data["geom__y"]
-    xmin, ymin, xmax, ymax = QUERY_BBOX
+    xmin, ymin, xmax, ymax = QUERY_BBOX if bbox is None else bbox
     m = tm & (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
-    x, y, w = x[m], y[m], data["weight"][m]
+    x, y, w = x[m], y[m], data[weight][m]
     f = np.float32
     x32, y32 = x.astype(f), y.astype(f)
     band = np.isin(x32, [f(xmin), f(xmax)]) | np.isin(y32, [f(ymin), f(ymax)])
@@ -1269,6 +1306,602 @@ def slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: spatial joins and region aggregates over NYC
+# ---------------------------------------------------------------------------
+
+#: about one month of NYC TLC yellow-taxi trips at 2023-24 volume
+TRIP_ROWS = 3_000_000
+#: NYC Open Data's "Subway Entrances" count
+STATION_ROWS = 1_900
+#: NYC's 2010 Neighborhood Tabulation Areas
+NTA_ROWS = 195
+TRIP_SPEC = "fare:Float,dtg:Date,*geom:Point"
+TRIP_DAYS = "dtg DURING 2024-01-05T00:00:00Z/2024-01-15T00:00:00Z"
+TRIP_DAY = "dtg DURING 2024-01-10T00:00:00Z/2024-01-11T00:00:00Z"
+#: taxi demand by area: (lon, lat, sigma lon, sigma lat, share). The
+#: shares and spreads are invented, a Manhattan-heavy guess taken from no
+#: published table: the cell statistics of the joins over them (pairs per
+#: cell, split and brute cells) describe this mixture, not the TLC's data
+TRIP_MIX = (
+    (-73.985, 40.758, 0.012, 0.012, 0.34),   # Midtown
+    (-74.007, 40.714, 0.008, 0.010, 0.15),   # Lower Manhattan
+    (-73.966, 40.781, 0.012, 0.016, 0.20),   # Upper East / West Side
+    (-73.945, 40.810, 0.010, 0.012, 0.05),   # Harlem
+    (-73.779, 40.645, 0.006, 0.004, 0.05),   # JFK
+    (-73.873, 40.774, 0.004, 0.003, 0.04),   # LaGuardia
+    (-73.960, 40.680, 0.025, 0.020, 0.10),   # Brooklyn
+    (-73.880, 40.730, 0.030, 0.020, 0.05),   # Queens
+    (-73.890, 40.840, 0.020, 0.020, 0.0185),  # the Bronx
+    (-74.140, 40.590, 0.030, 0.030, 0.0005),  # Staten Island
+)
+#: subway entrances by area: (lon, lat, sigma lon, sigma lat, share);
+#: Staten Island's are the Staten Island Railway's
+STATION_MIX = (
+    (-73.980, 40.755, 0.015, 0.035, 0.36),   # Manhattan
+    (-73.950, 40.660, 0.030, 0.030, 0.30),   # Brooklyn
+    (-73.850, 40.730, 0.040, 0.025, 0.17),   # Queens
+    (-73.880, 40.840, 0.025, 0.025, 0.16),   # the Bronx
+    (-74.130, 40.570, 0.040, 0.030, 0.01),   # Staten Island Railway
+)
+
+
+def _mixture(rng, n, mix):
+    share = np.array([m[4] for m in mix])
+    k = rng.choice(len(mix), n, p=share / share.sum())
+    c = np.array([m[:4] for m in mix])[k]
+    x = np.clip(c[:, 0] + rng.normal(0, 1, n) * c[:, 2], NYC[0], NYC[2])
+    y = np.clip(c[:, 1] + rng.normal(0, 1, n) * c[:, 3], NYC[1], NYC[3])
+    return x, y
+
+
+def make_trips(n: int, seed: int):
+    """Taxi trip points over NYC's box: the demand mixture above, a fare
+    (log-normal about $15, f32) and ``dtg`` uniform over January 2024."""
+    from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+
+    rng = np.random.default_rng(seed)
+    x, y = _mixture(rng, n, TRIP_MIX)
+    lo = parse_iso_ms("2024-01-01")
+    return {"geom__x": x, "geom__y": y,
+            "fare": np.exp(rng.normal(np.log(15.0), 0.6, n)).astype(np.float32),
+            "dtg": rng.integers(lo, parse_iso_ms("2024-02-01"), n).astype("datetime64[ms]")}
+
+
+def make_stations(n: int, seed: int):
+    rng = np.random.default_rng(seed + 70)
+    x, y = _mixture(rng, n, STATION_MIX)
+    return {"geom__x": x, "geom__y": y,
+            "fare": np.zeros(n, np.float32),
+            "dtg": np.full(n, np.datetime64("2024-01-01", "ms"))}
+
+
+def _star(rng, cx, cy, rx, ry, n, wave=0.12):
+    """A star-convex closed ring of n vertices with a few random lobes."""
+    a = np.sort(rng.uniform(0, 2 * np.pi, n))
+    r = 1 + wave * (np.sin(3 * a + rng.uniform(0, 6)) + 0.5 * np.sin(7 * a + rng.uniform(0, 6)))
+    pts = list(zip(np.round(cx + rx * r * np.cos(a), 6), np.round(cy + ry * r * np.sin(a), 6)))
+    return tuple(pts + pts[:1])
+
+
+#: (name, lon, lat, half-width, half-height, shell vertices)
+BOROUGHS = (
+    ("Manhattan", -73.970, 40.780, 0.030, 0.075, 900),
+    ("Bronx", -73.865, 40.850, 0.060, 0.040, 800),
+    ("Brooklyn", -73.945, 40.650, 0.070, 0.050, 1000),
+    ("Queens", -73.820, 40.705, 0.085, 0.065, 1100),
+    ("Staten Island", -74.150, 40.580, 0.070, 0.050, 700),
+)
+
+
+def borough_multipolygons(seed: int):
+    """Five borough-like MultiPolygons: a wavy star-convex shell with a
+    park-sized hole, and two islands each: about 5,300 edges in all."""
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed + 71)
+    out = []
+    for _, cx, cy, rx, ry, nv in BOROUGHS:
+        shell = _star(rng, cx, cy, rx, ry, nv)
+        hole = _star(rng, cx + 0.2 * rx, cy - 0.1 * ry, 0.15 * rx, 0.12 * ry, 48, 0.05)
+        islands = [geo.Polygon(_star(rng, cx + s * 1.25 * rx, cy + s * 0.9 * ry,
+                                     0.12 * rx, 0.1 * ry, 60, 0.05))
+                   for s in (-1.0, 1.0)]
+        out.append(geo.MultiPolygon((geo.Polygon(shell, (hole,)), *islands)))
+    return out
+
+
+def nta_wkts(seed: int):
+    """195 polygons tiling NYC's box: a 15 x 13 grid whose column widths
+    and row heights vary (two wide columns and two tall rows hold the
+    large, park- and airport-sized areas), inner nodes jittered, each side
+    drawn as 4 collinear segments, so the tiles share their edges."""
+    rng = np.random.default_rng(seed + 72)
+
+    def cuts(lo, hi, k, big):
+        w = rng.uniform(0.6, 1.4, k)
+        w[rng.choice(k, 2, replace=False)] = big
+        e = np.concatenate([[0.0], np.cumsum(w / w.sum())])
+        return lo + (hi - lo) * e
+
+    xs, ys = cuts(NYC[0], NYC[2], 15, 12.0), cuts(NYC[1], NYC[3], 13, 8.0)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    jx = rng.uniform(-0.2, 0.2, gx.shape) * np.diff(xs).min()
+    jy = rng.uniform(-0.2, 0.2, gy.shape) * np.diff(ys).min()
+    jx[[0, -1], :], jy[:, [0, -1]] = 0.0, 0.0
+    gx, gy = np.round(gx + jx, 6), np.round(gy + jy, 6)
+
+    def side(a, b):
+        return [(a[0] + (b[0] - a[0]) * t / 4, a[1] + (b[1] - a[1]) * t / 4) for t in range(4)]
+
+    out = []
+    for i in range(15):
+        for j in range(13):
+            c = [(gx[i, j], gy[i, j]), (gx[i + 1, j], gy[i + 1, j]),
+                 (gx[i + 1, j + 1], gy[i + 1, j + 1]), (gx[i, j + 1], gy[i, j + 1])]
+            ring = side(c[0], c[1]) + side(c[1], c[2]) + side(c[2], c[3]) + side(c[3], c[0])
+            ring.append(ring[0])
+            out.append("POLYGON ((" + ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in ring) + "))")
+    return out
+
+
+#: the join kernels' f32 operations a tested pair (point-edge pair) costs:
+#: bbox 2 subtractions, 2 absolutes, 2 compares; dwithin 2 subtractions,
+#: 2 products, a sum and a compare; dwithin_meters a third of each
+PAIR_OPS = {"bbox": 6, "dwithin": 6, "dwithin_meters": 9}
+#: a crossing test: 2 compares and their xor, 4 subtractions, a product, a
+#: quotient, a sum and the final compare
+CROSS_OPS = 11
+
+
+#: the functions whose cumulative host time a join call is broken down by
+JOIN_HOST_PARTS = (
+    "features", "_side_polygons", "co_partition", "_pad_tiles", "_run_slice",
+    "_run_brute_slice", "lexsort", "nonzero", "run_polygon_join", "classify_cells",
+    "polygon_tables", "_run_poly_slice", "padded_rows", "pip_assign",
+)
+
+
+def host_breakdown(torch, fn, names=JOIN_HOST_PARTS):
+    """One warm call under cProfile: (wall ms, {function: cumulative ms})
+    for the functions in ``names`` (NumPy's built-ins by their last name)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {}
+    for (_, _, func), row in pstats.Stats(prof).stats.items():
+        name = func.rstrip(">").split(".")[-1].split(" ")[-1]
+        if name in names:
+            out[name] = round(out.get(name, 0.0) + row[3] * 1e3, 3)
+    return wall, dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def y_spans(y, y1, y2) -> int:
+    """(point, edge) pairs whose edge y-span holds the point's y: the
+    crossing tests that can flip a parity (NaN never counts)."""
+    ys = np.sort(np.asarray(y, np.float32).reshape(-1))
+    lo = np.searchsorted(ys, np.minimum(y1, y2), side="left")
+    hi = np.searchsorted(ys, np.maximum(y1, y2), side="left")
+    return int((hi - lo).sum())
+
+
+def assign_oracle(x32, y32, edges):
+    """NumPy f32 parity oracle of ``pip_assign`` (the reference's crossing
+    arithmetic, parity per polygon by ``reduceat`` over its contiguous
+    edges): the lowest polygon with odd parity, else -1."""
+    pid = edges["poly_id"]
+    starts = np.flatnonzero(np.r_[True, pid[1:] != pid[:-1]])
+    x1, y1, x2, y2 = (edges[k] for k in ("x1", "y1", "x2", "y2"))
+    out = np.full(len(x32), -1, np.int64)
+    for lo in range(0, len(x32), 2048):
+        px, py = x32[lo:lo + 2048, None], y32[lo:lo + 2048, None]
+        denom = y2 - y1
+        denom = np.where(denom == 0, np.float32(1.0), denom)
+        cross = ((y1 > py) != (y2 > py)) & (px < x1 + (py - y1) * (x2 - x1) / denom)
+        odd = np.add.reduceat(cross.astype(np.int32), starts, axis=1) % 2 == 1
+        out[lo:lo + 2048] = np.where(odd.any(axis=1), pid[starts][odd.argmax(axis=1)], -1)
+    return out
+
+
+def slice7(args, torch, kpip, kgrouped):
+    """The slice-7 phase (see the module docstring, 9). Returns the four
+    join kernels' entries of the kernels line."""
+    from geomesa_tpu_torch import GeoDataset
+    from geomesa_tpu_torch.kernels import join as kj
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    n = args.trip_rows
+    if n != TRIP_ROWS:
+        log(f"[slice7] cut: {n} trips a side instead of {TRIP_ROWS}")
+    t0 = time.perf_counter()
+    sides = {"pickups": make_trips(n, args.seed + 10), "dropoffs": make_trips(n, args.seed + 11),
+             "stations": make_stations(STATION_ROWS, args.seed)}
+    boroughs = borough_multipolygons(args.seed)
+    b_wkts = [g.wkt() for g in boroughs]
+    ntas = nta_wkts(args.seed)
+    log(f"[slice7] generated in {time.perf_counter() - t0:.3f} s: {n} pickups, {n} dropoffs, "
+        f"{STATION_ROWS} stations, {len(boroughs)} boroughs "
+        f"({sum(len(geo.polygon_edge_buffers(g)['x1']) for g in boroughs)} edges), "
+        f"{len(ntas)} NTAs")
+    ds = GeoDataset(n_shards=8)
+    for name, rows in sides.items():
+        ds.create_schema(name, TRIP_SPEC)
+        t0 = time.perf_counter()
+        ds.insert(name, rows)
+        ds.flush(name)
+        log(f"[slice7] ingest {name} ({len(rows['fare'])} rows): {time.perf_counter() - t0:.3f} s")
+    ds.create_schema("ntas", "nta:String,*geom:Polygon")
+    ds.insert("ntas", {"nta": [f"nta{i:03d}" for i in range(len(ntas))],
+                       "geom": np.array(ntas, object)})
+    ds.flush("ntas")
+
+    # every launch of a join kernel passes through here: the largest
+    # operands of each (kernel, predicate) are kept for the check against
+    # the plain versions after the calls
+    captured = {}
+    originals = {k: getattr(kj, k) for k in
+                 ("pair_tiles", "pair_flat", "polygon_verdict", "_pip_assign_kernel")}
+    #: (kernel name, position of the predicate argument) of each wrapper
+    names = {"pair_tiles": ("pair_tiles", 6), "pair_flat": ("pair_flat", 5),
+             "polygon_verdict": ("polygon_verdict", 3), "_pip_assign_kernel": ("pip_assign", None)}
+
+    def capture(attr, fn):
+        name, at = names[attr]
+
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            key = (name, None if at is None else a[at])
+            size = a[0].numel() * (a[2].shape[-1] if name == "pair_tiles" else 1)
+            if key not in captured or captured[key][0] < size:
+                captured[key] = (size, a, dict(kw))
+            return out
+        return wrapped
+
+    for k, fn in originals.items():
+        setattr(kj, k, capture(k, fn))
+    rng = np.random.default_rng(args.seed + 12)
+
+    def run(label, fn, reps=3):
+        """Cold once, then ``reps`` warm calls under the profiler."""
+        out, cold = timed(torch, fn)
+        walls = []
+        wall, busy, top, _ = profile_warm(torch, fn, reps, out_dir / f"slice7_{label}.json",
+                                          warmup=False, walls=walls)
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        log(f"[slice7] {label}: cold {cold * 1e3:.3f} ms, warm p50 "
+            f"{float(np.median(walls)) * 1e3:.3f} ms ({reps} reps), device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, idle share {share}, "
+            f"top device work (ms/call) {top}")
+        return out
+
+    def stats_line(label, st):
+        log(f"[slice7] {label} JoinStats: level {st.level}, cells {st.cells_left} left / "
+            f"{st.cells_right} right / {st.cells_joint} joint, candidate pairs "
+            f"{st.candidate_pairs} of {st.naive_pairs} naive ({st.candidate_fraction:.6f}), "
+            f"strip entries {st.strip_entries}, tiles {st.tiles}, strategies "
+            f"{st.strategy_cells}, est {st.est_pairs}, dispatched {st.dispatched_pairs}, "
+            f"wholesale {st.wholesale_pairs}, matched {st.matched}")
+
+    def side_xy(res):
+        g = res._lbatch.columns
+        r = res._rbatch.columns
+        return g["geom__x"], g["geom__y"], r.get("geom__x"), r.get("geom__y")
+
+    def sample_check(label, res, brute):
+        """Pairs of a 2,000-row left sample equal ``brute(rows)``, the
+        brute force of those rows against the whole right side."""
+        nl = res._lbatch.n
+        rows = np.sort(rng.choice(nl, min(2000, nl), replace=False))
+        want = brute(rows)
+        want = np.stack([rows[want[:, 0]], want[:, 1]], axis=1)
+        got = res.pairs[np.isin(res.pairs[:, 0], rows)]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: sample pairs differ from the brute force "
+                                 f"({len(got)} vs {len(want)})")
+        log(f"[check] {label}: {len(want)} pairs of a {len(rows)}-row left sample equal the "
+            f"brute force against all {res._rbatch.n} right rows")
+
+    kj.reset_launches()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    try:
+        # 1. BASELINE #4: pickups over 10 days assigned to the boroughs
+        sj = run("spatial_join", lambda: ds.spatial_join("pickups", b_wkts, TRIP_DAYS,
+                                                         weight="fare"))
+        log(f"[slice7] spatial_join exec_path {ds._plan('pickups', TRIP_DAYS).exec_path}; "
+            f"per-borough fare sums {sj[1].tolist()}")
+        # 2. pickups within 100 m of a subway entrance (skewed: split and brute)
+        kw2 = {"predicate": "dwithin_meters", "distance": 100.0, "left_query": TRIP_DAYS}
+        res2 = run("join_stations", lambda: ds.join_spatial("pickups", "stations", **kw2))
+        n2 = run("join_count_stations", lambda: ds.join_count("pickups", "stations", **kw2))
+        stats_line("stations", res2.stats)
+        # 3. pickups and dropoffs of one day, balanced pairwise tiles
+        kw3 = {"left_query": TRIP_DAY, "right_query": TRIP_DAY}
+        n3d = run("join_count_dwithin", lambda: ds.join_count(
+            "pickups", "dropoffs", predicate="dwithin", distance=0.0005, **kw3))
+        n3b = run("join_count_bbox", lambda: ds.join_count(
+            "pickups", "dropoffs", predicate="bbox", dx=0.0005, dy=0.0005, **kw3))
+        res3d, t3d = timed(torch, lambda: ds.join_spatial(
+            "pickups", "dropoffs", predicate="dwithin", distance=0.0005, **kw3))
+        res3b, t3b = timed(torch, lambda: ds.join_spatial(
+            "pickups", "dropoffs", predicate="bbox", dx=0.0005, dy=0.0005, **kw3))
+        log(f"[slice7] join_spatial dwithin {t3d * 1e3:.3f} ms, bbox {t3b * 1e3:.3f} ms (once)")
+        stats_line("dropoffs dwithin", res3d.stats)
+        stats_line("dropoffs bbox", res3b.stats)
+        # 4. pickups of 10 days in the NTAs
+        kw4 = {"left_query": TRIP_DAYS}
+        n4 = run("join_count_nta", lambda: ds.join_count("pickups", "ntas", predicate="pip", **kw4))
+        res4 = run("join_nta", lambda: ds.join_spatial("pickups", "ntas", predicate="pip", **kw4))
+        n4b, t4b = timed(torch, lambda: ds.join_count("pickups", "ntas", predicate="poly_bbox", **kw4))
+        res4b = ds.join_spatial("pickups", "ntas", predicate="poly_bbox", **kw4)
+        log(f"[slice7] join_count poly_bbox {t4b * 1e3:.3f} ms (once)")
+        stats_line("ntas pip", res4.stats)
+        stats_line("ntas poly_bbox", res4b.stats)
+        # 5. region= aggregates over one borough (the Bronx: its scan
+        # compacts and its density takes the grouped rung)
+        region = b_wkts[1]
+        hand = f"({TRIP_DAYS}) AND INTERSECTS(geom, {region})"
+        rc = run("region_count", lambda: ds.count("pickups", TRIP_DAYS, region=region))
+        rd = run("region_density", lambda: ds.density("pickups", TRIP_DAYS, bbox=NYC, width=WIDTH,
+                                                      height=HEIGHT, region=region))
+        rs = run("region_stats", lambda: ds.stats("pickups", "Count();MinMax(fare)", TRIP_DAYS,
+                                                  region=region))
+        log(f"[slice7] region exec_path {ds._plan('pickups', hand).exec_path}")
+        # 6. explain
+        for label, fn in (("stations", lambda: ds.explain_join("pickups", "stations", **kw2)),
+                          ("ntas", lambda: ds.explain_join("pickups", "ntas", predicate="pip",
+                                                           analyze=True, **kw4))):
+            text, t = timed(torch, fn)
+            log(f"[slice7] explain_join {label} ({t * 1e3:.3f} ms):")
+            for line in text.splitlines():
+                log(f"[slice7]   {line}")
+    finally:
+        for k, fn in originals.items():
+            setattr(kj, k, fn)
+    launches = dict(kj.launches)
+    launches.update(pip=kpip.launches, density_grouped=kgrouped.launches)
+    log(f"[slice7] launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of slice 7 never launched: {launches}")
+    for label, fn in (
+            ("spatial_join", lambda: ds.spatial_join("pickups", b_wkts, TRIP_DAYS, weight="fare")),
+            ("join_count_stations", lambda: ds.join_count("pickups", "stations", **kw2)),
+            ("join_stations", lambda: ds.join_spatial("pickups", "stations", **kw2)),
+            ("join_count_dwithin", lambda: ds.join_count(
+                "pickups", "dropoffs", predicate="dwithin", distance=0.0005, **kw3)),
+            ("join_count_nta", lambda: ds.join_count("pickups", "ntas", predicate="pip", **kw4))):
+        wall, parts = host_breakdown(torch, fn)
+        log(f"[slice7] host breakdown of one warm {label} ({wall:.3f} ms under cProfile; "
+            f"cumulative ms): {parts}")
+
+    # -- the answers against their oracles ------------------------------------
+    t0 = time.perf_counter()
+    for label, res, count in (("stations", res2, n2), ("dropoffs dwithin", res3d, n3d),
+                              ("dropoffs bbox", res3b, n3b), ("ntas pip", res4, n4),
+                              ("ntas poly_bbox", res4b, n4b)):
+        if not (count == res.count == len(res.pairs) > 0):
+            raise AssertionError(f"{label}: count {count}, join_spatial {res.count} / "
+                                 f"{len(res.pairs)} pairs")
+    lx, ly, rx, ry = side_xy(res2)
+    lu, ru = kj.unit_vectors(lx, ly), kj.unit_vectors(rx, ry)
+    p0, p1 = kj.pair_params("dwithin_meters", distance=100.0)
+    sample_check("stations", res2, lambda r: kj.brute_force_pairs(
+        lu[0][r], lu[1][r], ru[0], ru[1], "dwithin_meters", p0, p1, chunk=256,
+        lz=lu[2][r], rz=ru[2]))
+    for label, res, pred, kw in (("dropoffs dwithin", res3d, "dwithin", {"distance": 0.0005}),
+                                 ("dropoffs bbox", res3b, "bbox", {"dx": 0.0005, "dy": 0.0005})):
+        lx, ly, rx, ry = side_xy(res)
+        q0, q1 = kj.pair_params(pred, **kw)
+        sample_check(label, res, lambda r: kj.brute_force_pairs(
+            lx[r], ly[r], rx, ry, pred, q0, q1, chunk=256))
+    geoms = [geo.parse_wkt(w) for w in res4._rbatch.columns["geom__wkt"]]
+    for label, res, pred in (("ntas pip", res4, "pip"), ("ntas poly_bbox", res4b, "poly_bbox")):
+        lx, ly, _, _ = side_xy(res)
+        sample_check(label, res, lambda r: kj.polygon_brute_force(lx[r], ly[r], geoms, pred))
+    # spatial_join: a 100k-row sample of the table against the f32 oracle
+    st = ds._store("pickups")
+    plan = ds._plan("pickups", TRIP_DAYS)
+    table = st.tables[plan.index_name]
+    pick = sides["pickups"]
+    rows = np.sort(rng.choice(table.n, min(100_000, table.n), replace=False))
+    master = table.order[rows]
+    inside = time_mask(pick, "2024-01-05T00:00:00", "2024-01-15T00:00:00")[master]
+    flat = geo.MultiPolygon(tuple(q for g in boroughs for q in g.polygons))
+    edges = {k: (v.astype(np.float32) if k in ("x1", "y1", "x2", "y2") else v)
+             for k, v in geo.polygon_edge_buffers(flat).items()}
+    remap = np.repeat(np.arange(len(boroughs)), [len(g.polygons) for g in boroughs])
+    want = np.full(len(rows), -1, np.int64)
+    a = assign_oracle(pick["geom__x"][master][inside].astype(np.float32),
+                      pick["geom__y"][master][inside].astype(np.float32), edges)
+    want[inside] = np.where(a >= 0, remap[np.clip(a, 0, None)], -1)
+    if not np.array_equal(sj[0][rows], want):
+        raise AssertionError(f"spatial_join assignment differs from the f32 oracle on "
+                             f"{int((sj[0][rows] != want).sum())} of {len(rows)} sampled rows")
+    log(f"[check] spatial_join: {len(rows)} sampled rows equal the f32 parity oracle "
+        f"({int((want >= 0).sum())} assigned)")
+    # region=: the 10 days' pickups inside the Bronx by a NumPy f32 parity
+    # oracle over each part's packed edges (its hole by the even-odd rule)
+    rpoly = geo.parse_wkt(region)
+    r_tables = [kpip.polygon_edge_tables(p) for p in rpoly.polygons]
+    tm = time_mask(pick, "2024-01-05T00:00:00", "2024-01-15T00:00:00")
+    in_r = np.zeros(len(tm), bool)
+    for (x1, *_), packed in r_tables:
+        in_r |= polygon_rows(pick, tm, packed, len(x1))
+    want_rc = int(in_r.sum())
+    if rc != want_rc or not rc:
+        raise AssertionError(f"region count {rc} differs from the f32 parity oracle's {want_rc}")
+    g_want = density_oracles(pick, in_r, bbox=NYC, weight="fare")[0]
+    if not np.array_equal(rd, g_want):
+        raise AssertionError(f"region density differs from the oracle's grid in "
+                             f"{int((rd != g_want).sum())} cells")
+    fares = pick["fare"][in_r]
+    mm = rs.stats[1].value()
+    if rs.stats[0].value() != want_rc or (mm["min"], mm["max"]) != (float(fares.min()),
+                                                                      float(fares.max())):
+        raise AssertionError(f"region stats {rs.value()} differ from the oracle's count "
+                             f"{want_rc}, fare {float(fares.min())}..{float(fares.max())}")
+    log(f"[check] region: count {rc} ({len(rpoly.polygons)} parts, "
+        f"{sum(len(t[0][0]) for t in r_tables)} edges), density and stats equal the f32 parity "
+        f"oracle; checks took {time.perf_counter() - t0:.3f} s")
+
+    # the pip and grouped density kernels against their plain versions on
+    # the region plan's own operands: its scanned rows against each part's
+    # edges, and the region density's grouped schedule
+    ex = ds._executor("pickups")
+    r_plan = ds._plan("pickups", hand)
+    pc = ex.scan_columns(r_plan, ["geom__x", "geom__y"])
+    px, py = pc["geom__x"], pc["geom__y"]
+    r_edges = [(torch.from_numpy(packed).to(px.device), len(x1)) for (x1, *_), packed in r_tables]
+
+    def region_pip(fn):
+        def run():
+            out = None
+            for e, ne in r_edges:
+                m = fn(px, py, e, ne)
+                out = m if out is None else out | m
+            return out
+        return run
+
+    pk, pp = region_pip(kpip.pip_mask), region_pip(kpip.pip_mask_plain)
+    bad = int((pk() != pp()).sum())
+    p_ms, p_plain, p_turns = in_turns(torch, pk, pp, 20, 3)
+    p_work = [pip_work(kpip, py, packed, len(x1)) for (x1, *_), packed in r_tables]
+    p_bound = bound(sum(w[0] for w in p_work), sum(w[1] for w in p_work))
+    log(f"[kernel] pip on the region plan's {tuple(px.shape)} points x {len(r_edges)} parts: "
+        f"{bad} mismatches; in turns (plain, kernel, kernel, plain) ms {p_turns}; bound "
+        f"{p_bound[0]:.6f} ms by {p_bound[1]} ({sum(w[2] for w in p_work)} crossing tests)")
+    if bad:
+        raise AssertionError("pip kernel disagrees with its plain version on the region plan")
+    o = ex.density_inputs(r_plan, NYC, WIDTH, HEIGHT)
+    if o is None:
+        raise AssertionError("the region density did not take the grouped rung")
+    a = (o["x"], o["y"], o["mask"], o["weight"], NYC, WIDTH, HEIGHT, o["sched"])
+    d_err = float((kgrouped.density_grouped(*a) - kgrouped.density_grouped_plain(*a)).abs().max())
+    d_ms, d_plain, d_turns = in_turns(torch, lambda: kgrouped.density_grouped(*a),
+                                      lambda: kgrouped.density_grouped_plain(*a), 20, 3)
+    d_bound = bound(*density_work(o)[:2])
+    log(f"[kernel] density_grouped on the region density's {tuple(o['x'].shape)} rows, "
+        f"{o['sched']['chunks'].numel()} pairs: max abs err {d_err}; in turns (plain, kernel, "
+        f"kernel, plain) ms {d_turns}; bound {d_bound[0]:.6f} ms by {d_bound[1]}")
+    if d_err != 0.0:
+        raise AssertionError("density kernel disagrees with its plain version on the region")
+
+    # -- each join kernel against its plain version, at the phase's operands --
+    kernels = []
+    replaces = {"pair_tiles": "geomesa_tpu/planning/join_exec.py:486",
+                "pair_flat": "geomesa_tpu/planning/join_exec.py:532",
+                "polygon_verdict": "geomesa_tpu/planning/join_exec.py:938",
+                "pip_assign": "geomesa_tpu/processes.py:403"}
+    for (name, pred), (_, a, kw) in sorted(captured.items(), key=lambda kv: str(kv[0])):
+        lib = None
+        if name == "pair_tiles":
+            kw = dict(kw, want_mask=True)
+            fk = lambda: kj.pair_tiles(*a, **kw)  # noqa: E731
+            fp = lambda: kj.pair_tiles_plain(*a, **kw)  # noqa: E731
+            (mk, ck), (mp, cp) = fk(), fp()
+            err = int((mk != mp).sum()) + int((ck != cp).sum())
+            lval, rval = a[4].cpu().numpy().astype(np.int64), a[5].cpu().numpy().astype(np.int64)
+            work = int((lval * rval).sum())
+            nbytes = sum(t.nbytes for t in a[:6]) + sum(
+                t.nbytes for t in (kw.get("lzb"), kw.get("rzb")) if t is not None) \
+                + mk.numel() + ck.nbytes
+            nops = PAIR_OPS[pred] * work
+            shape = f"{a[0].shape[0]} tiles of {a[0].shape[1]} x {a[2].shape[1]}, {work} valid pairs"
+            if pred == "dwithin":
+                lp = torch.stack([a[0], a[1]], dim=-1)
+                rp = torch.stack([a[2], a[3]], dim=-1)
+                d = float(np.sqrt(np.float64(a[7])))
+                lib = lambda: torch.cdist(lp, rp) <= d  # noqa: E731
+        elif name == "pair_flat":
+            fk = lambda: kj.pair_flat(*a, **dict(kw, want_mask=True))  # noqa: E731
+            fp = lambda: kj.pair_flat_plain(*a, **dict(kw, want_mask=True))  # noqa: E731
+            (mk, ck), (mp, cp) = fk(), fp()
+            err = int((mk != mp).sum()) + int((ck != cp).sum())
+            work = int(a[4])
+            nbytes = sum(t.nbytes for t in a[:4]) + sum(
+                t.nbytes for t in (kw.get("lzv"), kw.get("rzv")) if t is not None) + mk.numel() + 4
+            nops = PAIR_OPS[pred] * work
+            shape = f"{a[0].numel()} slots, {work} candidate pairs"
+        elif name == "polygon_verdict":
+            fk = lambda: kj.polygon_verdict(*a)  # noqa: E731
+            fp = lambda: kj.polygon_verdict_plain(*a)  # noqa: E731
+            vk, vp = fk(), fp()
+            err = int((vk != vp).sum())
+            t = a[2]
+            ne = int(t["n_edges"])
+            y1, y2 = t["y1"][:ne].cpu().numpy(), t["y2"][:ne].cpu().numpy()
+            nbytes = a[0].nbytes + a[1].nbytes + sum(
+                t[k].nbytes for k in ("x1", "y1", "x2", "y2", "part_id", "part_row", "boxes")) \
+                + vk.numel()
+            if pred == "pip":
+                work = y_spans(a[1].cpu().numpy(), y1, y2)
+                nops = CROSS_OPS * work
+            else:
+                work = a[0].numel() * int(t["n_rows_padded"])
+                nops = 4 * work
+            shape = f"{a[0].numel()} points x {ne} edges / {t['n_rows_padded']} rows, {work} tests"
+        else:  # pip_assign
+            fk = lambda: kj._pip_assign_kernel(*a)  # noqa: E731
+            fp = lambda: kj.pip_assign_plain(*a)  # noqa: E731
+            ak, ap = fk(), fp()
+            err = int((ak != ap).sum())
+            e = a[3]
+            ne = int(e["n_edges"])
+            pid = e["poly_id"][:ne].cpu().numpy()
+            y1, y2 = e["y1"][:ne].cpu().numpy(), e["y2"][:ne].cpu().numpy()
+            m = a[2].reshape(-1).cpu().numpy()
+            ys = a[1].reshape(-1).cpu().numpy()[m]
+            got = ak.cpu().numpy()[m]
+            # a point walks the polygons up to the one it lands in, or all
+            work = 0
+            for q in range(int(e["n_polys"])):
+                sel = pid == q
+                walked = (got < 0) | (got >= q)
+                work += y_spans(ys[walked], y1[sel], y2[sel])
+            nbytes = 9 * ak.numel() + 4 * ak.numel() + sum(
+                e[k][:ne].nbytes for k in ("x1", "y1", "x2", "y2", "poly_id"))
+            nops = CROSS_OPS * work
+            counts_k = np.bincount(ak.cpu().numpy()[m][got >= 0], minlength=int(e["n_polys"]))
+            counts_p = np.bincount(ap.cpu().numpy()[m][ap.cpu().numpy()[m] >= 0],
+                                   minlength=int(e["n_polys"]))
+            if not np.array_equal(counts_k, counts_p):
+                raise AssertionError("pip_assign per-polygon counts differ from the plain version's")
+            shape = f"{ak.numel()} points ({int(m.sum())} masked) x {ne} edges, {work} span tests"
+        torch.cuda.synchronize()
+        log(f"[kernel] {name} ({pred}) on {shape}: {err} mismatches")
+        if err:
+            raise AssertionError(f"{name} ({pred}) disagrees with its plain version: {err}")
+        ms, plain_ms, turns = in_turns(torch, fk, fp, 10, 1)
+        lib_ms = None if lib is None else cuda_ms(torch, lib, 3)
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernel] {name} ({pred}) in turns (plain, kernel, kernel, plain) ms: {turns}; "
+            f"library {lib_ms}; bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {nops} f32 operations)")
+        # the kernels line takes each kernel once: pair_tiles at the planar
+        # dwithin tiles (the library's yardstick), pair_flat at the meters
+        # join's brute cells, the others at their only operands
+        if (name, pred) in (("pair_tiles", "dwithin"), ("pair_flat", "dwithin_meters"),
+                            ("polygon_verdict", "pip"), ("pip_assign", None)):
+            kernels.append({
+                "name": name, "route": "cuda", "source": "geomesa_tpu_torch/csrc/join.cu",
+                "replaces": replaces[name], "launches": launches[name], "max_abs_err": float(err),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+    if sorted(k["name"] for k in kernels) != sorted(replaces):
+        raise AssertionError(f"kernels held: {[k['name'] for k in kernels]}")
+    log(f"[slice7] the phase took {time.perf_counter() - t_phase:.3f} s")
+    return kernels
+
+
 PART_SPEC = "weight:Float,dtg:Date,*geom:Point;geomesa.partition='time'"
 #: BASELINE config #3's scale; the JAX bench partitions from 50M rows on
 #: (bench.py:1082), the least this phase may be cut to
@@ -1598,6 +2231,8 @@ def main() -> int:
                     help="polygons of slice 6's building-footprint schema")
     ap.add_argument("--line-rows", type=int, default=LINE_ROWS,
                     help="lines of slice 6's street-segment schema")
+    ap.add_argument("--trip-rows", type=int, default=TRIP_ROWS,
+                    help="pickups (and dropoffs) of slice 7's taxi schemas")
     args = ap.parse_args()
 
     import torch
@@ -1822,11 +2457,16 @@ def main() -> int:
     # -- 7. slice 6: extent schemas beside slice 3's points -------------------
     slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
-    # -- 8. slice 5, on a partitioned store of its own -----------------------
     # the earlier phases' stores and operands leave the card first
     del ds, data, extra, fids, ex, cols, px, py, o, ops_u, ops_w, got, want
     del edges, cx, cy, flat, wflat
     torch.cuda.empty_cache()
+
+    # -- 9. slice 7: joins and regions over NYC, on a dataset of its own -----
+    kernels += slice7(args, torch, kpip, kgrouped)
+    torch.cuda.empty_cache()
+
+    # -- 8. slice 5, on a partitioned store of its own -----------------------
     slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
 
     print(json.dumps({"kernels": kernels}), flush=True)

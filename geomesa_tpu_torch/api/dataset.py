@@ -8,9 +8,11 @@ feature ids), ``flush``, ``count`` (exact, or the planner's estimate),
 ``sample``) with ``Query`` objects (projection, ``max_features``, sorting
 with the device top-k, sampling, a forced index), ``stats`` and its
 helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
-``top_k``), and ``knn``. A schema with ``geomesa.partition='time'`` gets
-a time-partitioned, out-of-core store and serves the same calls partition
-at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
+``top_k``), ``knn``, polygon ``region=`` aggregates, and the joins
+(``join`` by attribute or spatial predicate, ``join_spatial``,
+``join_count``, ``explain_join``, ``spatial_join``). A schema with
+``geomesa.partition='time'`` gets a time-partitioned, out-of-core store
+and serves the same calls partition at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
 Extent-geometry columns take WKT strings or geometry objects on insert
 and come back as WKT. The layers the JAX ``GeoDataset`` wraps around its executor (aggregate
 cache, audit, serving, tracing, journal, fleet) are not part of this port
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -42,11 +45,11 @@ from geomesa_tpu_torch.schema.columns import (
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import parse_stat
 from geomesa_tpu_torch.stats import sketches as sk
+from geomesa_tpu_torch.utils import geometry as geo
 from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
 
 #: ROADMAP items the port refuses by name
 _HOST_LAYERS = "ROADMAP Queue 1, host layers"
-_REGIONS = "ROADMAP Queue 1, polygon regions and cache cells"
 _BATCHING = "ROADMAP Queue 1, query-axis batching"
 
 
@@ -121,6 +124,47 @@ class FeatureCollection:
             d[geom + "_x"], d[geom + "_y"] = list(xs), list(ys)
             del d[geom]
         return pd.DataFrame(d)
+
+
+class SpatialJoinResult:
+    """Result of a co-partitioned spatial join: the exact matched-pair
+    total plus a streaming matched-pair view. ``batches()`` streams
+    matched pairs as ColumnBatches of at most ``geomesa.join.batch.rows``
+    rows: left columns verbatim, right columns prefixed ``right.`` (the
+    attribute equi-join's convention)."""
+
+    def __init__(self, lbatch: ColumnBatch, rbatch: ColumnBatch, pairs,
+                 count: int, stats):
+        self._lbatch, self._rbatch = lbatch, rbatch
+        #: matched (left, right) row positions, int64 [K, 2], row-major
+        self.pairs = pairs
+        self.count = int(count)
+        self.stats = stats
+
+    def batches(self, batch_rows: Optional[int] = None):
+        """Yield matched-pair ColumnBatches (chunked: peak memory is one
+        chunk's gathered columns, never the whole pair set)."""
+        if self.pairs is None:
+            raise ValueError("join_count result carries no pairs; use "
+                             "join_spatial for the streaming form")
+        if batch_rows is None:
+            batch_rows = config.JOIN_BATCH_ROWS.to_int() or 65536
+        batch_rows = max(int(batch_rows), 1)
+        for lo in range(0, len(self.pairs), batch_rows):
+            chunk = self.pairs[lo: lo + batch_rows]
+            li, rj = chunk[:, 0], chunk[:, 1]
+            cols = {k: v[li] for k, v in self._lbatch.columns.items()}
+            for k, v in self._rbatch.columns.items():
+                cols["right." + k] = v[rj]
+            yield ColumnBatch(cols, len(chunk))
+
+    def __iter__(self):
+        return self.batches()
+
+    def to_batch(self) -> ColumnBatch:
+        """The whole pair set as one ColumnBatch (small joins / tests)."""
+        out = list(self.batches(batch_rows=max(len(self.pairs), 1)))
+        return out[0] if out else ColumnBatch({}, 0)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -249,13 +293,37 @@ class GeoDataset:
         plan.__dict__["exec_path"] = {}
         return plan
 
+    def _with_region(self, name: str, query, region):
+        """Fold a polygon ``region`` (WKT text or a geometry object) into
+        the query as one INTERSECTS conjunct on the schema's geometry.
+        Composed as ECQL text when the query is textual, so the plan cache
+        sees the polygon."""
+        if region is None:
+            return query
+        geom = self._store(name).ft.geom_field
+        if geom is None:
+            raise ValueError(f"schema {name!r} has no geometry field")
+        wkt = region if isinstance(region, str) else region.wkt()
+        geo.parse_wkt(wkt)  # validate before it reaches the planner
+        conjunct = f"INTERSECTS({geom}, {wkt})"
+        q = query if isinstance(query, Query) else Query(ecql=query)
+        if not isinstance(q.ecql, str):
+            combined = ir.And((q.ecql, parse_ecql(conjunct)))
+        elif q.ecql.strip().upper() == "INCLUDE":
+            combined = conjunct
+        else:
+            combined = f"({q.ecql}) AND {conjunct}"
+        q = dataclasses.replace(q, ecql=combined)
+        return q if isinstance(query, Query) or not isinstance(combined, str) \
+            else combined
+
     def count(self, name: str, query="INCLUDE", exact: bool = True,
               region=None) -> int:
         """Feature count of ``query``: exact, or (``exact=False``) the
-        planner's estimate from the write-time sketches, with no scan."""
-        if region is not None:
-            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
-        plan = self._fresh_plan(name, query)
+        planner's estimate from the write-time sketches, with no scan.
+        ``region``: optional polygon (WKT or geometry) clipping the count
+        (see :meth:`_with_region`)."""
+        plan = self._fresh_plan(name, self._with_region(name, query, region))
         if not exact:
             return int(plan.est_count)
         return self._executor(name).count(plan)
@@ -264,10 +332,9 @@ class GeoDataset:
                 height: int = 256, weight: Optional[str] = None,
                 region=None) -> np.ndarray:
         """(height, width) f32 heatmap of ``query`` over ``bbox`` (default:
-        the data's bounds), optionally summing the ``weight`` attribute."""
-        if region is not None:
-            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
-        plan = self._fresh_plan(name, query)
+        the data's bounds), optionally summing the ``weight`` attribute.
+        ``region``: optional polygon clipping the aggregate."""
+        plan = self._fresh_plan(name, self._with_region(name, query, region))
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
         return self._executor(name).density(plan, tuple(bbox), width, height, weight)
@@ -361,10 +428,9 @@ class GeoDataset:
     def stats(self, name: str, stat_spec: str, query="INCLUDE",
               region=None) -> sk.Stat:
         """Exact statistics of the matches, from the stat DSL
-        (``Count();MinMax(a);Histogram(a,bins,lo,hi);...``)."""
-        if region is not None:
-            raise NotImplementedError(f"region= aggregates: {_REGIONS}")
-        plan = self._fresh_plan(name, query)
+        (``Count();MinMax(a);Histogram(a,bins,lo,hi);...``). ``region``:
+        optional polygon clipping the matches."""
+        plan = self._fresh_plan(name, self._with_region(name, query, region))
         stat = parse_stat(stat_spec)
         return self._executor(name).stats(plan, stat)
 
@@ -409,6 +475,233 @@ class GeoDataset:
               query="INCLUDE") -> List:
         """The k most frequent values with their counts."""
         return self.stats(name, f"TopK({attribute},{k})", query).value()
+
+    # -- joins -------------------------------------------------------------
+    def spatial_join(self, points: str, polygons, query="INCLUDE",
+                     weight: Optional[str] = None):
+        """Point-in-polygon join of ``points`` against ``polygons`` (see
+        ``processes.spatial_join``): (assign int32 per row, counts f32 per
+        polygon)."""
+        from geomesa_tpu_torch import processes
+
+        return processes.spatial_join(self, points, polygons, query, weight)
+
+    def join(self, left: str, right: str, left_attr: Optional[str] = None,
+             right_attr: Optional[str] = None, left_query="INCLUDE",
+             right_query="INCLUDE", *, predicate: Optional[str] = None,
+             distance=None, dx=None, dy=None, level: Optional[int] = None):
+        """Join two schemas. With ``left_attr``/``right_attr``: the
+        attribute equi-join (a ColumnBatch). With ``predicate``: the spatial
+        join of :meth:`join_spatial` — ``"bbox"`` (envelopes of half-widths
+        ``dx``/``dy`` intersect), ``"dwithin"`` (planar degree
+        ``distance``), ``"dwithin_meters"`` (great-circle ``distance``
+        meters) between point schemas, or ``"pip"`` / ``"poly_bbox"``
+        against a polygon schema — returning a :class:`SpatialJoinResult`."""
+        if predicate is None:
+            if left_attr is None or right_attr is None:
+                raise ValueError(
+                    "join needs left_attr/right_attr (equi-join) or "
+                    "predicate= (spatial join)"
+                )
+            from geomesa_tpu_torch import processes
+
+            return processes.join(self, left, right, left_attr, right_attr,
+                                  left_query, right_query)
+        return self.join_spatial(
+            left, right, predicate=predicate, distance=distance, dx=dx,
+            dy=dy, left_query=left_query, right_query=right_query,
+            level=level,
+        )
+
+    def _join_sides(self, left: str, right: str, left_query, right_query,
+                    right_polygon: bool = False):
+        """Plan and scan both join sides (each under its own filter),
+        validating the geometry contract: both sides POINT, except polygon
+        joins (``right_polygon``), whose right side must be a POLYGON or
+        MULTIPOLYGON schema."""
+        lplan = self._fresh_plan(left, left_query)
+        lst = self._store(left)
+        rplan = self._fresh_plan(right, right_query)
+        rst = self._store(right)
+        for st_, nm, poly in ((lst, left, False), (rst, right, right_polygon)):
+            g = st_.ft.geom_field
+            a = None if g is None else st_.ft.attr(g)
+            if poly:
+                if a is None or a.type not in ("polygon", "multipolygon"):
+                    raise ValueError(
+                        f"[GM-ARG] polygon join requires a POLYGON "
+                        f"geometry on schema {nm!r}"
+                    )
+            elif a is None or not a.is_point:
+                raise ValueError(
+                    f"[GM-ARG] spatial join requires a POINT geometry "
+                    f"on schema {nm!r}"
+                )
+        lbatch = self._executor(left).features(lplan)
+        rbatch = self._executor(right).features(rplan)
+        return lst, lbatch, rst, rbatch
+
+    @staticmethod
+    def _side_xy(st: FeatureStore, batch: ColumnBatch):
+        g = st.ft.geom_field
+        z = np.zeros(0, np.float64)
+        return (batch.columns.get(g + "__x", z),
+                batch.columns.get(g + "__y", z))
+
+    @staticmethod
+    def _side_polygons(st: FeatureStore, batch: ColumnBatch):
+        """The polygon side's geometries, parsed from the schema's host
+        WKT column (row order == batch order, so pair indices line up)."""
+        col = batch.columns.get(st.ft.geom_field + "__wkt")
+        if col is None:
+            return []
+        return [geo.parse_wkt(w) for w in col]
+
+    def _join_run(self, left: str, right: str, predicate: str, distance,
+                  dx, dy, left_query, right_query, level,
+                  want_pairs: bool) -> SpatialJoinResult:
+        """The shared spatial-join body: scan both sides, then the polygon
+        join (``pip`` / ``poly_bbox``) or the co-partitioned pairwise join
+        on this dataset's device. A count-only join over a partitioned
+        right store materializes the right side too (the reference streams
+        it through the lake's window pushdown, which the port lacks); the
+        count is the same."""
+        from geomesa_tpu_torch.kernels import join as kjoin
+        from geomesa_tpu_torch.planning import join_exec
+
+        polygon = predicate in kjoin.POLYGON_PREDICATES
+        lst, lbatch, rst, rbatch = self._join_sides(
+            left, right, left_query, right_query, right_polygon=polygon)
+        lx, ly = self._side_xy(lst, lbatch)
+        if polygon:
+            geoms = self._side_polygons(rst, rbatch)
+            pairs, total, stats = join_exec.run_polygon_join(
+                lx, ly, geoms, predicate, level=level, device=self.device,
+                want_pairs=want_pairs)
+        else:
+            rx, ry = self._side_xy(rst, rbatch)
+            pairs, total, stats = join_exec.run_join(
+                lx, ly, rx, ry, predicate, distance=distance, dx=dx, dy=dy,
+                level=level, device=self.device, want_pairs=want_pairs)
+        return SpatialJoinResult(lbatch, rbatch, pairs, total, stats)
+
+    def join_spatial(self, left: str, right: str, *, predicate: str,
+                     distance=None, dx=None, dy=None, left_query="INCLUDE",
+                     right_query="INCLUDE",
+                     level: Optional[int] = None) -> SpatialJoinResult:
+        """Spatial join: the matched pairs (``.pairs``, row positions into
+        each side's scan in table order) and their count, streaming as
+        ColumnBatches through ``SpatialJoinResult.batches()``."""
+        return self._join_run(left, right, predicate, distance, dx, dy,
+                              left_query, right_query, level, want_pairs=True)
+
+    def join_count(self, left: str, right: str, *, predicate: str,
+                   distance=None, dx=None, dy=None, left_query="INCLUDE",
+                   right_query="INCLUDE", level: Optional[int] = None) -> int:
+        """The join's exact matched-pair count without materializing pairs:
+        the verdict mask stays on the device and only per-tile counts come
+        back."""
+        return self._join_run(left, right, predicate, distance, dx, dy,
+                              left_query, right_query, level,
+                              want_pairs=False).count
+
+    def explain_join(self, left: str, right: str, *, predicate: str,
+                     distance=None, dx=None, dy=None, left_query="INCLUDE",
+                     right_query="INCLUDE", level: Optional[int] = None,
+                     analyze: bool = False) -> str:
+        """Join plan explain: the co-partition's pruning account — cells,
+        candidate pairs vs naive N*M, boundary-strip fraction, the adaptive
+        decision trail — plus (``analyze=True``) the executed match count
+        and its milliseconds."""
+        from geomesa_tpu_torch.kernels import join as kjoin
+        from geomesa_tpu_torch.planning import join_exec
+        from geomesa_tpu_torch.planning.explain import Explainer
+
+        exp = Explainer(enabled=True)
+        if predicate in kjoin.POLYGON_PREDICATES:
+            lst, lbatch, rst, rbatch = self._join_sides(
+                left, right, left_query, right_query, right_polygon=True)
+            lx, ly = self._side_xy(lst, lbatch)
+            geoms = self._side_polygons(rst, rbatch)
+            t0 = time.perf_counter()
+            _, total, st = join_exec.run_polygon_join(
+                lx, ly, geoms, predicate, level=level, device=self.device,
+                want_pairs=False)
+            exp.push("Join")
+            exp.kv("predicate", predicate)
+            exp.kv("sides", f"{left} ({st.n_left} rows) x "
+                   f"{right} ({st.n_right} polygons)")
+            exp.kv("cell level", st.level)
+            exp.kv("cells", f"{st.cells_left} occupied point cells")
+            exp.pop()
+            exp.push("Adaptive")
+            exp.kv("cells[interior]",
+                   f"{st.strategy_cells.get('interior', 0)} "
+                   f"(wholesale: {st.wholesale_pairs} pairs, zero "
+                   f"kernel work)")
+            exp.kv("cells[boundary]",
+                   f"{st.strategy_cells.get('boundary', 0)} "
+                   f"(kernel: {st.candidate_pairs} candidate pairs)")
+            exp.kv("statistics read",
+                   "classify_cells(cell box, polygon, "
+                   "CLASSIFY_MARGIN) per candidate cell")
+            if analyze:
+                exp.kv("matched (analyze)", total)
+                exp.kv("kernel ms", round((time.perf_counter() - t0) * 1e3, 3))
+            exp.pop()
+            return str(exp)
+        lst, lbatch, rst, rbatch = self._join_sides(
+            left, right, left_query, right_query)
+        lx, ly = self._side_xy(lst, lbatch)
+        rx, ry = self._side_xy(rst, rbatch)
+        p0, p1 = kjoin.pair_params(predicate, distance=distance, dx=dx, dy=dy)
+        reach_x, reach_y, wrap_x = join_exec.join_reach(predicate, p0, p1, distance, ry)
+        plan = join_exec.co_partition(
+            lx, ly, rx, ry, predicate, reach_x, reach_y, level=level,
+            p0=p0, p1=p1, wrap_x=wrap_x,
+        )
+        st = plan.stats
+        exp.push("Join")
+        exp.kv("predicate", predicate)
+        exp.kv("sides", f"{left} ({st.n_left} rows) x "
+               f"{right} ({st.n_right} rows)")
+        exp.kv("co-partition level", st.level)
+        exp.kv("cells", f"{st.cells_left} build, {st.cells_right} "
+               f"probe, {st.cells_joint} joint (dispatched)")
+        exp.kv("candidate pairs",
+               f"{st.candidate_pairs} of {st.naive_pairs} naive "
+               f"({st.candidate_fraction:.4f})")
+        exp.kv("boundary-strip fraction", round(st.strip_fraction, 4))
+        exp.kv("tiles", f"{st.tiles} ({plan.Bp} x {plan.Pp} padded, "
+               f"{len(plan.sections)} section(s))")
+        exp.pop()
+        # the adaptive decision trail: what each joint cell's routing read
+        # and what it chose
+        exp.push("Adaptive")
+        exp.kv("enabled", str(bool(st.adaptive)).lower())
+        for strat in ("pairwise", "brute", "split.l", "split.r"):
+            if strat not in st.strategy_cells:
+                continue
+            exp.kv(f"cells[{strat}]",
+                   f"{st.strategy_cells[strat]} "
+                   f"(est {st.est_pairs.get(strat, 0)} pairs, "
+                   f"dispatched {st.dispatched_pairs.get(strat, 0)} "
+                   f"slots)")
+        exp.kv("statistics read",
+               "per-cell (n_build, n_probe); thresholds: brute <= "
+               f"{config.JOIN_ADAPTIVE_BRUTE_PAIRS.to_int() or 256} "
+               "pairs, skew >= "
+               f"{config.JOIN_ADAPTIVE_SKEW_RATIO.to_int() or 8}:1 "
+               "over tile")
+        if analyze:
+            t0 = time.perf_counter()
+            _, total = join_exec.execute_predicate(
+                plan, lx, ly, rx, ry, predicate, device=self.device,
+                want_pairs=False)
+            exp.kv("matched (analyze)", total)
+            exp.kv("pairwise ms", round((time.perf_counter() - t0) * 1e3, 3))
+        exp.pop()
+        return str(exp)
 
     # -- kNN ---------------------------------------------------------------
     def knn(self, name: str, x: float, y: float, k: int = 10,

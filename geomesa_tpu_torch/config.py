@@ -144,3 +144,25 @@ DENSITY_PALLAS_MAX_DUP = SystemProperty("geomesa.density.pallas.max.dup", "4.0")
 
 #: largest ``max_features`` a sorted query selects on the device
 TOPK_MAX = SystemProperty("geomesa.topk.max", "100000")
+
+#: spatial-join tiles: per-cell build/probe blocks chunk into tiles of at
+#: most this many rows per side
+JOIN_TILE = SystemProperty("geomesa.join.tile", "64")
+
+#: finest cell level the join co-partition may choose
+JOIN_MAX_LEVEL = SystemProperty("geomesa.join.max.level", "12")
+
+#: matched pairs per ColumnBatch of a streaming join result
+JOIN_BATCH_ROWS = SystemProperty("geomesa.join.batch.rows", "65536")
+
+#: per-cell join strategy selection (pairwise / brute / split); off runs
+#: every joint cell through the pairwise tiles
+JOIN_ADAPTIVE = SystemProperty("geomesa.join.adaptive", "true")
+
+#: a joint cell with at most this many candidate pairs takes the flat
+#: brute-force list
+JOIN_ADAPTIVE_BRUTE_PAIRS = SystemProperty("geomesa.join.adaptive.brute.pairs", "256")
+
+#: a joint cell whose longer side holds at least this many times the
+#: shorter side's rows is skewed and tiles in its own narrow section
+JOIN_ADAPTIVE_SKEW_RATIO = SystemProperty("geomesa.join.adaptive.skew.ratio", "8")

@@ -531,6 +531,33 @@ class Executor:
         out = self.count_partial(plan)
         return 0 if out is None else int(out)
 
+    def padded_rows(self, plan: QueryPlan, agg_cols, fn: Callable, fill,
+                    dtype) -> Optional[np.ndarray]:
+        """A per-row, non-additive aggregate addressed in the padded [S, L]
+        layout, flat [S * L] on the host: ``fn(cols, mask, xp)`` gives one
+        value per row, ``fill`` where the mask is false. The device scans
+        the padded layout, never the compacted one. On a host path (the
+        plan refines, or its scan holds f32 band rows, whose exact
+        contribution a per-row aggregate cannot add) ``fn`` runs with
+        NumPy on the exact matches' host rows, as the reference's host
+        runner runs it over the padded host stack, and every other row
+        gets ``fill``. None for an empty scan."""
+        table = self._table(plan)
+
+        def device_agg(setup, cols, m):
+            return fn(cols, m, torch).reshape(-1).cpu().numpy()
+
+        def host_agg(rows, pos):
+            out = np.full(table.n_shards * table.shard_len, fill, dtype)
+            if len(pos):
+                s = np.searchsorted(table.shard_bounds, pos, side="right") - 1
+                flat = s * table.shard_len + pos - table.shard_bounds[s]
+                out[flat] = fn(rows, np.ones(len(pos), bool), np)
+            return out
+
+        return self._run(plan, agg_cols, device_agg, host_agg, additive=False,
+                         compactable=False)
+
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
         (plan, grid); None when the scan is not compacted, the index has

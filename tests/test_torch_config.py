@@ -26,6 +26,12 @@ KNOBS = {
     "PIPELINE_PREFETCH": "PIPELINE_PREFETCH",
     "DENSITY_PALLAS_MAX_DUP": "DENSITY_PALLAS_MAX_DUP",
     "TOPK_MAX": "TOPK_MAX",
+    "JOIN_TILE": "JOIN_TILE",
+    "JOIN_MAX_LEVEL": "JOIN_MAX_LEVEL",
+    "JOIN_BATCH_ROWS": "JOIN_BATCH_ROWS",
+    "JOIN_ADAPTIVE": "JOIN_ADAPTIVE",
+    "JOIN_ADAPTIVE_BRUTE_PAIRS": "JOIN_ADAPTIVE_BRUTE_PAIRS",
+    "JOIN_ADAPTIVE_SKEW_RATIO": "JOIN_ADAPTIVE_SKEW_RATIO",
 }
 
 
@@ -207,3 +213,35 @@ def test_loose_bbox_read_at_compile_time():
     with config.LOOSE_BBOX.scoped(True):
         assert compile_filter(f, ft).refine is None
     assert compile_filter(f, ft).refine is not None
+
+
+def test_join_knobs_read_at_join_time():
+    from geomesa_tpu_torch.planning import join_exec as je
+
+    rng = np.random.default_rng(3)
+    ax, ay = rng.normal(0, 0.5, 600), rng.normal(0, 0.5, 600)
+    bx, by = rng.normal(0, 0.5, 100), rng.normal(0, 0.5, 100)
+    run = lambda: je.run_join(ax, ay, bx, by, "dwithin", distance=0.05,  # noqa: E731
+                              device="cpu", level=4)
+    pairs, total, st = run()
+    assert st.adaptive and total > 0
+    with config.JOIN_TILE.scoped("16"):
+        p16, t16, st16 = run()
+    assert np.array_equal(p16, pairs) and st16.tiles > st.tiles
+    with config.JOIN_ADAPTIVE.scoped("false"):
+        assert not run()[2].adaptive
+    with config.JOIN_ADAPTIVE_SKEW_RATIO.scoped("2"), config.JOIN_TILE.scoped("8"):
+        assert "split.l" in run()[2].strategy_cells
+    with config.JOIN_ADAPTIVE_BRUTE_PAIRS.scoped(str(10 ** 9)):
+        assert list(run()[2].strategy_cells) == ["brute"]
+    with config.JOIN_MAX_LEVEL.scoped("2"):
+        assert je.run_join(ax, ay, bx, by, "dwithin", distance=0.05, device="cpu")[2].level == 2
+    ds = GeoDataset(n_shards=2, device="cpu")
+    for name in ("a", "b"):
+        ds.create_schema(name, "*geom:Point")
+    ds.insert("a", {"geom": list(zip(ax, ay))})
+    ds.insert("b", {"geom": list(zip(bx, by))})
+    res = ds.join_spatial("a", "b", predicate="dwithin", distance=0.05)
+    with config.JOIN_BATCH_ROWS.scoped("7"):
+        assert max(b.n for b in res.batches()) == 7
+    assert max(b.n for b in res.batches()) == res.count

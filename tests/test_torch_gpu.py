@@ -711,3 +711,231 @@ def test_partitioned_polygon_store_matches_cpu(cuda, tmp_path, q):
     assert np.array_equal(gpu.density("t", q, bbox=(-12, -12, 12, 12), width=64, height=64),
                           cpu.density("t", q, bbox=(-12, -12, 12, 12), width=64, height=64))
     assert gpu._store("t").loads > 0
+
+
+# -- slice 7: the join kernels -------------------------------------------------------
+from geomesa_tpu_torch.kernels import join as kj  # noqa: E402
+from geomesa_tpu_torch.planning import join_exec as je  # noqa: E402
+
+JOIN_PREDS = {"bbox": {"dx": 0.05, "dy": 0.03}, "dwithin": {"distance": 0.05},
+              "dwithin_meters": {"distance": 6000.0}}
+
+
+def _tile_ops(C, Bp, Pp, predicate, seed=0):
+    """Random tiles (x, y in a 0.5-degree square), with exact-distance and
+    coincident pairs, a NaN, and random valid counts (the first tiles
+    full and empty)."""
+    rng = np.random.default_rng(seed)
+    lx = rng.uniform(0, 0.5, (C, Bp)).astype(np.float32)
+    ly = rng.uniform(0, 0.5, (C, Bp)).astype(np.float32)
+    rx = rng.uniform(0, 0.5, (C, Pp)).astype(np.float32)
+    ry = rng.uniform(0, 0.5, (C, Pp)).astype(np.float32)
+    rx[:, 0], ry[:, 0] = lx[:, 0] + np.float32(0.05), ly[:, 0]
+    rx[:, -1], ry[:, -1] = lx[:, -1], ly[:, -1]
+    lx[0, -1] = np.nan
+    lval = rng.integers(0, Bp + 1, C).astype(np.int32)
+    rval = rng.integers(0, Pp + 1, C).astype(np.int32)
+    lval[0], rval[0] = Bp, Pp
+    if C > 1:
+        lval[1] = 0
+    ops = [lx, ly, rx, ry]
+    z = [None, None]
+    if predicate == "dwithin_meters":
+        lu, ru = kj.unit_vectors(lx, ly), kj.unit_vectors(rx, ry)
+        ops, z = [lu[0], lu[1], ru[0], ru[1]], [lu[2], ru[2]]
+    return ops, z, lval, rval
+
+
+def _cu(a, cuda):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+
+@pytest.mark.parametrize("predicate", sorted(JOIN_PREDS))
+@pytest.mark.parametrize("shape", [(1, 64, 64), (37, 64, 8), (37, 8, 64), (5, 4, 2),
+                                   (3, 128, 128), (70_000, 8, 8)], ids=str)
+def test_pair_tiles_kernel_matches_plain(cuda, predicate, shape):
+    C, Bp, Pp = shape
+    ops, z, lval, rval = _tile_ops(C, Bp, Pp, predicate)
+    p0, p1 = kj.pair_params(predicate, **JOIN_PREDS[predicate])
+    args = [_cu(a, cuda) for a in ops] + [_cu(lval, cuda), _cu(rval, cuda)]
+    zk = {"lzb": _cu(z[0], cuda), "rzb": _cu(z[1], cuda)}
+    before = kj.launches["pair_tiles"]
+    m, c = kj.pair_tiles(*args, predicate, p0, p1, True, **zk)
+    pm, pc = kj.pair_tiles_plain(*args, predicate, p0, p1, True, **zk)
+    m0, c0 = kj.pair_tiles(*args, predicate, p0, p1, False, **zk)
+    torch.cuda.synchronize()
+    assert kj.launches["pair_tiles"] == before + 2
+    assert m0 is None and torch.equal(c0, pc) and torch.equal(c, pc)
+    assert m.dtype == torch.bool and torch.equal(m, pm)
+    assert int(pc.sum()) > 0
+
+
+@pytest.mark.parametrize("predicate", sorted(JOIN_PREDS))
+@pytest.mark.parametrize("kp,kvalid", [(1, 1), (300, 0), (16384, 16384), (16384, 9001),
+                                       (1 << 21, (1 << 21) - 5)])
+def test_pair_flat_kernel_matches_plain(cuda, predicate, kp, kvalid):
+    ops, z, _, _ = _tile_ops(1, kp, kp, predicate, seed=1)
+    p0, p1 = kj.pair_params(predicate, **JOIN_PREDS[predicate])
+    args = [_cu(a.reshape(-1), cuda) for a in ops]
+    zk = {"lzv": _cu(None if z[0] is None else z[0].reshape(-1), cuda),
+          "rzv": _cu(None if z[1] is None else z[1].reshape(-1), cuda)}
+    m, n = kj.pair_flat(*args, kvalid, predicate, p0, p1, True, **zk)
+    pm, pn = kj.pair_flat_plain(*args, kvalid, predicate, p0, p1, True, **zk)
+    m0, n0 = kj.pair_flat(*args, kvalid, predicate, p0, p1, False, **zk)
+    torch.cuda.synchronize()
+    assert torch.equal(m, pm) and int(n) == int(pn) == int(n0) and m0 is None
+
+
+JOIN_POLYS = [
+    "POLYGON ((0 0, 8 0, 8 8, 0 8, 0 0), (3 3, 5 3, 5 5, 3 5, 3 3))",
+    "POLYGON ((20 -20, 60 -20, 60 20, 20 20, 20 -20))",
+    ("MULTIPOLYGON (((-30 -10, -25 -10, -25 -5, -30 -5, -30 -10)), "
+     "((-20 -10, -15 -10, -15 -5, -20 -5, -20 -10)))"),
+    "POLYGON ((2 2, 30 4, 10 30, 2 2))",
+    _ngon(1500, 10, 0, 25),
+]
+
+
+def _join_points(n, seed=2):
+    rng = np.random.default_rng(seed)
+    px = rng.uniform(-40, 70, n).astype(np.float32)
+    py = rng.uniform(-30, 45, n).astype(np.float32)
+    edge = np.array([(0, 0), (8, 4), (3, 3), (5, 5), (40, 20), (20, 0), (60, -20), (-25, -7.5),
+                     (np.nan, 1), (1, np.nan), (6, 6)], np.float32)
+    k = min(n, len(edge))
+    px[:k], py[:k] = edge[:k, 0], edge[:k, 1]
+    return px, py
+
+
+@pytest.mark.parametrize("predicate", ["pip", "poly_bbox"])
+@pytest.mark.parametrize("n", [1, 255, 4099, 1 << 18])
+@pytest.mark.parametrize("pad", [False, True], ids=["exact", "pow2"])
+def test_polygon_verdict_kernel_matches_plain(cuda, predicate, n, pad):
+    geoms = [parse_wkt(w) for w in JOIN_POLYS]
+    t = kj.polygon_tables(geoms)
+    if pad:
+        t = kj.polygon_tables(geoms, pad_edges=je._pow2(t["n_edges"]),
+                              pad_parts=je._pow2(t["n_parts"]), pad_rows=je._pow2(t["n_rows"]))
+    tabs = kj.table_tensors(t, cuda)
+    px, py = _join_points(n)
+    got = kj.polygon_verdict(_cu(px, cuda), _cu(py, cuda), tabs, predicate)
+    want = kj.polygon_verdict_plain(_cu(px, cuda), _cu(py, cuda), tabs, predicate)
+    torch.cuda.synchronize()
+    assert got.shape == (n, t["n_rows_padded"]) and torch.equal(got, want)
+    assert torch.equal(want.cpu(), torch.from_numpy(kj.polygon_mask(px, py, t, predicate, np)))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3 * (1 << 18) + 7])
+@pytest.mark.parametrize("masked", [1.0, 0.3])
+def test_pip_assign_kernel_matches_plain(cuda, n, masked):
+    geoms = [parse_wkt(w) for w in JOIN_POLYS]
+    flat = tuple(q for g in geoms for q in (g.polygons if hasattr(g, "polygons") else (g,)))
+    from geomesa_tpu_torch.utils import geometry as geo
+
+    edges = geo.polygon_edge_buffers(geo.MultiPolygon(flat))
+    edges = {k: (v.astype(np.float32) if k in ("x1", "y1", "x2", "y2") else v)
+             for k, v in edges.items()}
+    et = kj.edge_tensors(edges, cuda)
+    px, py = _join_points(n, seed=3)
+    mask = np.random.default_rng(4).random(n) < masked
+    args = (_cu(px, cuda), _cu(py, cuda), _cu(mask, cuda))
+    before = kj.launches["pip_assign"]
+    got = kj.pip_assign(*args, et, torch)
+    want = kj.pip_assign_plain(*args, et)
+    torch.cuda.synchronize()
+    assert kj.launches["pip_assign"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if n >= 1000:
+        assert set(got.unique().tolist()) >= {-1, 0, 1, 5}
+
+
+def test_join_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 8), device=cuda)
+    v = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kj.pair_tiles(x, x, x, x, v, v, "dwithin_meters", 1.0, 0.0)
+    with pytest.raises(TypeError):
+        kj.pair_tiles(x.double(), x, x, x, v, v, "dwithin", 1.0, 0.0)
+    with pytest.raises(ValueError):
+        kj.pair_tiles(x, x, x[:1], x[:1], v, v, "dwithin", 1.0, 0.0)
+    with pytest.raises(ValueError):
+        kj.pair_flat(x[0], x[0], x[0], x[0], 9, "dwithin", 1.0, 0.0)
+    t = kj.polygon_tables([parse_wkt(JOIN_POLYS[0])])
+    with pytest.raises(ValueError):  # tables not made by table_tensors
+        kj.polygon_verdict(x[0], x[0], {k: (_cu(a, cuda) if isinstance(a, np.ndarray) else a)
+                                        for k, a in t.items()}, "pip")
+    with pytest.raises(ValueError):
+        kj.pip_assign(x[0], x[0], x[0] > 0, {"n_polys": 1}, torch)
+
+
+def _join_datasets(cuda, n=20_000, seed=5):
+    rng = np.random.default_rng(seed)
+    cx, cy = rng.uniform(-74.2, -73.75, 8), rng.uniform(40.55, 40.9, 8)
+    def side(m):
+        k = rng.integers(0, 8, m)
+        return {"fare": rng.uniform(2, 60, m).astype(np.float32),
+                "dtg": rng.integers(parse_iso_ms("2020-01-01"), parse_iso_ms("2020-02-01"),
+                                    m).astype("datetime64[ms]"),
+                "geom__x": cx[k] + rng.normal(0, 0.02, m), "geom__y": cy[k] + rng.normal(0, 0.02, m)}
+    pick, drop, stations = side(n), side(n // 2), side(300)
+    polys = {"nta": [f"n{i}" for i in range(4)], "geom": np.array(JOIN_POLYS_NYC, object)}
+    out = []
+    for dev in (cuda, "cpu"):
+        ds = GeoDataset(n_shards=4, device=dev)
+        for name, rows in (("pick", pick), ("drop", drop), ("st", stations)):
+            ds.create_schema(name, "fare:Float,dtg:Date,*geom:Point")
+            ds.insert(name, rows, fids=[f"{name}{i}" for i in range(len(rows["fare"]))])
+        ds.create_schema("nta", "nta:String,*geom:Polygon")
+        ds.insert("nta", polys, fids=["a", "b", "c", "d"])
+        ds.flush()
+        out.append(ds)
+    return out
+
+
+JOIN_POLYS_NYC = [
+    "POLYGON ((-74.1 40.6, -73.9 40.6, -73.9 40.8, -74.1 40.8, -74.1 40.6), "
+    "(-74.0 40.65, -73.95 40.65, -73.95 40.7, -74.0 40.7, -74.0 40.65))",
+    "MULTIPOLYGON (((-73.9 40.7, -73.8 40.7, -73.85 40.85, -73.9 40.7)), "
+    "((-74.2 40.5, -74.15 40.5, -74.15 40.6, -74.2 40.5)))",
+    _ngon(200, -73.97, 40.75, 0.05),
+    "POLYGON ((-73.8 40.6, -73.75 40.6, -73.75 40.65, -73.8 40.6))",
+]
+
+
+@pytest.mark.parametrize("call", ["dwithin_meters", "dwithin", "bbox", "pip", "poly_bbox"])
+def test_joins_on_the_card_match_cpu(cuda, call):
+    gpu, cpu = _join_datasets(cuda)
+    right = {"dwithin_meters": "st", "pip": "nta", "poly_bbox": "nta"}.get(call, "drop")
+    kw = {"dwithin_meters": {"distance": 100.0}, "dwithin": {"distance": 0.0005},
+          "bbox": {"dx": 0.0005, "dy": 0.0005}}.get(call, {})
+    kj.reset_launches()
+    g = gpu.join_spatial("pick", right, predicate=call, **kw)
+    c = cpu.join_spatial("pick", right, predicate=call, **kw)
+    assert np.array_equal(g.pairs, c.pairs) and g.count == c.count > 0
+    assert g.stats == c.stats
+    assert gpu.join_count("pick", right, predicate=call, **kw) == c.count
+    if call in ("pip", "poly_bbox"):
+        assert kj.launches["polygon_verdict"] >= 2
+    else:
+        assert kj.launches["pair_tiles"] + kj.launches["pair_flat"] >= 2
+
+
+def test_spatial_join_and_regions_on_the_card_match_cpu(cuda):
+    gpu, cpu = _join_datasets(cuda)
+    q = "dtg DURING 2020-01-05T00:00:00Z/2020-01-15T00:00:00Z"
+    before = kj.launches["pip_assign"]
+    for weight in (None, "fare"):
+        ga, gc = gpu.spatial_join("pick", JOIN_POLYS_NYC, q, weight=weight)
+        ca, cc = cpu.spatial_join("pick", JOIN_POLYS_NYC, q, weight=weight)
+        assert np.array_equal(ga, ca) and np.array_equal(gc, cc) and (ga >= 0).any()
+    assert kj.launches["pip_assign"] == before + 2
+    halves = ("MULTIPOLYGON (((-74.3 40.4, -73.95 40.4, -73.95 41, -74.3 41, -74.3 40.4)), "
+              "((-73.9 40.4, -73.6 40.4, -73.6 41, -73.9 41, -73.9 40.4)))")
+    assert cpu.count("pick", q, region=halves) > 0
+    for region in (JOIN_POLYS_NYC[0], halves):
+        assert gpu.count("pick", q, region=region) == cpu.count("pick", q, region=region)
+        assert np.array_equal(
+            gpu.density("pick", q, width=128, height=128, region=region),
+            cpu.density("pick", q, width=128, height=128, region=region))
+        assert gpu.stats("pick", "Count();MinMax(fare)", q, region=region).value() == \
+            cpu.stats("pick", "Count();MinMax(fare)", q, region=region).value()

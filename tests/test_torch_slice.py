@@ -413,23 +413,29 @@ def test_cuda_without_a_card_raises(monkeypatch):
 REGION = "POLYGON((-95 32, -85 32, -90 40, -95 32))"
 
 
-@pytest.mark.parametrize("call", ["query_object", "stats", "estimate"])
+@pytest.mark.parametrize("call", ["query_object", "estimate"])
 def test_unserved_queries_name_the_roadmap(pair, call):
     _, p, _ = pair
     run = {
         "query_object": lambda: p.query("t", Query(ECQL, srid=3857)),
-        "stats": lambda: p.stats("t", "Count()", ECQL, region=REGION),
         "estimate": lambda: p.count_batch("t", [ECQL], exact=False),
     }[call]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run()
 
 
-@pytest.mark.parametrize("call", ["expression", "non_point_dwithin", "extent_geometry"])
+@pytest.mark.parametrize("call", ["expression", "non_point_dwithin", "extent_geometry",
+                                  "region"])
 def test_once_unserved_queries_are_served(pair, call):
-    """Expressions, DWITHIN with a line literal and polygon schemas are
-    served, with the JAX package's answers."""
+    """Expressions, DWITHIN with a line literal, polygon schemas and
+    ``region=`` are served, with the JAX package's answers."""
     j, p, _ = pair
+    if call == "region":
+        got = p.stats("t", "Count();MinMax(weight)", ECQL, region=REGION)
+        want = j.stats("t", "Count();MinMax(weight)", ECQL, region=REGION)
+        assert [s.value() for s in got.stats] == [s.value() for s in want.stats]
+        assert got.stats[0].value() == p.count("t", f"{ECQL} AND INTERSECTS(geom, {REGION})") > 0
+        return
     if call == "extent_geometry":
         spec = "dtg:Date,*geom:Polygon"
         jd, pd = JGeoDataset(n_shards=4), GeoDataset(n_shards=4, device="cpu")
