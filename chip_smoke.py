@@ -164,7 +164,36 @@
    plain version, with ``torch.cdist`` as the planar tiles' library
    yardstick.
 
-Output: a ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi``
+10. Slice 8, ``density_curve`` and the query-axis batches, on slice 1's
+   store right after its checks (no new ingest): the curve of the 10 days
+   over CONUS at level 9 (85 x 72 blocks), unweighted and weighted, of a
+   1-degree crop at level 12 and of the 64-edge polygon as ``region=``
+   (PIP on the path); ``density_curve_batch`` of a 4 x 4 mosaic of
+   1-degree level-12 crops; ``density_curve_filter_batch`` of 8 members
+   with distinct 5 x 4 degree boxes and 3-day intervals; ``count_batch``
+   of 16 distinct 4 x 3 degree boxes with 10-day intervals (placed by the
+   seed) and of 5 members sharing the polygon as an ``INTERSECTS``
+   residual; ``density_batch`` (256 x 256 over each member's own box,
+   unweighted and weighted) and ``stats_batch`` (``Count();MinMax(weight)``)
+   of 8 of those members; and a ``DescriptiveStats`` batch, which must
+   give None. Each call runs cold once and ``--reps`` warm, and every
+   member alone cold once and half as many times warm (at least 3): the
+   batch's warm p50 is printed beside the sum of its members'. Every member equals its serial call (counts, unweighted
+   grids, curves and sketches exact, weighted grids within rtol 1e-4) and
+   every serial result its NumPy f64 oracle (curves binned by the z2
+   normalization; weighted curves within rtol 1e-4 plus 16 f32 ulps of the
+   largest prefix, the error printed in ulps). PIP is held against its
+   plain version on the ``region=`` plan's and the polygon batch's
+   operands (timed in turns); one member's scatter is timed with the
+   dropped rows' +0.0 in spare cells against the reference's clamped
+   cells. Then each call is profiled (busy, idle share, top device work),
+   and the phase prints its peak device memory and launches (PIP > 0).
+   At the end of slice 5, on its store: ``count_batch`` of 8 boxes over
+   B's two partitions, the level-9 curve of B and a curve batch of 4
+   crops, each against its serial calls and NumPy oracles.
+
+Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
+``launches_slice8``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -366,12 +395,13 @@ def time_mask(data, lo="2020-01-05T00:00:00", hi="2020-01-15T00:00:00"):
     return (t >= parse_iso_ms(lo)) & (t <= parse_iso_ms(hi))
 
 
-def density_oracles(data, tm, bbox=None, weight="weight"):
+def density_oracles(data, tm, bbox=None, weight="weight", width=WIDTH, height=HEIGHT):
     """(unweighted, weighted) f64 grids of the rows of ``bbox`` (default
     QUERY_BBOX) that the row mask ``tm`` keeps, with the reference's
     semantics: exact f64 membership; pixel cells computed in f32 op by op,
     except for rows colliding with an f32 bound (the band), which the host
-    corrects from f64 values."""
+    corrects from f64 values. The grid is ``width`` x ``height`` (default
+    512 x 512)."""
     x, y = data["geom__x"], data["geom__y"]
     xmin, ymin, xmax, ymax = QUERY_BBOX if bbox is None else bbox
     m = tm & (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
@@ -379,19 +409,19 @@ def density_oracles(data, tm, bbox=None, weight="weight"):
     f = np.float32
     x32, y32 = x.astype(f), y.astype(f)
     band = np.isin(x32, [f(xmin), f(xmax)]) | np.isin(y32, [f(ymin), f(ymax)])
-    px = ((x32 - f(xmin)) / f(xmax - xmin) * f(WIDTH)).astype(np.int32)
-    py = ((y32 - f(ymin)) / f(ymax - ymin) * f(HEIGHT)).astype(np.int32)
-    px = np.where(band, ((x - xmin) / (xmax - xmin) * WIDTH).astype(np.int32), px)
-    py = np.where(band, ((y - ymin) / (ymax - ymin) * HEIGHT).astype(np.int32), py)
-    idx = np.clip(py, 0, HEIGHT - 1) * WIDTH + np.clip(px, 0, WIDTH - 1)
-    g = np.bincount(idx, minlength=WIDTH * HEIGHT).astype(np.float64)
-    gw = np.bincount(idx, weights=w.astype(np.float64), minlength=WIDTH * HEIGHT)
+    px = ((x32 - f(xmin)) / f(xmax - xmin) * f(width)).astype(np.int32)
+    py = ((y32 - f(ymin)) / f(ymax - ymin) * f(height)).astype(np.int32)
+    px = np.where(band, ((x - xmin) / (xmax - xmin) * width).astype(np.int32), px)
+    py = np.where(band, ((y - ymin) / (ymax - ymin) * height).astype(np.int32), py)
+    idx = np.clip(py, 0, height - 1) * width + np.clip(px, 0, width - 1)
+    g = np.bincount(idx, minlength=width * height).astype(np.float64)
+    gw = np.bincount(idx, weights=w.astype(np.float64), minlength=width * height)
     # the f64-pixel oracle (tests/test_density_pallas.py) for the record
-    px64 = np.clip(((x - xmin) / (xmax - xmin) * WIDTH).astype(np.int64), 0, WIDTH - 1)
-    py64 = np.clip(((y - ymin) / (ymax - ymin) * HEIGHT).astype(np.int64), 0, HEIGHT - 1)
-    g64 = np.bincount(py64 * WIDTH + px64, minlength=WIDTH * HEIGHT)
-    return (g.reshape(HEIGHT, WIDTH), gw.reshape(HEIGHT, WIDTH),
-            g64.reshape(HEIGHT, WIDTH), int(m.sum()))
+    px64 = np.clip(((x - xmin) / (xmax - xmin) * width).astype(np.int64), 0, width - 1)
+    py64 = np.clip(((y - ymin) / (ymax - ymin) * height).astype(np.int64), 0, height - 1)
+    g64 = np.bincount(py64 * width + px64, minlength=width * height)
+    return (g.reshape(height, width), gw.reshape(height, width),
+            g64.reshape(height, width), int(m.sum()))
 
 
 def polygon_rows(data, tm, packed, n_edges) -> np.ndarray:
@@ -1925,8 +1955,8 @@ def paths_by_partition(parts):
 
 
 def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
-    """The slice-5 phase (see the module docstring, 8). Returns its
-    launches of both kernels."""
+    """The slice-5 phase (see the module docstring, 8), then slice 8's
+    calls on its store. Returns the launches of both kernels in each."""
     import shutil
 
     from geomesa_tpu_torch import GeoDataset, Query, config
@@ -2213,6 +2243,414 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
         f"the top 1000 by weight equal NumPy's; stats exact (descriptive within rtol "
         f"1e-5); kNN k-th distance {kth:.3f} m, boundary pairs {pairs}, rows within 1e-6 "
         f"of it {near}; the phase took {time.perf_counter() - t_phase:.3f} s after ingest")
+    s8 = slice8_partitioned(args, torch, ds, data, kpip, kgrouped)
+    return launches, s8
+
+
+#: slice 8: the curve's full CONUS crop and its level (85 x 72 = 6,120
+#: blocks), and the f32 ulps of the largest prefix a weighted block may
+#: stray from the f64 oracle beyond rtol 1e-4. The card's scan gives each
+#: tile its prefix by a look-back that sums up to 32 predecessor tiles'
+#: f32 aggregates in an order set by timing, so the two prefixes of a
+#: block carry independent roundings (5.19 and 6.86 ulps in two runs on
+#: an H100)
+CONUS = (-125.0, 24.0, -66.0, 49.0)
+CURVE_ULPS = 16
+S8_PROFILE_REPS = 2
+
+
+def curve_oracle(x, y, w, level, window):
+    """f64 block grid of the rows (x, y) (weights ``w``, or counts when
+    None) binned by the top ``level`` bits of their z2 normalization."""
+    from geomesa_tpu_torch.curves.zorder import Z2SFC
+
+    sfc = Z2SFC()
+    ix = (sfc.lon.normalize(x) >> np.uint64(31 - level)).astype(np.int64)
+    iy = (sfc.lat.normalize(y) >> np.uint64(31 - level)).astype(np.int64)
+    ix0, iy0, ix1, iy1 = window
+    m = (ix >= ix0) & (ix <= ix1) & (iy >= iy0) & (iy <= iy1)
+    nx, ny = ix1 - ix0 + 1, iy1 - iy0 + 1
+    cell = (iy[m] - iy0) * nx + (ix[m] - ix0)
+    wt = None if w is None else np.asarray(w, np.float64)[m]
+    return np.bincount(cell, weights=wt, minlength=nx * ny).astype(np.float64).reshape(ny, nx)
+
+
+def curve_check(label, got, want, total=None):
+    """Unweighted (``total`` None): exact. Weighted: within rtol 1e-4 plus
+    CURVE_ULPS f32 ulps of the largest prefix (``total``, the matches'
+    weight). Returns the max abs error and it in ulps."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: grid {got.shape} vs oracle {want.shape}")
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if total is None:
+        if err:
+            raise AssertionError(f"{label}: {int((got != want).sum())} blocks differ "
+                                 "from the oracle")
+        return err, 0.0
+    ulp = float(np.spacing(np.float32(max(total, 1.0))))
+    if not np.allclose(got, want, rtol=1e-4, atol=CURVE_ULPS * ulp):
+        raise AssertionError(f"{label}: max abs err {err} beyond rtol 1e-4 + "
+                             f"{CURVE_ULPS} ulps ({ulp})")
+    return err, err / ulp
+
+
+def s8_days(i, days):
+    """The i-th member's ``days``-long DURING inside January 2020."""
+    d0 = 1 + (3 * i) % (31 - days)
+    lo, hi = f"2020-01-{d0:02d}T00:00:00", f"2020-01-{d0 + days:02d}T00:00:00"
+    return f"dtg DURING {lo}Z/{hi}Z", (lo, hi)
+
+
+def s8_boxes(rng, m, w, h, lon=(-124.0, -67.0), lat=(25.0, 48.0)):
+    """m boxes of w x h degrees placed by ``rng`` inside lon x lat."""
+    out = []
+    for _ in range(m):
+        x0 = round(float(rng.uniform(lon[0], lon[1] - w)), 4)
+        y0 = round(float(rng.uniform(lat[0], lat[1] - h)), 4)
+        out.append((x0, y0, x0 + w, y0 + h))
+    return out
+
+
+def s8_box_rows(data, box, tm):
+    x, y = data["geom__x"], data["geom__y"]
+    return tm & (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3])
+
+
+def s8_calls(torch, reps, calls, label, paths=None):
+    """Each call cold once and ``reps`` warm: {key: (result, cold ms, warm
+    p50 ms)}. ``paths``: {key: the plan whose ``exec_path`` the call
+    leaves}, logged after its warm runs."""
+    out = {}
+    for key, fn in calls.items():
+        res, cold = timed(torch, fn)
+        warm = [timed(torch, fn)[1] for _ in range(reps)]
+        out[key] = (res, cold * 1e3, float(np.median(warm)) * 1e3)
+        path = "" if key not in (paths or {}) else \
+            f", exec_path {paths[key]().__dict__.get('exec_path')}"
+        log(f"[{label}] {key}: cold {cold * 1e3:.3f} ms, warm p50 {out[key][2]:.3f} ms "
+            f"({reps} reps){path}")
+    return out
+
+
+def slice8(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
+    """The slice-8 phase on slice 1's store (see the module docstring, 10).
+    Returns this phase's launches of both kernels."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.kernels import density as kdensity
+
+    t_phase = time.perf_counter()
+    name, reps = "gdelt", args.reps
+    rng = np.random.default_rng(args.seed + 8)
+    x, y, w = data["geom__x"], data["geom__y"], data["weight"]
+    tm = time_mask(data)
+    ex = ds._executor(name)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    crop = (-90.0, 38.0, -89.0, 39.0)
+    mosaic = [(-92.0 + i, 36.0 + j, -91.0 + i, 37.0 + j) for j in range(4) for i in range(4)]
+    fb = [(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {s8_days(i, 3)[0]}", b,
+           s8_days(i, 3)[1]) for i, b in enumerate(s8_boxes(rng, 8, 5.0, 4.0))]
+    cb = [(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {s8_days(i, 10)[0]}", b,
+           s8_days(i, 10)[1]) for i, b in enumerate(s8_boxes(rng, 16, 4.0, 3.0))]
+    pb = [(f"INTERSECTS(geom, {wkt}) AND BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) "
+           f"AND {DURING}", b) for b in s8_boxes(rng, 5, 6.0, 5.0, (-98.0, -82.0), (31.0, 44.0))]
+    db = cb[:8]
+    # stats members slot only their interval: at 20M rows nearly every box
+    # bound collides with a row's f32 image, and a member with surviving
+    # band rows sends a stats batch back to the serial calls (None)
+    sb = [(f"weight >= 0.25 AND {s8_days(i, 3)[0]}", s8_days(i, 3)[1]) for i in range(8)]
+    fb_q, cb_q, pb_q, db_q, sb_q = ([m[0] for m in g] for g in (fb, cb, pb, db, sb))
+    stat = "Count();MinMax(weight)"
+    gw = dict(width=256, height=256)
+
+    kpip.launches = 0
+    kgrouped.launches = 0
+    calls = {
+        "curve_conus": lambda: ds.density_curve(name, DURING, level=9, bbox=CONUS),
+        "curve_conus_weighted": lambda: ds.density_curve(name, DURING, level=9, bbox=CONUS,
+                                                         weight="weight"),
+        "curve_crop": lambda: ds.density_curve(name, DURING, level=12, bbox=crop),
+        "curve_region": lambda: ds.density_curve(name, DURING, level=9, bbox=QUERY_BBOX,
+                                                 region=wkt),
+        "curve_batch_4x4": lambda: ds.density_curve_batch(name, DURING, level=12,
+                                                          bboxes=mosaic),
+        "curve_filter_batch_8": lambda: ds.density_curve_filter_batch(
+            name, fb_q, level=12, bboxes=[m[1] for m in fb]),
+        "count_batch_16": lambda: ds.count_batch(name, cb_q),
+        "count_batch_polygon_5": lambda: ds.count_batch(name, pb_q),
+        "density_batch_8": lambda: ds.density_batch(name, db_q, bboxes=[m[1] for m in db], **gw),
+        "density_batch_8_weighted": lambda: ds.density_batch(
+            name, db_q, bboxes=[m[1] for m in db], weight="weight", **gw),
+        "stats_batch_8": lambda: ds.stats_batch(name, stat, sb_q),
+        "stats_batch_8_boxes": lambda: ds.stats_batch(name, stat, db_q),
+        "stats_batch_descriptive": lambda: ds.stats_batch(name, "DescriptiveStats(weight)", db_q),
+    }
+    # the region= call plans the polygon folded into the query text
+    first = {"curve_region": Query(f"({DURING}) AND INTERSECTS(geom, {wkt})", index="z2"),
+             "curve_filter_batch_8": Query(fb_q[0], index="z2"),
+             "count_batch_16": cb_q[0], "count_batch_polygon_5": pb_q[0],
+             "density_batch_8": db_q[0], "density_batch_8_weighted": db_q[0],
+             "stats_batch_8": sb_q[0]}
+    res = s8_calls(torch, reps, calls, "slice8",
+                   {k: (lambda q=q: ds._plan(name, q)) for k, q in first.items()})
+    # the members one at a time, for the batch-against-serial comparison
+    serial_calls = {
+        "curve_batch_4x4": [lambda b=b: ds.density_curve(name, DURING, level=12, bbox=b)
+                            for b in mosaic],
+        "curve_filter_batch_8": [lambda m=m: ds.density_curve(name, m[0], level=12, bbox=m[1])
+                                 for m in fb],
+        "count_batch_16": [lambda q=q: ds.count(name, q) for q in cb_q],
+        "count_batch_polygon_5": [lambda q=q: ds.count(name, q) for q in pb_q],
+        "density_batch_8": [lambda m=m: ds.density(name, m[0], bbox=m[1], **gw) for m in db],
+        "density_batch_8_weighted": [
+            lambda m=m: ds.density(name, m[0], bbox=m[1], weight="weight", **gw) for m in db],
+        "stats_batch_8": [lambda q=q: ds.stats(name, stat, q) for q in sb_q],
+    }
+    serial = {}
+    for key, fns in serial_calls.items():
+        got = [s8_calls(torch, max(3, reps // 2), {i: fn}, "slice8-serial")[i]
+               for i, fn in enumerate(fns)]
+        serial[key] = ([g[0] for g in got], sum(g[2] for g in got))
+        log(f"[slice8] {key}: batch warm p50 {res[key][2]:.3f} ms against the members' "
+            f"serial warm p50s summed {serial[key][1]:.3f} ms ({len(fns)} members; "
+            f"ratio {res[key][2] / serial[key][1]:.4f})")
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[slice8] launches {launches}; peak device memory {peak} B above the "
+        f"{base} B resident before the phase")
+    if launches["pip"] <= 0:
+        raise AssertionError("pip never launched in slice 8's phase")
+
+    # batch members against their serial calls; a None must have the
+    # reference's reason
+    if res["stats_batch_descriptive"][0] is not None:
+        raise AssertionError("stats_batch with DescriptiveStats must give None")
+
+    def band_rows(queries, agg_cols):
+        plans, spec = ds._batch_plans(name, queries)
+        return ex._batch_band_rows(plans, ex._batch_setups(plans, spec, agg_cols))
+
+    banded = band_rows(db_q, ["weight"])
+    if (res["stats_batch_8_boxes"][0] is None) != banded:
+        raise AssertionError("stats_batch_8_boxes: None exactly when a member's scan holds "
+                             f"surviving f32 band rows (band rows: {banded})")
+    log(f"[slice8] stats_batch_8_boxes: {'None: a member holds surviving band rows, as the '
+        'reference' if banded else 'served'}")
+    for key in ("count_batch_16", "count_batch_polygon_5"):
+        if res[key][0] != serial[key][0]:
+            raise AssertionError(f"{key}: {res[key][0]} != serial {serial[key][0]}")
+    if res["curve_filter_batch_8"][0] is None:
+        if not band_rows([Query(q, index="z2") for q in fb_q], []):
+            raise AssertionError("curve_filter_batch_8 gave None without band rows")
+        log("[slice8] curve_filter_batch_8: None, a member holds surviving band rows, as "
+            "the reference")
+        res["curve_filter_batch_8"] = (serial["curve_filter_batch_8"][0],) + \
+            res["curve_filter_batch_8"][1:]
+    for key in ("curve_batch_4x4", "curve_filter_batch_8"):
+        for i, ((g, s), (sg, ss)) in enumerate(zip(res[key][0], serial[key][0])):
+            if s != ss or not np.array_equal(g, sg):
+                raise AssertionError(f"{key} member {i} differs from its serial call")
+    for i, (g, sg) in enumerate(zip(res["density_batch_8"][0], serial["density_batch_8"][0])):
+        if not np.array_equal(g, sg):
+            raise AssertionError(f"density_batch_8 member {i} differs from its serial call")
+    for i, (g, sg) in enumerate(zip(res["density_batch_8_weighted"][0],
+                                    serial["density_batch_8_weighted"][0])):
+        if not np.allclose(g, sg, rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"density_batch_8_weighted member {i} outside rtol 1e-4")
+    if [s.to_json() for s in res["stats_batch_8"][0]] != \
+            [s.to_json() for s in serial["stats_batch_8"][0]]:
+        raise AssertionError("stats_batch_8 differs from its serial calls")
+
+    # serial results against NumPy f64 oracles
+    xt, yt, wt = x[tm], y[tm], w[tm]
+    errs = {}
+    window = ds._snap_blocks(CONUS, 9)[0]
+    errs["curve_conus"] = curve_check("curve_conus", res["curve_conus"][0][0],
+                                      curve_oracle(xt, yt, None, 9, window))
+    total = float(wt.astype(np.float64).sum())
+    errs["curve_conus_weighted"] = curve_check(
+        "curve_conus_weighted", res["curve_conus_weighted"][0][0],
+        curve_oracle(xt, yt, wt, 9, window), total)
+    errs["curve_crop"] = curve_check("curve_crop", res["curve_crop"][0][0],
+                                     curve_oracle(xt, yt, None, 12, ds._snap_blocks(crop, 12)[0]))
+    inside = polygon_rows(data, tm, packed, n_edges)
+    errs["curve_region"] = curve_check(
+        "curve_region", res["curve_region"][0][0],
+        curve_oracle(x[inside], y[inside], None, 9, ds._snap_blocks(QUERY_BBOX, 9)[0]))
+    for i, b in enumerate(mosaic):
+        curve_check(f"curve_batch_4x4[{i}]", serial["curve_batch_4x4"][0][i][0],
+                    curve_oracle(xt, yt, None, 12, ds._snap_blocks(b, 12)[0]))
+    for i, (_, b, (lo, hi)) in enumerate(fb):
+        r = s8_box_rows(data, b, time_mask(data, lo, hi))
+        curve_check(f"curve_filter_batch_8[{i}]", serial["curve_filter_batch_8"][0][i][0],
+                    curve_oracle(x[r], y[r], None, 12, ds._snap_blocks(b, 12)[0]))
+    for i, (_, b, (lo, hi)) in enumerate(cb):
+        want = int(s8_box_rows(data, b, time_mask(data, lo, hi)).sum())
+        if serial["count_batch_16"][0][i] != want:
+            raise AssertionError(f"count_batch_16 member {i}: {serial['count_batch_16'][0][i]} "
+                                 f"!= oracle {want}")
+    for i, (_, b) in enumerate(pb):
+        want = int(s8_box_rows(data, b, inside).sum())
+        if serial["count_batch_polygon_5"][0][i] != want:
+            raise AssertionError(f"count_batch_polygon_5 member {i} != f32 oracle {want}")
+    for i, (_, b, (lo, hi)) in enumerate(db):
+        r = time_mask(data, lo, hi)
+        g_u, g_w, _, n_m = density_oracles(data, r, bbox=b, **gw)
+        if not np.array_equal(serial["density_batch_8"][0][i].astype(np.float64), g_u):
+            raise AssertionError(f"density member {i}: unweighted grid differs from the oracle")
+        if not np.allclose(serial["density_batch_8_weighted"][0][i], g_w, rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"density member {i}: weighted grid outside rtol 1e-4")
+    for i, (_, (lo, hi)) in enumerate(sb):
+        got = serial["stats_batch_8"][0][i].stats
+        wm = w[time_mask(data, lo, hi) & (w >= np.float32(0.25))]
+        want = [len(wm), {"min": float(wm.min()), "max": float(wm.max()),
+                          "cardinality": len(wm)}]
+        if [got[0].value(), got[1].value()] != want:
+            raise AssertionError(f"stats member {i}: {[s.value() for s in got]} != {want}")
+    log(f"[check] slice8: every batch member equals its serial call (counts, unweighted "
+        f"grids, curves and sketches exact; weighted grids within rtol 1e-4); the serial "
+        f"results equal their NumPy f64 oracles (curve max abs err, in f32 ulps of the "
+        f"largest prefix: {errs}); DescriptiveStats batch gave None")
+
+    # the +0.0 of rows a batch member's mask drops: the reference's scatter
+    # (into the rows' clamped cells) against the port's spare cells
+    plans, spec = ds._batch_plans(name, db_q)
+    agg = ex._density_cols("weight")
+    bs = ex._batch_setups(plans, spec, agg)
+    masks = ex._batch_device_agg(plans, spec, bs, lambda m, cols, mm: mm, agg)
+    cols = bs["table"].device_columns(agg)
+    mm = masks[0]
+    g = torch.from_numpy(kdensity.grid_params(db[0][1])).cuda()
+    W = H = 256
+
+    def spare():
+        return kdensity.density_grid_at(cols["geom__x"], cols["geom__y"], mm, g[0], g[1],
+                                        g[2], g[3], W, H, cols["weight"])
+
+    def clamped():
+        px, py = kdensity.pixel_coords(cols["geom__x"].reshape(-1),
+                                       cols["geom__y"].reshape(-1), db[0][1], W, H)
+        fm = mm.reshape(-1)
+        wv = torch.where(fm, cols["weight"].reshape(-1), torch.zeros((), device=fm.device))
+        grid = torch.zeros(W * H, dtype=torch.float32, device=fm.device)
+        grid.index_add_(0, py.to(torch.int64) * W + px, wv)
+        return grid.reshape(H, W)
+
+    if not torch.allclose(spare(), clamped(), rtol=1e-4, atol=1e-3):
+        raise AssertionError("the spare-cell scatter disagrees with the clamped one")
+    sp_ms, cl_ms, turns = in_turns(torch, spare, clamped, 10, 10)
+    log(f"[slice8] one member's weighted 256x256 scatter over {mm.numel()} padded rows "
+        f"({int(mm.sum())} masked in): spare cells {sp_ms:.6f} ms, the reference's clamped "
+        f"cells {cl_ms:.6f} ms (in turns {turns})")
+    del masks, mm, cols
+
+    # pip.cu against its plain version on this phase's operands: the
+    # region= curve's z2 plan and the polygon-residual batch's table
+    poly_edges = torch.from_numpy(packed).cuda()
+    r_plan = ds._plan(name, first["curve_region"])
+    p_plans, _ = ds._batch_plans(name, pb_q)
+    pip_rec = []
+    for label, table in (("region= curve (z2)", ex._table(r_plan)),
+                         (f"polygon-residual batch ({p_plans[0].index_name})",
+                          ex._table(p_plans[0]))):
+        c = table.device_columns(["geom__x", "geom__y"])
+        px, py = c["geom__x"], c["geom__y"]
+        bad = int((kpip.pip_mask(px, py, poly_edges, n_edges)
+                   != kpip.pip_mask_plain(px, py, poly_edges, n_edges)).sum())
+        if bad:
+            raise AssertionError(f"pip kernel disagrees with its plain version on {bad} points "
+                                 f"of the {label}")
+        k_ms, p_ms, _ = in_turns(torch, lambda: kpip.pip_mask(px, py, poly_edges, n_edges),
+                                 lambda: kpip.pip_mask_plain(px, py, poly_edges, n_edges), 10, 2)
+        nb, no, spans = pip_work(kpip, py, packed, n_edges)
+        b_ms, by = bound(nb, no)
+        pip_rec.append((label, tuple(px.shape), k_ms, p_ms, b_ms, by, spans))
+        log(f"[kernel] slice8 pip on the {label}'s {tuple(px.shape)} points x {n_edges} "
+            f"edges: 0 mismatches; {k_ms:.6f} ms (plain {p_ms:.6f} ms, bound {b_ms:.6f} ms by "
+            f"{by}; {spans} crossing tests)")
+
+    s8_profile(torch, {k: fn for k, fn in calls.items() if res[k][0] is not None})
+    log(f"[slice8] the flat phase took {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+def s8_profile(torch, calls):
+    """Busy time, idle share and top device work of each call's warm runs."""
+    for key, fn in calls.items():
+        trace = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke" / f"s8_{key}.json"
+        wall, busy, top, _ = profile_warm(torch, fn, S8_PROFILE_REPS, trace)
+        trace.unlink(missing_ok=True)
+        share = "not measured" if busy is None else f"{1 - busy / wall:.4f}"
+        log(f"[profile] slice8 {key}: wall {wall:.4f} ms/call, device busy "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms/call'}, idle share "
+            f"{share}, top device work (ms/call) {top}")
+
+
+def slice8_partitioned(args, torch, ds, data, kpip, kgrouped):
+    """Slice 8's calls on slice 5's partitioned store: a count batch over
+    B's two partitions, the level-9 curve of B and a 4-crop curve batch.
+    Returns their launches of both kernels."""
+    from geomesa_tpu_torch import Query
+
+    t0 = time.perf_counter()
+    name, reps = "gdelt5", args.reps
+    rng = np.random.default_rng(args.seed + 85)
+    x, y = data["geom__x"], data["geom__y"]
+    tm = time_mask(data)
+    sub = np.flatnonzero(tm)
+    xs, ys = x[sub], y[sub]
+    members = [(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {DURING}", b)
+               for b in s8_boxes(rng, 8, 4.0, 3.0, (-100.0, -80.0), (30.0, 45.0))]
+    crops = [(-95.0, 33.0, -94.0, 34.0), (-90.0, 40.0, -89.0, 41.0),
+             (-84.0, 31.0, -83.0, 32.0), (-99.5, 44.0, -98.5, 45.0)]
+    q_b = f"{BOX} AND {DURING}"
+    kpip.launches = 0
+    kgrouped.launches = 0
+    calls = {
+        "part_count_batch_8": lambda: ds.count_batch(name, [m[0] for m in members]),
+        "part_curve_b": lambda: ds.density_curve(name, q_b, level=9, bbox=QUERY_BBOX),
+        "part_curve_batch_4": lambda: ds.density_curve_batch(name, q_b, level=12, bboxes=crops),
+    }
+    res = s8_calls(torch, reps, calls, "slice8",
+                   {"part_count_batch_8": lambda: ds._plan(name, members[0][0]),
+                    "part_curve_b": lambda: ds._plan(name, Query(q_b, index="z2"))})
+    # B's f32 band rows send its curves to the host (as the reference's):
+    # a few warm runs of each member suffice there
+    serial = {
+        "part_count_batch_8": [s8_calls(torch, max(3, reps // 2),
+                                        {0: lambda q=m[0]: ds.count(name, q)},
+                                        "slice8-serial")[0] for m in members],
+        "part_curve_batch_4": [s8_calls(torch, max(3, reps // 3), {0: lambda b=b: (
+            ds.density_curve(name, q_b, level=12, bbox=b))}, "slice8-serial")[0]
+            for b in crops],
+    }
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    for key, got in serial.items():
+        log(f"[slice8] {key}: batch warm p50 {res[key][2]:.3f} ms against the members' "
+            f"serial warm p50s summed {sum(g[2] for g in got):.3f} ms")
+    if res["part_count_batch_8"][0] != [g[0] for g in serial["part_count_batch_8"]]:
+        raise AssertionError("part_count_batch_8 differs from its serial calls")
+    for i, ((g, s), got) in enumerate(zip(res["part_curve_batch_4"][0],
+                                          serial["part_curve_batch_4"])):
+        if s != got[0][1] or not np.array_equal(g, got[0][0]):
+            raise AssertionError(f"part_curve_batch_4 crop {i} differs from its serial call")
+    for i, (_, b) in enumerate(members):
+        want = int(((xs >= b[0]) & (xs <= b[2]) & (ys >= b[1]) & (ys <= b[3])).sum())
+        if res["part_count_batch_8"][0][i] != want:
+            raise AssertionError(f"part_count_batch_8 member {i} != oracle {want}")
+    bx0, by0, bx1, by1 = QUERY_BBOX
+    inb = (xs >= bx0) & (xs <= bx1) & (ys >= by0) & (ys <= by1)
+    curve_check("part_curve_b", res["part_curve_b"][0][0],
+                curve_oracle(xs[inb], ys[inb], None, 9, ds._snap_blocks(QUERY_BBOX, 9)[0]))
+    for i, b in enumerate(crops):
+        curve_check(f"part_curve_batch_4[{i}]", res["part_curve_batch_4"][0][i][0],
+                    curve_oracle(xs[inb], ys[inb], None, 12, ds._snap_blocks(b, 12)[0]))
+    s8_profile(torch, calls)
+    log(f"[check] slice8 partitioned: batches equal their serial calls, counts and curves "
+        f"equal their NumPy oracles; launches {launches}; took "
+        f"{time.perf_counter() - t0:.3f} s")
     return launches
 
 
@@ -2448,6 +2886,9 @@ def main() -> int:
         f"the f64-pixel oracle differs from the reference's f32 pixel mapping: "
         f"{int((g_64 != g_u).sum())}")
 
+    # -- 10. slice 8: density_curve and the query-axis batches ---------------
+    s8_launches = slice8(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -2466,8 +2907,11 @@ def main() -> int:
     kernels += slice7(args, torch, kpip, kgrouped)
     torch.cuda.empty_cache()
 
-    # -- 8. slice 5, on a partitioned store of its own -----------------------
-    slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
+    # calls run on it at the end) ---------------------------------------------
+    _, s8_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    for k in kernels:
+        k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

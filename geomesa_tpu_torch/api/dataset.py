@@ -10,7 +10,12 @@ with the device top-k, sampling, a forced index), ``stats`` and its
 helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
 ``top_k``), ``knn``, polygon ``region=`` aggregates, and the joins
 (``join`` by attribute or spatial predicate, ``join_spatial``,
-``join_count``, ``explain_join``, ``spatial_join``). A schema with
+``join_count``, ``explain_join``, ``spatial_join``), the block-aligned
+``density_curve`` and the query-axis batches (``density_curve_batch``,
+``density_curve_filter_batch``, ``count_batch``, ``density_batch``,
+``stats_batch``: M distinct viewports of one query shape in one call,
+each member equal to its serial call, or None when they cannot share
+it). A schema with
 ``geomesa.partition='time'`` gets a time-partitioned, out-of-core store
 and serves the same calls partition at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
 Extent-geometry columns take WKT strings or geometry objects on insert
@@ -24,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,6 +42,7 @@ from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
+from geomesa_tpu_torch.planning.batch import build_spec
 from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.planning.partitioned_exec import PartitionedExecutor
 from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
@@ -50,7 +57,6 @@ from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
 
 #: ROADMAP items the port refuses by name
 _HOST_LAYERS = "ROADMAP Queue 1, host layers"
-_BATCHING = "ROADMAP Queue 1, query-axis batching"
 
 
 @dataclass
@@ -285,6 +291,11 @@ class GeoDataset:
             if len(self._plans) >= 256:
                 self._plans.clear()
             plan = self._plans[key] = plan_query(st, q.ecql, q.hints())
+            if isinstance(q.ecql, str):
+                # a plan of ECQL text can be reproduced from it: the
+                # reference's ``cache_token``, which a query-axis batch
+                # requires of every member
+                plan.__dict__["cache_token"] = q.ecql
         return plan
 
     def _fresh_plan(self, name: str, query) -> QueryPlan:
@@ -339,17 +350,191 @@ class GeoDataset:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
         return self._executor(name).density(plan, tuple(bbox), width, height, weight)
 
-    def density_curve(self, name: str, query="INCLUDE", *args, **kw):
-        raise NotImplementedError("density_curve: ROADMAP Queue 1, density_curve")
+    # -- curve-aligned density ------------------------------------------------
+    def density_curve(self, name: str, query="INCLUDE", level: int = 9, bbox=None,
+                      weight: Optional[str] = None, region=None):
+        """Exact density over the Morton-block grid at ``level`` (a global
+        2^level x 2^level partition of lon / lat, which the EPSG:4326 tile
+        pyramid aligns with): ``(grid, snapped_bbox)``, the grid covering
+        the blocks that intersect ``bbox`` (default: the data's bounds),
+        row 0 at the south edge. Per-block counts are prefix-sum
+        differences over the z2-sorted scan (the z2 index is forced), with
+        no scatter. ``region``: optional polygon clipping the aggregate."""
+        if not 0 < level <= 15:
+            raise ValueError("level must be in 1..15 (grid = 4^level blocks)")
+        q = dataclasses.replace(
+            self._as_query(self._with_region(name, query, region)), index="z2")
+        plan = self._fresh_plan(name, q)
+        if bbox is None:
+            bbox = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
+        window, snapped = self._snap_blocks(bbox, level)
+        return self._executor(name).density_curve(plan, level, window, weight), snapped
 
-    def count_batch(self, name: str, queries, *args, **kw):
-        raise NotImplementedError(f"count_batch: {_BATCHING}")
+    @staticmethod
+    def _snap_blocks(bbox, level: int):
+        """Snap a bbox outward to the level-``level`` block grid:
+        ``((ix0, iy0, ix1, iy1), snapped_bbox)``. Floor on both edges: an
+        edge exactly on a block boundary includes the block containing it,
+        as the inclusive BBOX filter does."""
+        n_blocks = 1 << level
+        fx = lambda v: (v + 180.0) / 360.0 * n_blocks  # noqa: E731
+        fy = lambda v: (v + 90.0) / 180.0 * n_blocks  # noqa: E731
+        ix0 = int(np.clip(np.floor(fx(bbox[0])), 0, n_blocks - 1))
+        ix1 = int(np.clip(np.floor(fx(bbox[2])), ix0, n_blocks - 1))
+        iy0 = int(np.clip(np.floor(fy(bbox[1])), 0, n_blocks - 1))
+        iy1 = int(np.clip(np.floor(fy(bbox[3])), iy0, n_blocks - 1))
+        snapped = (
+            ix0 * 360.0 / n_blocks - 180.0,
+            iy0 * 180.0 / n_blocks - 90.0,
+            (ix1 + 1) * 360.0 / n_blocks - 180.0,
+            (iy1 + 1) * 180.0 / n_blocks - 90.0,
+        )
+        return (ix0, iy0, ix1, iy1), snapped
 
-    def density_batch(self, name: str, queries, *args, **kw):
-        raise NotImplementedError(f"density_batch: {_BATCHING}")
+    def _curve_windows(self, name: str, bboxes, level: int):
+        """(block windows, snapped bboxes) of ``bboxes``; a None bbox takes
+        the data's bounds."""
+        default = None
+        windows, snaps = [], []
+        for bb in bboxes:
+            if bb is None:
+                if default is None:
+                    default = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
+                bb = default
+            w, snapped = self._snap_blocks(bb, level)
+            windows.append(w)
+            snaps.append(snapped)
+        return windows, snaps
 
-    def stats_batch(self, name: str, stat_spec: str, queries, *args, **kw):
-        raise NotImplementedError(f"stats_batch: {_BATCHING}")
+    @staticmethod
+    def _check_members(members, n: int, what: str = "queries") -> None:
+        """``members`` (per-member metadata of the reference's audit, which
+        the port does not keep) must align with the batch."""
+        if members is not None and len(members) != n:
+            raise ValueError(f"members must align with {what}")
+
+    def density_curve_batch(self, name: str, query="INCLUDE", level: int = 9,
+                            bboxes=(), weight: Optional[str] = None,
+                            members: Optional[List[Dict[str, Any]]] = None):
+        """N block-aligned crops of ONE filter in one scan: the mask and the
+        prefix sum are shared, each crop costs its gathers, and each equals
+        :meth:`density_curve` of its bbox. ``[(grid, snapped_bbox), ...]``
+        in ``bboxes`` order (a None bbox takes the data's bounds)."""
+        if not 0 < level <= 15:
+            raise ValueError("level must be in 1..15 (grid = 4^level blocks)")
+        bboxes = list(bboxes)
+        self._check_members(members, len(bboxes), "bboxes")
+        plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
+        windows, snaps = self._curve_windows(name, bboxes, level)
+        grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
+        return list(zip(grids, snaps))
+
+    def density_curve_filter_batch(self, name: str, queries, level: int = 9, bboxes=None,
+                                   weight: Optional[str] = None,
+                                   members: Optional[List[Dict[str, Any]]] = None):
+        """M block-aligned crops with DISTINCT filters (each member its own
+        viewport literals and crop window) in one batched call, or None
+        when the members do not share a batchable structural template.
+        ``[(grid, snapped_bbox), ...]`` in member order, each grid equal to
+        its serial :meth:`density_curve`."""
+        if not 0 < level <= 15:
+            raise ValueError("level must be in 1..15 (grid = 4^level blocks)")
+        if not queries:
+            return []
+        self._check_members(members, len(queries))
+        bboxes = list(bboxes) if bboxes is not None else [None] * len(queries)
+        if len(bboxes) != len(queries):
+            raise ValueError("bboxes must align with queries")
+        qs = [dataclasses.replace(self._as_query(q), index="z2") for q in queries]
+        plans, spec = self._batch_plans(name, qs)
+        if spec is None:
+            return None
+        windows, snaps = self._curve_windows(name, bboxes, level)
+        grids = self._executor(name).density_curve_filter_batch(
+            plans, spec, level, windows, weight)
+        return None if grids is None else list(zip(grids, snaps))
+
+    # -- query-axis batches: M distinct viewports of one structural query
+    # shape in one batched call. Each returns None when the members cannot
+    # share it (the caller runs them one at a time), so batching changes
+    # latency, never results. -------------------------------------------------
+    def _batch_plans(self, name: str, queries):
+        """Every member's plan and the batch spec (None when the members do
+        not share a batchable structural template). Members near an index
+        cost boundary may plan onto different tables; the minority is
+        re-planned onto the majority's index (any candidate index gives the
+        same answers), and a member that index cannot serve leaves the spec
+        None."""
+        qs = [self._as_query(q) for q in queries]
+        plans = [self._fresh_plan(name, q) for q in qs]
+        names = [p.index_name for p in plans]
+        if len(set(names)) > 1:
+            maj = Counter(names).most_common(1)[0][0]
+            for i, (q, p) in enumerate(zip(qs, plans)):
+                if p.index_name != maj:
+                    try:
+                        plans[i] = self._fresh_plan(name, dataclasses.replace(q, index=maj))
+                    except ValueError:
+                        return plans, None
+        return plans, build_spec(self._store(name), plans)
+
+    def count_batch(self, name: str, queries, exact: bool = True,
+                    members: Optional[List[Dict[str, Any]]] = None):
+        """M distinct exact counts in one batched call, or None when the
+        members do not share a structural template (and for
+        ``exact=False``: estimates never scan). Each member's value equals
+        its serial :meth:`count`."""
+        if not queries:
+            return []
+        if not exact:
+            return None
+        self._check_members(members, len(queries))
+        plans, spec = self._batch_plans(name, queries)
+        if spec is None:
+            return None
+        return self._executor(name).count_batch(plans, spec)
+
+    def density_batch(self, name: str, queries, bboxes=None, width: int = 256,
+                      height: int = 256, weight: Optional[str] = None,
+                      members: Optional[List[Dict[str, Any]]] = None):
+        """M distinct heatmaps, each over its own query and grid bbox, in one
+        batched call, or None when ineligible. ``bboxes`` aligns with
+        ``queries`` (a None entry takes the data's bounds, as
+        :meth:`density`)."""
+        if not queries:
+            return []
+        self._check_members(members, len(queries))
+        bboxes = list(bboxes) if bboxes is not None else [None] * len(queries)
+        if len(bboxes) != len(queries):
+            raise ValueError("bboxes must align with queries")
+        plans, spec = self._batch_plans(name, queries)
+        if spec is None:
+            return None
+        default = None
+        boxes = []
+        for bb in bboxes:
+            if bb is None:
+                if default is None:
+                    default = self.bounds(name) or (-180, -90, 180, 90)
+                bb = default
+            boxes.append(tuple(bb))
+        return self._executor(name).density_batch(plans, spec, boxes, width, height, weight)
+
+    def stats_batch(self, name: str, stat_spec: str, queries,
+                    members: Optional[List[Dict[str, Any]]] = None):
+        """M distinct stats scans of one spec in one batched call, or None
+        when ineligible (descriptive leaves, a leaf without a device
+        reduction, surviving f32 band rows, or no shared template). The
+        members' Stat objects are parsed fresh here, so a batch abandoned
+        midway never leaks into a caller's serial rerun."""
+        if not queries:
+            return []
+        self._check_members(members, len(queries))
+        stats = [parse_stat(stat_spec) for _ in queries]
+        plans, spec = self._batch_plans(name, queries)
+        if spec is None:
+            return None
+        return self._executor(name).stats_batch(plans, spec, stats)
 
     def query(self, name: str, query="INCLUDE") -> FeatureCollection:
         """Matching features. A sorted query with ``0 < max_features <=``

@@ -24,6 +24,7 @@ from geomesa_tpu_torch.index.keyspace import (
     MAX_SHARD_WINDOWS, AttributeKeySpace, KeyPlan, KeySpace, keyspaces_for_schema,
 )
 from geomesa_tpu_torch.index.staging import Staged, Uploader
+from geomesa_tpu_torch.kernels.registry import bucket_count
 from geomesa_tpu_torch.schema.columns import (
     ColumnBatch, DictionaryEncoder, encode_batch, schema_null_fills,
 )
@@ -34,18 +35,8 @@ from geomesa_tpu_torch.stats import sketches as sk
 #: geomesa.compact.shard.bucket), so small inserts keep one shape
 SHARD_BUCKET = 8192
 
-#: floor of the padded per-shard window count (geomesa.compact.bucket.floor)
-WINDOW_BUCKET_FLOOR = 8
-
 #: column dtype kinds that never reach the device
 _HOST_ONLY_KINDS = ("O", "U", "S")
-
-
-def bucket_count(n: int, floor: int = WINDOW_BUCKET_FLOOR) -> int:
-    """Pad a per-shard window count to its shape bucket: the next power of
-    two, floored at ``floor``."""
-    n = 1 if n <= 1 else 1 << (n - 1).bit_length()
-    return max(n, floor)
 
 
 def device_view(a: np.ndarray) -> Optional[np.ndarray]:

@@ -8,20 +8,36 @@ Cells follow the RenderingGrid convention: row 0 = ymin edge.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
+#: cells past the grid that take the +0.0 of rows the mask drops (a power
+#: of two), spread so their atomic adds on a card do not contend
+SPARE_CELLS = 1024
 
-def grid_params(bbox) -> Tuple[float, float, float, float]:
-    """``(x0, y0, dx, dy)``: origin and span of a density bbox, the spans
-    taken in host f64 and every value then rounded to f32 — exactly the
-    scalars the JAX kernels close over."""
+
+def grid_params(bbox) -> np.ndarray:
+    """``[x0, y0, dx, dy]`` f32: origin and span of a density bbox, the
+    spans taken in host f64 and every value then rounded to f32 — exactly
+    the scalars the JAX kernels close over. A query-axis batch stacks one
+    row per member and passes each row's values as 0-d device tensors."""
     xmin, ymin, xmax, ymax = (float(v) for v in bbox)
-    return tuple(
-        float(np.float32(v)) for v in (xmin, ymin, xmax - xmin, ymax - ymin)
-    )
+    return np.asarray([xmin, ymin, xmax - xmin, ymax - ymin], np.float32)
+
+
+def _pixels_at(x: torch.Tensor, y: torch.Tensor, x0, y0, dx, dy, width: int,
+               height: int):
+    """int32 (px, py) cells against 0-d f32 origin / span tensors."""
+    w = torch.tensor(float(width), dtype=torch.float32, device=x.device)
+    h = torch.tensor(float(height), dtype=torch.float32, device=x.device)
+    px = ((x - x0) / dx * w).to(torch.int32).clamp_(0, width - 1)
+    py = ((y - y0) / dy * h).to(torch.int32).clamp_(0, height - 1)
+    return px, py
+
+
+def _param_tensors(bbox, device):
+    return [torch.tensor(float(v), dtype=torch.float32, device=device)
+            for v in grid_params(bbox)]
 
 
 def pixel_coords(x: torch.Tensor, y: torch.Tensor, bbox, width: int,
@@ -30,30 +46,47 @@ def pixel_coords(x: torch.Tensor, y: torch.Tensor, bbox, width: int,
     ``clip(int32((x - x0) / dx * width), 0, width - 1)``. The scalars ride
     as 0-d f32 tensors on the points' device so every step is an IEEE f32
     operation (no reciprocal shortcut for a host scalar divisor)."""
-    x0, y0, dx, dy = (
-        torch.tensor(v, dtype=torch.float32, device=x.device)
-        for v in grid_params(bbox)
-    )
-    w = torch.tensor(float(width), dtype=torch.float32, device=x.device)
-    h = torch.tensor(float(height), dtype=torch.float32, device=x.device)
-    px = ((x - x0) / dx * w).to(torch.int32).clamp_(0, width - 1)
-    py = ((y - y0) / dy * h).to(torch.int32).clamp_(0, height - 1)
-    return px, py
+    return _pixels_at(x, y, *_param_tensors(bbox, x.device), width, height)
+
+
+def density_grid_at(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                    x0: torch.Tensor, y0: torch.Tensor, dx: torch.Tensor,
+                    dy: torch.Tensor, width: int, height: int,
+                    weight: torch.Tensor = None) -> torch.Tensor:
+    """Masked 2-D histogram against an origin / span given as 0-d f32
+    tensors on the points' device (a batch member's row of its ``[Mp, 4]``
+    parameter tensor, or :func:`density_grid`'s own): points of any layout
+    -> (height, width) f32.
+
+    The reference scatters every row, adding +0.0 for a row the mask
+    drops, into the cell its clamped pixel names, so the rows around a
+    small viewport pile onto its edge and corner cells. Here a dropped row
+    adds its +0.0 to one of :data:`SPARE_CELLS` cells past the grid instead
+    (chosen by row number), which the result slices away: every grid cell
+    receives the same non-zero additions in the same order, and no device
+    sync is needed to leave the dropped rows out."""
+    fm = mask.reshape(-1)
+    px, py = _pixels_at(x.reshape(-1), y.reshape(-1), x0, y0, dx, dy, width,
+                        height)
+    cells = height * width
+    spare = cells + (torch.arange(fm.numel(), device=x.device) & (SPARE_CELLS - 1))
+    idx = torch.where(fm, py.to(torch.int64) * width + px, spare)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    w = fm.to(torch.float32) if weight is None else torch.where(
+        fm, weight.reshape(-1).to(torch.float32), zero)
+    grid = torch.zeros(cells + SPARE_CELLS, dtype=torch.float32, device=x.device)
+    grid.index_add_(0, idx, w)
+    return grid[:cells].reshape(height, width)
 
 
 def density_grid(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, bbox,
                  width: int, height: int,
                  weight: torch.Tensor = None) -> torch.Tensor:
-    """Masked 2-D histogram: points of any layout -> (height, width) f32."""
-    px, py = pixel_coords(x.reshape(-1), y.reshape(-1), bbox, width, height)
-    fm = mask.reshape(-1)
-    w = fm.to(torch.float32) if weight is None else torch.where(
-        fm, weight.reshape(-1).to(torch.float32),
-        torch.zeros((), dtype=torch.float32, device=x.device),
-    )
-    grid = torch.zeros(height * width, dtype=torch.float32, device=x.device)
-    grid.index_add_(0, (py.to(torch.int64) * width + px), w)
-    return grid.reshape(height, width)
+    """Masked 2-D histogram over a bbox: :func:`density_grid_at` with the
+    bbox's f32 parameters, so serial and batched grids share one pixel
+    mapping."""
+    return density_grid_at(x, y, mask, *_param_tensors(bbox, x.device),
+                           width, height, weight)
 
 
 def density_grid_np(x: np.ndarray, y: np.ndarray, mask: np.ndarray, bbox,

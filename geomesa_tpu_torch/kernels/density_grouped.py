@@ -197,7 +197,7 @@ def density_grouped(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     if nseg != ntiles * CLUSTER or sched["ntx"] != -(-width // TILE):
         raise ValueError(f"density_grouped: {nseg} segments do not give each of "
                          f"the {width}x{height} grid's {ntiles} tiles {CLUSTER}")
-    x0, y0, dx, dy = grid_params(bbox)
+    x0, y0, dx, dy = (float(v) for v in grid_params(bbox))
     lib = _build.load("density_grouped", _bind)
     grid = torch.empty(height * width, dtype=torch.float32, device=x.device)
     rc = lib.gm_density_grouped_launch(

@@ -37,6 +37,15 @@ def window_mask(starts: torch.Tensor, ends: torch.Tensor, counts: torch.Tensor,
     return wm & (iota[None, :] < counts[:, None])
 
 
+def window_mask_batch(starts: torch.Tensor, ends: torch.Tensor,
+                      counts: torch.Tensor, L: int, member: int) -> torch.Tensor:
+    """One member's [S, L] mask out of query-axis-stacked [M, S, K] window
+    tensors: :func:`window_mask` of that member's windows, so the member's
+    mask is its serial scan's. Members padded to the batch bucket carry
+    (0, 0) windows and mask to False everywhere."""
+    return window_mask(starts[member], ends[member], counts, L)
+
+
 def sampling_mask(mask: torch.Tensor, n: int) -> torch.Tensor:
     """Keep the 1st, (n+1)th, ... matched row in row order."""
     seq = torch.cumsum(mask.reshape(-1).to(torch.int32), 0) - 1

@@ -44,6 +44,16 @@ def device_supported(stat: sk.Stat, host_only_cols) -> bool:
     return True
 
 
+def batch_supported(stat: sk.Stat) -> bool:
+    """May this stat tree ride a query-axis batch? Every device kind but
+    descriptive stats: count, min / max, histogram, enumeration and top-k
+    reduce in exact integer (or order-free min / max) arithmetic, so a
+    member's partial equals its serial scan's whatever the layout, while
+    descriptive sums are f32 and depend on it (a serial scan may compact)."""
+    return all(leaf.kind in DEVICE_KINDS - {"descriptive"}
+               for leaf in leaf_stats(stat))
+
+
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     """A host scalar as a 0-d f32 tensor on ``like``'s device, rounded as
     the reference's weakly typed scalar: the op runs in IEEE f32."""

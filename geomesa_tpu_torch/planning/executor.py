@@ -32,7 +32,13 @@ candidate rows of a sorted, limited query on the device (argmin order for
 k <= 32, else a 48-step threshold search); ``stats`` reduces the device
 sketches in the scan (``kernels/stats_scan.py``) and observes the others
 on gathered rows; ``knn`` ranks f32 great-circle distances
-(``kernels/knn.py``).
+(``kernels/knn.py``). ``density_curve`` counts (or sums a weight over)
+Morton blocks by two gathers from one prefix sum over the padded layout,
+and a band-bearing curve runs on the host, as the reference's. The
+query-axis batches (``count_batch``, ``density_batch``, ``stats_batch``,
+``density_curve_filter_batch``) serve M members of one structural
+template over the padded layout, the compiled residual once and each
+member's window mask, literal compares and aggregate after it.
 
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch import config
+from geomesa_tpu_torch.curves.zorder import interleave2
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
 from geomesa_tpu_torch.kernels import density_grouped as kgrouped
@@ -60,6 +67,7 @@ from geomesa_tpu_torch.kernels import knn as kknn
 from geomesa_tpu_torch.kernels import masks as kmasks
 from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.kernels.density_mxu import ladder8
+from geomesa_tpu_torch.kernels.registry import bucket_batch
 from geomesa_tpu_torch.planning.planner import QueryPlan
 from geomesa_tpu_torch.schema.columns import ColumnBatch
 from geomesa_tpu_torch.stats import sketches as sk
@@ -84,6 +92,24 @@ BATCH_ROWS = 1_000_000
 
 #: plans whose caches a partition child's executor keeps
 _PLAN_CACHES = 64
+
+
+def _host(out) -> np.ndarray:
+    """A partial on the host: a device tensor copied back, a host array as
+    it is."""
+    return out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+
+
+def _host_list(outs, n: int):
+    """Per-member partials (tensors of one shape, or None) on the host with
+    one device-to-host copy; ``[None] * n`` for an empty batch."""
+    if outs is None:
+        return [None] * n
+    live = [o for o in outs if o is not None]
+    if not live:
+        return list(outs)
+    it = iter(torch.stack(live).cpu().numpy())
+    return [None if o is None else next(it) for o in outs]
 
 
 class Executor:
@@ -385,28 +411,20 @@ class Executor:
         c = setup["cache"]
         if "band" in c:
             return c["band"]
-        table = setup["table"]
-        full = {n: table.col_sorted(n) for n in compiled.columns}
-        idx = np.nonzero(np.asarray(compiled.band(full, np)).reshape(-1))[0]
+        # the band over the scan windows' rows only (a selective query's
+        # windows hold a sliver of the table): the same rows, ascending, as
+        # the band over the whole table restricted to the windows
+        pos = self._window_positions(setup)
+        rows = setup["table"].rows(compiled.columns, pos)
+        band = np.broadcast_to(np.asarray(compiled.band(rows, np)), pos.shape)
+        idx = pos[band]
         if len(idx):
-            idx = idx[self._in_windows(setup, idx)]
-        if len(idx):
-            keep = np.asarray(compiled.refine({n: v[idx] for n, v in full.items()}, np))
+            keep = np.asarray(compiled.refine({n: v[band] for n, v in rows.items()}, np))
             if keep.ndim == 0:
                 keep = np.full(len(idx), bool(keep))
             idx = idx[keep.reshape(-1).astype(bool)]
         c["band"] = idx.astype(np.int64)
         return c["band"]
-
-    @staticmethod
-    def _in_windows(setup, pos: np.ndarray) -> np.ndarray:
-        """Which sorted-order positions lie inside the scan windows."""
-        table = setup["table"]
-        s_of = np.clip(np.searchsorted(table.shard_bounds, pos, side="right") - 1,
-                       0, table.n_shards - 1)
-        local = (pos - table.shard_bounds[s_of])[:, None]
-        starts, ends = setup["starts"], setup["ends"]
-        return ((starts[s_of] <= local) & (local < ends[s_of])).any(axis=1)
 
     # -- the host paths ------------------------------------------------------
     def _device_coarse_mask(self, plan: QueryPlan, setup) -> np.ndarray:
@@ -642,6 +660,471 @@ class Executor:
         if not as_numpy:
             return out
         return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
+
+    # -- curve-aligned density (the index-native heatmap) ---------------------
+    def _curve_positions(self, plan: QueryPlan, level: int, block_window):
+        """Padded-flat CDF positions of every level-``level`` Morton block
+        of the crop window, on the host: each block is one contiguous range
+        of the z2-sorted order, so its masked count is the difference of
+        two prefix sums. ``(p0, p1, B, nx, ny)``; the block count pads to a
+        power of two with (0, 0) pairs. Cached per (store version, level,
+        window) on the store, 32 entries."""
+        table = self._table(plan)
+        key = ("curve_pos", table.keyspace.name, self.store.version, level,
+               tuple(block_window))
+        cache = self.store.__dict__.setdefault("_curve_pos_cache", {})
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        ix0, iy0, ix1, iy1 = block_window
+        nx, ny = ix1 - ix0 + 1, iy1 - iy0 + 1
+        jj, ii = np.meshgrid(np.arange(iy0, iy1 + 1, dtype=np.uint64),
+                             np.arange(ix0, ix1 + 1, dtype=np.uint64), indexing="ij")
+        codes = interleave2(ii.ravel(), jj.ravel())
+        shift_bits = 2 * (31 - level)
+        z_lo = codes << np.uint64(shift_bits)
+        z_hi = (codes + np.uint64(1)) << np.uint64(shift_bits)
+        z_col = table.key_columns["__z2"]
+        sh = 0 if table.key_shifts is None else table.key_shifts.get("__z2", 0)
+        if sh > shift_bits:
+            raise ValueError(
+                f"z2 keys quantized below level {level} blocks "
+                f"(shift {sh} > {shift_bits}); use the scatter density path"
+            )
+        g0 = np.searchsorted(z_col, (z_lo >> np.uint64(sh)).astype(z_col.dtype))
+        g1 = np.searchsorted(z_col, (z_hi >> np.uint64(sh)).astype(z_col.dtype))
+        bounds, L = table.shard_bounds, table.shard_len
+
+        def pad_pos(g):
+            s = np.clip(np.searchsorted(bounds, g, side="right") - 1, 0, table.n_shards - 1)
+            return (s * L + (g - bounds[s])).astype(np.int32)
+
+        p0, p1 = pad_pos(g0), pad_pos(g1)
+        B = len(p0)
+        Bp = 1 << max(B - 1, 0).bit_length()
+        if Bp != B:
+            p0 = np.concatenate([p0, np.zeros(Bp - B, np.int32)])
+            p1 = np.concatenate([p1, np.zeros(Bp - B, np.int32)])
+        out = (p0, p1, B, nx, ny)
+        if len(cache) >= 32:
+            cache.clear()
+        cache[key] = out
+        return out
+
+    def _device_positions(self, key, *arrays):
+        """int64 device copies of host position arrays, kept with the
+        store's device state (32 entries)."""
+        cache = self.store.device_state.setdefault("curve_pos", {})
+        hit = cache.get(key)
+        if hit is None:
+            if len(cache) >= 32:
+                cache.clear()
+            hit = cache[key] = tuple(self._tensor(a.astype(np.int64)) for a in arrays)
+        return hit
+
+    @staticmethod
+    def _curve_weights(m: torch.Tensor, cols, weight: Optional[str]) -> torch.Tensor:
+        """The rows' curve contributions: int32 counts (exact to 2^31
+        rows), or the f32 weight of each masked-in row."""
+        fm = m.reshape(-1)
+        if weight is None:
+            return fm.to(torch.int32)
+        return torch.where(fm, cols[weight].reshape(-1).to(torch.float32),
+                           torch.zeros((), dtype=torch.float32, device=fm.device))
+
+    @staticmethod
+    def _cdf(w: torch.Tensor) -> torch.Tensor:
+        """``[0, cumsum(w)]`` in ``w``'s own dtype (int32 counts stay int32
+        end to end, as the reference's)."""
+        c = torch.empty(w.numel() + 1, dtype=w.dtype, device=w.device)
+        c[:1] = 0
+        torch.cumsum(w, 0, dtype=w.dtype, out=c[1:])
+        return c
+
+    def _curve_host_agg(self, plan: QueryPlan, weight: Optional[str], p0, p1):
+        """Host-path curve: the exact matches' contributions laid out flat
+        on the padded [S, L] grid, then the reference host runner's NumPy
+        prefix sum and gathers."""
+        table = self._table(plan)
+
+        def host_agg(rows, pos):
+            S, L = table.n_shards, table.shard_len
+            w = np.zeros(S * L, np.int64 if weight is None else np.float32)
+            if len(pos):
+                s = np.searchsorted(table.shard_bounds, pos, side="right") - 1
+                flat = s * L + pos - table.shard_bounds[s]
+                w[flat] = 1 if weight is None else rows[weight].astype(np.float32)
+            c = np.concatenate([np.zeros(1, w.dtype), np.cumsum(w)])
+            return c[p1] - c[p0]
+
+        return host_agg
+
+    def density_curve_raw(self, plan: QueryPlan, level: int, block_window,
+                          weight: Optional[str] = None):
+        """:meth:`density_curve` before the copy to the host:
+        ``(partial or None, B, nx, ny)``; the one-crop
+        :meth:`density_curve_batch_raw`."""
+        out, ((_p0, _p1, B, nx, ny),) = self.density_curve_batch_raw(
+            plan, level, [block_window], weight)
+        return (None if out is None else out[0]), B, nx, ny
+
+    @staticmethod
+    def decode_curve(raw) -> np.ndarray:
+        """One :meth:`density_curve_raw` partial as the host f64 grid (zeros
+        for an empty partial), row 0 at the south edge. f64 cells hold
+        counts exactly to 2^53; weighted cells carry the f32 prefix
+        differences."""
+        out, B, nx, ny = raw
+        if out is None:
+            return np.zeros((ny, nx), np.float64)
+        return _host(out)[:B].astype(np.float64).reshape(ny, nx)
+
+    def density_curve(self, plan: QueryPlan, level: int, block_window,
+                      weight: Optional[str] = None) -> np.ndarray:
+        """Exact density over a Morton-block-aligned grid (XYZ / EPSG:4326
+        tile pyramids align by construction): one prefix sum over the
+        z2-sorted scan and two gathers per block, no scatter. Unweighted
+        counts accumulate in int32, weighted densities in f32."""
+        return self.decode_curve(self.density_curve_raw(plan, level, block_window, weight))
+
+    @staticmethod
+    def _stack_positions(infos, Mp: int):
+        """Members' CDF positions as [Mp, P] arrays (P the widest member's;
+        padded cells and members gather c[0] - c[0] = 0)."""
+        P = max(len(i[0]) for i in infos)
+        p0s = np.zeros((Mp, P), np.int32)
+        p1s = np.zeros((Mp, P), np.int32)
+        for m, (p0, p1, _B, _nx, _ny) in enumerate(infos):
+            p0s[m, :len(p0)] = p0
+            p1s[m, :len(p1)] = p1
+        return p0s, p1s
+
+    def density_curve_batch_raw(self, plan: QueryPlan, level: int, block_windows,
+                                weight: Optional[str] = None):
+        """N crops of ONE (plan, level) in one scan: the mask and the prefix
+        sum (the O(rows) work) are shared, each crop costs its two gathers,
+        stacked as [Mp, P] positions. Each crop equals its serial
+        :meth:`density_curve` exactly (the same prefix array, exact
+        gathers). ``(partial or None, infos)`` before the host copy. CDF
+        positions index the padded layout; band rows send the scan to the
+        host (the reference's curve is not additive)."""
+        infos = [self._curve_positions(plan, level, bw) for bw in block_windows]
+        if not infos:
+            return None, []
+        p0s, p1s = self._stack_positions(infos, bucket_batch(len(infos)))
+        agg_cols = [weight] if weight else []
+        key = ("curve_batch", self._table(plan).keyspace.name, self.store.version,
+               level, tuple(tuple(bw) for bw in block_windows))
+
+        def device_agg(setup, cols, m):
+            d0, d1 = self._device_positions(key, p0s, p1s)
+            c = self._cdf(self._curve_weights(m, cols, weight))
+            return c[d1] - c[d0]
+
+        out = self._run(plan, agg_cols, device_agg,
+                        self._curve_host_agg(plan, weight, p0s, p1s),
+                        additive=False, compactable=False)
+        return out, infos
+
+    @staticmethod
+    def decode_curve_batch(raw):
+        """One :meth:`density_curve_batch_raw` partial as per-crop host f64
+        grids."""
+        out, infos = raw
+        arr = None if out is None else _host(out)
+        return [np.zeros((ny, nx), np.float64) if arr is None
+                else arr[i, :B].astype(np.float64).reshape(ny, nx)
+                for i, (_p0, _p1, B, nx, ny) in enumerate(infos)]
+
+    def density_curve_batch(self, plan: QueryPlan, level: int, block_windows,
+                            weight: Optional[str] = None):
+        """One ``[ny, nx]`` f64 grid per window, in order (see
+        :meth:`density_curve_batch_raw`)."""
+        return self.decode_curve_batch(
+            self.density_curve_batch_raw(plan, level, block_windows, weight))
+
+    def density_curve_filter_batch_raw(self, plans, spec, level: int, block_windows,
+                                       weight: Optional[str] = None):
+        """M distinct-filter curve crops of one structural template in one
+        call: each member has its own viewport literals (``spec``) and its
+        own crop window, and pays its own masked prefix sum over one column
+        residency. ``(partials or None, infos)``, or None when ineligible
+        (the caller runs the members one at a time). A member with
+        surviving f32 band rows makes the batch ineligible: its serial scan
+        would run on the host."""
+        agg_cols = [weight] if weight else []
+        bs = self._batch_setups(plans, spec, agg_cols)
+        if bs is None:
+            return None
+        infos = [self._curve_positions(plans[0], level, bw) for bw in block_windows]
+        if bs["empty"]:
+            return None, infos
+        if self._batch_band_rows(plans, bs):
+            return None
+        p0s, p1s = self._stack_positions(infos, bs["Mp"])
+        key = ("curve_filter", self._table(plans[0]).keyspace.name,
+               self.store.version, level, tuple(tuple(bw) for bw in block_windows))
+
+        def member_agg(m, cols, mm):
+            d0, d1 = self._device_positions(key, p0s, p1s)
+            c = self._cdf(self._curve_weights(mm, cols, weight))
+            return c[d1[m]] - c[d0[m]]
+
+        return self._batch_device_agg(plans, spec, bs, member_agg, agg_cols), infos
+
+    @staticmethod
+    def decode_curve_filter_batch(raw):
+        """One :meth:`density_curve_filter_batch_raw` partial as per-member
+        host f64 grids."""
+        got, infos = raw
+        arrs = _host_list(got, len(infos))
+        return [np.zeros((ny, nx), np.float64) if arrs[m] is None
+                else arrs[m][:B].astype(np.float64).reshape(ny, nx)
+                for m, (_p0, _p1, B, nx, ny) in enumerate(infos)]
+
+    def density_curve_filter_batch(self, plans, spec, level: int, block_windows,
+                                   weight: Optional[str] = None):
+        """M distinct-filter curve grids in one call (None = ineligible),
+        each equal to its serial :meth:`density_curve`."""
+        got = self.density_curve_filter_batch_raw(plans, spec, level, block_windows, weight)
+        return None if got is None else self.decode_curve_filter_batch(got)
+
+    # -- query-axis batches: M distinct viewports of one structural query
+    # shape in one call. The compiled residual's mask and band are computed
+    # once; each member adds its window mask and its literal-parameterized
+    # slot compares (the serial compile's f32 / int32 values) and its own
+    # aggregate, so every member's result equals its serial call's. ------
+    def _batch_setups(self, plans, spec, agg_cols=()):
+        """Per-member scan setups and stacked [Mp, S, K] windows, or None
+        when the batch cannot run on the device (the caller runs the
+        members one at a time)."""
+        setups = []
+        table = None
+        for plan in plans:
+            if plan.hints.sampling or plan.hints.sample_by:
+                return None
+            su = self._scan_setup(plan, agg_cols)
+            if su is None:
+                # an empty member (disjoint key plan or empty table): a zero
+                # partial, as its serial scan's zeros
+                plan.__dict__.setdefault("scanned_rows", 0)
+                setups.append(None)
+                continue
+            if not su["use_device"] or su["sb_mode"] is not None:
+                return None
+            if table is None:
+                table = su["table"]
+            elif su["table"] is not table:
+                return None
+            setups.append(su)
+        if table is None:
+            return {"empty": True, "setups": setups}
+        if any(p.__dict__.get("cache_token") is None for p in plans):
+            return None
+        S, L = table.n_shards, table.shard_len
+        K = max(su["starts"].shape[1] for su in setups if su is not None)
+        Mp = bucket_batch(len(plans))
+        starts = np.zeros((Mp, S, K), np.int32)
+        ends = np.zeros((Mp, S, K), np.int32)
+        for m, su in enumerate(setups):
+            if su is not None:
+                k = su["starts"].shape[1]
+                starts[m, :, :k] = su["starts"]
+                ends[m, :, :k] = su["ends"]
+        return {"empty": False, "setups": setups, "table": table, "L": L, "K": K,
+                "Mp": Mp, "starts": starts, "ends": ends,
+                "counts": np.diff(table.shard_bounds).astype(np.int32)}
+
+    def _batch_band_rows(self, plans, bs) -> bool:
+        """Does any member's scan hold surviving f32 band rows?"""
+        for plan, su in zip(plans, bs["setups"]):
+            if su is not None and plan.compiled.band is not None:
+                info = self._band_info(plan, su)
+                if info is not None and len(info):
+                    return True
+        return False
+
+    def _batch_band_corrs(self, plans, bs, host_agg, agg_cols):
+        """Per-member exact band corrections (None = the member has no band
+        rows): ``host_agg(m, rows, pos)`` over the member's surviving band
+        rows, the serial scan's host correction run off each member's own
+        compiled band."""
+        corrs = []
+        for m, (plan, su) in enumerate(zip(plans, bs["setups"])):
+            info = None
+            if su is not None and plan.compiled.band is not None:
+                info = self._band_info(plan, su)
+            if info is None or not len(info):
+                corrs.append(None)
+                continue
+            corrs.append(host_agg(m, su["table"].rows(agg_cols, info), info))
+        return corrs
+
+    def _batch_device_agg(self, plans, spec, bs, member_agg, agg_cols):
+        """Masks and per-member aggregates of one batch:
+        ``member_agg(m, cols, mask)`` for each real member with a scan
+        (None for empty members; padded members are skipped, their results
+        would be dropped). The member loop runs in one Python call; the
+        literals go to the device once, and each member reads its own as
+        0-d tensors, never as host values."""
+        table, L = bs["table"], bs["L"]
+        bf = spec.bf
+        names = list(dict.fromkeys(list(bf.columns) + list(agg_cols)))
+        cols = table.device_columns(names)
+        wcache = self.store.device_state.setdefault("batch_win", {})
+        # keyed by the window bytes: another batch's windows must never
+        # serve this one
+        wkey = (self.store.version, bs["starts"].tobytes(), bs["ends"].tobytes())
+        win = wcache.get(wkey)
+        if win is None:
+            if len(wcache) >= 64:
+                wcache.clear()
+            win = wcache[wkey] = tuple(self._tensor(bs[k]) for k in ("starts", "ends", "counts"))
+        lf, li = self._tensor(spec.lits_f), self._tensor(spec.lits_i)
+        res = bf.residual(cols, torch)
+        res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
+        for p in plans:
+            self._note(p, scan="device-batch", batch=len(plans))
+        outs = []
+        for m, su in enumerate(bs["setups"]):
+            if su is None:
+                outs.append(None)
+                continue
+            mm = kmasks.window_mask_batch(*win, L, m) & res & bf.slots(cols, torch, lf[m], li[m])
+            band = res_band
+            if bf.slots_band is not None:
+                sb = bf.slots_band(cols, torch, lf[m], li[m])
+                band = sb if band is None else band | sb
+            if band is not None:
+                mm = mm & ~band
+            outs.append(member_agg(m, cols, mm))
+        return outs
+
+    def count_batch_partial(self, plans, spec):
+        """``(partials or None, corrs)`` before the host copy: one device
+        count per member and each member's band-row count; None when the
+        batch is ineligible here."""
+        bs = self._batch_setups(plans, spec)
+        if bs is None:
+            return None
+        if bs["empty"]:
+            return None, [None] * len(plans)
+        corrs = self._batch_band_corrs(plans, bs, lambda m, rows, pos: len(pos), ())
+        out = self._batch_device_agg(plans, spec, bs, lambda m, cols, mm: mm.sum(), ())
+        return out, corrs
+
+    def count_batch(self, plans, spec):
+        """M distinct counts in one call (None = ineligible), each equal to
+        its serial :meth:`count`."""
+        got = self.count_batch_partial(plans, spec)
+        return None if got is None else self.decode_count_batch(got, len(plans))
+
+    @staticmethod
+    def decode_count_batch(got, n: int):
+        """One :meth:`count_batch_partial` result as per-member host ints."""
+        out, corrs = got
+        arrs = _host_list(out, n)
+        return [(0 if arrs[m] is None else int(arrs[m]))
+                + (0 if corrs[m] is None else int(corrs[m])) for m in range(n)]
+
+    def density_batch_partial(self, plans, spec, bboxes, width: int, height: int,
+                              weight: Optional[str] = None):
+        """``(grids or None, corrs)`` before the host copy: one f32 grid per
+        member over that member's own bbox, its origin and span read from
+        one [Mp, 4] f32 device tensor; None when ineligible."""
+        agg_cols = self._density_cols(weight)
+        xc, yc = agg_cols[:2]
+        bs = self._batch_setups(plans, spec, agg_cols)
+        if bs is None:
+            return None
+        if bs["empty"]:
+            return None, [None] * len(plans)
+        gp = np.zeros((bs["Mp"], 4), np.float32)
+        gp[:, 2:] = 1.0  # padded members: benign non-zero spans
+        for m, bb in enumerate(bboxes):
+            gp[m] = kdensity.grid_params(bb)
+
+        def host_agg(m, rows, pos):
+            return kdensity.density_grid_np(
+                rows[xc], rows[yc], np.ones(len(pos), bool), tuple(bboxes[m]),
+                width, height, rows[weight] if weight else None)
+
+        corrs = self._batch_band_corrs(plans, bs, host_agg, agg_cols)
+        g = self._tensor(gp)
+
+        def member_agg(m, cols, mm):
+            return kdensity.density_grid_at(
+                cols[xc], cols[yc], mm, g[m, 0], g[m, 1], g[m, 2], g[m, 3],
+                width, height, cols[weight] if weight else None)
+
+        return self._batch_device_agg(plans, spec, bs, member_agg, agg_cols), corrs
+
+    def density_batch(self, plans, spec, bboxes, width: int, height: int,
+                      weight: Optional[str] = None):
+        """M distinct heatmaps in one call (None = ineligible). Unweighted
+        grids equal the serial :meth:`density` (exact integer cells);
+        weighted grids add the same values per cell."""
+        got = self.density_batch_partial(plans, spec, bboxes, width, height, weight)
+        return None if got is None else self.decode_density_batch(
+            got, len(plans), width, height)
+
+    @staticmethod
+    def decode_density_batch(got, n: int, width: int, height: int):
+        """One :meth:`density_batch_partial` result as per-member host f32
+        grids."""
+        out, corrs = got
+        arrs = _host_list(out, n)
+        grids = []
+        for m in range(n):
+            g = np.zeros((height, width), np.float32) if arrs[m] is None else arrs[m]
+            if corrs[m] is not None:
+                g = g + np.asarray(corrs[m], np.float32)
+            grids.append(g)
+        return grids
+
+    def stats_batch_partials(self, plans, spec, stats):
+        """``(partials,)``: each member's device partial states (None for an
+        empty member, or ``(None,)`` for an empty batch); None when
+        ineligible: a descriptive leaf (layout-dependent f32 sums), a leaf
+        without a device reduction, or a member with surviving band rows
+        (its serial scan runs on the host)."""
+        if any(not kstats.batch_supported(s) for s in stats):
+            return None
+        bundle = self._stats_bundle(plans[0], stats[0])
+        if bundle is None:
+            return None
+        agg_cols, vocab = bundle
+        bs = self._batch_setups(plans, spec, agg_cols)
+        if bs is None:
+            return None
+        if bs["empty"]:
+            return (None,)
+        if self._batch_band_rows(plans, bs):
+            return None
+        return (self._batch_device_agg(
+            plans, spec, bs,
+            lambda m, cols, mm: kstats.device_update(stats[m], cols, mm, vocab),
+            agg_cols),)
+
+    def stats_batch(self, plans, spec, stats):
+        """M distinct stats scans in one call (None = ineligible); fills and
+        returns ``stats`` in member order."""
+        got = self.stats_batch_partials(plans, spec, stats)
+        if got is None:
+            return None
+        self.absorb_stats_batch(got, stats, self.store.dicts)
+        return stats
+
+    @staticmethod
+    def absorb_stats_batch(got, stats, dicts) -> None:
+        """Fold one :meth:`stats_batch_partials` result into the members'
+        Stat objects, in member order."""
+        (out,) = got
+        if out is None:
+            return
+        for st, part in zip(stats, out):
+            if part is not None:
+                kstats.absorb_partials(st, part, dicts)
 
     # -- features --------------------------------------------------------------
     def _mask_positions(self, setup, cols, m) -> np.ndarray:

@@ -18,11 +18,15 @@ waits on each copy's event before it reads the column. A host error while
 staging is dropped (the scan stacks the column itself); CUDA errors and
 load errors reach the query thread.
 
+``density_curve`` merges host f64 grids; the query-axis batches scan the
+members' pruned-bin union once, one batched pass per partition, and merge
+each member's partials in the same order.
+
 Not ported yet (ROADMAP Queue 1): the multi-device sharded scan, the
 degradation contract (``allow_partial``, fault points, retries), the lake
 tier's pruned loads (the reference pushes down point geometries only: an
-extent schema always loads whole partitions), ``density_curve`` and the
-query-axis batches.
+extent schema always loads whole partitions; with no pushdown here, the
+reference's ``push=weight is None`` rule has nothing to gate).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
+from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.parallel.devices import TreeReducer
 from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.planning.planner import QueryPlan
@@ -254,6 +259,143 @@ class PartitionedExecutor:
         for _, ex in self._each(plan):
             ex.stats(plan, stat)
         return stat
+
+    # -- curve-aligned density -------------------------------------------------
+    @staticmethod
+    def _curve_zeros(block_window) -> np.ndarray:
+        ix0, iy0, ix1, iy1 = block_window
+        return np.zeros((iy1 - iy0 + 1, ix1 - ix0 + 1), np.float64)
+
+    def density_curve(self, plan: QueryPlan, level: int, block_window,
+                      weight: Optional[str] = None) -> np.ndarray:
+        """Each partition's host f64 grid, reduced in pruned-bin tree order
+        (integer counts are exact to 2^53)."""
+        red = TreeReducer(lambda a, b: a + b)
+        for _, ex in self._each(plan):
+            red.push(Executor.decode_curve(
+                ex.density_curve_raw(plan, level, block_window, weight)))
+        out = red.result()
+        return self._curve_zeros(block_window) if out is None else out
+
+    @staticmethod
+    def _member_reducer() -> TreeReducer:
+        """A tree reduction over per-partition member lists: elementwise, so
+        each member's association is that of its own tree merge."""
+        return TreeReducer(lambda A, B: [a + b for a, b in zip(A, B)])
+
+    def _curve_grids(self, merged, block_windows):
+        return [self._curve_zeros(bw) if merged is None else merged[i]
+                for i, bw in enumerate(block_windows)]
+
+    def density_curve_batch(self, plan: QueryPlan, level: int, block_windows,
+                            weight: Optional[str] = None):
+        """Crops of one filter: each pruned partition runs one shared scan
+        for every crop, and per-crop grids tree-merge across partitions."""
+        red = self._member_reducer()
+        for _, ex in self._each(plan):
+            red.push(Executor.decode_curve_batch(
+                ex.density_curve_batch_raw(plan, level, block_windows, weight)))
+        return self._curve_grids(red.result(), block_windows)
+
+    def density_curve_filter_batch(self, plans: List[QueryPlan], spec, level: int,
+                                   block_windows, weight: Optional[str] = None):
+        """Distinct-filter crops over the members' pruned-bin union, one
+        batched pass per partition (None = ineligible). A partition where
+        the batch is ineligible (surviving f32 band rows there) runs its
+        members' serial curves instead; the other partitions keep the
+        batch."""
+        bins = self._union_bins(plans)
+        if not self._batch_ok(plans, spec, bins, [weight] if weight else []):
+            return None
+        red = self._member_reducer()
+        for _, ex in self._each(plans[0], bins):
+            r = ex.density_curve_filter_batch_raw(plans, spec, level, block_windows, weight)
+            if r is None:
+                red.push([Executor.decode_curve(ex.density_curve_raw(p, level, bw, weight))
+                          for p, bw in zip(plans, block_windows)])
+            else:
+                red.push(Executor.decode_curve_filter_batch(r))
+        return self._curve_grids(red.result(), block_windows)
+
+    # -- query-axis batches: each pruned partition runs one batched pass for
+    # every member, and per-member partials merge in the serial path's
+    # pruned-bin order. -----------------------------------------------------
+    def _union_bins(self, plans: List[QueryPlan]) -> List[int]:
+        """The members' pruned-bin union, in partition order. A bin outside
+        a member's own pruning gives that member an empty window set there:
+        a zero partial, the additive identity."""
+        sel = set()
+        for p in plans:
+            sel.update(self.prune(p))
+        return [b for b in self.store.partition_bins() if b in sel]
+
+    def _batch_ok(self, plans: List[QueryPlan], spec, bins: List[int],
+                  agg_cols=()) -> bool:
+        """Batch eligibility, decided on the first non-empty partition of
+        ``bins`` (children share the schema, dictionaries and column
+        layout). ``agg_cols`` are the op's aggregate columns: a host-only
+        one makes the batch ineligible."""
+        for b in bins:
+            child = self.store.child(b)
+            if child is None or child.count == 0:
+                continue
+            return self._executor_for(b, child)._batch_setups(plans, spec, agg_cols) is not None
+        return True  # nothing to scan: zeros for every member
+
+    def count_batch(self, plans: List[QueryPlan], spec):
+        """M distinct counts, one batched pass per pruned partition (None =
+        ineligible)."""
+        bins = self._union_bins(plans)
+        if not self._batch_ok(plans, spec, bins):
+            return None
+        totals = [0] * len(plans)
+        for _, ex in self._each(plans[0], bins):
+            r = ex.count_batch_partial(plans, spec)
+            if r is None:
+                # eligibility holds for every partition (checked above): a
+                # None here would drop the partition's counts
+                raise RuntimeError("batched count ineligible mid-scan")
+            for m, v in enumerate(Executor.decode_count_batch(r, len(plans))):
+                totals[m] += v
+        return totals
+
+    def density_batch(self, plans: List[QueryPlan], spec, bboxes, width: int,
+                      height: int, weight: Optional[str] = None):
+        """M distinct heatmaps (None = ineligible); per-member grids reduce
+        across partitions in the serial path's tree order."""
+        geom = self.store.ft.geom_field
+        agg_cols = [geom + "__x", geom + "__y"] + ([weight] if weight else [])
+        bins = self._union_bins(plans)
+        if not self._batch_ok(plans, spec, bins, agg_cols):
+            return None
+        red = self._member_reducer()
+        for _, ex in self._each(plans[0], bins):
+            r = ex.density_batch_partial(plans, spec, bboxes, width, height, weight)
+            if r is None:
+                raise RuntimeError("batched density ineligible mid-scan")
+            red.push(Executor.decode_density_batch(r, len(plans), width, height))
+        merged = red.result()
+        if merged is None:
+            return [np.zeros((height, width), np.float32) for _ in plans]
+        return merged
+
+    def stats_batch(self, plans: List[QueryPlan], spec, stats):
+        """M distinct stats scans (None = ineligible): per-member partials
+        absorb in pruned-bin order, each member's serial sequence. A
+        partition whose band rows would send a member to the host makes
+        the whole batch ineligible, and the remaining partitions are not
+        scanned."""
+        if any(not kstats.batch_supported(s) for s in stats):
+            return None
+        bins = self._union_bins(plans)
+        if not self._batch_ok(plans, spec, bins):
+            return None
+        for _, ex in self._each(plans[0], bins):
+            r = ex.stats_batch_partials(plans, spec, stats)
+            if r is None:
+                return None
+            Executor.absorb_stats_batch(r, stats, self.store.dicts)
+        return stats
 
     # -- features ---------------------------------------------------------------
     def features_iter(self, plan: QueryPlan, batch_rows: Optional[int] = None):

@@ -939,3 +939,76 @@ def test_spatial_join_and_regions_on_the_card_match_cpu(cuda):
             cpu.density("pick", q, width=128, height=128, region=region))
         assert gpu.stats("pick", "Count();MinMax(fare)", q, region=region).value() == \
             cpu.stats("pick", "Count();MinMax(fare)", q, region=region).value()
+
+
+def _batch_queries(seed, m):
+    rng = np.random.default_rng(seed)
+    qs, boxes = [], []
+    for i in range(m):
+        x0, y0 = float(rng.uniform(-118, -80)), float(rng.uniform(26, 44))
+        boxes.append((x0, y0, x0 + 6.0, y0 + 4.0))
+        d0 = 2 + (3 * i) % 24
+        qs.append(f"BBOX(geom, {x0}, {y0}, {x0 + 6.0}, {y0 + 4.0}) AND dtg DURING "
+                  f"2020-01-{d0:02d}T00:00:00Z/2020-01-{d0 + 3:02d}T00:00:00Z")
+    return qs, boxes
+
+
+@pytest.mark.parametrize("m", [2, 5, 8])
+def test_batches_on_the_card_equal_serial(cuda, m):
+    """count / density / stats batches and the curve batches on the card:
+    every member equals its serial call on the card (counts, unweighted
+    grids and integer sketches bit for bit, weighted grids within rtol
+    1e-4: float atomics fix no order) and the CPU's answers."""
+    gpu, cpu = _datasets(cuda, 200_000, seed=13)
+    qs, boxes = _batch_queries(40 + m, m)
+    got = gpu.count_batch("t", qs)
+    assert gpu._plan("t", qs[0]).exec_path["scan"] == "device-batch"
+    assert got == [gpu.count("t", q) for q in qs] == cpu.count_batch("t", qs)
+    for w in (None, "weight"):
+        grids = gpu.density_batch("t", qs, bboxes=boxes, width=64, height=48, weight=w)
+        for q, b, g, c in zip(qs, boxes, grids,
+                              cpu.density_batch("t", qs, bboxes=boxes, width=64, height=48,
+                                                weight=w)):
+            s = gpu.density("t", q, bbox=b, width=64, height=48, weight=w)
+            if w is None:
+                assert np.array_equal(g, s) and np.array_equal(g, c)
+            else:
+                assert np.allclose(g, s, rtol=1e-4, atol=1e-3)
+                assert np.allclose(g, c, rtol=1e-4, atol=1e-3)
+    spec = "Count();MinMax(weight);Histogram(weight,16,0,1)"
+    st = [s.to_json() for s in gpu.stats_batch("t", spec, qs)]
+    assert st == [gpu.stats("t", spec, q).to_json() for q in qs]
+    assert st == [s.to_json() for s in cpu.stats_batch("t", spec, qs)]
+    curves = gpu.density_curve_filter_batch("t", qs, level=11, bboxes=boxes)
+    for q, b, (g, _), (c, _) in zip(qs, boxes, curves,
+                                    cpu.density_curve_filter_batch("t", qs, level=11,
+                                                                   bboxes=boxes)):
+        assert np.array_equal(g, gpu.density_curve("t", q, level=11, bbox=b)[0])
+        assert np.array_equal(g, c)
+    tiles = gpu.density_curve_batch("t", qs[0], level=12, bboxes=boxes)
+    for b, (g, _) in zip(boxes, tiles):
+        assert np.array_equal(g, cpu.density_curve("t", qs[0], level=12, bbox=b)[0])
+
+
+def test_density_curve_on_the_card(cuda):
+    """The int32 prefix stays int32 on the card, and the weighted curve
+    stays within rtol 1e-4 plus 16 f32 ulps of the largest prefix of the
+    CPU's (the card's scan sums predecessor tiles in an order set by
+    timing; chip_smoke.py's CURVE_ULPS)."""
+    gpu, cpu = _datasets(cuda, 300_000, seed=17)
+    # the largest prefix: the weight of every match (the prefix runs over the
+    # whole table, whatever the crop)
+    total = float(cpu.density("t", ECQL, bbox=BBOX, width=1, height=1, weight="weight").sum())
+    for level, bbox in ((9, (-125, 24, -66, 49)), (12, (-95, 35, -94, 36))):
+        g, s = gpu.density_curve("t", ECQL, level=level, bbox=bbox)
+        c, cs = cpu.density_curve("t", ECQL, level=level, bbox=bbox)
+        assert s == cs and np.array_equal(g, c) and g.sum() > 0
+        gw, _ = gpu.density_curve("t", ECQL, level=level, bbox=bbox, weight="weight")
+        cw, _ = cpu.density_curve("t", ECQL, level=level, bbox=bbox, weight="weight")
+        assert np.allclose(gw, cw, rtol=1e-4, atol=16 * float(np.spacing(np.float32(total))))
+    before = kpip.launches
+    tri = "POLYGON ((-100 30, -80 31, -90 44, -100 30))"
+    g, _ = gpu.density_curve("t", ECQL, level=10, bbox=BBOX, region=tri)
+    c, _ = cpu.density_curve("t", ECQL, level=10, bbox=BBOX, region=tri)
+    assert np.array_equal(g, c) and g.sum() > 0
+    assert kpip.launches > before

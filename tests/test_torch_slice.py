@@ -415,13 +415,15 @@ REGION = "POLYGON((-95 32, -85 32, -90 40, -95 32))"
 
 @pytest.mark.parametrize("call", ["query_object", "estimate"])
 def test_unserved_queries_name_the_roadmap(pair, call):
-    _, p, _ = pair
-    run = {
-        "query_object": lambda: p.query("t", Query(ECQL, srid=3857)),
-        "estimate": lambda: p.count_batch("t", [ECQL], exact=False),
-    }[call]
+    j, p, _ = pair
+    if call == "estimate":
+        # served since the query-axis batches: an estimate never scans, so
+        # there is nothing to batch, and both packages give None
+        assert p.count_batch("t", [ECQL], exact=False) is None
+        assert j.count_batch("t", [ECQL], exact=False) is None
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run()
+        p.query("t", Query(ECQL, srid=3857))
 
 
 @pytest.mark.parametrize("call", ["expression", "non_point_dwithin", "extent_geometry",
