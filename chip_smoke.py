@@ -61,7 +61,7 @@
    top-k, descriptive) and of the polygon, ``Frequency(name,256)`` (host path), and ``knn``
    (k 10, and k 100 under a name filter). Each runs cold once and warm
    (``--reps``, a quarter of it for the calls that return or sort over a
-   million rows), with its ``exec_path``, rows, cold and warm p50, D2H
+   million rows or take over 0.2 s cold), with its ``exec_path``, rows, cold and warm p50, D2H
    bytes and device busy / idle share per warm call; the calls with host
    work over the matches also print a cProfile of one warm call. Each answer is held
    against a NumPy oracle: rows and columns of the f64 predicate (f32
@@ -92,7 +92,7 @@
    (no new ingest) ``INTERSECTS(polygon) AND weight * 2 > 1.2`` and the
    interval as count and density (the PIP kernel in the coarse mask, host
    refinement after). Each call runs cold once and warm (``--reps``, 3 for
-   calls that refine more than 10k rows) and prints its index,
+   calls that refine more than 10k rows or take over 0.2 s cold) and prints its index,
    ``exec_path`` (with the host refinement's rows and milliseconds), rows,
    cold and warm p50, and device busy / idle share; ``count_v`` prints a
    cProfile; per-table ingest seconds and device bytes follow. Oracles,
@@ -114,7 +114,9 @@
    bench's generator (20M a month, so five months of ``dtg``; seed as
    above), ingested in the bench's 25M-row chunks with ``fids`` 0..N5-1;
    23 weekly partitions under the default budget of 4 resident, the rest
-   spilled to ``chiprun_out/chip_smoke/spill`` (removed at the end). On B
+   spilled as lake snapshots (the default) to
+   ``chiprun_out/chip_smoke/spill`` (removed at the end); the additive
+   unweighted calls load only the row groups their box meets. On B
    (the bbox + 10 days, 2 partitions): count, density, weighted density,
    the polygon count, weight descending with ``max_features`` 1000 (each
    partition's top-k candidates), stats and ``knn(-90, 40, 10)``; on the
@@ -125,8 +127,8 @@
    profile's device busy / idle share; the long window's warm calls run
    with the prefetch pipeline on and off in turns (answers equal to the
    cold call's), and kNN and the long count print a cProfile. Peak
-   device memory over the long window is held to (budget + 1) x one
-   partition's cold peak + the merge's grids, and spilling every partition
+   device memory over the long window is held to (budget + 1) x one whole
+   partition's cold peak (pushdown off) + the merge's grids, and spilling every partition
    must give the device memory back. Both kernels' counters are zeroed
    before the calls and must be > 0 after; both are timed against their
    plain versions at one partition's shapes. Answers against NumPy oracles
@@ -192,8 +194,38 @@
    B's two partitions, the level-9 curve of B and a curve batch of 4
    crops, each against its serial calls and NumPy oracles.
 
+11. Slice 9, the lake snapshot tier and the data lifecycle. Slice 5's
+   store spills lake snapshots (the default); after slice 8's calls on it:
+   the smallest partition's snapshot written and fully reloaded in the
+   lake and the npz layouts (encode seconds and bytes, decode seconds);
+   count, unweighted 512x512 density, the level-9 curve and
+   ``stats("Count();MinMax(weight)")`` of a 2 x 2 degree box over B's
+   interval and over the long window, and the density of a 30 x 20 degree
+   box over two days (its pruned child compacts, so it takes the grouped
+   kernel): each cold (after ``spill_all()``), warm, then with
+   ``geomesa.lake.pushdown`` on and off in turns from a cold store (the
+   long window's off answers in one pass with every partition resident),
+   with the row groups and bytes loaded of the total and, for a density,
+   the kernel each partition took (grouped or scatter); every answer equal
+   to the pushdown-off answer and a NumPy f64 oracle, and row groups
+   pruned > 0.
+   ``join_count`` of 1,900 NYC stations (a flat schema) with the store by
+   ``dwithin`` 0.002 degrees through the window pushdown, equal to the
+   NumPy brute force over the right rows in NYC's box, with
+   ``JoinStats.pushdown``. Both kernels held against their plain versions
+   on a pruned child's operands. Then the lifecycle: ``update_schema``
+   adds ``tag:Integer``; ``add_attribute_index`` on it, a count on
+   ``attr:tag``, ``remove_attribute_index``; ``delete_features`` of a
+   1-degree box over one week; ``age_off`` at 2020-01-09; after each, B's
+   count, 512x512 density and the polygon count equal the NumPy oracle over
+   the surviving rows. The phase prints its wall, its peak device memory
+   and the launches of its own calls, the comparisons with the plain
+   versions not counted: both kernels > 0, the grouped density kernel on
+   a pruned child and pip on the mutated store. The same lifecycle runs on slice
+   1's flat 20M store after slice 6, before that store is freed.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8``), the card's ``nvidia-smi``
+``launches_slice8`` and ``launches_slice9``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -722,9 +754,10 @@ def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
     kpip.launches = 0
     results, latency, paths = {}, {}, {}
     for key, fn in calls.items():
-        reps = max(3, args.reps // 4) if key in heavy else args.reps
         knn_paths.clear()
         results[key], cold = timed(torch, fn)
+        # 3 warm reps also for a call over 0.2 s cold (cut in PR 9)
+        reps = max(3, args.reps // 4) if key in heavy or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         latency[key] = (cold * 1e3, float(np.median(warm)) * 1e3, reps)
         paths[key] = (dict(ds._plan("gdelt3", query_of[key]).exec_path) if key in query_of
@@ -1154,7 +1187,9 @@ def slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
         else:
             plan = ds._plan(schema, q)
         path = dict(plan.exec_path)
-        reps = 3 if path.get("refined_rows", 0) > 10_000 else args.reps
+        # 3 warm reps for a call that refines over 10k rows or whose cold
+        # call took over 0.2 s (cut in PR 9 to fit slice 9's phase)
+        reps = 3 if path.get("refined_rows", 0) > 10_000 or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         ans = results[key]
         rows = (ans if isinstance(ans, int) else len(ans) if hasattr(ans, "columns")
@@ -1955,8 +1990,9 @@ def paths_by_partition(parts):
 
 
 def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
-    """The slice-5 phase (see the module docstring, 8), then slice 8's
-    calls on its store. Returns the launches of both kernels in each."""
+    """The slice-5 phase (see the module docstring, 8), then slice 8's and
+    slice 9's calls on its store. Returns the launches of the kernels in
+    each."""
     import shutil
 
     from geomesa_tpu_torch import GeoDataset, Query, config
@@ -1978,6 +2014,7 @@ def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
 
 
 def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Query):
+    from geomesa_tpu_torch import config
     from geomesa_tpu_torch.kernels.density import pixel_coords
 
     t0 = time.perf_counter()
@@ -2031,9 +2068,15 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
 
     ex.knn_features = traced_knn
     #: the long window's warm calls: prefetch on (True) and off, in turns
-    turns = {"count_long": (True, False), "density_long": (True, False, False, True)}
+    turns = {"count_long": (True, False), "density_long": (True, False)}
+
+    #: B's additive unweighted calls reload their pruned row groups every
+    #: call under the lake default (0.6-1.3 s on the H100)
+    pruned = ("count_b", "density_b", "count_polygon_b", "stats_b")
 
     def reps_of(key):  # kNN's host work runs about a second a call
+        if key in pruned:
+            return 2
         return max(3, args.reps // 4) if key == "knn_10_b" else args.reps
 
     t_phase = time.perf_counter()
@@ -2129,7 +2172,9 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ds.density("gdelt5", q_one, **grid)
+    # a whole partition (pushdown off): the resident child the bound counts
+    with config.LAKE_PUSHDOWN.scoped(False):
+        ds.density("gdelt5", q_one, **grid)
     torch.cuda.synchronize()
     one = torch.cuda.max_memory_allocated() - base
     if ds._plan("gdelt5", q_one).exec_path["partitions_scanned"] != 1:
@@ -2244,7 +2289,8 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
         f"1e-5); kNN k-th distance {kth:.3f} m, boundary pairs {pairs}, rows within 1e-6 "
         f"of it {near}; the phase took {time.perf_counter() - t_phase:.3f} s after ingest")
     s8 = slice8_partitioned(args, torch, ds, data, kpip, kgrouped)
-    return launches, s8
+    s9 = slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+    return launches, s8, s9
 
 
 #: slice 8: the curve's full CONUS crop and its level (85 x 72 = 6,120
@@ -2654,6 +2700,396 @@ def slice8_partitioned(args, torch, ds, data, kpip, kgrouped):
     return launches
 
 
+#: slice 9: the 2 x 2 degree pushdown box; a wide box over two days of one
+#: partition (its pruned child is large enough to compact, so its density
+#: takes the grouped kernel); the delete's 1-degree box and week; the
+#: age-off cutoff at the end of the second weekly partition (z3 weeks
+#: start on Thursdays: 2020-01-02, 2020-01-09, ...); the join's stations
+#: and reach (degrees, about 200 m)
+S9_BOX = (-91.0, 38.0, -89.0, 40.0)
+S9_WIDE = (-110.0, 28.0, -80.0, 48.0)
+S9_DAYS = ("2020-01-10T00:00:00", "2020-01-12T00:00:00")
+S9_STATS = "Count();MinMax(weight)"
+S9_LEVEL = 9
+S9_DELETE_BOX = (-95.0, 35.0, -94.0, 36.0)
+S9_DELETE_WEEK = ("2020-01-06T00:00:00", "2020-01-12T00:00:00")
+S9_AGE_OFF = "2020-01-09T00:00:00"
+S9_REACH = 0.002
+
+
+def s9_query(box, lo, hi) -> str:
+    return (f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]}) AND "
+            f"dtg DURING {lo}Z/{hi}Z")
+
+
+def s9_box_rows(data, box, lo, hi, alive=None):
+    x, y = data["geom__x"], data["geom__y"]
+    m = (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3]) & time_mask(data, lo, hi)
+    return m if alive is None else m & alive
+
+
+def s9_codec(torch, st, log_prefix="[slice9]"):
+    """One partition's snapshot written and reloaded in both layouts:
+    encode seconds and bytes of each, and the seconds a full reload takes
+    to decode every column."""
+    import shutil
+
+    from geomesa_tpu_torch import config
+
+    b = min(st.part_counts, key=st.part_counts.get)  # the phase's size cut
+    child = st.child(b)
+    child._all.columns.items()  # every column decoded before the timings
+    root = Path(st.spill_dir) / "s9_codec"
+    out = {}
+    for lake in (True, False):
+        d = root / ("lake" if lake else "npz")
+        with config.LAKE_ENABLED.scoped(lake):
+            t0 = time.perf_counter()
+            st._write_snapshot(child, str(d))
+            enc = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in d.iterdir())
+        t0 = time.perf_counter()
+        loaded = st._load_snapshot(str(d))
+        cols = dict(loaded._all.columns.items())
+        keys = dict(loaded._key_cols.items())
+        dec = time.perf_counter() - t0
+        out["lake" if lake else "npz"] = (enc, size, dec, len(cols) + len(keys))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"{log_prefix} snapshot of partition {b} ({st.part_counts[b]} rows): "
+        + "; ".join(f"{k} encode {v[0]:.3f} s, {v[1]} B on disk, full reload decoding "
+                    f"{v[3]} columns {v[2]:.3f} s" for k, v in out.items()))
+    return out
+
+
+def s9_pushdown(args, torch, ds, data, name, st):
+    """Count, unweighted density, unweighted curve and stats of three
+    windows with pushdown on: cold (after spill_all) and warm, then on and
+    off in turns from a cold store, each answer equal to the others and to
+    a NumPy oracle; the row groups and bytes each loaded."""
+    from geomesa_tpu_torch import Query, config
+
+    x, y, w = data["geom__x"], data["geom__y"], data["weight"]
+    # the long window's pushdown-off answers come from one pass with every
+    # partition resident (a cold off call reloads all 23 whole partitions,
+    # about 40 s on the H100), so only its count times off against on
+    windows = {
+        "box_b": (S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00", 2, (True, False)),
+        "box_long": (S9_BOX, LONG_LO, LONG_HI, 1, (True,)),
+        "wide_2d": (S9_WIDE, S9_DAYS[0], S9_DAYS[1], 1, (True, False)),
+    }
+    #: the wide window serves the grouped kernel on a pruned child: its
+    #: density alone
+    only = {"wide_2d": ("density",)}
+    rows = []
+    for wname, (box, lo, hi, reps, turns) in windows.items():
+        q = s9_query(box, lo, hi)
+        m = s9_box_rows(data, box, lo, hi)
+        wm = w[m]
+        g_u = density_oracles(data, time_mask(data, lo, hi), bbox=box)[0]
+        window, _ = ds._snap_blocks(box, S9_LEVEL)
+        oracle = {
+            "count": int(m.sum()),
+            "density": g_u,
+            "curve": curve_oracle(x[m], y[m], None, S9_LEVEL, window),
+            "stats": [int(m.sum()), {"min": float(wm.min()), "max": float(wm.max()),
+                                     "cardinality": len(wm)}],
+        }
+        ops = {
+            "count": (q, lambda q=q: ds.count(name, q)),
+            "density": (q, lambda q=q, box=box: ds.density(
+                name, q, bbox=box, width=WIDTH, height=HEIGHT)),
+            "curve": (Query(q, index="z2"), lambda q=q, box=box: ds.density_curve(
+                name, q, level=S9_LEVEL, bbox=box)[0]),
+            "stats": (q, lambda q=q: [s.value() for s in ds.stats(name, S9_STATS, q).stats]),
+        }
+        answers, off_walls = {}, {}
+        for op, (pq, fn) in ops.items():
+            if op not in only.get(wname, ops):
+                continue
+            st.spill_all()
+            got, cold = timed(torch, fn)
+            answers[op] = got
+            plan = ds._plan(name, pq)
+            acct = dict(plan.__dict__.get("lake_acct") or {})
+            path = dict(plan.exec_path)
+            warm = [timed(torch, fn)[1] * 1e3 for _ in range(reps)]
+            walls = {True: [], False: []}
+            for on in turns:
+                st.spill_all()
+                with config.LAKE_PUSHDOWN.scoped(on):
+                    ans, sec = timed(torch, fn)
+                walls[on].append(sec * 1e3)
+                if not s9_same(op, ans, got):
+                    raise AssertionError(f"{wname} {op}: pushdown {'on' if on else 'off'} "
+                                         "disagrees with the cold call")
+            off_walls[op] = walls
+            want = oracle[op]
+            same = (got == want) if op in ("count", "stats") else (
+                got.shape == want.shape and np.array_equal(got.astype(np.float64), want))
+            if not same:
+                raise AssertionError(f"{wname} {op}: answer differs from the NumPy oracle")
+            if not acct.get("groups_pruned"):
+                raise AssertionError(f"{wname} {op}: no row group was pruned ({path})")
+            rows.append((wname, op, cold * 1e3, float(np.median(warm)), walls, acct))
+            kern = "" if op != "density" else "; density kernel by partition " + str(
+                {k: [b for b, p in path["partitions"].items() if p.get("density_kernel") == k]
+                 for k in ("grouped", "scatter")})
+            log(f"[slice9] {wname} {op}: cold {cold * 1e3:.3f} ms, warm p50 "
+                f"{np.median(warm):.3f} ms ({reps} reps); from a cold store in turns "
+                f"{['on' if t else 'off' for t in turns]}: on {walls[True]} ms, off "
+                f"{walls[False]} ms; row groups loaded {acct['groups_loaded']}/"
+                f"{acct['groups_total']}, bytes {acct['bytes_loaded']}/"
+                f"{acct['bytes_payload']}; exec_path lake {path.get('lake')!r}, fallback "
+                f"{path.get('lake_fallback')!r}, partitions scanned "
+                f"{path.get('partitions_scanned')}{kern}; equal to the NumPy oracle")
+        if wname == "box_long":
+            # the pushdown-off answers in one pass with every partition
+            # resident: the first (count) reloads all 23 whole partitions
+            # from a cold store, the others reuse them
+            st.spill_all()
+            budget = st.max_resident
+            st.max_resident = len(st.partition_bins())
+            try:
+                with config.LAKE_PUSHDOWN.scoped(False):
+                    for op, (_, fn) in ops.items():
+                        ans, sec = timed(torch, fn)
+                        off_walls[op][False].append(sec * 1e3)
+                        if not s9_same(op, ans, answers[op]):
+                            raise AssertionError(f"{wname} {op}: pushdown off disagrees")
+            finally:
+                st.max_resident = budget
+                st.evict()  # back to the budget (clean partitions: no rewrite)
+            log(f"[slice9] {wname} pushdown off, every partition resident, in order "
+                f"{list(ops)}: {[off_walls[op][False][0] for op in ops]} ms (the first "
+                "from a cold store); each equal to its pushdown-on answer")
+    return rows
+
+
+def s9_same(op, a, b) -> bool:
+    return a == b if op in ("count", "stats") else np.array_equal(a, b)
+
+
+def s9_join(args, torch, ds, data, name):
+    """join_count of 1,900 NYC stations (a flat left side) with the
+    partitioned store by dwithin: the right side streams through the lake
+    window; the count equals a NumPy brute force."""
+    from geomesa_tpu_torch.kernels import join as kjoin
+
+    stations = make_stations(STATION_ROWS, args.seed)
+    ds.create_schema("stations9", TRIP_SPEC)
+    ds.insert("stations9", stations)
+    ds.flush("stations9")
+    st = ds._store(name)
+    st.spill_all()
+    kw = dict(predicate="dwithin", distance=S9_REACH)
+    n, cold = timed(torch, lambda: ds.join_count("stations9", name, **kw))
+    # the warm call: join_count's own body, for its JoinStats
+    res, warm = timed(torch, lambda: ds._join_run(
+        "stations9", name, "dwithin", S9_REACH, None, None, "INCLUDE", "INCLUDE", None,
+        want_pairs=False))
+    x, y = data["geom__x"], data["geom__y"]
+    pad = 0.01
+    near = np.flatnonzero((x >= NYC[0] - pad) & (x <= NYC[2] + pad)
+                          & (y >= NYC[1] - pad) & (y <= NYC[3] + pad))
+    p0, p1 = kjoin.pair_params("dwithin", distance=S9_REACH)
+    brute = len(kjoin.brute_force_pairs(stations["geom__x"], stations["geom__y"],
+                                        x[near], y[near], "dwithin", p0, p1))
+    if not n == res.count == brute:
+        raise AssertionError(f"join pushdown count {n} / {res.count} != brute force {brute}")
+    if not res.stats.pushdown or not res.stats.pushdown.get("chunks"):
+        raise AssertionError("the join count did not take the pushdown path")
+    log(f"[slice9] join_count stations9 x {name} by dwithin {S9_REACH}: {n} pairs "
+        f"(NumPy brute force over the {len(near)} right rows in NYC's box: {brute}); cold "
+        f"{cold * 1e3:.3f} ms, warm {warm * 1e3:.3f} ms; JoinStats.pushdown {res.stats.pushdown}; "
+        f"cells joint {res.stats.cells_joint}, candidate pairs {res.stats.candidate_pairs}, "
+        f"right rows scanned {res.stats.n_right}")
+    ds.delete_schema("stations9")
+    return n
+
+
+def s9_lifecycle(args, torch, ds, data, name, label, wkt, packed, n_edges):
+    """update_schema, an attribute index on the new column (added, queried,
+    removed), delete_features of a 1-degree box over one week and age_off
+    at the end of the second week; after each, the bbox + time count, the
+    512x512 density and the polygon count equal the NumPy oracle over the
+    surviving rows."""
+    from geomesa_tpu_torch import Query
+
+    st = ds._store(name)
+    alive = np.ones(len(data["dtg"]), bool)
+    q_b = f"{BOX} AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    grid = dict(bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+    walls = {}
+
+    # the oracles' rows: those of B's interval, once
+    sub = np.flatnonzero(time_mask(data))
+    part = {k: v[sub] for k, v in data.items()}
+    in_poly = polygon_rows(part, np.ones(len(sub), bool), packed, n_edges)
+
+    def check(step):
+        keep = alive[sub]
+        g_u, _, _, n_b = density_oracles(part, keep)
+        got = (ds.count(name, q_b), ds.density(name, q_b, **grid), ds.count(name, q_poly))
+        want_p = int((in_poly & keep).sum())
+        if got[0] != n_b or not np.array_equal(got[1].astype(np.float64), g_u) \
+                or got[2] != want_p:
+            raise AssertionError(f"{label} after {step}: count {got[0]} (oracle {n_b}), "
+                                 f"polygon {got[2]} (oracle {want_p}), grid equal "
+                                 f"{np.array_equal(got[1].astype(np.float64), g_u)}")
+        log(f"[slice9] {label} after {step} ({walls[step]:.3f} s): count {n_b}, polygon "
+            f"{want_p} and the grid equal the oracle over {int(alive.sum())} surviving rows; "
+            f"exec_path {dict(ds._plan(name, q_b).exec_path)}")
+
+    def step(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    step("update_schema", lambda: ds.update_schema(name, "tag:Integer"))
+    check("update_schema")
+    step("add_attribute_index", lambda: ds.add_attribute_index(name, "tag"))
+    q_tag = Query(f"tag = 0 AND {DURING}", index="attr:tag")
+    n_tag = step("attribute_query", lambda: ds.count(name, q_tag))
+    plan = ds._plan(name, q_tag)
+    if n_tag != int(time_mask(data).sum()) or plan.index_name != "attr:tag":
+        raise AssertionError(f"{label} attribute query: {n_tag} rows on {plan.index_name}")
+    log(f"[slice9] {label} add_attribute_index {walls['add_attribute_index']:.3f} s; "
+        f"count of tag = 0 over B's interval on attr:tag {n_tag} ({walls['attribute_query']:.3f}"
+        f" s), exec_path {dict(plan.exec_path)}")
+    step("remove_attribute_index", lambda: ds.remove_attribute_index(name, "tag"))
+    check("remove_attribute_index")
+    gone = s9_box_rows(data, S9_DELETE_BOX, *S9_DELETE_WEEK, alive)
+    n_del = step("delete_features", lambda: ds.delete_features(
+        name, s9_query(S9_DELETE_BOX, *S9_DELETE_WEEK)))
+    if n_del != int(gone.sum()) or not n_del:
+        raise AssertionError(f"{label} delete_features removed {n_del}, oracle {int(gone.sum())}")
+    alive &= ~gone
+    check("delete_features")
+    from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+
+    old = (data["dtg"].astype(np.int64) < parse_iso_ms(S9_AGE_OFF)) & alive
+    n_age = step("age_off", lambda: ds.age_off(name, S9_AGE_OFF + "Z"))
+    if n_age != int(old.sum()) or not n_age:
+        raise AssertionError(f"{label} age_off removed {n_age}, oracle {int(old.sum())}")
+    alive &= ~old
+    check("age_off")
+    log(f"[slice9] {label} lifecycle: removed {n_del} by delete_features, {n_age} by age_off; "
+        f"step walls (s) {walls}" + (f"; spills {st.spills}, loads {st.loads}"
+                                    if hasattr(st, "spills") else ""))
+    return alive
+
+
+def s9_kernels_on_pruned(torch, ds, name, st, wkt, packed, n_edges, kpip, kgrouped):
+    """Both kernels against their plain versions on a pruned ephemeral
+    child's operands: the wide two-day window's density (its child
+    compacts) and the polygon count's point columns."""
+    ex = ds._executor(name)
+    out = {}
+    q_wide = s9_query(S9_WIDE, *S9_DAYS)
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    for key, q in (("density_grouped", q_wide), ("pip", q_poly)):
+        st.spill_all()
+        plan = ds._fresh_plan(name, q)
+        window = ex._push_window(plan)
+        b = ex.prune(plan)[-1]
+        child = st.scan_child(b, window)
+        if child is None or child.lake_note is None:
+            raise AssertionError(f"{key}: partition {b} did not load pruned")
+        cex = ex._executor_for(b, child)
+        note = child.lake_note
+        if key == "density_grouped":
+            o = cex.density_inputs(plan, S9_WIDE, WIDTH, HEIGHT)
+            if o is None:
+                raise AssertionError("the pruned child's density did not take the grouped rung")
+            a = (o["x"], o["y"], o["mask"], o["weight"], S9_WIDE, WIDTH, HEIGHT, o["sched"])
+            if not torch.equal(kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)):
+                raise AssertionError("density kernel disagrees with its plain version on a "
+                                     "pruned child")
+            ms, plain, _ = in_turns(torch, lambda: kgrouped.density_grouped(*a),
+                                    lambda: kgrouped.density_grouped_plain(*a), 20, 3)
+            shape = f"{tuple(o['x'].shape)} rows, {o['sched']['chunks'].numel()} pairs"
+        else:
+            pc = cex.scan_columns(plan, ["geom__x", "geom__y"])
+            px, py = pc["geom__x"], pc["geom__y"]
+            edges = torch.from_numpy(packed).cuda()
+            bad = int((kpip.pip_mask(px, py, edges, n_edges)
+                       != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+            if bad:
+                raise AssertionError(f"pip kernel disagrees with its plain version on {bad} "
+                                     "points of a pruned child")
+            ms, plain, _ = in_turns(torch, lambda: kpip.pip_mask(px, py, edges, n_edges),
+                                    lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 20, 3)
+            shape = f"{tuple(px.shape)} points"
+        out[key] = (ms, plain)
+        log(f"[slice9] {key} on partition {b}'s pruned child ({note['groups_loaded']}/"
+            f"{note['groups_total']} row groups, {child.count} rows; {shape}): {ms:.6f} ms, "
+            f"plain {plain:.6f} ms; equal to its plain version")
+        child.drop_device()
+        ex._execs.pop(b, None)
+    return out
+
+
+def slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped, name="gdelt5"):
+    """The slice-9 phase on slice 5's partitioned store (see the module
+    docstring, 11). Returns this phase's launches of every kernel."""
+    from geomesa_tpu_torch.kernels import join as kjoin
+
+    t_phase = time.perf_counter()
+    st = ds._store(name)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    kjoin.reset_launches()
+
+    def counts():
+        return {"pip": kpip.launches, "density_grouped": kgrouped.launches, **kjoin.launches}
+
+    s9_codec(torch, st)
+    s9_pushdown(args, torch, ds, data, name, st)
+    after_push = counts()
+    s9_join(args, torch, ds, data, name)
+    # the comparisons with the plain versions launch the kernels too: not
+    # the phase's own calls, so the counts are put back after them
+    held = counts()
+    s9_kernels_on_pruned(torch, ds, name, st, wkt, packed, n_edges, kpip, kgrouped)
+    kpip.launches, kgrouped.launches = held.pop("pip"), held.pop("density_grouped")
+    kjoin.launches.update(held)
+    before_life = counts()
+    s9_lifecycle(args, torch, ds, data, name, "partitioned", wkt, packed, n_edges)
+    launches = counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    life = {k: v - before_life[k] for k, v in launches.items()}
+    log(f"[slice9] partitioned phase: {time.perf_counter() - t_phase:.3f} s, peak device "
+        f"memory {peak} B above the {base} B before it; launches of its own calls {launches} "
+        f"(pushdown {after_push}, lifecycle {life}; the comparisons with the plain versions "
+        "not counted)")
+    if min(launches["pip"], launches["density_grouped"]) <= 0:
+        raise AssertionError(f"a kernel never launched in slice 9's phase: {launches}")
+    if after_push["density_grouped"] <= 0 or life["pip"] <= 0:
+        raise AssertionError("the grouped density kernel never ran on a pruned child "
+                             f"({after_push}) or pip never ran on the mutated store ({life})")
+    return launches
+
+
+def slice9_flat(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
+    """Slice 9's lifecycle on slice 1's flat store. Returns its launches."""
+    t0 = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    s9_lifecycle(args, torch, ds, data, "gdelt", "flat", wkt, packed, n_edges)
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    log(f"[slice9] flat lifecycle: {time.perf_counter() - t0:.3f} s; launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in slice 9's flat lifecycle: {launches}")
+    return launches
+
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -2672,6 +3108,7 @@ def main() -> int:
     ap.add_argument("--trip-rows", type=int, default=TRIP_ROWS,
                     help="pickups (and dropoffs) of slice 7's taxi schemas")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2898,6 +3335,9 @@ def main() -> int:
     # -- 7. slice 6: extent schemas beside slice 3's points -------------------
     slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
+    # -- 11. slice 9's lifecycle on slice 1's store, before it is freed --------
+    s9_flat = slice9_flat(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+
     # the earlier phases' stores and operands leave the card first
     del ds, data, extra, fids, ex, cols, px, py, o, ops_u, ops_w, got, want
     del edges, cx, cy, flat, wflat
@@ -2909,10 +3349,12 @@ def main() -> int:
 
     # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
     # calls run on it at the end) ---------------------------------------------
-    _, s8_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    _, s8_part, s9_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
     for k in kernels:
         k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
+        k["launches_slice9"] = s9_flat.get(k["name"], 0) + s9_part.get(k["name"], 0)
 
+    log(f"[main] chip_smoke wall {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ functions included) through the cost-based decider to scan windows; window
 compaction, the fused mask, exact refinement on the host, and the
 ``count`` / ``density`` aggregates (over a polygon ``region=`` too),
 feature queries (``Query``: projection, limit, sorting, sampling), stats,
-kNN and spatial joins (point-point, point-polygon, ``spatial_join``), with
+kNN and spatial joins (point-point, point-polygon, ``spatial_join``),
+time-partitioned stores spilled as lake snapshots with row-group pushdown,
+and the schema and data lifecycle (``update_schema``, attribute indices,
+``delete_features``, ``age_off``), with
 the JAX package's two Pallas kernels and the join predicates written as
 CUDA kernels (``csrc/``). Its tunables are in
 ``config``. It imports torch and numpy, and nothing of JAX or

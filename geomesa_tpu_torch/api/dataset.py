@@ -15,7 +15,12 @@ helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
 ``density_curve_filter_batch``, ``count_batch``, ``density_batch``,
 ``stats_batch``: M distinct viewports of one query shape in one call,
 each member equal to its serial call, or None when they cannot share
-it). A schema with
+it), and the schema and data lifecycle (``get_schema``, ``list_schemas``,
+``describe``, ``delete_schema``, ``update_schema``,
+``add_attribute_index``, ``remove_attribute_index``, ``delete_features``,
+``age_off``, ``z3_histogram``; the reference's journal, standing-query and
+aggregate-cache hooks in these calls have no counterpart here yet). A
+schema with
 ``geomesa.partition='time'`` gets a time-partitioned, out-of-core store
 and serves the same calls partition at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
 Extent-geometry columns take WKT strings or geometry objects on insert
@@ -39,7 +44,7 @@ import torch
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import compile_filter
-from geomesa_tpu_torch.filter.ecql import parse_ecql
+from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
 from geomesa_tpu_torch.planning.batch import build_spec
@@ -217,6 +222,111 @@ class GeoDataset:
         self._stores[ft.name] = store_cls(ft, self.n_shards, self.device)
         return ft
 
+    def get_schema(self, name: str) -> FeatureType:
+        return self._store(name).ft
+
+    def list_schemas(self) -> List[str]:
+        return sorted(self._stores)
+
+    def delete_schema(self, name: str) -> None:
+        self._store(name)  # raises if missing
+        del self._stores[name]
+        self._forget(name)
+
+    def describe(self, name: str) -> str:
+        st = self._store(name)
+        lines = [st.ft.describe(), f"  count: {st.count}"]
+        lines.append(f"  indices: {[ks.name for ks in st.keyspaces]}")
+        return "\n".join(lines)
+
+    def _forget(self, name: str) -> None:
+        """Drop the schema's executor (and its device caches) and its
+        cached plans: a schema or data change makes both stale."""
+        self._executors.pop(name, None)
+        for k in [k for k in self._plans if k[0] == name]:
+            del self._plans[k]
+
+    # -- schema, index and data lifecycle ---------------------------------------
+    def update_schema(self, name: str, add_spec: str) -> FeatureType:
+        """Add attributes to a schema, keeping its data: the new columns
+        are appended in place and null-filled (string null code, float NaN,
+        int / long 0, bool False, date epoch 0); no key changes, so no
+        table re-sorts. Spilled partitions upgrade when they load."""
+        st = self._store(name)
+        st.flush()
+        old = st.ft
+        attrs_part, sep, ud_part = old.spec().partition(";")
+        new_ft = FeatureType.from_spec(name, attrs_part + "," + add_spec + sep + ud_part)
+        added = [a for a in new_ft.attributes if not old.has(a.name)]
+        for a in added:
+            if a.is_geom:
+                raise ValueError("cannot add geometry attributes to a schema")
+        st.add_columns(new_ft, added)
+        self._forget(name)
+        return new_ft
+
+    def add_attribute_index(self, name: str, attr: str) -> None:
+        """Enable an attribute index on a live schema: only the new
+        permutation is built (per resident partition; spilled partitions
+        build theirs when they load)."""
+        st = self._store(name)
+        a = st.ft.attr(attr)
+        st.add_attribute_index(attr)
+        a.options["index"] = "true"
+        # an explicit geomesa.indices list overrides the options: it must
+        # name the attr kind, or children made later would drop the index
+        explicit = st.ft.user_data.get("geomesa.indices")
+        if explicit is not None:
+            kinds = [k.strip().lower() for k in explicit.split(",") if k.strip()]
+            if "attr" not in kinds:
+                st.ft.user_data["geomesa.indices"] = explicit + ",attr"
+        self._forget(name)
+
+    def remove_attribute_index(self, name: str, attr: str) -> None:
+        """Drop an attribute index (permutation and sketch); data stays."""
+        st = self._store(name)
+        st.remove_attribute_index(attr)
+        st.ft.attr(attr).options.pop("index", None)
+        self._forget(name)
+
+    def age_off(self, name: str, older_than) -> int:
+        """Delete the features older than a cutoff: epoch-ms int, numpy
+        datetime64 or ISO string. Returns the rows removed."""
+        st = self._store(name)
+        dtg = st.ft.dtg_field
+        if dtg is None:
+            raise ValueError(f"schema {name!r} has no date attribute")
+        if isinstance(older_than, str):
+            cutoff = parse_iso_ms(older_than)
+        elif isinstance(older_than, np.datetime64):
+            cutoff = int(older_than.astype("datetime64[ms]").astype(np.int64))
+        else:
+            cutoff = int(older_than)
+        n = st.delete(lambda cols: cols[dtg] < cutoff)
+        self._forget(name)
+        return n
+
+    def delete_features(self, name: str, ecql: str, auths=None) -> int:
+        """Delete the features matching ``ecql``, through the exact host
+        mask (extent geometries refine, never the envelope superset).
+        Returns the rows removed. Authorizations belong to the host
+        layers and raise."""
+        if auths is not None:
+            raise NotImplementedError(f"delete authorizations: {_HOST_LAYERS}")
+        st = self._store(name)
+        cf = compile_filter(parse_ecql(ecql), st.ft, st.dicts)
+        n = st.delete(lambda cols: cf.exact_mask(cols, len(cols["__fid__"])))
+        self._forget(name)
+        return n
+
+    def z3_histogram(self, name: str) -> Optional[sk.Z3HistogramStat]:
+        """The write-time spatio-temporal histogram the cost model reads
+        (None when empty or the schema has none)."""
+        st = self._store(name)
+        st.flush()
+        z = st.stats.get("z3-histogram")
+        return z if isinstance(z, sk.Z3HistogramStat) and not z.is_empty else None
+
     def attach_store(self, store: FeatureStore) -> None:
         """Serve an already-built store (see ``convert.store_from_arrays``)
         under its schema name."""
@@ -302,6 +412,7 @@ class GeoDataset:
         """:meth:`_plan` with its ``exec_path`` cleared for a new call."""
         plan = self._plan(name, query)
         plan.__dict__["exec_path"] = {}
+        plan.__dict__.pop("lake_acct", None)
         return plan
 
     def _with_region(self, name: str, query, region):
@@ -747,28 +858,183 @@ class GeoDataset:
                   want_pairs: bool) -> SpatialJoinResult:
         """The shared spatial-join body: scan both sides, then the polygon
         join (``pip`` / ``poly_bbox``) or the co-partitioned pairwise join
-        on this dataset's device. A count-only join over a partitioned
-        right store materializes the right side too (the reference streams
-        it through the lake's window pushdown, which the port lacks); the
-        count is the same."""
+        on this dataset's device. A count-only ``dwithin`` / ``bbox`` join
+        over a partitioned right store streams the right side through the
+        lake window instead (:meth:`_join_pushdown_count`)."""
         from geomesa_tpu_torch.kernels import join as kjoin
         from geomesa_tpu_torch.planning import join_exec
 
-        polygon = predicate in kjoin.POLYGON_PREDICATES
-        lst, lbatch, rst, rbatch = self._join_sides(
-            left, right, left_query, right_query, right_polygon=polygon)
-        lx, ly = self._side_xy(lst, lbatch)
-        if polygon:
+        if predicate in kjoin.POLYGON_PREDICATES:
+            lst, lbatch, rst, rbatch = self._join_sides(
+                left, right, left_query, right_query, right_polygon=True)
+            lx, ly = self._side_xy(lst, lbatch)
             geoms = self._side_polygons(rst, rbatch)
             pairs, total, stats = join_exec.run_polygon_join(
                 lx, ly, geoms, predicate, level=level, device=self.device,
                 want_pairs=want_pairs)
+        elif not want_pairs and self._join_pushdown_ready(right, predicate, right_query):
+            lbatch, total, stats = self._join_pushdown_count(
+                left, right, predicate, distance, dx, dy, left_query,
+                right_query, level)
+            rbatch, pairs = ColumnBatch({}, 0), None
         else:
+            lst, lbatch, rst, rbatch = self._join_sides(left, right, left_query, right_query)
+            lx, ly = self._side_xy(lst, lbatch)
             rx, ry = self._side_xy(rst, rbatch)
             pairs, total, stats = join_exec.run_join(
                 lx, ly, rx, ry, predicate, distance=distance, dx=dx, dy=dy,
                 level=level, device=self.device, want_pairs=want_pairs)
         return SpatialJoinResult(lbatch, rbatch, pairs, total, stats)
+
+    def _join_pushdown_ready(self, right: str, predicate: str, right_query) -> bool:
+        """Whether a count-only join can stream its right side through
+        lake window scans: a planar predicate (``dwithin_meters``' reach
+        depends on each row's latitude and wraps the antimeridian), a
+        right query without row-set-dependent hints, and a partitioned
+        point right store."""
+        from geomesa_tpu_torch.kernels import join as kjoin
+
+        if predicate not in (kjoin.JOIN_BBOX, kjoin.JOIN_DWITHIN):
+            return False
+        if not config.JOIN_PUSHDOWN.to_bool():
+            return False
+        if isinstance(right_query, Query) and (
+                right_query.max_features is not None or right_query.sampling is not None
+                or right_query.sample_by is not None or right_query.sort_by
+                or right_query.properties):
+            return False
+        st = self._stores.get(right)
+        if not isinstance(st, PartitionedFeatureStore):
+            return False
+        g = st.ft.geom_field
+        return g is not None and st.ft.attr(g).is_point
+
+    def _join_pushdown_count(self, left: str, right: str, predicate: str,
+                             distance, dx, dy, left_query, right_query, level):
+        """Count-only join with window-pushdown side scans: the left side's
+        occupied cells (at a window level sized to the reach) chunk into
+        groups of ``geomesa.join.pushdown.cells``; each chunk re-plans the
+        right side as ``(right_query) AND (OR of the chunk's cell boxes
+        grown by reach + 2 CLASSIFY_MARGIN)`` and scans it through
+        ``features_pushdown``, so the right side is never whole on the
+        host. A left row's cell lies in exactly one chunk and every right
+        row within reach of it lies in that chunk's window (one margin for
+        the strip contract, one for the scan's f32 edges; the bounds round
+        outward to nine decimals), so the chunk counts partition the pair
+        set. Returns ``(left batch, total, JoinStats)`` with
+        ``JoinStats.pushdown``."""
+        from geomesa_tpu_torch.cache import cells as gcells
+        from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
+        from geomesa_tpu_torch.kernels import join as kjoin
+        from geomesa_tpu_torch.lake.residency import GroupResidencyCache
+        from geomesa_tpu_torch.planning import join_exec
+
+        lst = self._store(left)
+        lplan = self._fresh_plan(left, left_query)
+        g = lst.ft.geom_field
+        if g is None or not lst.ft.attr(g).is_point:
+            raise ValueError(f"[GM-ARG] spatial join requires a POINT geometry "
+                             f"on schema {left!r}")
+        rgeom = self._store(right).ft.geom_field
+        lbatch = self._executor(left).features(lplan)
+        lx, ly = self._side_xy(lst, lbatch)
+        lx = np.asarray(lx, np.float64)
+        ly = np.asarray(ly, np.float64)
+        p0, p1 = kjoin.pair_params(predicate, distance=distance, dx=dx, dy=dy)
+        reach_x, reach_y, _ = join_exec.join_reach(predicate, p0, p1, distance, None)
+        if level is None:
+            # the level votes from the left side only: the right side is
+            # never whole on the host
+            bounds = None
+            if len(lx):
+                bounds = (float(lx.min()), float(ly.min()), float(lx.max()), float(ly.max()))
+            level = join_exec.choose_level(len(lx), len(lx), max(reach_x, reach_y), bounds)
+        stats = join_exec.JoinStats(level=level, n_left=len(lx))
+        if not len(lx):
+            return lbatch, 0, stats
+        # window cells sized to the reach, finer than the join grid, so a
+        # window is comparable to a row group's footprint (exactness holds
+        # at any level)
+        wlevel = int(np.clip(int(np.floor(np.log2(
+            360.0 / max(2.0 * (max(reach_x, reach_y) + CLASSIFY_MARGIN), 1e-9)))),
+            level, 15))
+        ix, iy = gcells.point_cells(lx, ly, wlevel)
+        cell = join_exec._cell_ids(ix, iy)
+        order = np.argsort(cell, kind="stable")
+        ucell, starts = np.unique(cell[order], return_index=True)
+        ends = np.concatenate([starts[1:], [len(order)]])
+        uix = ix[order][starts]
+        uiy = iy[order][starts]
+        stats.cells_left = len(ucell)
+        per = max(int(config.JOIN_PUSHDOWN_CELLS.to_int() or 256), 1)
+        rq_base = right_query if isinstance(right_query, Query) else Query(ecql=right_query)
+        base = rq_base.ecql
+        pad_x = reach_x + 2.0 * CLASSIFY_MARGIN
+        pad_y = reach_y + 2.0 * CLASSIFY_MARGIN
+
+        def _lo(v):
+            return f"{np.floor(v * 1e9) / 1e9:.9f}"
+
+        def _hi(v):
+            return f"{np.ceil(v * 1e9) / 1e9:.9f}"
+
+        total = chunks = 0
+        bytes_loaded = groups_loaded = bytes_side = groups_side = 0
+        # one cache spans the chunk loop: adjacent chunks' windows overlap,
+        # and their shared row groups decode once
+        residency = GroupResidencyCache.from_config()
+        rex = self._executor(right)
+        for clo in range(0, len(ucell), per):
+            chi = min(clo + per, len(ucell))
+            chunks += 1
+            boxes = gcells.cell_boxes(wlevel, uix[clo:chi], uiy[clo:chi])
+            clause = " OR ".join(
+                f"BBOX({rgeom}, {_lo(b[0] - pad_x)}, {_lo(b[1] - pad_y)},"
+                f" {_hi(b[2] + pad_x)}, {_hi(b[3] + pad_y)})" for b in boxes)
+            ecql = clause if base.strip().upper() == "INCLUDE" else f"({base}) AND ({clause})"
+            rplan = self._fresh_plan(right, dataclasses.replace(rq_base, ecql=ecql))
+            if residency is not None:
+                rplan.__dict__["residency"] = residency
+            try:
+                rb = rex.features_pushdown(rplan)
+            finally:
+                rplan.__dict__.pop("residency", None)
+            rx, ry = self._side_xy(self._store(right), rb)
+            stats.n_right += len(rx)
+            sel = order[starts[clo]: ends[chi - 1]]
+            plan = join_exec.co_partition(lx[sel], ly[sel], rx, ry, predicate, reach_x,
+                                          reach_y, level=level, p0=p0, p1=p1)
+            _, cnt = join_exec.execute_predicate(plan, lx[sel], ly[sel], rx, ry, predicate,
+                                                 device=self.device, want_pairs=False)
+            total += cnt
+            cst = plan.stats
+            stats.cells_joint += cst.cells_joint
+            stats.candidate_pairs += cst.candidate_pairs
+            stats.strip_entries += cst.strip_entries
+            stats.tiles += cst.tiles
+            stats.devices = max(stats.devices, cst.devices)
+            stats.adaptive = cst.adaptive
+            for dst, src in ((stats.strategy_cells, cst.strategy_cells),
+                             (stats.est_pairs, cst.est_pairs),
+                             (stats.dispatched_pairs, cst.dispatched_pairs)):
+                for k, v in src.items():
+                    dst[k] = dst.get(k, 0) + v
+            acct = rplan.__dict__.get("lake_acct") or {}
+            bytes_loaded += int(acct.get("bytes_loaded", 0))
+            groups_loaded += int(acct.get("groups_loaded", 0))
+            # every chunk's scan sees every row group's footer: one chunk's
+            # totals are the whole side
+            bytes_side = max(bytes_side, int(acct.get("bytes_payload", 0)))
+            groups_side = max(groups_side, int(acct.get("groups_total", 0)))
+        stats.matched = total
+        stats.pushdown = {
+            "chunks": chunks, "cells": len(ucell),
+            "bytes_loaded": bytes_loaded, "bytes_side": bytes_side,
+            "groups_loaded": groups_loaded, "groups_side": groups_side,
+            "residency_hits": residency.hits if residency is not None else 0,
+            "bytes_saved_residency": residency.bytes_saved if residency is not None else 0,
+        }
+        return lbatch, total, stats
 
     def join_spatial(self, left: str, right: str, *, predicate: str,
                      distance=None, dx=None, dy=None, left_query="INCLUDE",

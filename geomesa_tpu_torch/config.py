@@ -134,6 +134,32 @@ SHARD_LEN_BUCKET = SystemProperty("geomesa.partition.shard.bucket", "65536")
 #: window resolution
 COMPACT_COVER = SystemProperty("geomesa.compact.cover", "32768")
 
+#: spill partitions as lake snapshots (false: the npz layout; either loads)
+LAKE_ENABLED = SystemProperty("geomesa.lake.enabled", "true")
+
+#: rows per lake row group, the pruning granule
+LAKE_ROWGROUP_ROWS = SystemProperty("geomesa.lake.rowgroup.rows", "16384")
+
+#: additive scans (count, unweighted density and curve, stats) and the
+#: join's side scans load only the row groups whose statistics meet the
+#: plan's box and interval (false: whole partitions)
+LAKE_PUSHDOWN = SystemProperty("geomesa.lake.pushdown", "true")
+
+#: degrees added around a row group's bbox before it is pruned, so the
+#: scan's f32 edge arithmetic never matches a row of a pruned group
+LAKE_PRUNE_MARGIN = SystemProperty("geomesa.lake.prune.margin", "1e-3")
+
+#: a count-only dwithin / bbox join over a partitioned right store scans
+#: the right side per chunk of left cells through the lake window
+JOIN_PUSHDOWN = SystemProperty("geomesa.join.pushdown", "true")
+
+#: occupied left cells per pushdown chunk
+JOIN_PUSHDOWN_CELLS = SystemProperty("geomesa.join.pushdown.cells", "256")
+
+#: MiB of decoded row-group chunks kept across a pushdown join's chunks
+#: (0 disables)
+JOIN_PUSHDOWN_RESIDENCY_MB = SystemProperty("geomesa.join.pushdown.residency.mb", "64")
+
 #: stage the next partition while the current one runs (one worker, one
 #: partition in flight)
 PIPELINE_PREFETCH = SystemProperty("geomesa.pipeline.prefetch", "true")

@@ -15,17 +15,30 @@ child table rounds its padded shard length up to
 ``geomesa.partition.shard.bucket``. The budget, the spill directory and
 the bucket are read from ``config`` when the store is made.
 
-Snapshots use the JAX package's npz layout (its ``geomesa.lake.enabled=
-false`` branch): ``data.npz`` with ``c/<column>`` master columns,
-``k/<column>`` index key columns, ``t/<index>/order``,
-``t/<index>/key/<column>`` and ``t/<index>/vocab``, beside ``meta.json``
-(row count, key shifts, the write-time sketches as JSON). A reloaded child
-reads its master columns lazily (:class:`_LazyCols`). A partition leaves
+Snapshots are lake files by default (``geomesa.lake.enabled``;
+``lake/snapshot.py``): master rows in the primary index's order, cut into
+row groups with bbox and time statistics. With the knob off a spill writes
+the npz layout (``data.npz`` with ``c/<column>`` master columns,
+``k/<column>`` key columns, ``t/<index>/order``, ``t/<index>/key/<column>``
+and ``t/<index>/vocab``); either format loads. Both keep ``meta.json``
+(row count, key shifts, the write-time sketches as JSON) beside the data.
+A reloaded child reads its master columns lazily. A partition leaves
 memory only after its snapshot is on disk.
 
-Not ported yet (ROADMAP Queue 1): the lake snapshot tier and its pruned
-partial loads, spill retries and quarantine, checkpoints and attaching
-snapshots, and schema or index changes and deletes on a partitioned store.
+An additive scan may ask :meth:`PartitionedFeatureStore.scan_child` for a
+spilled lake partition pruned to the plan's box and interval: an ephemeral
+child over the surviving row groups, never entered into the resident map.
+A partition that cannot be served pruned loads whole, and the reason is
+recorded on the scan's window.
+
+Schema and index changes and deletes reach resident children at once;
+spilled snapshots are upgraded when they load (null-filled new columns,
+missing index tables built), and a delete loads, rewrites and marks dirty
+every partition it touches.
+
+Not ported yet (ROADMAP Queue 1): spill retries and corrupt-snapshot
+quarantine (a corrupt snapshot raises ``LakeCorruptError``), checkpoints
+and attaching snapshots.
 """
 
 from __future__ import annotations
@@ -42,8 +55,10 @@ import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
-from geomesa_tpu_torch.index.store import FeatureStore, _init_stats
-from geomesa_tpu_torch.schema.columns import ColumnBatch
+from geomesa_tpu_torch.index.keyspace import AttributeKeySpace
+from geomesa_tpu_torch.index.store import FeatureStore, IndexTable, _init_stats
+from geomesa_tpu_torch.lake.snapshot import SNAPSHOT_FILE, PartitionSnapshot, write_snapshot
+from geomesa_tpu_torch.schema.columns import ColumnBatch, null_columns
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import sketches as sk
 
@@ -54,23 +69,21 @@ def is_partitioned_schema(ft: FeatureType) -> bool:
 
 
 class _LazyCols(dict):
-    """Master-column mapping that reads a snapshot member on first access,
-    so a reloaded partition pays disk reads only for the columns its
+    """Master-column mapping that reads a snapshot member on first access
+    (``read(member)``: an npz member, or a lake column over the loaded row
+    groups), so a reloaded partition pays reads only for the columns its
     queries touch."""
 
-    def __init__(self, npz_path: str, zkeys: Dict[str, str]):
+    def __init__(self, read, zkeys: Dict[str, str]):
         super().__init__()
-        self._path = npz_path
-        self._zkeys = dict(zkeys)   # column name -> npz member
-        self._zf = None
+        self._read = read
+        self._zkeys = dict(zkeys)   # column name -> snapshot member
 
     def __missing__(self, k):
         zk = self._zkeys.get(k)
         if zk is None:
             raise KeyError(k)
-        if self._zf is None:
-            self._zf = np.load(self._path, allow_pickle=False)
-        v = self._zf[zk]
+        v = self._read(zk)
         self[k] = v
         return v
 
@@ -100,6 +113,87 @@ class _LazyCols(dict):
 
     def __len__(self):
         return len(set(self._zkeys) | set(super().keys()))
+
+
+def _npz_reader(path: str):
+    """``read(member)`` over an npz file opened on the first read."""
+    zf = []
+
+    def read(member):
+        if not zf:
+            zf.append(np.load(path, allow_pickle=False))
+        return zf[0][member]
+
+    return read
+
+
+class _LakeTable(IndexTable):
+    """An index table of a fully loaded lake snapshot. Its permutation,
+    sorted keys and string vocabulary decode together on the first read of
+    any of them (under a lock: the prefetch thread may read first), so a
+    query, or a delete that removes nothing, pays only for the tables it
+    reads. ``n``, ``key_shifts`` and ``shard_bounds`` are set by the
+    loader; a rebuild replaces the pending state."""
+
+    def __init__(self, t: IndexTable, snap: PartitionSnapshot, name: str):
+        super().__init__(t.keyspace, t.n_shards, t.device)
+        self.shard_len_multiple = t.shard_len_multiple
+        self._pending = (snap, name)
+        self._lock = threading.Lock()
+
+    def _load(self) -> None:
+        with self._lock:
+            if self._pending is None:
+                return
+            snap, name = self._pending
+            order = snap.table_order(name)
+            self._order = np.arange(self.n, dtype=np.int64) if order is None else order
+            self._key_columns = snap.table_keys(name)
+            vocab = snap.table_vocab(name)
+            if vocab is not None:
+                self._rank_vocab_ = vocab.astype(object)
+            self._pending = None  # only now: other threads wait on the lock
+
+    def set_state(self, *a, **kw) -> None:
+        self._pending = None
+        super().set_state(*a, **kw)
+
+    @property
+    def order(self) -> np.ndarray:
+        if self._pending is not None:
+            self._load()
+        return self._order
+
+    @order.setter
+    def order(self, v: np.ndarray) -> None:
+        self._order = v
+
+    @property
+    def key_columns(self) -> Dict[str, np.ndarray]:
+        if self._pending is not None:
+            self._load()
+        return self._key_columns
+
+    @key_columns.setter
+    def key_columns(self, v: Dict[str, np.ndarray]) -> None:
+        self._key_columns = v
+
+    @property
+    def _rank_vocab(self):
+        if self._pending is not None:
+            self._load()
+        return self._rank_vocab_
+
+    @_rank_vocab.setter
+    def _rank_vocab(self, v) -> None:
+        self._rank_vocab_ = v
+
+
+def _lake_cols(snap: PartitionSnapshot, prefixes, groups=None, cache=None) -> _LazyCols:
+    """Lazy columns of a lake snapshot: the members with ``prefixes``,
+    decoded over ``groups`` (every row group when None)."""
+    return _LazyCols(lambda zk: snap.read_column(zk, groups, cache=cache),
+                     {c[2:]: c for c in snap.columns if c.startswith(prefixes)})
 
 
 class PartitionedFeatureStore(FeatureStore):
@@ -213,33 +307,42 @@ class PartitionedFeatureStore(FeatureStore):
 
     @staticmethod
     def _write_snapshot(st: FeatureStore, d: str) -> None:
+        """Write ``st``'s snapshot into ``d`` through ``d.tmp`` and a rename:
+        a lake file, or the npz layout with ``geomesa.lake.enabled`` off."""
         tmp = d + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        arrs: Dict[str, np.ndarray] = {}
-        if st._all is not None:
-            for k, v in st._all.columns.items():
-                # object columns (extent WKT) spill as unicode, so the
-                # snapshot loads without pickle
-                arrs["c/" + k] = v.astype("U") if v.dtype.kind == "O" else v
-        for k, v in st._key_cols.items():
-            arrs["k/" + k] = v
-        shifts: Dict[str, Dict[str, int]] = {}
-        for name, t in st.tables.items():
-            arrs[f"t/{name}/order"] = t.order
-            for k, v in t.key_columns.items():
-                arrs[f"t/{name}/key/{k}"] = v
-            if t._rank_vocab is not None:
-                arrs[f"t/{name}/vocab"] = t._rank_vocab.astype("U")
-            if t.key_shifts is not None:
-                shifts[name] = dict(t.key_shifts)
-        np.savez(os.path.join(tmp, "data.npz"), **arrs)
-        meta = {
-            "n": st._all.n if st._all is not None else 0,
-            "shifts": shifts,
-            "stats": {k: v.to_json() for k, v in st.stats.items()},
-        }
-        with open(os.path.join(tmp, "meta.json"), "w") as fh:
-            json.dump(meta, fh)
+        if config.LAKE_ENABLED.to_bool():
+            try:
+                write_snapshot(st, st.ft, tmp)
+            except BaseException:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise
+        else:
+            arrs: Dict[str, np.ndarray] = {}
+            if st._all is not None:
+                for k, v in st._all.columns.items():
+                    # object columns (extent WKT) spill as unicode, so the
+                    # snapshot loads without pickle
+                    arrs["c/" + k] = v.astype("U") if v.dtype.kind == "O" else v
+            for k, v in st._key_cols.items():
+                arrs["k/" + k] = v
+            shifts: Dict[str, Dict[str, int]] = {}
+            for name, t in st.tables.items():
+                arrs[f"t/{name}/order"] = t.order
+                for k, v in t.key_columns.items():
+                    arrs[f"t/{name}/key/{k}"] = v
+                if t._rank_vocab is not None:
+                    arrs[f"t/{name}/vocab"] = t._rank_vocab.astype("U")
+                if t.key_shifts is not None:
+                    shifts[name] = dict(t.key_shifts)
+            np.savez(os.path.join(tmp, "data.npz"), **arrs)
+            meta = {
+                "n": st._all.n if st._all is not None else 0,
+                "shifts": shifts,
+                "stats": {k: v.to_json() for k, v in st.stats.items()},
+            }
+            with open(os.path.join(tmp, "meta.json"), "w") as fh:
+                json.dump(meta, fh)
         if os.path.exists(d):
             shutil.rmtree(d)
         os.replace(tmp, d)
@@ -258,17 +361,21 @@ class PartitionedFeatureStore(FeatureStore):
         return st
 
     def _load_snapshot(self, d: str) -> FeatureStore:
-        """One snapshot dir -> a fresh child: sort permutations and key
-        columns read now, master columns on first access."""
+        """One snapshot dir (lake or npz) -> a fresh child: sort
+        permutations and key columns read now, master columns on first
+        access; then upgraded to the current schema and indices."""
+        if os.path.exists(os.path.join(d, SNAPSHOT_FILE)):
+            return self._load_lake_snapshot(d)
         st = self._new_child()
         with open(os.path.join(d, "meta.json")) as fh:
             meta = json.load(fh)
         st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
         path = os.path.join(d, "data.npz")
+        read = _npz_reader(path)
         with np.load(path, allow_pickle=False) as z:
             files = list(z.files)
-            master = _LazyCols(path, {k[2:]: k for k in files if k.startswith(("c/", "k/"))})
-            cols = _LazyCols(path, {k[2:]: k for k in files if k.startswith("c/")})
+            master = _LazyCols(read, {k[2:]: k for k in files if k.startswith(("c/", "k/"))})
+            cols = _LazyCols(read, {k[2:]: k for k in files if k.startswith("c/")})
             st._key_cols = {k[2:]: z[k] for k in files if k.startswith("k/")}
             master.update(st._key_cols)
             st._all = ColumnBatch(cols, int(meta["n"]))
@@ -286,6 +393,161 @@ class PartitionedFeatureStore(FeatureStore):
                 t._master = master
                 t.n = len(t.order)
                 t.shard_bounds = np.linspace(0, t.n, t.n_shards + 1).astype(np.int64)
+        self._upgrade_loaded(st, master)
+        return st
+
+    def _load_lake_snapshot(self, d: str) -> FeatureStore:
+        """Full (every row group) load of a lake snapshot: each table's
+        permutation and sorted keys on the table's first use, master and
+        cached key columns per column on first access."""
+        snap = PartitionSnapshot(d)
+        st = self._new_child()
+        meta = snap.meta
+        st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
+        n = int(meta["n"])
+        master = _lake_cols(snap, ("c/", "k/"))
+        # key columns decode on first use too (a flush, a delete, a table
+        # built on load), through ``master`` so each decodes once
+        st._key_cols = _LazyCols(lambda zk: master[zk[2:]],
+                                 {c[2:]: c for c in snap.columns if c.startswith("k/")})
+        st._all = ColumnBatch(_lake_cols(snap, ("c/",)), n)
+        for name, t in list(st.tables.items()):
+            if name not in snap.tables:
+                continue  # the snapshot predates this index: built below
+            t = st.tables[name] = _LakeTable(t, snap, name)
+            sh = meta["shifts"].get(name)
+            t.key_shifts = {k: int(v) for k, v in sh.items()} if sh else None
+            t._master = master
+            t.n = int(snap.tables[name]["n"])
+            t.shard_bounds = np.linspace(0, t.n, t.n_shards + 1).astype(np.int64)
+        self._upgrade_loaded(st, master)
+        return st
+
+    def _upgrade_loaded(self, st: FeatureStore, master) -> None:
+        """Bring a loaded child up to a schema or index change its snapshot
+        predates: null-fill missing attribute columns, build missing index
+        tables and their sketches. Only this child changes, in memory; the
+        snapshot is rewritten the next time the partition is dirtied."""
+        n = st._all.n if st._all is not None else 0
+        missing = [a for a in self.ft.attributes if not a.is_geom and a.name not in master]
+        if missing and n:
+            cols = null_columns(self.ft, missing, n, self.dicts)
+            master.update(cols)
+            st._all.columns.update(cols)
+        st.ft = self.ft
+        for t in st.tables.values():
+            if t.n == 0 and n:
+                st.build_missing_table(t)
+        for a in self.ft.attributes:
+            if a.indexed and not a.is_geom:
+                st.ensure_attr_sketch(a.name)
+
+    # -- statistics-pruned partial loads -----------------------------------------
+    @staticmethod
+    def _pushdown_fallback(b: int, window: Dict, reason: str) -> None:
+        """Record on the scan's window a partition that loads whole although
+        pushdown was asked for, so ``exec_path`` says so."""
+        window.setdefault("fallbacks", []).append((int(b), reason))
+
+    def scan_child(self, b: int, window: Optional[Dict] = None) -> Optional[FeatureStore]:
+        """The child of one additive scan. Residents serve as they are. A
+        spilled lake partition whose row groups prune against ``window``
+        (``{"index": plan index, "boxes": [...] | None, "times": [...] |
+        None}``, ``partitioned_exec._push_window``) loads as an ephemeral
+        child of the surviving groups, never entered into the resident
+        map. Otherwise the ordinary :meth:`child` load: without a window,
+        when nothing prunes (a full load caches), or as a recorded
+        fallback (``legacy-snapshot``, ``unknown-keyspace``,
+        ``no-primary-order``, ``keyspace-not-buildable``)."""
+        with self._part_lock:
+            st = self.partitions.get(b)
+            if st is not None:
+                self._touch(b)
+                return st
+            if b not in self.spilled:
+                return None
+            d = self.spilled[b]
+        if window is None:
+            return self.child(b)
+        if not os.path.exists(os.path.join(d, SNAPSHOT_FILE)):
+            self._pushdown_fallback(b, window, "legacy-snapshot")
+            return self.child(b)
+        requested = window.get("index")
+        ks = next((k for k in self.keyspaces if k.name == requested), None)
+        if ks is None:
+            self._pushdown_fallback(b, window, "unknown-keyspace")
+            return self.child(b)
+        snap = PartitionSnapshot(d)
+        groups = snap.prune(window.get("boxes"), window.get("times"))
+        have = set(snap.columns)
+        buildable = requested == snap.primary or all(
+            ("k/" + kc) in have or ("c/" + kc) in have for kc in ks.key_cols)
+        if snap.primary is None or snap.primary not in snap.tables:
+            self._pushdown_fallback(b, window, "no-primary-order")
+            return self.child(b)
+        if not buildable:
+            self._pushdown_fallback(b, window, "keyspace-not-buildable")
+            return self.child(b)
+        if len(groups) == len(snap.groups):
+            # nothing prunes: a full resident load is better (it caches);
+            # deliberate, so not a fallback
+            return self.child(b)
+        return self._load_pruned(snap, groups, ks, cache=window.get("residency"))
+
+    def _load_pruned(self, snap: PartitionSnapshot, groups: List[int], ks,
+                     cache=None) -> FeatureStore:
+        """The ephemeral child of the surviving row groups, holding only the
+        plan's index table. On the snapshot's primary index the groups are
+        contiguous stretches of its order: the identity permutation and
+        the groups' key chunks, nothing re-sorts. Any other index rebuilds
+        its permutation over the loaded rows' key columns (the compiled
+        predicate still decides every match). ``lake_note`` carries the
+        load's account and marks the child as ephemeral."""
+        primary, requested = snap.primary, ks.name
+        st = self._new_child()
+        meta = snap.meta
+        st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
+        nsel = snap.group_rows(groups)
+        master = _lake_cols(snap, ("c/", "k/"), groups, cache)
+        st._key_cols = {}
+        st._all = ColumnBatch(_lake_cols(snap, ("c/",), groups, cache), nsel)
+        t = st.tables[requested]
+        st.tables = {requested: t}
+        st.keyspaces = [k for k in st.keyspaces if k.name == requested]
+        if nsel == 0:
+            # everything pruned: every consumer skips a zero-row child
+            t.order = np.zeros(0, np.int64)
+            t.n = 0
+            t._master = master
+            t.shard_bounds = np.zeros(t.n_shards + 1, np.int64)
+        elif requested == primary:
+            t.order = np.arange(nsel, dtype=np.int64)
+            t.key_columns = snap.table_keys(primary, groups, cache=cache)
+            vocab = snap.table_vocab(primary)
+            if vocab is not None:
+                t._rank_vocab = vocab.astype(object)
+            sh = meta["shifts"].get(primary)
+            t.key_shifts = {k: int(v) for k, v in sh.items()} if sh else None
+            t._master = master
+            t.n = nsel
+            t.shard_bounds = np.linspace(0, nsel, t.n_shards + 1).astype(np.int64)
+        else:
+            needed = {kc: master[kc] for kc in ks.key_cols}
+            if isinstance(ks, AttributeKeySpace):
+                needed[ks.attr] = master[ks.attr]
+            t.rebuild(needed, self.dicts)
+            for k2, v2 in list(t._master.items()):
+                if k2 not in master:
+                    master[k2] = v2
+            t._master = master
+        # schema upgrade without index builds (the child serves one plan):
+        # null-fill the attributes the snapshot predates
+        missing = [a for a in self.ft.attributes if not a.is_geom and a.name not in master]
+        if missing and nsel:
+            cc = null_columns(self.ft, missing, nsel, self.dicts)
+            master.update(cc)
+            st._all.columns.update(cc)
+        st.lake_note = snap.account(groups)
         return st
 
     def spill_all(self) -> List[int]:
@@ -327,6 +589,65 @@ class PartitionedFeatureStore(FeatureStore):
             self.part_counts[b] = child.count
             self.evict()
         self.version += 1
+
+    # -- schema and index lifecycle ------------------------------------------------
+    def add_columns(self, new_ft: FeatureType, added) -> None:
+        """Column append: resident children now, spilled snapshots when
+        they load (:meth:`_upgrade_loaded`); no partition is rewritten."""
+        self.flush()
+        self.ft = new_ft
+        null_columns(new_ft, added, 0, self.dicts)  # register encoders
+        for child in self.partitions.values():
+            child.add_columns(new_ft, added)
+        self.version += 1
+        self._merged_stats = None
+
+    def add_attribute_index(self, attr: str) -> None:
+        """Enable an attribute index: resident children build the new
+        permutation now, spilled ones when they load. Snapshots are not
+        dirtied."""
+        a = self.ft.attr(attr)
+        if a.is_geom:
+            raise ValueError(f"cannot attribute-index {attr!r} ({a.type})")
+        ks = AttributeKeySpace(attr, self.ft.geom_field, a.type)
+        if any(k.name == ks.name for k in self.keyspaces):
+            return
+        self.flush()
+        self.keyspaces.append(ks)
+        for child in self.partitions.values():
+            child.add_attribute_index(attr)
+        self.version += 1
+        self._merged_stats = None
+
+    def remove_attribute_index(self, attr: str) -> None:
+        name = f"attr:{attr}"
+        if not any(k.name == name for k in self.keyspaces):
+            raise KeyError(f"no attribute index on {attr!r}")
+        self.keyspaces = [k for k in self.keyspaces if k.name != name]
+        for child in self.partitions.values():
+            if name in child.tables:
+                child.remove_attribute_index(attr)
+        self.version += 1
+        self._merged_stats = None
+
+    def delete(self, mask_fn) -> int:
+        """Delete partition at a time under the residency budget: each
+        partition loads whole, and one that loses rows is marked dirty so
+        its next eviction rewrites its snapshot."""
+        self.flush()
+        removed = 0
+        for b in self.partition_bins():
+            child = self.child(b)
+            r = child.delete(mask_fn)
+            if r:
+                removed += r
+                self._dirty.add(b)
+                self.part_counts[b] = child.count
+            self.evict()
+        if removed:
+            self.version += 1
+            self._merged_stats = None
+        return removed
 
     # -- read-side surface -------------------------------------------------
     @property

@@ -26,7 +26,7 @@ from geomesa_tpu_torch.index.keyspace import (
 from geomesa_tpu_torch.index.staging import Staged, Uploader
 from geomesa_tpu_torch.kernels.registry import bucket_count
 from geomesa_tpu_torch.schema.columns import (
-    ColumnBatch, DictionaryEncoder, encode_batch, schema_null_fills,
+    ColumnBatch, DictionaryEncoder, encode_batch, null_columns, schema_null_fills,
 )
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import sketches as sk
@@ -404,6 +404,9 @@ class FeatureStore:
         #: the executor's caches of device artefacts made from this store
         #: (gathered slabs; a partition child's per-plan caches)
         self.device_state: Dict[str, Dict] = {}
+        #: the row groups and bytes a pruned lake load read, on an
+        #: ephemeral partition child (``PartitionedFeatureStore.scan_child``)
+        self.lake_note: Optional[Dict[str, int]] = None
 
     def append(self, data: Dict, fids=None) -> int:
         """Buffer an ingest batch (encoded now, indexed at flush)."""
@@ -461,6 +464,133 @@ class FeatureStore:
         for t in self.tables.values():
             t.drop_device()
         self.device_state.clear()
+
+    # -- schema and index lifecycle ------------------------------------------------
+    # Each call below changes what the device columns were made from, so
+    # each drops them (the tables' [S, L] columns and the executor's
+    # caches) and bumps the version.
+    def add_columns(self, new_ft: FeatureType, added) -> None:
+        """Append null-filled columns for the ``added`` attributes in
+        place: no key changes, so every table keeps its permutation and
+        only learns the new master columns."""
+        self.flush()
+        self.ft = new_ft
+        n = self._all.n if self._all is not None else 0
+        cols = null_columns(new_ft, added, n, self.dicts)
+        if n:
+            self._all.columns.update(cols)
+            for t in self.tables.values():
+                t._master.update(cols)
+        self.drop_device()
+        self.version += 1
+
+    def _attr_stat_key(self, attr: str) -> str:
+        return f"enum-{attr}" if self.ft.attr(attr).type == "string" else f"minmax-{attr}"
+
+    def build_missing_table(self, t: IndexTable) -> None:
+        """Build an empty table's permutation from the master rows: an
+        index enabled on a live store, or a partition snapshot that
+        predates the index. Only the key space's own input columns are
+        read, so a lazily loaded child decodes one column."""
+        if self._all is None or not self._all.n:
+            return
+        ks = t.keyspace
+        fresh = ks.index_keys(self.ft, self._all.columns)
+        self._key_cols.update(fresh)
+        needed = dict(fresh)
+        if isinstance(ks, AttributeKeySpace):
+            needed[ks.attr] = self._all.columns[ks.attr]
+        t.rebuild(needed, self.dicts)
+        # attribute gathers read the master: share another table's
+        # (possibly lazy) mapping
+        other = next((ot for oname, ot in self.tables.items()
+                      if oname != ks.name and ot.n), None)
+        if other is not None:
+            base = other._master
+            for k, v in t._master.items():
+                if k not in base:
+                    base[k] = v
+            t._master = base
+        else:
+            merged = {**self._all.columns, **self._key_cols}
+            for k, v in t._master.items():
+                merged.setdefault(k, v)
+            t._master = merged
+
+    def ensure_attr_sketch(self, attr: str) -> None:
+        """Build the write-time sketch an attribute index's cost estimate
+        reads, if it is missing."""
+        skey = self._attr_stat_key(attr)
+        if skey in self.stats:
+            return
+        stat = sk.EnumerationStat(attr) if self.ft.attr(attr).type == "string" \
+            else sk.MinMax(attr)
+        if self._all is not None and self._all.n:
+            stat.observe(self._all.columns)
+        self.stats[skey] = stat
+
+    def add_attribute_index(self, attr: str) -> None:
+        """Enable an attribute index on a live store: build only the new
+        permutation over the master columns. The table pads its shards as
+        the store's other tables do (a partition child's bucket)."""
+        a = self.ft.attr(attr)
+        if a.is_geom:
+            raise ValueError(f"cannot attribute-index {attr!r} ({a.type})")
+        ks = AttributeKeySpace(attr, self.ft.geom_field, a.type)
+        if ks.name in self.tables:
+            return
+        self.flush()
+        self.keyspaces.append(ks)
+        t = IndexTable(ks, self.n_shards, self.device)
+        if self.tables:
+            t.shard_len_multiple = next(iter(self.tables.values())).shard_len_multiple
+        self.tables[ks.name] = t
+        self.build_missing_table(t)
+        self.ensure_attr_sketch(attr)
+        self.drop_device()
+        self.version += 1
+
+    def remove_attribute_index(self, attr: str) -> None:
+        """Drop an attribute index (permutation, key column and sketch);
+        the master columns stay."""
+        name = f"attr:{attr}"
+        if name not in self.tables:
+            raise KeyError(f"no attribute index on {attr!r}")
+        self.drop_device()
+        del self.tables[name]
+        self.keyspaces = [k for k in self.keyspaces if k.name != name]
+        self._key_cols.pop(f"__attr_{attr}", None)
+        self.stats.pop(self._attr_stat_key(attr), None)
+        self.version += 1
+
+    def delete(self, mask_fn) -> int:
+        """Remove the rows where ``mask_fn(master columns)`` (a host bool
+        mask) is true and rebuild every table over the rest. The other
+        sketches keep what they observed, as the reference's do. Returns
+        the rows removed."""
+        self.flush()
+        if self._all is None or self._all.n == 0:
+            return 0
+        mask = np.asarray(mask_fn(self._all.columns), bool)
+        removed = int(mask.sum())
+        if removed == 0:
+            return 0
+        keep_mask = ~mask
+        keep = self._all.select(keep_mask)
+        self._all = keep
+        self.stats["count"] = sk.CountStat(keep.n)
+        key_cols: Dict[str, np.ndarray] = dict(keep.columns)
+        self._key_cols = {k: v[keep_mask] for k, v in self._key_cols.items()}
+        key_cols.update(self._key_cols)
+        for ks in self.keyspaces:
+            if any(k not in key_cols for k in ks.key_cols):
+                key_cols.update(ks.index_keys(self.ft, keep.columns))
+                self._key_cols.update({k: v for k, v in key_cols.items()
+                                       if k not in keep.columns})
+            self.tables[ks.name].rebuild(key_cols, self.dicts)
+        self.drop_device()
+        self.version += 1
+        return removed
 
     def bounds(self) -> Optional[Tuple[float, float, float, float]]:
         """Geometry bounds of the stored rows from the ``bounds`` sketch

@@ -115,7 +115,9 @@ class JoinStats:
     dispatched_pairs: Dict[str, int] = field(default_factory=dict)
     #: polygon-join pairs matched wholesale from INTERIOR cells
     wholesale_pairs: int = 0
-    #: the lake's window-pushdown account (no lake in the port: empty)
+    #: a pushdown count's account (chunks, cells, bytes and row groups
+    #: loaded against the whole side, residency hits and bytes they saved;
+    #: empty for a join that scanned both sides whole)
     pushdown: Dict[str, int] = field(default_factory=dict)
 
     @property

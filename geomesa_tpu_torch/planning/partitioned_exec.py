@@ -22,11 +22,21 @@ load errors reach the query thread.
 members' pruned-bin union once, one batched pass per partition, and merge
 each member's partials in the same order.
 
-Not ported yet (ROADMAP Queue 1): the multi-device sharded scan, the
-degradation contract (``allow_partial``, fault points, retries), the lake
-tier's pruned loads (the reference pushes down point geometries only: an
-extent schema always loads whole partitions; with no pushdown here, the
-reference's ``push=weight is None`` rule has nothing to gate).
+Lake pushdown (``geomesa.lake.pushdown``): the ops whose merge is exact
+over any superset of the matching rows (count, unweighted density and
+``density_curve``, stats) and the join's side scans (``features_pushdown``)
+hand the plan's point box and time interval to
+``PartitionedFeatureStore.scan_child``, so a spilled lake partition loads
+only the row groups whose statistics meet them, as an ephemeral child that
+rides the same pipeline and whose device columns are freed after its scan.
+``exec_path["lake"]`` and ``plan.lake_acct`` sum the groups and bytes
+loaded; ``exec_path["lake_fallback"]`` counts the partitions that loaded
+whole, by reason. Weighted density keeps full loads (a NaN weight on a
+pruned non-matching row could still reach the grid), as the reference's
+does, and extent schemas push down only their time interval.
+
+Not ported yet (ROADMAP Queue 1): the multi-device sharded scan and the
+degradation contract (``allow_partial``, fault points, retries).
 """
 
 from __future__ import annotations
@@ -50,6 +60,36 @@ from geomesa_tpu_torch.stats import sketches as sk
 
 #: exec_path entries a child executor writes per partition
 _PART_KEYS = ("scan", "feature_scan", "B", "band_rows", "density_kernel", "sampling")
+
+
+def _coalesce_boxes(boxes: List[Tuple[float, float, float, float]]
+                    ) -> List[Tuple[float, float, float, float]]:
+    """Merge boxes whose union is a box (up to one float ulp): equal
+    y-spans whose x-ranges touch, overlap or sit one ulp apart, then the
+    same for columns of equal x-span. Closing an ulp seam only widens the
+    cover, which is safe for pruning (a row group is pruned only when
+    disjoint from every box)."""
+    def _pass(bs, flip):
+        def key(b):
+            return (b[1], b[3], b[0]) if not flip else (b[0], b[2], b[1])
+
+        bs = sorted(bs, key=key)
+        out = [bs[0]]
+        for b in bs[1:]:
+            p = out[-1]
+            if not flip and p[1] == b[1] and p[3] == b[3] \
+                    and b[0] <= np.nextafter(p[2], np.inf):
+                out[-1] = (p[0], p[1], max(p[2], b[2]), p[3])
+            elif flip and p[0] == b[0] and p[2] == b[2] \
+                    and b[1] <= np.nextafter(p[3], np.inf):
+                out[-1] = (p[0], p[1], p[2], max(p[3], b[3]))
+            else:
+                out.append(b)
+        return out
+
+    if len(boxes) < 2:
+        return boxes
+    return _pass(_pass(boxes, flip=False), flip=True)
 
 
 class PartitionedExecutor:
@@ -118,6 +158,83 @@ class PartitionedExecutor:
             )
         return ex
 
+    # -- lake row-group pushdown ------------------------------------------------
+    def _push_window(self, plan: QueryPlan) -> Optional[Dict]:
+        """The plan's bounds as a pruning window, or None when pushdown
+        cannot engage: the knob is off, the plan samples (the 1-in-n
+        counter depends on the row set), or the filter bounds neither the
+        point geometry nor the date. A row group disjoint from every
+        extracted bound holds no matching row."""
+        if not config.LAKE_PUSHDOWN.to_bool():
+            return None
+        h = plan.hints
+        if h.sampling is not None or h.sample_by is not None:
+            return None
+        ft = self.store.ft
+        boxes = times = None
+        geom = ft.geom_field
+        if geom is not None and ft.attr(geom).is_point:
+            fv = ir.extract_geometries(plan.filter, geom)
+            if fv.disjoint:
+                boxes = []
+            elif not fv.is_empty:
+                boxes = _coalesce_boxes([tuple(float(v) for v in g.bounds())
+                                         for g in fv.values])
+        dtg = ft.dtg_field
+        if dtg is not None:
+            iv = ir.extract_intervals(plan.filter, dtg)
+            if iv.disjoint:
+                times = []
+            elif not iv.is_empty:
+                inf = float("inf")
+                times = [(-inf if lo is None else float(lo), inf if hi is None else float(hi))
+                         for lo, hi in iv.values]
+        if boxes is None and times is None:
+            return None
+        window = {"index": plan.index_name, "boxes": boxes, "times": times}
+        # the join's chunk loop plants one residency cache on each side plan
+        residency = plan.__dict__.get("residency")
+        if residency is not None:
+            window["residency"] = residency
+        return window
+
+    def _get_child(self, b: int, window: Optional[Dict]):
+        """The partition's child for the scan: pruned to ``window`` when one
+        is pushed down, the ordinary resident load otherwise."""
+        if window is not None:
+            return self.store.scan_child(b, window)
+        return self.store.child(b)
+
+    @staticmethod
+    def _note_lake(plan: QueryPlan, note: Dict[str, int]) -> None:
+        """Add one pruned load's account to ``plan.lake_acct`` and
+        ``exec_path["lake"]`` (on the query thread)."""
+        acct = plan.__dict__.setdefault("lake_acct", {
+            "groups_total": 0, "groups_loaded": 0, "groups_pruned": 0,
+            "bytes_payload": 0, "bytes_loaded": 0, "bytes_skipped": 0,
+        })
+        for k in acct:
+            acct[k] += int(note.get(k, 0))
+        plan.__dict__.setdefault("exec_path", {})["lake"] = (
+            f"{acct['groups_loaded']}/{acct['groups_total']} rowgroups, "
+            f"{acct['bytes_loaded']}/{acct['bytes_payload']} bytes"
+        )
+
+    @staticmethod
+    def _note_pushdown_fallbacks(plan: QueryPlan, window: Optional[Dict]) -> None:
+        """``exec_path["lake_fallback"]``: the partitions pushdown could not
+        serve pruned, by reason, so a full load never reads as pruned."""
+        fallbacks = window.get("fallbacks") if window else None
+        if not fallbacks:
+            return
+        reasons: Dict[str, int] = {}
+        for _b, reason in fallbacks:
+            reasons[reason] = reasons.get(reason, 0) + 1
+        plan.__dict__.setdefault("exec_path", {})["lake_fallback"] = (
+            f"{len(fallbacks)} partition(s) full-loaded: "
+            + ", ".join(f"{r} x{n}" for r, n in sorted(reasons.items()))
+        )
+
     # -- the prefetch pipeline -------------------------------------------------
     def _stage(self, child, plan: QueryPlan) -> None:
         """The worker's half: stage the columns the plan's scan read on the
@@ -129,15 +246,32 @@ class PartitionedExecutor:
         if t is not None and t.n:
             t.stage_host(names, self.uploader)
 
-    def _pipeline(self, plan: QueryPlan, bins: List[int]):
-        """(bin, child) over ``bins`` in order. With prefetch on and two or
-        more bins, one worker loads and stages the next partition while the
-        caller runs the current one (one partition in flight); a load error
-        re-raises here, where a sequential load would have raised. An
-        early exit joins the worker and frees what it staged."""
+    @staticmethod
+    def _free_staging(child, plan: QueryPlan) -> None:
+        """After a partition's scan (or a prefetch never run): free what
+        was staged for it, and every device column of an ephemeral pruned
+        child, which no later query can reuse."""
+        if child.lake_note is not None:
+            child.drop_device()
+            return
+        t = child.tables.get(plan.index_name)
+        if t is not None:
+            t._host_stage.clear()
+
+    def _pipeline(self, plan: QueryPlan, bins: List[int], window: Optional[Dict] = None):
+        """(bin, child) over ``bins`` in order; with a pushdown ``window``
+        a spilled lake partition may come as an ephemeral pruned child. With
+        prefetch on and two or more bins, one worker loads and stages the
+        next partition while the caller runs the current one (one partition
+        in flight); a load error re-raises here, where a sequential load
+        would have raised. An early exit joins the worker and frees what it
+        staged. Lake accounts are noted here, on the query thread."""
         if len(bins) < 2 or not self.prefetch:
             for b in bins:
-                yield b, self.store.child(b)
+                child = self._get_child(b, window)
+                if child is not None and child.lake_note is not None:
+                    self._note_lake(plan, child.lake_note)
+                yield b, child
             return
         out: "queue.Queue" = queue.Queue()
         stop = threading.Event()
@@ -156,7 +290,7 @@ class PartitionedExecutor:
                         return
                     child = err = None
                     try:
-                        child = self.store.child(b)
+                        child = self._get_child(b, window)
                     except BaseException as e:  # re-raised on the query thread
                         err = e
                     if err is None:
@@ -181,6 +315,8 @@ class PartitionedExecutor:
                 b, child, err = item
                 if err is not None:
                     raise err
+                if child is not None and child.lake_note is not None:
+                    self._note_lake(plan, child.lake_note)
                 yield b, child
         finally:
             stop.set()
@@ -192,17 +328,17 @@ class PartitionedExecutor:
                 except queue.Empty:
                     break
                 if item is not None and item[1] is not None:
-                    tb = item[1].tables.get(plan.index_name)
-                    if tb is not None:
-                        tb._host_stage.clear()
+                    self._free_staging(item[1], plan)
 
-    def _each(self, plan: QueryPlan,
-              bins: Optional[List[int]] = None) -> Iterator[Tuple[int, Executor]]:
+    def _each(self, plan: QueryPlan, bins: Optional[List[int]] = None,
+              window: Optional[Dict] = None) -> Iterator[Tuple[int, Executor]]:
         """(bin, executor) over the pruned partitions under the residency
-        budget. Sums the selectivity counters and records each partition's
-        path in ``exec_path['partitions']``; after each partition its
-        unused staging is freed, the store evicts to its budget, and the
-        executors (with their device caches) of evicted children go."""
+        budget (``window``: see :meth:`_pipeline`). Sums the selectivity
+        counters and records each partition's path in
+        ``exec_path['partitions']``; after each partition its unused
+        staging is freed (all of an ephemeral pruned child's device
+        columns), the store evicts to its budget, and the executors (with
+        their device caches) of children no longer resident go."""
         if bins is None:
             bins = self.prune(plan)
         path = plan.__dict__.setdefault("exec_path", {})
@@ -211,7 +347,7 @@ class PartitionedExecutor:
         parts = path["partitions"] = {}
         tot_scanned = 0
         try:
-            for b, child in self._pipeline(plan, bins):
+            for b, child in self._pipeline(plan, bins, window):
                 if child is None or child.count == 0:
                     continue
                 plan.__dict__.pop("scanned_rows", None)
@@ -220,9 +356,7 @@ class PartitionedExecutor:
                 yield b, self._executor_for(b, child)
                 tot_scanned += plan.__dict__.pop("scanned_rows", 0)
                 parts[b] = {k: path[k] for k in _PART_KEYS if path.get(k) is not None}
-                t = child.tables.get(plan.index_name)
-                if t is not None:
-                    t._host_stage.clear()
+                self._free_staging(child, plan)
                 self.store.evict()
                 resident = self.store.partitions
                 for bb in list(self._execs):
@@ -233,11 +367,20 @@ class PartitionedExecutor:
             # counters of the partition that was running
             plan.__dict__["scanned_rows"] = tot_scanned + plan.__dict__.get("scanned_rows", 0)
 
+    def _pushed(self, plan: QueryPlan, push: bool = True) -> Iterator[Tuple[int, Executor]]:
+        """:meth:`_each` with the plan's pushdown window (when ``push``),
+        noting the fallbacks once the scan ends."""
+        window = self._push_window(plan) if push else None
+        try:
+            yield from self._each(plan, window=window)
+        finally:
+            self._note_pushdown_fallbacks(plan, window)
+
     # -- additive operations -----------------------------------------------------
     def count(self, plan: QueryPlan) -> int:
         """Exact host integers, summed in pruned-bin order."""
         total = 0
-        for _, ex in self._each(plan):
+        for _, ex in self._pushed(plan):
             p = ex.count_partial(plan)
             if p is not None:
                 total += int(p)
@@ -249,14 +392,15 @@ class PartitionedExecutor:
         (the reference's association: unweighted grids are exact, weighted
         ones add in the same order), then one copy to the host."""
         red = TreeReducer(lambda a, b: a + b)
-        for _, ex in self._each(plan):
+        for _, ex in self._pushed(plan, push=weight is None):
             red.push(ex.density(plan, bbox, width, height, weight, as_numpy=False))
         out = red.result()
         return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
 
     def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
-        """Each partition's scan absorbs into ``stat`` in pruned-bin order."""
-        for _, ex in self._each(plan):
+        """Each partition's scan absorbs into ``stat`` in pruned-bin order
+        (sketches observe only matching rows, so pushdown is exact)."""
+        for _, ex in self._pushed(plan):
             ex.stats(plan, stat)
         return stat
 
@@ -271,7 +415,7 @@ class PartitionedExecutor:
         """Each partition's host f64 grid, reduced in pruned-bin tree order
         (integer counts are exact to 2^53)."""
         red = TreeReducer(lambda a, b: a + b)
-        for _, ex in self._each(plan):
+        for _, ex in self._pushed(plan, push=weight is None):
             red.push(Executor.decode_curve(
                 ex.density_curve_raw(plan, level, block_window, weight)))
         out = red.result()
@@ -398,12 +542,16 @@ class PartitionedExecutor:
         return stats
 
     # -- features ---------------------------------------------------------------
-    def features_iter(self, plan: QueryPlan, batch_rows: Optional[int] = None):
+    def features_iter(self, plan: QueryPlan, batch_rows: Optional[int] = None,
+                      window: Optional[Dict] = None):
         """Matching rows partition at a time (peak memory is one
-        partition's matches); ``max_features`` ends an unsorted stream."""
+        partition's matches); ``max_features`` ends an unsorted stream.
+        ``window``: a pushdown window (:meth:`_push_window`); the filter
+        still runs on every loaded row, so the rows are exactly the
+        plan's matches."""
         got = 0
         limit = plan.hints.max_features if not plan.hints.sort_by else None
-        for _, ex in self._each(plan):
+        for _, ex in self._each(plan, window=window):
             for batch in ex.features_iter(plan, batch_rows):
                 if not batch.n:
                     continue
@@ -422,6 +570,18 @@ class PartitionedExecutor:
 
     def features(self, plan: QueryPlan) -> ColumnBatch:
         batches = list(self.features_iter(plan))
+        return ColumnBatch.concat(batches) if batches else ColumnBatch({}, 0)
+
+    def features_pushdown(self, plan: QueryPlan) -> ColumnBatch:
+        """The matching rows with the pushdown window engaged: spilled lake
+        partitions load only the row groups whose statistics meet the
+        plan's bounds, which hold every matching row (the join's side
+        scan)."""
+        window = self._push_window(plan)
+        try:
+            batches = list(self.features_iter(plan, window=window))
+        finally:
+            self._note_pushdown_fallbacks(plan, window)
         return ColumnBatch.concat(batches) if batches else ColumnBatch({}, 0)
 
     def top_batch(self, plan: QueryPlan, attr: str, descending: bool, k: int,

@@ -99,6 +99,10 @@ class ColumnBatch:
     columns: Dict[str, np.ndarray]
     n: int
 
+    def select(self, mask: np.ndarray) -> "ColumnBatch":
+        return ColumnBatch({k: v[mask] for k, v in self.columns.items()},
+                           int(np.sum(mask)))
+
     @staticmethod
     def concat(batches: List["ColumnBatch"],
                fills: Optional[Dict[str, Any]] = None) -> "ColumnBatch":
@@ -135,8 +139,10 @@ class ColumnBatch:
 
 def schema_null_fills(ft: FeatureType) -> Dict[str, Any]:
     """Per-column null fills for :meth:`ColumnBatch.concat`: string code
-    -1, int / long / date 0, bool False (floats fall through to NaN)."""
-    fills: Dict[str, Any] = {}
+    -1, int / long / date 0, bool False (floats fall through to NaN), and
+    the public visibility code 0 for ``__vis__``, which a partition
+    reloaded from a lake snapshot carries."""
+    fills: Dict[str, Any] = {"__vis__": 0}
     for a in ft.attributes:
         if a.is_geom:
             continue
@@ -147,6 +153,32 @@ def schema_null_fills(ft: FeatureType) -> Dict[str, Any]:
         elif a.type == "bool":
             fills[a.name] = False
     return fills
+
+
+def null_columns(ft: FeatureType, attrs, n: int,
+                 dicts: Dict[str, DictionaryEncoder]) -> Dict[str, np.ndarray]:
+    """Columns for ``attrs`` holding ``n`` nulls of this layout (string ->
+    code -1, float -> NaN, int / long -> 0, bool -> False, date -> epoch 0
+    with its time bins). ``update_schema``'s column append and the
+    partition snapshot's schema upgrade on load share it; it registers a
+    string attribute's dictionary."""
+    cols: Dict[str, np.ndarray] = {}
+    for a in attrs:
+        if a.type == "string":
+            cols[a.name] = np.full(n, -1, np.int32)
+            dicts.setdefault(a.name, DictionaryEncoder())
+        elif a.type == "date":
+            cols[a.name] = np.zeros(n, np.int64)
+            b, off = BinnedTime(ft.time_period).to_scaled(cols[a.name])
+            cols[a.name + "__bin"] = b
+            cols[a.name + "__off"] = off
+        elif a.type == "bool":
+            cols[a.name] = np.zeros(n, bool)
+        elif a.type in ("float32", "float64"):
+            cols[a.name] = np.full(n, np.nan, np.dtype(a.type))
+        else:
+            cols[a.name] = np.zeros(n, np.dtype(a.type))
+    return cols
 
 
 def _to_epoch_ms(vals) -> np.ndarray:

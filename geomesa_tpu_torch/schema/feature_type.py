@@ -37,6 +37,15 @@ _TYPES = {
     "geometrycollection": "geometry",
 }
 
+#: canonical type -> its name in a spec string
+_SPEC_NAMES = {
+    "string": "String", "int32": "Integer", "int64": "Long", "float32": "Float",
+    "float64": "Double", "bool": "Boolean", "date": "Date", "point": "Point",
+    "linestring": "LineString", "polygon": "Polygon", "multipoint": "MultiPoint",
+    "multilinestring": "MultiLineString", "multipolygon": "MultiPolygon",
+    "geometry": "Geometry",
+}
+
 GEOM_TYPES = {
     "point", "linestring", "polygon", "multipoint", "multilinestring",
     "multipolygon", "geometry",
@@ -67,6 +76,11 @@ class AttributeSpec:
     @property
     def indexed(self) -> bool:
         return self.options.get("index", "").lower() in ("true", "full", "join")
+
+    def spec(self) -> str:
+        star = "*" if self.default_geom else ""
+        opts = "".join(f":{k}={v}" for k, v in self.options.items())
+        return f"{star}{self.name}:{_SPEC_NAMES[self.type]}{opts}"
 
 
 @dataclass
@@ -117,6 +131,28 @@ class FeatureType:
     @property
     def time_period(self) -> str:
         return self.user_data.get("geomesa.z3.interval", "week")
+
+    def spec(self) -> str:
+        s = ",".join(a.spec() for a in self.attributes)
+        if self.user_data:
+            s += ";" + ",".join(f"{k}='{v}'" for k, v in self.user_data.items())
+        return s
+
+    def describe(self) -> str:
+        lines = [f"Feature type: {self.name}"]
+        for a in self.attributes:
+            flags = []
+            if a.default_geom:
+                flags.append("default geometry")
+            if a.name == self.dtg_field:
+                flags.append("default date")
+            if a.indexed:
+                flags.append("indexed")
+            suffix = f" ({', '.join(flags)})" if flags else ""
+            lines.append(f"  {a.name}: {a.type}{suffix}")
+        for k, v in self.user_data.items():
+            lines.append(f"  [user-data] {k} = {v}")
+        return "\n".join(lines)
 
     @staticmethod
     def from_spec(name: str, spec: str) -> "FeatureType":

@@ -15,6 +15,17 @@ from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and under
+    a parallel test runner OpenMP's spinning worker threads oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: port knob -> the JAX package's SystemProperty of the same rule
 KNOBS = {
     "SCAN_RANGES_TARGET": "SCAN_RANGES_TARGET",
@@ -32,6 +43,13 @@ KNOBS = {
     "JOIN_ADAPTIVE": "JOIN_ADAPTIVE",
     "JOIN_ADAPTIVE_BRUTE_PAIRS": "JOIN_ADAPTIVE_BRUTE_PAIRS",
     "JOIN_ADAPTIVE_SKEW_RATIO": "JOIN_ADAPTIVE_SKEW_RATIO",
+    "LAKE_ENABLED": "LAKE_ENABLED",
+    "LAKE_ROWGROUP_ROWS": "LAKE_ROWGROUP_ROWS",
+    "LAKE_PUSHDOWN": "LAKE_PUSHDOWN",
+    "LAKE_PRUNE_MARGIN": "LAKE_PRUNE_MARGIN",
+    "JOIN_PUSHDOWN": "JOIN_PUSHDOWN",
+    "JOIN_PUSHDOWN_CELLS": "JOIN_PUSHDOWN_CELLS",
+    "JOIN_PUSHDOWN_RESIDENCY_MB": "JOIN_PUSHDOWN_RESIDENCY_MB",
 }
 
 
@@ -245,3 +263,65 @@ def test_join_knobs_read_at_join_time():
     with config.JOIN_BATCH_ROWS.scoped("7"):
         assert max(b.n for b in res.batches()) == 7
     assert max(b.n for b in res.batches()) == res.count
+
+
+def test_lake_knobs_read_at_spill_and_scan_time(tmp_path):
+    import os
+
+    from geomesa_tpu_torch.lake.snapshot import SNAPSHOT_FILE, PartitionSnapshot
+
+    with config.SPILL_DIR.scoped(str(tmp_path)), config.MAX_RESIDENT_PARTITIONS.scoped(1):
+        ds = _ds(PSPEC)
+    st = ds._store("t")
+    b = next(iter(st.partitions))
+    with config.LAKE_ENABLED.scoped(False):
+        st.spill_all()
+    assert os.path.exists(os.path.join(st.spilled[b], "data.npz"))
+    st.child(b)._all.n  # reload; dirty it so the next spill rewrites it
+    st._dirty.add(b)
+    with config.LAKE_ROWGROUP_ROWS.scoped(256):
+        st.spill_all()
+    snap = PartitionSnapshot(st.spilled[b])
+    assert os.path.exists(os.path.join(st.spilled[b], SNAPSHOT_FILE))
+    assert len(snap.groups) == -(-snap.n // 256)
+    for bb in list(st.spilled):
+        st.child(bb)
+        st._dirty.add(bb)
+    with config.LAKE_ROWGROUP_ROWS.scoped(256):
+        st.spill_all()
+    q = "BBOX(geom, -100, 30, -99, 31)"
+    n = ds.count("t", q)
+    assert "lake" in ds._plan("t", q).exec_path
+    with config.LAKE_PUSHDOWN.scoped(False):
+        st.spill_all()
+        assert ds.count("t", q) == n and "lake" not in ds._plan("t", q).exec_path
+    box = [(-100.0, 30.0, -99.0, 31.0)]
+    with config.LAKE_PRUNE_MARGIN.scoped(100.0):
+        assert snap.prune(box, None) == list(range(len(snap.groups)))
+    assert len(snap.prune(box, None)) < len(snap.groups)
+
+
+def test_join_pushdown_knobs_read_at_join_time(tmp_path):
+    with config.SPILL_DIR.scoped(str(tmp_path)), config.MAX_RESIDENT_PARTITIONS.scoped(1), \
+            config.LAKE_ROWGROUP_ROWS.scoped(256):
+        ds = _ds(PSPEC)
+        ds._store("t").spill_all()
+    rng = np.random.default_rng(9)
+    ds.create_schema("l", "*geom:Point")
+    ds.insert("l", {"geom__x": rng.uniform(-110, -80, 40), "geom__y": rng.uniform(30, 45, 40)})
+
+    def run():
+        return ds._join_run("l", "t", "dwithin", 0.3, None, None, "INCLUDE", "INCLUDE",
+                            None, want_pairs=False)
+
+    res = run()
+    assert res.stats.pushdown["chunks"] == 1
+    with config.JOIN_PUSHDOWN_CELLS.scoped(8):
+        few = run()
+        assert few.count == res.count and few.stats.pushdown["chunks"] > 1
+        assert few.stats.pushdown["residency_hits"] > 0
+        with config.JOIN_PUSHDOWN_RESIDENCY_MB.scoped(0):
+            assert run().stats.pushdown["residency_hits"] == 0
+    with config.JOIN_PUSHDOWN.scoped(False):
+        off = run()
+    assert off.count == res.count and off.stats.pushdown == {}

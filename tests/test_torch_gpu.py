@@ -1012,3 +1012,67 @@ def test_density_curve_on_the_card(cuda):
     c, _ = cpu.density_curve("t", ECQL, level=10, bbox=BBOX, region=tri)
     assert np.array_equal(g, c) and g.sum() > 0
     assert kpip.launches > before
+
+
+# -- slice 9: lake pushdown and lifecycle on the card --------------------------------
+def test_pruned_child_on_the_card_equals_the_full_load(cuda, tmp_path):
+    """A spilled lake partition pruned to the query's box loads as an
+    ephemeral child that never becomes resident; its count, polygon count
+    and grid (through both kernels) equal the whole partition's and the
+    CPU's."""
+    from geomesa_tpu_torch import config
+
+    with config.DENSITY_PALLAS_MAX_DUP.scoped(1e9), config.LAKE_ROWGROUP_ROWS.scoped(4096):
+        gpu = _partitioned(cuda, 2, tmp_path)
+        cpu = _partitioned("cpu", 2, tmp_path)
+        st = gpu._store("t")
+        box = f"BBOX(geom, -100, 30, -92, 36) AND {WEEKS}"
+        poly = f"INTERSECTS(geom, {_ngon(64, -96, 33, 3)}) AND {WEEKS}"
+        calls = {
+            "count": lambda ds: ds.count("t", box),
+            "density": lambda ds: ds.density("t", box, bbox=BBOX, width=512, height=512),
+            "polygon": lambda ds: ds.count("t", poly),
+        }
+        for key, fn in calls.items():
+            st.spill_all()
+            pip0, den0 = kpip.launches, kg.launches
+            on = fn(gpu)
+            launched = (kpip.launches - pip0, kg.launches - den0)
+            q = poly if key == "polygon" else box
+            path = gpu._plan("t", q).exec_path
+            assert "lake" in path and gpu._plan("t", q).lake_acct["groups_pruned"] > 0, path
+            assert not st.partitions, "a pruned child became resident"
+            st.spill_all()
+            with config.LAKE_PUSHDOWN.scoped(False):
+                off = fn(gpu)
+            want = fn(cpu)
+            if key == "density":
+                np.testing.assert_array_equal(on, off)
+                np.testing.assert_array_equal(on, want)
+                assert launched[1] == 9, launched
+            else:
+                assert on == off == want, key
+            if key == "polygon":
+                assert launched[0] == 9, launched
+
+
+def test_lifecycle_on_the_card_matches_cpu(cuda, tmp_path):
+    """update_schema, an attribute index, delete_features and age_off on a
+    partitioned store on the card: counts and grids after each equal the
+    CPU's."""
+    gpu = _partitioned(cuda, 2, tmp_path)
+    cpu = _partitioned("cpu", 2, tmp_path)
+    box = f"BBOX(geom, -100, 30, -80, 45) AND {WEEKS}"
+    steps = [
+        lambda ds: ds.update_schema("t", "tag:Integer"),
+        lambda ds: ds.add_attribute_index("t", "tag"),
+        lambda ds: ds.delete_features("t", "BBOX(geom, -95, 35, -90, 40)"),
+        lambda ds: ds.age_off("t", "2020-01-20T00:00:00Z"),
+        lambda ds: ds.remove_attribute_index("t", "tag"),
+    ]
+    for step in steps:
+        assert step(gpu) == step(cpu)
+        assert gpu.count("t", box) == cpu.count("t", box)
+        np.testing.assert_array_equal(
+            gpu.density("t", box, bbox=BBOX, width=256, height=256),
+            cpu.density("t", box, bbox=BBOX, width=256, height=256))

@@ -262,6 +262,24 @@ def test_z2_cover_matches_the_jax_cover(budget):
             [tuple(r) for r in want]
 
 
+@pytest.mark.parametrize("dims, bits", [(2, 31), (3, 21)])
+@pytest.mark.parametrize("budget", [1, 5, 9, 17, 100, 2000])
+def test_cover_matches_the_jax_python_cover(dims, bits, budget):
+    """The level-at-a-time cover gives the reference BFS's ranges, budget
+    cut-offs included, for boxes from one cell to the whole domain."""
+    from geomesa_tpu.curves.cover import zcover as jzcover
+
+    rng = np.random.default_rng(budget * dims)
+    for scale in (1, 4, 9, 15, bits - 2, bits):
+        lo = rng.integers(0, 1 << (bits - 1), dims)
+        hi = np.minimum(lo + rng.integers(0, 1 << scale, dims), (1 << bits) - 1)
+        assert [tuple(r) for r in zcover(lo, hi, bits, dims, budget)] == \
+            [tuple(r) for r in jzcover(lo, hi, bits, dims, budget)], (scale, lo, hi)
+    full = [0] * dims, [(1 << bits) - 1] * dims
+    assert [tuple(r) for r in zcover(*full, bits, dims, budget)] == \
+        [tuple(r) for r in jzcover(*full, bits, dims, budget)]
+
+
 # -- windows ----------------------------------------------------------------------------
 WINDOWS = {
     "z2_bbox": ("z2", BOX),

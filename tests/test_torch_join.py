@@ -41,6 +41,17 @@ PRED_KW = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and under
+    a parallel test runner OpenMP's spinning worker threads oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def one_device():
     """The JAX join on one device, as the port runs on one card."""
@@ -716,9 +727,10 @@ def test_polygon_join_equals_jax(polys, predicate):
 
 
 def test_join_count_with_a_partitioned_right_store(tmp_path):
-    """The reference streams a count-only join over a partitioned right
-    store through its lake window pushdown; the port materializes the
-    side. The counts are equal, and equal to the materialized join."""
+    """A count-only join over a partitioned right store streams the right
+    side through the lake window pushdown (``dwithin`` / ``bbox``) or
+    materializes it (``dwithin_meters``) in both packages. The counts are
+    equal, and equal to the materialized join."""
     rng = np.random.default_rng(44)
     n = 4000
     cx, cy = rng.uniform(-115, -75, 6), rng.uniform(28, 47, 6)
@@ -750,6 +762,69 @@ def test_join_count_with_a_partitioned_right_store(tmp_path):
         full = p.join("pts", "t", predicate=predicate, **kw)
         assert got == j.join_count("pts", "t", predicate=predicate, **kw) == full.count > 0
         assert np.array_equal(full.pairs, j.join("pts", "t", predicate=predicate, **kw).pairs)
+
+
+@pytest.fixture(scope="module")
+def pushdown_pair(tmp_path_factory):
+    """(JAX, port, left xy, right xy): a flat left side of 400 points and a
+    partitioned right store of 6,000 clustered points in 256-row row
+    groups, every partition spilled."""
+    rng = np.random.default_rng(45)
+    n = 6000
+    cx, cy = rng.uniform(-115, -75, 8), rng.uniform(28, 47, 8)
+    k = rng.integers(0, 8, n)
+    side = {"name": [f"r{i % 9}" for i in range(n)],
+            "dtg": rng.integers(parse_iso_ms("2020-01-01"), parse_iso_ms("2020-02-01"),
+                                n).astype("datetime64[ms]"),
+            "geom__x": np.clip(cx[k] + rng.normal(0, 0.3, n), -120, -70),
+            "geom__y": np.clip(cy[k] + rng.normal(0, 0.3, n), 25, 50)}
+    k = rng.integers(0, 5, 400)
+    lx = np.clip(cx[k] + rng.normal(0, 0.3, 400), -120, -70)
+    ly = np.clip(cy[k] + rng.normal(0, 0.3, 400), 25, 50)
+    dss = []
+    with config.LAKE_ROWGROUP_ROWS.scoped(256), jconfig.LAKE_ROWGROUP_ROWS.scoped(256):
+        for ds in (JGeoDataset(n_shards=2), GeoDataset(n_shards=2, device="cpu")):
+            ds.create_schema("t", "name:String,dtg:Date,*geom:Point;geomesa.partition='time'")
+            st = ds._store("t")
+            st._spill_dir = str(tmp_path_factory.mktemp(type(ds).__module__.split(".")[0]))
+            st.max_resident = 1
+            ds.insert("t", side)
+            ds.create_schema("pts", "name:String,*geom:Point")
+            ds.insert("pts", {"name": ["p"] * 400, "geom__x": lx, "geom__y": ly})
+            ds.flush()
+            st.spill_all()
+            dss.append(ds)
+    return dss[0], dss[1], (lx, ly), (side["geom__x"], side["geom__y"])
+
+
+@pytest.mark.parametrize("residency", ["64", "0"])
+@pytest.mark.parametrize("predicate", ["dwithin", "bbox"])
+def test_join_pushdown_count_and_stats_equal_jax(pushdown_pair, predicate, residency):
+    """The window-pushdown count: the count equals the JAX package's and a
+    NumPy brute force, and ``JoinStats`` equals the JAX package's, the
+    ``pushdown`` account (residency hits and saved bytes) included."""
+    j, p, (lx, ly), (rx, ry) = pushdown_pair
+    kw = {"dwithin": {"distance": 0.08}, "bbox": {"dx": 0.06, "dy": 0.04}}[predicate]
+    j._plan_cache_clear("t")  # the JAX side plans each chunk afresh
+    with config.JOIN_PUSHDOWN_CELLS.scoped(16), jconfig.JOIN_PUSHDOWN_CELLS.scoped(16), \
+            config.JOIN_PUSHDOWN_RESIDENCY_MB.scoped(residency), \
+            jconfig.JOIN_PUSHDOWN_RESIDENCY_MB.scoped(residency):
+        pr = p._join_run("pts", "t", predicate, kw.get("distance"), kw.get("dx"),
+                         kw.get("dy"), "INCLUDE", "INCLUDE", None, want_pairs=False)
+        jr = j._join_run("pts", "t", predicate, kw.get("distance"), kw.get("dx"),
+                         kw.get("dy"), "INCLUDE", "INCLUDE", None, want_pairs=False)
+    p0, p1 = kj.pair_params(predicate, **kw)
+    brute = len(kj.brute_force_pairs(lx, ly, rx, ry, predicate, p0, p1))
+    assert pr.count == jr.count == brute > 0
+    assert dataclasses.asdict(pr.stats) == dataclasses.asdict(jr.stats)
+    pd = pr.stats.pushdown
+    assert pd["chunks"] > 1 and 0 < pd["groups_loaded"]
+    assert pd["bytes_side"] > 0 and pd["groups_side"] > 0
+    assert (pd["residency_hits"] > 0) == (residency != "0")
+    with config.JOIN_PUSHDOWN.scoped(False):
+        off = p._join_run("pts", "t", predicate, kw.get("distance"), kw.get("dx"),
+                          kw.get("dy"), "INCLUDE", "INCLUDE", None, want_pairs=False)
+    assert off.count == pr.count and off.stats.pushdown == {}
 
 
 # -- spatial_join ------------------------------------------------------------------------------

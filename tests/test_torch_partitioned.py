@@ -3,13 +3,15 @@
 Both packages create ``...;geomesa.partition='time'`` and ingest the same
 rows made from a NumPy seed (two months of ``dtg``, so about nine weekly
 partitions) with ``max_resident`` 1, so every query over several
-partitions streams them and reloads spilled ones. The JAX side runs its
-Pallas kernels in interpret mode with compaction forced
-(``geomesa.compact.min.rows`` 1, ``geomesa.compact.fraction`` 2.0) and
-spills in its default lake layout; the port runs on the CPU with its
-kernels' plain versions, the same thresholds and the npz layout. Rows are
-planted on the query box's f32 bounds in some partitions only, so their
-scans take another path than the others'.
+partitions streams them and reloads spilled ones. Both spill in the
+default lake layout (``geomesa.lake.enabled``), so a reloaded partition
+holds its rows in the same primary order on both sides; one test spills
+the port's npz layout instead. The JAX side runs its Pallas kernels in
+interpret mode with compaction forced (``geomesa.compact.min.rows`` 1,
+``geomesa.compact.fraction`` 2.0); the port runs on the CPU with its
+kernels' plain versions and the same thresholds. Rows are planted on the
+query box's f32 bounds in some partitions only, so their scans take
+another path than the others'.
 
 Tolerances: none, except weighted density (rtol 1e-4, the kernel's float
 atomics) and the stats' descriptive sums (rtol 1e-5 of f64, as
@@ -18,9 +20,11 @@ grids, rows and their order, sorted results, stats and kNN sets are equal.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
+import torch
 
 from geomesa_tpu import GeoDataset as JGeoDataset
 from geomesa_tpu import config
@@ -30,9 +34,11 @@ from geomesa_tpu.parallel import devices as jdevices
 from geomesa_tpu_torch import GeoDataset
 from geomesa_tpu_torch.api.dataset import Query
 from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+from geomesa_tpu_torch import config as pconfig
 from geomesa_tpu_torch.index.partitioned import (
     PartitionedFeatureStore, is_partitioned_schema,
 )
+from geomesa_tpu_torch.lake.snapshot import SNAPSHOT_FILE, PartitionSnapshot
 from geomesa_tpu_torch.parallel.devices import TreeReducer, tree_merge
 from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.schema.feature_type import FeatureType
@@ -79,6 +85,17 @@ def make_data(n=N, seed=11):
     data["geom__y"][:12] = 40.0
     data["dtg"][:12] = np.datetime64("2020-01-06T12:00:00", "ms")
     return data
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and under
+    a parallel test runner OpenMP's spinning worker threads oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -174,10 +191,10 @@ def test_merged_stats_equal(trio):
 
 
 def test_children_order_keys_and_shifts_equal(trio):
-    """Per partition and index: the rows in table order (by fid), the key
-    columns, key shifts, shard bounds and padded shard length. The JAX
-    lake snapshot stores master rows in its primary order, so rows are
-    compared through the fids, not through the permutation."""
+    """Per partition and index: the rows in table order (by fid), the
+    permutation itself (both packages' lake snapshots store master rows in
+    the primary order, so a reloaded child's permutation is the same), the
+    key columns, key shifts, shard bounds and padded shard length."""
     j, p, _, _ = trio
     js, ps = j._store("t"), p._store("t")
     for b in ps.partition_bins():
@@ -188,6 +205,7 @@ def test_children_order_keys_and_shifts_equal(trio):
             assert pt.shard_len == jt.shard_len == 65536
             np.testing.assert_array_equal(pt.shard_bounds, jt.shard_bounds)
             np.testing.assert_array_equal(pt.col_sorted("__fid__"), jt.col_sorted("__fid__"))
+            np.testing.assert_array_equal(pt.order, jt.order)
             assert pt.key_shifts == jt.key_shifts
             assert sorted(pt.key_columns) == sorted(jt.key_columns)
             for k, v in jt.key_columns.items():
@@ -527,14 +545,44 @@ def poly_trio(tmp_path_factory):
 
 def test_polygon_partitions_spill_as_unicode(poly_trio):
     """Spilled extent partitions keep their WKT as a unicode array (no
-    pickle); a reload serves it back to the refinement."""
+    pickle) in the lake snapshot; a reload serves it back to the
+    refinement."""
     _, p, _ = poly_trio
     ps = p._store("t")
     assert len(ps.partitions) == 1 and len(ps.spilled) >= 8
     d = next(iter(ps.spilled.values()))
-    with np.load(f"{d}/data.npz", allow_pickle=False) as z:
-        assert z["c/geom__wkt"].dtype.kind == "U"
+    snap = PartitionSnapshot(d)
+    assert snap.read_column("c/geom__wkt").dtype.kind == "U"
+    assert snap.primary is None  # no z2 / z3: no row re-order, no pushdown
     assert list(ps.partitions.values())[0].tables.keys() == {"xz3", "xz2", "id"}
+
+
+def test_npz_layout_spills_and_reloads(trio, tmp_path):
+    """With ``geomesa.lake.enabled`` false the port spills the npz layout
+    (the reference's other branch); it reloads to the same answers, and a
+    pushdown request over it loads whole partitions and says so."""
+    j, _, _, data = trio
+    with pconfig.LAKE_ENABLED.scoped(False):
+        p = GeoDataset(n_shards=2, device="cpu", compact_min_rows=1, compact_fraction=2.0)
+        p.create_schema("t", PSPEC)
+        ps = p._store("t")
+        ps.max_resident = 1
+        ps._spill_dir = str(tmp_path)
+        p.insert("t", data, fids=np.arange(N).astype(str))
+        p.flush("t")
+    d = next(iter(ps.spilled.values()))
+    assert os.path.exists(os.path.join(d, "data.npz"))
+    assert not os.path.exists(os.path.join(d, SNAPSHOT_FILE))
+    for key in ("b", "name_time", "include"):
+        q = QUERIES[key]
+        assert p.count("t", q) == j.count("t", q)
+        np.testing.assert_array_equal(
+            p.density("t", q, bbox=BBOX, width=32, height=32),
+            j.density("t", q, bbox=BBOX, width=32, height=32))
+        assert sorted(p.query("t", q).fids) == sorted(j.query("t", q).fids)
+    ps.spill_all()
+    p.count("t", B)
+    assert "legacy-snapshot" in p._plan("t", B).exec_path["lake_fallback"]
 
 
 @pytest.mark.parametrize("key", sorted(POLY_QUERIES))

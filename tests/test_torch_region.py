@@ -13,6 +13,7 @@ grids and stats are exact; weighted grids within rtol 1e-4
 
 import numpy as np
 import pytest
+import torch
 
 from geomesa_tpu import GeoDataset as JGeoDataset
 from geomesa_tpu import config as jconfig
@@ -55,6 +56,17 @@ def make_data(n=N, seed=21):
         data["geom__x"][i], data["geom__y"][i] = x, y
         data["dtg"][i] = np.datetime64("2020-01-10T00:00:00", "ms")
     return data
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and under
+    a parallel test runner OpenMP's spinning worker threads oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
