@@ -4,6 +4,11 @@
     python3 chip_smoke.py [--rows N] [--seed S] [--reps R] [--part-rows N5]
                           [--poly-rows N6] [--line-rows L6] [--trip-rows N7]
 
+(``--s10-child ROOT`` is the slice-10 phase's own crash child;
+``--s10-save-split`` saves the slice-10 flat store once and prints the
+time ``np.savez_compressed`` takes on each column of its chunk alone, and
+nothing else.)
+
 1. Device: the card's name and power limit; builds the CUDA kernels from
    ``geomesa_tpu_torch/csrc`` with nvcc (in parallel) and prints the build
    time and the ``-Xptxas -v`` report.
@@ -60,8 +65,8 @@
    band-free filter (count, min / max, 64-bin histogram, enumeration,
    top-k, descriptive) and of the polygon, ``Frequency(name,256)`` (host path), and ``knn``
    (k 10, and k 100 under a name filter). Each runs cold once and warm
-   (``--reps``, a quarter of it for the calls that return or sort over a
-   million rows or take over 0.2 s cold), with its ``exec_path``, rows, cold and warm p50, D2H
+   (``--reps``, 2 for the calls that return or sort over a million rows or
+   take over 0.2 s cold), with its ``exec_path``, rows, cold and warm p50, D2H
    bytes and device busy / idle share per warm call; the calls with host
    work over the matches also print a cProfile of one warm call. Each answer is held
    against a NumPy oracle: rows and columns of the f64 predicate (f32
@@ -91,7 +96,7 @@
    CROSSES of the streets against the borough; and on slice 3's points
    (no new ingest) ``INTERSECTS(polygon) AND weight * 2 > 1.2`` and the
    interval as count and density (the PIP kernel in the coarse mask, host
-   refinement after). Each call runs cold once and warm (``--reps``, 3 for
+   refinement after). Each call runs cold once and warm (``--reps``, 2 for
    calls that refine more than 10k rows or take over 0.2 s cold) and prints its index,
    ``exec_path`` (with the host refinement's rows and milliseconds), rows,
    cold and warm p50, and device busy / idle share; ``count_v`` prints a
@@ -152,7 +157,7 @@
    cells wholesale, ``polygon_verdict`` on the boundary cells) and
    ``poly_bbox`` once; ``count``, 512x512 ``density`` and ``stats`` with
    ``region=`` the Bronx; ``explain_join`` of the stations and NTA joins.
-   Each call runs cold once and 3 times warm under the profiler (p50, busy
+   Each call runs cold once and twice warm under the profiler (p50, busy
    and idle share), with its ``JoinStats``. Oracles: the pairs of a
    2,000-row left sample equal the NumPy brute force of those rows
    against the whole right side; every count equals its ``join_spatial``
@@ -224,8 +229,48 @@
    a pruned child and pip on the mutated store. The same lifecycle runs on slice
    1's flat 20M store after slice 6, before that store is freed.
 
+12. Slice 10, durable datasets. On a flat store of its own (slice 1's
+   schema and generator, 2,000,000 rows with explicit 128-bit hex ids, a
+   cut forced by the time limit) after slice 9's flat lifecycle, once
+   the earlier phases' stores have left the card: a full ``save`` (seconds,
+   bytes); ``GeoDataset.load`` timed by stage (manifest, chunk reads,
+   table rebuild); the main path's four queries on the loaded store, equal
+   to the live store's answers and to the slice-1 oracles (counts and the
+   unweighted grid exact, the weighted grid within rtol 1e-4); both
+   kernels against their plain versions on the loaded store's operands
+   (the grouped kernel's built with ``geomesa.density.pallas.max.dup``
+   raised: at 2M rows the main density scatters); 32 journaled inserts of
+   4,096 rows from one writer and 32 from four threads, then 256 of 256
+   rows from one writer and 256 from four threads (ack p50, p99 and max,
+   fsyncs and group sizes; the threads must share a group commit); an
+   incremental ``save`` that writes exactly one new chunk, leaves the old
+   chunk files untouched and truncates the journal; a child process (this
+   script with ``--s10-child``) that loads the root on the card and
+   inserts journaled batches of 256 rows, printing each ack, until the
+   parent SIGKILLs it after 256 acks; a fresh ``load`` that replays
+   (records replayed and their seconds, the index flush after them apart),
+   with every acked batch present and the four
+   queries equal to their oracles over the surviving rows; and
+   ``refresh_schema`` on a second loaded dataset, which applies exactly
+   the 3 records written since and then answers as the writer does. On
+   slice 5's store after slice 9's lifecycle: ``save`` (every partition
+   checkpointed: dirty residents written, clean snapshots copied; seconds
+   and bytes), a one-row insert into one resident partition and a second
+   ``save`` that rewrites exactly that partition's snapshot, into a new
+   directory, and sweeps the one the first manifest named (by the
+   manifest, inode and mtime), ``load`` with every partition attached
+   cold, and slice 9's 2°
+   box over B and over the long window (count and density), B's polygon
+   count and the wide two-day box's density, each equal to the live
+   store's answer before the save and to slice 9's oracle over the
+   surviving rows, with ``exec_path["lake"]`` and each partition's
+   ``density_kernel``. The phase's own launches are counted (the
+   comparisons with the plain versions not counted): pip > 0 on the flat
+   store, both kernels > 0 on the partitioned one. Its roots are deleted
+   when it ends.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8`` and ``launches_slice9``), the card's ``nvidia-smi``
+``launches_slice8``, ``launches_slice9`` and ``launches_slice10``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -756,8 +801,9 @@ def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
     for key, fn in calls.items():
         knn_paths.clear()
         results[key], cold = timed(torch, fn)
-        # 3 warm reps also for a call over 0.2 s cold (cut in PR 9)
-        reps = max(3, args.reps // 4) if key in heavy or cold > 0.2 else args.reps
+        # 2 warm reps for a call over a million rows or 0.2 s cold (cut in
+        # PRs 9 and 10)
+        reps = 2 if key in heavy or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         latency[key] = (cold * 1e3, float(np.median(warm)) * 1e3, reps)
         paths[key] = (dict(ds._plan("gdelt3", query_of[key]).exec_path) if key in query_of
@@ -1187,9 +1233,9 @@ def slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
         else:
             plan = ds._plan(schema, q)
         path = dict(plan.exec_path)
-        # 3 warm reps for a call that refines over 10k rows or whose cold
-        # call took over 0.2 s (cut in PR 9 to fit slice 9's phase)
-        reps = 3 if path.get("refined_rows", 0) > 10_000 or cold > 0.2 else args.reps
+        # 2 warm reps for a call that refines over 10k rows or whose cold
+        # call took over 0.2 s (cut in PRs 9 and 10 to fit slices 9 and 10)
+        reps = 2 if path.get("refined_rows", 0) > 10_000 or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         ans = results[key]
         rows = (ans if isinstance(ans, int) else len(ans) if hasattr(ans, "columns")
@@ -1635,8 +1681,9 @@ def slice7(args, torch, kpip, kgrouped):
         setattr(kj, k, capture(k, fn))
     rng = np.random.default_rng(args.seed + 12)
 
-    def run(label, fn, reps=3):
-        """Cold once, then ``reps`` warm calls under the profiler."""
+    def run(label, fn, reps=2):
+        """Cold once, then ``reps`` warm calls under the profiler (3 before
+        PR 10's cut)."""
         out, cold = timed(torch, fn)
         walls = []
         wall, busy, top, _ = profile_warm(torch, fn, reps, out_dir / f"slice7_{label}.json",
@@ -1990,9 +2037,9 @@ def paths_by_partition(parts):
 
 
 def slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped):
-    """The slice-5 phase (see the module docstring, 8), then slice 8's and
-    slice 9's calls on its store. Returns the launches of the kernels in
-    each."""
+    """The slice-5 phase (see the module docstring, 8), then slice 8's,
+    slice 9's and slice 10's calls on its store. Returns the launches of
+    the kernels in each."""
     import shutil
 
     from geomesa_tpu_torch import GeoDataset, Query, config
@@ -2289,8 +2336,10 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
         f"1e-5); kNN k-th distance {kth:.3f} m, boundary pairs {pairs}, rows within 1e-6 "
         f"of it {near}; the phase took {time.perf_counter() - t_phase:.3f} s after ingest")
     s8 = slice8_partitioned(args, torch, ds, data, kpip, kgrouped)
-    s9 = slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
-    return launches, s8, s9
+    s9, alive = slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
+    s10 = slice10_partitioned(args, torch, ds, data, alive, wkt, packed, n_edges, kpip,
+                              kgrouped)
+    return launches, s8, s9, s10
 
 
 #: slice 8: the curve's full CONUS crop and its level (85 x 72 = 6,120
@@ -3034,7 +3083,8 @@ def s9_kernels_on_pruned(torch, ds, name, st, wkt, packed, n_edges, kpip, kgroup
 
 def slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped, name="gdelt5"):
     """The slice-9 phase on slice 5's partitioned store (see the module
-    docstring, 11). Returns this phase's launches of every kernel."""
+    docstring, 11). Returns this phase's launches of every kernel and the
+    rows that survive its lifecycle."""
     from geomesa_tpu_torch.kernels import join as kjoin
 
     t_phase = time.perf_counter()
@@ -3060,7 +3110,7 @@ def slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped, name="gd
     kpip.launches, kgrouped.launches = held.pop("pip"), held.pop("density_grouped")
     kjoin.launches.update(held)
     before_life = counts()
-    s9_lifecycle(args, torch, ds, data, name, "partitioned", wkt, packed, n_edges)
+    alive = s9_lifecycle(args, torch, ds, data, name, "partitioned", wkt, packed, n_edges)
     launches = counts()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
@@ -3074,7 +3124,7 @@ def slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped, name="gd
     if after_push["density_grouped"] <= 0 or life["pip"] <= 0:
         raise AssertionError("the grouped density kernel never ran on a pruned child "
                              f"({after_push}) or pip never ran on the mutated store ({life})")
-    return launches
+    return launches, alive
 
 
 def slice9_flat(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
@@ -3088,6 +3138,533 @@ def slice9_flat(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched in slice 9's flat lifecycle: {launches}")
     return launches
+
+
+#: slice 10: the flat store's rows (a cut forced by the time limit, PERF.md
+#: section 4), the journaled inserts (count and rows each; half from one
+#: writer, half from the writer threads), the small journaled inserts (rows
+#: each, and acks per writer mode: enough for a p99), the writer threads,
+#: the child's acked small batches after which the parent kills it, and the
+#: batches the second dataset catches up on
+S10_ROWS = 2_000_000
+S10_INSERTS = 64
+S10_BATCH = 4096
+S10_SMALL = 256
+S10_SMALL_ACKS = 256
+S10_THREADS = 4
+S10_KILL_AFTER = 256
+S10_REFRESH = 3
+S10_SPEC = "weight:Float,dtg:Date,*geom:Point"
+#: geomesa.density.pallas.max.dup for the grouped kernel's operands on the
+#: flat store (its main density scatters at 2M rows)
+S10_MAX_DUP = 64.0
+#: the one-row insert into a resident partition lies outside every window
+#: the phase queries
+S10_ROW_XY = (-124.5, 48.5)
+#: a lake partition snapshot's data file
+SNAP = "part.lake"
+
+
+def hex_fids(rng, n: int) -> np.ndarray:
+    """``n`` random 128-bit hex feature ids ('S32'), the form of the
+    port's default ids, made from ``rng``."""
+    b = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    h = np.empty((n, 32), np.uint8)
+    h[:, 0::2], h[:, 1::2] = digits[b >> 4], digits[b & 15]
+    return h.view("S32").reshape(n)
+
+
+def s10_batch(i: int, seed: int, rows: int = S10_BATCH, tag: str = "j"):
+    """Journaled insert batch ``i`` of ``rows`` rows: slice 1's generator,
+    ids ``<tag><i>_<row>``."""
+    data = make_data(rows, seed + 1000 + i)
+    return data, np.char.add(f"{tag}{i}_".encode(), np.arange(rows).astype("S6"))
+
+
+def s10_child_batch(i: int, seed: int):
+    """The crash child's journaled batch ``i`` (small, ids ``k<i>_<row>``)."""
+    return s10_batch(i, seed + 7, S10_SMALL, "k")
+
+
+def s10_acks(ds, name, batches, threads: int):
+    """Insert ``batches`` into ``name`` from ``threads`` writer threads (1:
+    this thread); each insert's ack seconds and the journal's counters
+    over the run."""
+    import threading
+
+    j = ds._journal
+    c0 = j.counters()
+    acks, errors = [], []
+    lock = threading.Lock()
+
+    def writer(mine):
+        try:
+            for bdata, bfids in mine:
+                t0 = time.perf_counter()
+                ds.insert(name, bdata, fids=bfids)
+                with lock:
+                    acks.append(time.perf_counter() - t0)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    if threads == 1:
+        writer(batches)
+    else:
+        ts = [threading.Thread(target=writer, args=(batches[k::threads],))
+              for k in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    if errors:
+        raise errors[0]
+    c1 = j.counters()
+    groups = {k: c1["groups"].get(k, 0) - c0["groups"].get(k, 0) for k in c1["groups"]}
+    return acks, {"fsyncs": c1["fsyncs"] - c0["fsyncs"],
+                  "groups": {k: v for k, v in groups.items() if v}}
+
+
+def s10_dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def s10_child(root: str, seed: int) -> int:
+    """The crash child: load the root on the card, then insert journaled
+    batches, printing ``ACK <i>`` once each returns, until killed."""
+    import torch
+
+    from geomesa_tpu_torch import GeoDataset
+
+    if not torch.cuda.is_available():
+        return 2
+    ds = GeoDataset.load(root)
+    log(f"LOADED {ds.count('gdelt10')}")
+    for i in range(100_000):
+        data, fids = s10_child_batch(i, seed)
+        ds.insert("gdelt10", data, fids=fids)
+        log(f"ACK {i}")
+    return 0
+
+
+def s10_save_split(seed: int) -> int:
+    """Where the slice-10 flat save's time goes: save the phase's store
+    (the same rows and ids) once, then compress each column of its chunk
+    alone as ``np.savez_compressed`` does."""
+    import shutil
+
+    import torch
+
+    from geomesa_tpu_torch import GeoDataset
+
+    if not torch.cuda.is_available():
+        return 2
+    root = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke" / "s10_split"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed + 10)
+    data = make_data(S10_ROWS, seed + 10)
+    try:
+        ds = GeoDataset(n_shards=8)
+        ds.create_schema("gdelt10", S10_SPEC)
+        ds.insert("gdelt10", data, fids=hex_fids(rng, S10_ROWS))
+        ds.flush("gdelt10")
+        t0 = time.perf_counter()
+        ds.save(str(root))
+        save_s = time.perf_counter() - t0
+        entry = json.loads((root / "manifest.json").read_text())["schemas"]["gdelt10"]
+        split = {}
+        with np.load(root / entry["chunks"][0]) as z:
+            for k in z.files:
+                col = z[k]
+                path = root / "split.npz"
+                t0 = time.perf_counter()
+                np.savez_compressed(path, col)
+                split[k] = (round(time.perf_counter() - t0, 3), col.nbytes,
+                            path.stat().st_size)
+        log(f"[slice10] flat save of {S10_ROWS} rows: {save_s:.3f} s; by column (s, raw B, "
+            f"compressed B): {split}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
+def s10_queries(ds, name, q_bbox, q_poly):
+    """The main path's four queries on ``name``."""
+    grid = dict(bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+    return {
+        "count_bbox": ds.count(name, q_bbox),
+        "density": ds.density(name, q_bbox, **grid),
+        "density_weighted": ds.density(name, q_bbox, weight="weight", **grid),
+        "count_polygon": ds.count(name, q_poly),
+    }
+
+
+def s10_check(label, got, want, oracle=None):
+    """Counts and the unweighted grid bit for bit, the weighted grid within
+    rtol 1e-4, against ``want`` (the live store's answers) and the slice-1
+    ``oracle`` (count, unweighted grid, weighted grid, polygon count)."""
+    for ref_name, ref in (("live", want), ("oracle", oracle)):
+        if ref is None:
+            continue
+        if got["count_bbox"] != ref["count_bbox"] or got["count_polygon"] != ref["count_polygon"]:
+            raise AssertionError(f"{label}: counts {got['count_bbox']} / {got['count_polygon']} "
+                                 f"!= {ref_name} {ref['count_bbox']} / {ref['count_polygon']}")
+        if not np.array_equal(got["density"].astype(np.float64), ref["density"]):
+            raise AssertionError(f"{label}: unweighted grid differs from the {ref_name} grid")
+        gw, rw = got["density_weighted"], ref["density_weighted"]
+        if not (np.isfinite(gw).all() and np.allclose(gw, rw, rtol=1e-4, atol=1e-3)):
+            raise AssertionError(f"{label}: weighted grid outside rtol 1e-4 of the {ref_name}")
+
+
+def s10_oracle(data, packed, n_edges):
+    tm = time_mask(data)
+    g_u, g_w, _, n_bbox = density_oracles(data, tm)
+    return {"count_bbox": n_bbox, "density": g_u, "density_weighted": g_w,
+            "count_polygon": polygon_oracle(data, tm, packed, n_edges)}
+
+
+def s10_concat(parts):
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
+    """The slice-10 phase on a flat store of its own (see the module
+    docstring, 12). Returns its launches of both kernels."""
+    import shutil
+    import signal
+
+    from geomesa_tpu_torch import GeoDataset, config
+
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    root = out_dir / "s10_flat"
+    shutil.rmtree(root, ignore_errors=True)
+    name = "gdelt10"
+    q_bbox = f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    rng = np.random.default_rng(args.seed + 10)
+    data = make_data(S10_ROWS, args.seed + 10)
+    fids = hex_fids(rng, S10_ROWS)
+    try:
+        ds = GeoDataset(n_shards=8)
+        ds.create_schema(name, S10_SPEC)
+        ds.insert(name, data, fids=fids)
+        ds.flush(name)
+        live = s10_queries(ds, name, q_bbox, q_poly)
+        oracle = s10_oracle(data, packed, n_edges)
+        s10_check("the live store", live, None, oracle)
+
+        # 1. a full save
+        t0 = time.perf_counter()
+        ds.save(str(root))
+        save_s = time.perf_counter() - t0
+        size = s10_dir_bytes(root)
+        entry = json.loads((root / "manifest.json").read_text())["schemas"][name]
+        log(f"[slice10] flat save of {S10_ROWS} rows: {save_s:.3f} s "
+            f"({save_s / S10_ROWS * 1e6:.3f} s per million rows), {size} B on disk, "
+            f"chunks {entry['chunks']}")
+        del ds
+        torch.cuda.empty_cache()
+
+        # 2. reload, 3. the main path's queries on it
+        kpip.launches = 0
+        kgrouped.launches = 0
+        loaded, load_s = timed(torch, lambda: GeoDataset.load(str(root)))
+        log(f"[slice10] flat load: {load_s:.3f} s; by stage (s) {loaded.load_seconds}; "
+            f"journal attached {loaded._journal is not None}")
+        got = s10_queries(loaded, name, q_bbox, q_poly)
+        s10_check("the loaded store", got, live, oracle)
+        paths = {q: dict(loaded._plan(name, q).exec_path) for q in (q_bbox, q_poly)}
+        log(f"[slice10] flat loaded store: count {got['count_bbox']}, polygon "
+            f"{got['count_polygon']}, grids equal to the live store and the oracle "
+            f"(weighted within rtol 1e-4); exec_path {paths}")
+
+        # both kernels against their plain versions on the loaded store's
+        # operands: the counters are put back after the comparison
+        held = (kpip.launches, kgrouped.launches)
+        ex = loaded._executor(name)
+        cols = ex.scan_columns(loaded._plan(name, q_poly), ["geom__x", "geom__y"])
+        px, py = cols["geom__x"], cols["geom__y"]
+        edges = torch.from_numpy(packed).cuda()
+        bad = int((kpip.pip_mask(px, py, edges, n_edges)
+                   != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+        if bad:
+            raise AssertionError(f"pip disagrees with its plain version on {bad} points "
+                                 "of the loaded store")
+        # at 2M rows the main density's pair schedule duplicates rows past
+        # geomesa.density.pallas.max.dup, so it scatters (the reference's
+        # rung); the grouped kernel's operands are built with the knob raised
+        with config.DENSITY_PALLAS_MAX_DUP.scoped(S10_MAX_DUP):
+            o = ex.density_inputs(loaded._plan(name, q_bbox), QUERY_BBOX, WIDTH, HEIGHT)
+        if o is None:
+            raise AssertionError("no grouped operands for the loaded store's density")
+        a = (o["x"], o["y"], o["mask"], o["weight"], QUERY_BBOX, WIDTH, HEIGHT, o["sched"])
+        if not torch.equal(kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)):
+            raise AssertionError("density_grouped disagrees with its plain version on the "
+                                 "loaded store")
+        log(f"[slice10] pip on {tuple(px.shape)} points and density_grouped on "
+            f"{tuple(o['x'].shape)} rows, {o['sched']['chunks'].numel()} pairs (max.dup "
+            f"{S10_MAX_DUP}) of the loaded store: equal to their plain versions")
+        del cols, px, py, o, a
+        kpip.launches, kgrouped.launches = held
+
+        # 4. the journal: one writer, then S10_THREADS, with S10_BATCH-row
+        # batches and, for a p99 of a few hundred acks, S10_SMALL-row ones
+        batches = [s10_batch(i, args.seed) for i in range(S10_INSERTS)]
+        small = [s10_batch(i, args.seed, S10_SMALL, "s") for i in range(2 * S10_SMALL_ACKS)]
+        j = loaded._journal
+        half, ms = S10_INSERTS // 2, lambda xs, q: float(np.percentile(np.array(xs) * 1e3, q))
+        for rows, runs in ((S10_BATCH, (batches[:half], batches[half:])),
+                           (S10_SMALL, (small[:S10_SMALL_ACKS], small[S10_SMALL_ACKS:]))):
+            for threads, mine in zip((1, S10_THREADS), runs):
+                acks, c = s10_acks(loaded, name, mine, threads)
+                log(f"[slice10] journaled inserts of {rows} rows, {threads} writer(s), "
+                    f"{len(acks)} acks: p50 {ms(acks, 50):.3f} ms, p99 {ms(acks, 99):.3f} ms, "
+                    f"max {max(acks) * 1e3:.3f} ms; fsyncs {c['fsyncs']}, groups {c['groups']}")
+                if threads > 1 and max(c["groups"], default=0) <= 1:
+                    raise AssertionError(f"{threads} writers never shared a group commit: "
+                                         f"{c['groups']}")
+        log(f"[slice10] journal status: {j.status()['records']} records in "
+            f"{len(j.status()['segments'])} segments")
+
+        # 5. an incremental save: one new chunk, the old files untouched,
+        # the journal truncated
+        old = {rel: (root / rel).stat() for rel in entry["chunks"]}
+        t0 = time.perf_counter()
+        loaded.save(str(root))
+        inc_s = time.perf_counter() - t0
+        entry2 = json.loads((root / "manifest.json").read_text())["schemas"][name]
+        new = [c for c in entry2["chunks"] if c not in entry["chunks"]]
+        same = all((root / rel).stat().st_mtime_ns == s.st_mtime_ns
+                   and (root / rel).stat().st_ino == s.st_ino for rel, s in old.items())
+        if entry2["chunks"][:len(entry["chunks"])] != entry["chunks"] or len(new) != 1 \
+                or not same:
+            raise AssertionError(f"the incremental save rewrote chunks: {entry['chunks']} -> "
+                                 f"{entry2['chunks']}")
+        if j.status()["records"] or entry2["journal_seq"] != j.last_seq():
+            raise AssertionError(f"the save did not truncate the journal: {j.status()}")
+        log(f"[slice10] incremental save: {inc_s:.3f} s, one new chunk {new} "
+            f"({(root / new[0]).stat().st_size} B), the old chunk files untouched, journal "
+            f"segments truncated (journal_seq {entry2['journal_seq']})")
+        base = s10_concat([data] + [b for b, _ in batches + small])
+        n_base = len(base["dtg"])
+        del loaded
+        torch.cuda.empty_cache()
+
+        # 6. a child loads the root and inserts until it is killed
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--s10-child", str(root),
+             "--seed", str(args.seed)],
+            stdout=subprocess.PIPE, text=True)
+        acked, lines = -1, []
+        try:
+            for line in child.stdout:
+                lines.append(line.strip())
+                if line.startswith("ACK "):
+                    acked = int(line.split()[1])
+                    if acked + 1 >= S10_KILL_AFTER:
+                        child.send_signal(signal.SIGKILL)
+                        break
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+            child.stdout.close()
+        if acked + 1 < S10_KILL_AFTER:
+            raise AssertionError(f"the child died before {S10_KILL_AFTER} acks: {lines[-5:]}")
+        child_s = time.perf_counter() - t0
+        recovered, rec_s = timed(torch, lambda: GeoDataset.load(str(root)))
+        n_rep = recovered._journal_replayed
+        if n_rep < acked + 1:  # a durable but unacked tail may follow
+            raise AssertionError(f"replayed {n_rep} records after {acked + 1} acks")
+        kids = [s10_child_batch(i, args.seed) for i in range(n_rep)]
+        surv = s10_concat([base] + [b for b, _ in kids])
+        want_n = len(surv["dtg"])
+        if recovered.count(name) != want_n:
+            raise AssertionError(f"{recovered.count(name)} rows after the replay, want {want_n}")
+        # every acked batch: its first and last rows
+        ids = [k[1][e].decode() for k in kids[:acked + 1] for e in (0, -1)]
+        found = recovered.count(name, "IN (" + ", ".join(f"'{i}'" for i in ids) + ")")
+        if found != len(ids):
+            raise AssertionError(f"{len(ids) - found} first / last rows of the "
+                                 f"{acked + 1} acked batches lost")
+        got = s10_queries(recovered, name, q_bbox, q_poly)
+        s10_check("the recovered store", got, None, s10_oracle(surv, packed, n_edges))
+        rep_s = recovered.load_seconds.get("replay", 0.0)
+        flush_s = recovered.load_seconds.get("replay_flush", 0.0)
+        log(f"[slice10] crash: the child acked {acked + 1} batches of {S10_SMALL} rows and "
+            f"was killed ({child_s:.3f} s with its load); load + replay {rec_s:.3f} s: "
+            f"{n_rep} records replayed in {rep_s:.3f} s ({n_rep / max(rep_s, 1e-9):.1f} "
+            f"records/s), then the index flush {flush_s:.3f} s; every acked row present "
+            f"({want_n} rows); the four queries equal their oracles over the surviving rows")
+
+        # 7. a second dataset catches up with refresh_schema
+        second = GeoDataset.load(str(root))
+        more = [s10_batch(S10_INSERTS + i, args.seed) for i in range(S10_REFRESH)]
+        for bdata, bfids in more:
+            recovered.insert(name, bdata, fids=bfids)
+        t0 = time.perf_counter()
+        changed = second.refresh_schema(name, str(root))
+        ref_s = time.perf_counter() - t0
+        if not changed or second._journal_replayed != S10_REFRESH:
+            raise AssertionError(f"refresh_schema applied {second._journal_replayed} records, "
+                                 f"want {S10_REFRESH}")
+        a2, b2 = (s10_queries(d, name, q_bbox, q_poly) for d in (second, recovered))
+        s10_check("the refreshed dataset", a2, b2)
+        log(f"[slice10] refresh_schema: {S10_REFRESH} records applied in {ref_s:.3f} s; "
+            f"answers equal to the writer's ({a2['count_bbox']} rows in the box)")
+        launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+        log(f"[slice10] flat phase: {time.perf_counter() - t_phase:.3f} s; launches of its own "
+            f"calls {launches} (the comparisons with the plain versions not counted; the "
+            f"density scatters at this size)")
+        if launches["pip"] <= 0:
+            raise AssertionError(f"pip never launched in slice 10's flat phase: {launches}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def s10_part_answers(ds, name, wkt):
+    """Slice 9's 2-degree box over B and over the long window (count and
+    density), B's polygon count and the wide two-day box's density, with
+    each call's exec_path."""
+    q_b = s9_query(S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00")
+    q_long = s9_query(S9_BOX, LONG_LO, LONG_HI)
+    q_wide = s9_query(S9_WIDE, *S9_DAYS)
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    calls = {
+        "count_box_b": (q_b, lambda: ds.count(name, q_b)),
+        "density_box_b": (q_b, lambda: ds.density(name, q_b, bbox=S9_BOX, width=WIDTH,
+                                                  height=HEIGHT)),
+        "count_box_long": (q_long, lambda: ds.count(name, q_long)),
+        "density_box_long": (q_long, lambda: ds.density(name, q_long, bbox=S9_BOX,
+                                                        width=WIDTH, height=HEIGHT)),
+        "count_polygon_b": (q_poly, lambda: ds.count(name, q_poly)),
+        "density_wide_2d": (q_wide, lambda: ds.density(name, q_wide, bbox=S9_WIDE,
+                                                       width=WIDTH, height=HEIGHT)),
+    }
+    out, paths = {}, {}
+    for key, (q, fn) in calls.items():
+        out[key] = fn()
+        p = dict(ds._plan(name, q).exec_path)
+        kern = {b: v.get("density_kernel") for b, v in (p.get("partitions") or {}).items()
+                if v.get("density_kernel")}
+        paths[key] = (p.get("lake"), kern)
+    return out, paths
+
+
+def s10_part_oracle(data, alive, packed, n_edges):
+    out = {}
+    for key, (box, lo, hi) in (("box_b", (S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00")),
+                               ("box_long", (S9_BOX, LONG_LO, LONG_HI))):
+        tm = time_mask(data, lo, hi) & alive
+        g_u, _, _, n = density_oracles(data, tm, bbox=box)
+        out["count_" + key], out["density_" + key] = n, g_u
+    sub = np.flatnonzero(time_mask(data) & alive)
+    part = {k: v[sub] for k, v in data.items()}
+    out["count_polygon_b"] = polygon_oracle(part, np.ones(len(sub), bool), packed, n_edges)
+    tm = time_mask(data, *S9_DAYS) & alive
+    out["density_wide_2d"] = density_oracles(data, tm, bbox=S9_WIDE)[0]
+    return out
+
+
+def slice10_partitioned(args, torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped,
+                        name="gdelt5"):
+    """The slice-10 phase on slice 5's store after slice 9's lifecycle (see
+    the module docstring, 12). Returns its launches of both kernels."""
+    import shutil
+
+    from geomesa_tpu_torch import GeoDataset, config
+
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+    root, spill = out_dir / "s10_part", out_dir / "s10_spill"
+    for d in (root, spill):
+        shutil.rmtree(d, ignore_errors=True)
+    st = ds._store(name)
+    try:
+        before, _ = s10_part_answers(ds, name, wkt)
+        oracle = s10_part_oracle(data, alive, packed, n_edges)
+        for key, v in before.items():
+            if not s9_same(key.split("_")[0], v, oracle[key]):
+                raise AssertionError(f"{key} on the live store differs from slice 9's oracle")
+        # 1. save: checkpoint_into writes the dirty residents and copies
+        # every clean snapshot
+        resident, dirty = list(st.partitions), sorted(st._dirty)
+        t0 = time.perf_counter()
+        ds.save(str(root))
+        save_s = time.perf_counter() - t0
+        parts = root / f"{name}_parts"
+        size = s10_dir_bytes(parts)
+
+        def snaps():
+            m = json.loads((root / "manifest.json").read_text())["schemas"][name]["partitions"]
+            return m, {k: ((root / rel / SNAP).stat().st_ino,
+                           (root / rel / SNAP).stat().st_mtime_ns) for k, rel in m.items()}
+
+        dirs, stamps = snaps()
+        log(f"[slice10] partitioned save: {save_s:.3f} s, {len(stamps)} partition snapshots, "
+            f"{size} B under {parts.name} ({size / max(save_s, 1e-9) / 1e9:.3f} GB/s); "
+            f"resident {resident}, dirty {dirty}")
+        # 2. one row into one resident partition, then save again
+        b = [k for k in resident if st.partitions[k].count][-1]
+        row = {"geom__x": np.array([S10_ROW_XY[0]]), "geom__y": np.array([S10_ROW_XY[1]]),
+               "dtg": st.partitions[b]._all.columns["dtg"][:1].astype("datetime64[ms]"),
+               "weight": np.array([0.5], np.float32)}
+        if st.ft.has("tag"):  # slice 9's update_schema added it
+            row["tag"] = np.array([0], np.int32)
+        ds.insert(name, row, fids=["s10_row"])
+        t0 = time.perf_counter()
+        ds.save(str(root))
+        inc_s = time.perf_counter() - t0
+        # the rewritten partition goes into a new dir; the one the first
+        # manifest named is swept once the second is durable
+        dirs2, stamps2 = snaps()
+        moved = sorted(k for k in dirs2 if dirs2[k] != dirs.get(k))
+        rewritten = sorted(k for k in stamps2 if stamps2[k] != stamps.get(k))
+        on_disk = sorted(d.name for d in parts.iterdir())
+        if moved != [str(b)] or rewritten != [str(b)] or (root / dirs[str(b)]).exists() \
+                or on_disk != sorted(Path(rel).name for rel in dirs2.values()):
+            raise AssertionError(f"the incremental save rewrote {rewritten} (moved {moved}), "
+                                 f"want partition {b} alone; on disk {on_disk}")
+        log(f"[slice10] one-row insert into partition {b}, then save: {inc_s:.3f} s, "
+            f"snapshots rewritten {rewritten} of {len(stamps2)} ({dirs[str(b)]} -> "
+            f"{dirs2[str(b)]}, the old dir swept)")
+        # 3. load: every partition attached cold
+        kpip.launches = 0
+        kgrouped.launches = 0
+        with config.SPILL_DIR.scoped(str(spill)):
+            loaded, load_s = timed(torch, lambda: GeoDataset.load(str(root)))
+        lst = loaded._store(name)
+        if lst.partitions or sorted(lst.spilled) != st.partition_bins():
+            raise AssertionError("the loaded store is not every partition cold")
+        log(f"[slice10] partitioned load: {load_s:.3f} s ({loaded.load_seconds}), "
+            f"{len(lst.spilled)} partitions attached cold, {lst.count} rows")
+        # 4. slice 9's windows on the attached store
+        t0 = time.perf_counter()
+        got, paths = s10_part_answers(loaded, name, wkt)
+        q_s = time.perf_counter() - t0
+        for key, v in got.items():
+            op = key.split("_")[0]  # count or density
+            if not s9_same(op, v, before[key]) or not s9_same(op, v, oracle[key]):
+                raise AssertionError(f"{key} on the loaded store differs from the live store "
+                                     "or slice 9's oracle")
+            log(f"[slice10] loaded {key}: equal to the live store and the oracle "
+                f"({v if not isinstance(v, np.ndarray) else int(v.sum())}); exec_path lake "
+                f"{paths[key][0]!r}, density_kernel by partition {paths[key][1]}")
+        launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+        log(f"[slice10] partitioned phase: {time.perf_counter() - t_phase:.3f} s (the six "
+            f"calls {q_s:.3f} s); launches of its own calls {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel never launched in slice 10's partitioned phase: "
+                                 f"{launches}")
+        loaded._store(name).drop_device()
+        return launches
+    finally:
+        for d in (root, spill):
+            shutil.rmtree(d, ignore_errors=True)
+
 
 
 def _iso(ms: int) -> str:
@@ -3107,7 +3684,15 @@ def main() -> int:
                     help="lines of slice 6's street-segment schema")
     ap.add_argument("--trip-rows", type=int, default=TRIP_ROWS,
                     help="pickups (and dropoffs) of slice 7's taxi schemas")
+    ap.add_argument("--s10-child", metavar="ROOT", default=None,
+                    help="(internal) slice 10's crash child: load ROOT, insert until killed")
+    ap.add_argument("--s10-save-split", action="store_true",
+                    help="only save slice 10's flat store and time each column's compression")
     args = ap.parse_args()
+    if args.s10_child is not None:
+        return s10_child(args.s10_child, args.seed)
+    if args.s10_save_split:
+        return s10_save_split(args.seed)
     t_start = time.perf_counter()
 
     import torch
@@ -3343,16 +3928,21 @@ def main() -> int:
     del edges, cx, cy, flat, wflat
     torch.cuda.empty_cache()
 
+    # -- 12. slice 10: durable datasets, on a flat store of its own ----------
+    s10_flat = slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    torch.cuda.empty_cache()
+
     # -- 9. slice 7: joins and regions over NYC, on a dataset of its own -----
     kernels += slice7(args, torch, kpip, kgrouped)
     torch.cuda.empty_cache()
 
     # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
     # calls run on it at the end) ---------------------------------------------
-    _, s8_part, s9_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    _, s8_part, s9_part, s10_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
     for k in kernels:
         k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
         k["launches_slice9"] = s9_flat.get(k["name"], 0) + s9_part.get(k["name"], 0)
+        k["launches_slice10"] = s10_flat.get(k["name"], 0) + s10_part.get(k["name"], 0)
 
     log(f"[main] chip_smoke wall {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

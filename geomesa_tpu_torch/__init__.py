@@ -9,8 +9,10 @@ compaction, the fused mask, exact refinement on the host, and the
 feature queries (``Query``: projection, limit, sorting, sampling), stats,
 kNN and spatial joins (point-point, point-polygon, ``spatial_join``),
 time-partitioned stores spilled as lake snapshots with row-group pushdown,
-and the schema and data lifecycle (``update_schema``, attribute indices,
-``delete_features``, ``age_off``), with
+the schema and data lifecycle (``update_schema``, attribute indices,
+``delete_features``, ``age_off``), and durable datasets (``save`` /
+``GeoDataset.load`` / ``refresh_schema`` over incremental checkpoints,
+with the write-ahead mutation journal), with
 the JAX package's two Pallas kernels and the join predicates written as
 CUDA kernels (``csrc/``). Its tunables are in
 ``config``. It imports torch and numpy, and nothing of JAX or

@@ -15,33 +15,51 @@ helpers (``unique``, ``min_max``, ``histogram``, ``frequency``,
 ``density_curve_filter_batch``, ``count_batch``, ``density_batch``,
 ``stats_batch``: M distinct viewports of one query shape in one call,
 each member equal to its serial call, or None when they cannot share
-it), and the schema and data lifecycle (``get_schema``, ``list_schemas``,
+it), the schema and data lifecycle (``get_schema``, ``list_schemas``,
 ``describe``, ``delete_schema``, ``update_schema``,
 ``add_attribute_index``, ``remove_attribute_index``, ``delete_features``,
-``age_off``, ``z3_histogram``; the reference's journal, standing-query and
-aggregate-cache hooks in these calls have no counterpart here yet). A
-schema with
-``geomesa.partition='time'`` gets a time-partitioned, out-of-core store
-and serves the same calls partition at a time (``index/partitioned.py``, ``planning/partitioned_exec.py``).
+``age_off``, ``z3_histogram``), and durable datasets: ``save`` (an
+incremental checkpoint: ``manifest.json`` version 2 with npz chunks per
+flat schema and lake snapshots per partition), ``GeoDataset.load`` (on
+the card unless ``device="cpu"``), ``refresh_schema`` (catch up with a
+shared root), and the write-ahead mutation journal (``attach_journal``;
+``load`` attaches it): every mutation call above journals a typed record
+before it applies and returns once the record is on disk. Roots and
+journals interchange with the JAX package's.
+
+A schema with ``geomesa.partition='time'`` gets a time-partitioned,
+out-of-core store and serves the same calls partition at a time
+(``index/partitioned.py``, ``planning/partitioned_exec.py``).
 Extent-geometry columns take WKT strings or geometry objects on insert
-and come back as WKT. The layers the JAX ``GeoDataset`` wraps around its executor (aggregate
-cache, audit, serving, tracing, journal, fleet) are not part of this port
-yet: every call goes to the executor directly.
+and come back as WKT.
+
+No counterpart here yet: the aggregate cache and its ``persist_cache`` /
+``restore_cache``, standing subscriptions (their journal records replay
+as unknown kinds and are skipped), audit, serving, tracing, metrics and
+the fleet (the journal's epoch marker and ``/healthz`` lag snapshot), and
+``explain``: every call goes to the executor directly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import math
+import os
+import shutil
 import time
+import uuid
+import zlib
 from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch.fs import journal as _jr
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
@@ -52,7 +70,7 @@ from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.planning.partitioned_exec import PartitionedExecutor
 from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
 from geomesa_tpu_torch.schema.columns import (
-    ColumnBatch, DictionaryEncoder, decode_batch, fid_strs,
+    ColumnBatch, DictionaryEncoder, decode_batch, fid_strs, schema_null_fills,
 )
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import parse_stat
@@ -62,6 +80,11 @@ from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
 
 #: ROADMAP items the port refuses by name
 _HOST_LAYERS = "ROADMAP Queue 1, host layers"
+
+#: the reference's row-visibility column and dictionary: the port writes
+#: every row as public (code 0, the empty expression) into checkpoints, so
+#: either package loads the other's root, and refuses any other code
+_VIS = "__vis__"
 
 
 @dataclass
@@ -211,6 +234,26 @@ class GeoDataset:
         self._stores: Dict[str, FeatureStore] = {}
         self._executors: Dict[str, Any] = {}
         self._plans: Dict[tuple, QueryPlan] = {}
+        #: the write-ahead mutation journal (``fs/journal.py``), attached by
+        #: :meth:`load` or :meth:`attach_journal`; None keeps mutations in
+        #: memory until the next :meth:`save`. Attached, every mutation
+        #: appends a record before it applies and returns once it is on disk.
+        self._journal: Optional[_jr.MutationJournal] = None
+        #: mutations applied from the journal or a checkpoint do not journal
+        #: themselves again
+        self._replaying = False
+        #: schema -> the last journal record applied here (a second dataset
+        #: on the root catches up from it in :meth:`refresh_schema`)
+        self._applied_seq: Dict[str, int] = {}
+        #: schema -> fingerprint of the manifest entry it was attached from
+        #: or saved as: the journal-only catch-up holds while it is unchanged
+        self._ckpt_fp: Dict[str, int] = {}
+        #: records applied by the last replay
+        self._journal_replayed = 0
+        #: host seconds of :meth:`load` by stage ("manifest", "chunks" read,
+        #: "tables" rebuilt, "partitions" attached, journal "replay" and
+        #: the index flush after it, "replay_flush")
+        self.load_seconds: Dict[str, float] = {}
 
     # -- schemas ------------------------------------------------------------
     def create_schema(self, name_or_ft, spec: Optional[str] = None) -> FeatureType:
@@ -218,6 +261,9 @@ class GeoDataset:
               else FeatureType.from_spec(name_or_ft, spec))
         if ft.name in self._stores:
             raise ValueError(f"schema {ft.name!r} already exists")
+        # the record carries the spec: a schema made after the last
+        # checkpoint rebuilds from the journal alone
+        self._journal_rec("schema-create", ft.name, spec=ft.spec(), n_shards=self.n_shards)
         store_cls = PartitionedFeatureStore if is_partitioned_schema(ft) else FeatureStore
         self._stores[ft.name] = store_cls(ft, self.n_shards, self.device)
         return ft
@@ -230,8 +276,13 @@ class GeoDataset:
 
     def delete_schema(self, name: str) -> None:
         self._store(name)  # raises if missing
+        # the tombstone first: replay must not bring the schema back from
+        # its checkpoint files
+        self._journal_rec("delete-schema", name)
         del self._stores[name]
         self._forget(name)
+        self._applied_seq.pop(name, None)
+        self._ckpt_fp.pop(name, None)
 
     def describe(self, name: str) -> str:
         st = self._store(name)
@@ -261,6 +312,7 @@ class GeoDataset:
         for a in added:
             if a.is_geom:
                 raise ValueError("cannot add geometry attributes to a schema")
+        self._journal_rec("update-schema", name, add_spec=add_spec)
         st.add_columns(new_ft, added)
         self._forget(name)
         return new_ft
@@ -271,6 +323,7 @@ class GeoDataset:
         build theirs when they load)."""
         st = self._store(name)
         a = st.ft.attr(attr)
+        self._journal_rec("add-index", name, attr=attr)
         st.add_attribute_index(attr)
         a.options["index"] = "true"
         # an explicit geomesa.indices list overrides the options: it must
@@ -285,6 +338,7 @@ class GeoDataset:
     def remove_attribute_index(self, name: str, attr: str) -> None:
         """Drop an attribute index (permutation and sketch); data stays."""
         st = self._store(name)
+        self._journal_rec("remove-index", name, attr=attr)
         st.remove_attribute_index(attr)
         st.ft.attr(attr).options.pop("index", None)
         self._forget(name)
@@ -302,6 +356,8 @@ class GeoDataset:
             cutoff = int(older_than.astype("datetime64[ms]").astype(np.int64))
         else:
             cutoff = int(older_than)
+        # the resolved cutoff is journaled, so a replay deletes the same rows
+        self._journal_rec("age-off", name, older_than_ms=cutoff)
         n = st.delete(lambda cols: cols[dtg] < cutoff)
         self._forget(name)
         return n
@@ -314,7 +370,9 @@ class GeoDataset:
         if auths is not None:
             raise NotImplementedError(f"delete authorizations: {_HOST_LAYERS}")
         st = self._store(name)
-        cf = compile_filter(parse_ecql(ecql), st.ft, st.dicts)
+        f = parse_ecql(ecql)
+        self._journal_rec("delete-features", name, ecql=ecql, auths=None)
+        cf = compile_filter(f, st.ft, st.dicts)
         n = st.delete(lambda cols: cf.exact_mask(cols, len(cols["__fid__"])))
         self._forget(name)
         return n
@@ -357,6 +415,418 @@ class GeoDataset:
             )
         return ex
 
+    # -- the write-ahead mutation journal -----------------------------------------
+    def attach_journal(self, path: str) -> Optional[_jr.MutationJournal]:
+        """Attach (or create) the write-ahead mutation journal under
+        ``path``: from here on every mutation appends a typed, crc-framed
+        record and returns once it is group-committed to disk (ack =
+        durable). :meth:`load` attaches it by default. Does nothing when
+        ``geomesa.journal.enabled`` is false or a journal is attached;
+        returns the journal (None when disabled)."""
+        if not config.JOURNAL_ENABLED.to_bool():
+            return None
+        if self._journal is None:
+            self._journal = _jr.MutationJournal(path)
+            # a checkpoint may have deleted every segment: new records must
+            # still sequence after the positions the manifest stamps, or a
+            # reload would skip them as checkpointed (the reference's
+            # journal restarts at 1 there and loses them)
+            mpath = os.path.join(path, "manifest.json")
+            if os.path.exists(mpath):
+                with open(mpath) as fh:
+                    schemas = json.load(fh).get("schemas", {})
+                self._journal.adopt_seq(max(
+                    (int(e.get("journal_seq", 0)) for e in schemas.values()), default=0))
+        return self._journal
+
+    @contextlib.contextmanager
+    def _replay_scope(self):
+        prev = self._replaying
+        self._replaying = True
+        try:
+            yield
+        finally:
+            self._replaying = prev
+
+    def _journal_rec(self, kind: str, name: Optional[str], blobs=None, **payload) -> None:
+        """Append one typed mutation record before the mutation applies and
+        block until it is durable; a journal failure raises, so the
+        mutation is never acked without it. ``blobs``: the raw-bytes sink
+        of the caller's ``enc_columns``."""
+        j = self._journal
+        if j is None or self._replaying:
+            return
+        rec = {"kind": kind, "schema": name}
+        rec.update(payload)
+        seq = j.append(rec, blobs=blobs)
+        if name is not None:
+            self._applied_seq[name] = seq
+
+    def _apply_record(self, rec: Dict[str, Any]) -> bool:
+        """Re-apply one journal record through the ordinary mutation calls
+        (inside :meth:`_replay_scope`). False for a kind the port does not
+        serve (the reference's standing-query records)."""
+        kind, name = rec.get("kind"), rec.get("schema")
+        if kind == "schema-create":
+            prev = self.n_shards
+            # the reference records None for its default shard count
+            self.n_shards = rec.get("n_shards") or prev
+            try:
+                self.create_schema(FeatureType.from_spec(name, rec["spec"]))
+            finally:
+                self.n_shards = prev
+        elif kind == "delete-schema":
+            if name in self._stores:
+                self.delete_schema(name)
+        elif kind == "insert":
+            self.insert(name, _jr.dec_columns(rec["data"]), _jr.dec_value(rec.get("fids")),
+                        _jr.dec_value(rec.get("vis")))
+        elif kind == "delete-features":
+            self.delete_features(name, rec["ecql"], _jr.dec_value(rec.get("auths")))
+        elif kind == "update-schema":
+            self.update_schema(name, rec["add_spec"])
+        elif kind == "age-off":
+            self.age_off(name, int(rec["older_than_ms"]))
+        elif kind == "add-index":
+            self.add_attribute_index(name, rec["attr"])
+        elif kind == "remove-index":
+            self.remove_attribute_index(name, rec["attr"])
+        else:
+            return False
+        return True
+
+    def _journal_replay(self, ckpt_seq: Dict[str, int], schema: Optional[str] = None,
+                        truncate: bool = False) -> int:
+        """Re-apply the journal's records past each schema's checkpointed
+        position (``ckpt_seq``) and past what this dataset applied, in
+        sequence order. A record that fails to apply is skipped and kept in
+        ``resilience.skipped()``: one poisoned record does not fail the
+        root. Returns the records applied."""
+        j = self._journal
+        if j is None:
+            return 0
+        applied = 0
+        with self._replay_scope():
+            for rec in j.records(schema=schema, truncate=truncate):
+                name = rec.get("schema")
+                seq = int(rec.get("seq", 0))
+                if seq <= ckpt_seq.get(name, 0) or seq <= self._applied_seq.get(name, 0):
+                    continue
+                try:
+                    if not self._apply_record(rec):
+                        continue
+                except Exception as e:
+                    resilience.record_skip("journal.replay", f"{name}@{seq}", e, phase="apply")
+                    continue
+                if name is not None:
+                    self._applied_seq[name] = seq
+                applied += 1
+        self._journal_replayed = applied
+        return applied
+
+    # -- checkpoints: save / load / refresh_schema ----------------------------------
+    @staticmethod
+    def _manifest_dicts(st) -> Dict[str, List[str]]:
+        """The store's dictionaries in manifest form, with the reference's
+        visibility dictionary (every row public) once the store has rows,
+        so each package reads the other's manifest as its own."""
+        out = {k: d.to_list() for k, d in st.dicts.items()}
+        if st._all is not None or getattr(st, "part_counts", None):
+            out.setdefault(_VIS, [""])
+        return out
+
+    def _save_flat_chunks(self, path: str, name: str, st, prev_entry: Optional[dict]) -> dict:
+        """Incremental flat-store checkpoint: the master rows are append
+        only while ``mutation_epoch`` holds, so a save after appends writes
+        ONE new chunk of the fresh rows and leaves every chunk file
+        untouched; a delete or a column add changes the epoch and forces a
+        full rewrite. Chunks are ``savez_compressed`` with object columns
+        as unicode and the reference's all-public visibility codes."""
+        n = st._all.n if st._all is not None else 0
+        prev = prev_entry.get("chunks") if prev_entry else None
+        incremental = (
+            prev is not None
+            and prev_entry.get("epoch") == st.mutation_epoch
+            and prev_entry.get("rows", -1) <= n
+            and all(os.path.exists(os.path.join(path, f)) for f in prev)
+        )
+        chunks, lo = (list(prev), int(prev_entry["rows"])) if incremental else ([], 0)
+        cdir_rel = f"{name}_chunks"
+        os.makedirs(os.path.join(path, cdir_rel), exist_ok=True)
+        if n > lo:
+            # a uuid-suffixed name: a full rewrite never overwrites a chunk
+            # the previous (still live) manifest references; save() sweeps
+            # the unreferenced files once the new manifest is durable
+            fname = f"{cdir_rel}/chunk-{len(chunks):05d}-{lo}-{n}-{uuid.uuid4().hex[:8]}.npz"
+            resilience.fault_point("fs.save.chunk", schema=name, file=fname)
+            cols = {k: (v[lo:n].astype("U") if v.dtype.kind == "O" else v[lo:n])
+                    for k, v in st._all.columns.items()}
+            cols.setdefault(_VIS, np.zeros(n - lo, np.int32))
+            with open(os.path.join(path, fname), "wb") as fh:
+                np.savez_compressed(fh, **cols)
+                fh.flush()
+                os.fsync(fh.fileno())
+            resilience.fsync_dir(os.path.join(path, cdir_rel))
+            chunks.append(fname)
+        return {"chunks": chunks, "rows": n, "epoch": st.mutation_epoch}
+
+    def save(self, path: str, names: Optional[Sequence[str]] = None) -> None:
+        """Checkpoint to ``path``: ``manifest.json`` (version 2: per schema
+        its spec, shard count, dictionaries, sketches as JSON, and either
+        ``{name}_chunks/`` npz chunks or ``{name}_parts/part_<bin>-<uuid>/``
+        snapshots; the reference's ``part_<bin>`` dirs load the same way).
+        ``names`` restricts the save to those schemas; the others' entries
+        carry over from the existing manifest, and a named schema that no
+        longer exists leaves it.
+
+        Incremental: a flat store appends one chunk of its new rows, a
+        partitioned store rewrites only the partitions that changed. No
+        file the previous manifest names is overwritten: new chunks and
+        snapshot dirs get new names, and the superseded ones are swept
+        only once the new manifest is durable. With
+        the journal attached at ``path``, each saved entry is stamped with
+        the journal position it captures, the manifest is published
+        durably, then the journal segments every schema has checkpointed
+        past are deleted. Saving elsewhere neither stamps nor truncates
+        the journal, and never attaches one."""
+        os.makedirs(path, exist_ok=True)
+        mpath = os.path.join(path, "manifest.json")
+        prev_manifest: Dict[str, Any] = {}
+        if os.path.exists(mpath):
+            with open(mpath) as fh:
+                prev_manifest = json.load(fh).get("schemas", {})
+        j = self._journal
+        if j is not None and os.path.abspath(j.root) != os.path.abspath(path):
+            j = None
+        jpos = j.last_seq() if j is not None else None
+        manifest: Dict[str, Any] = {"version": 2, "schemas": {}}
+        if names is not None:
+            keep = set(names)
+            manifest["schemas"] = {k: v for k, v in prev_manifest.items() if k not in keep}
+        for name, st in self._stores.items():
+            if names is not None and name not in names:
+                continue
+            st.flush()
+            entry: Dict[str, Any] = {
+                "spec": st.ft.spec(),
+                "n_shards": st.n_shards,
+                "dicts": self._manifest_dicts(st),
+                "stats": {k: v.to_json() for k, v in st.stats.items()},
+            }
+            if jpos is not None:
+                entry["journal_seq"] = jpos
+            if isinstance(st, PartitionedFeatureStore):
+                parts = st.checkpoint_into(os.path.join(path, f"{name}_parts"))
+                entry["partitions"] = {str(b): os.path.relpath(d, path)
+                                       for b, d in parts.items()}
+            else:
+                entry.update(self._save_flat_chunks(path, name, st, prev_manifest.get(name)))
+            manifest["schemas"][name] = entry
+            # our own checkpoint moved the entry: refresh_schema stays
+            # incremental against it
+            self._ckpt_fp[name] = self._entry_fp(entry)
+        resilience.fault_point("fs.save.manifest", path=mpath)
+        resilience.durable_write_json(mpath, manifest, indent=2)
+        self._sweep_orphan_chunks(path, manifest["schemas"], names)
+        if j is not None:
+            # a carried-over entry without a stamp pins the whole journal
+            resilience.fault_point("journal.checkpoint", root=path)
+            upto = min((int(e.get("journal_seq", 0)) for e in manifest["schemas"].values()),
+                       default=jpos)
+            j.checkpoint(min(upto, jpos))
+            for name in list(self._applied_seq):
+                if names is None or name in set(names):
+                    self._applied_seq[name] = max(self._applied_seq.get(name, 0), jpos)
+
+    def _sweep_orphan_chunks(self, path: str, schemas: Dict[str, Any],
+                             names: Optional[Sequence[str]]) -> None:
+        """Remove what the just-published manifest no longer references,
+        for the schemas this save touched: chunk dirs and chunk files, and
+        partition snapshot dirs under ``{name}_parts`` (the old files
+        outlive the save until the new manifest is durable). A snapshot
+        dir the live store still reads stays."""
+        ref = set()
+        for entry in schemas.values():
+            ref.update(entry.get("chunks") or [])
+            ref.update(os.path.dirname(rel) for rel in entry.get("chunks") or [])
+            ref.update(os.path.normpath(rel) for rel in (entry.get("partitions") or {}).values())
+        swept = set(self._stores) if names is None else set(names)
+        try:
+            listing = os.listdir(path)
+        except OSError:
+            return
+        for name in swept:
+            st = self._stores.get(name)
+            live = st.snapshot_dirs_in_use() if isinstance(st, PartitionedFeatureStore) else set()
+            for fn in listing:
+                full = os.path.join(path, fn)
+                if not os.path.isdir(full):
+                    continue
+                if fn.startswith(f"{name}_chunks"):
+                    if fn not in ref:
+                        shutil.rmtree(full, ignore_errors=True)
+                        continue
+                    for cf in os.listdir(full):
+                        if f"{fn}/{cf}" not in ref:
+                            try:
+                                os.remove(os.path.join(full, cf))
+                            except OSError:
+                                pass
+                elif fn == f"{name}_parts":
+                    for pd in os.listdir(full):
+                        d = os.path.join(full, pd)
+                        if os.path.join(fn, pd) not in ref and os.path.abspath(d) not in live:
+                            shutil.rmtree(d, ignore_errors=True)
+
+    @staticmethod
+    def load(path: str, device=None, **options) -> "GeoDataset":
+        """A dataset of the checkpoint at ``path`` (on the CUDA device
+        unless ``device="cpu"``; ``options``: the constructor's other
+        arguments). Flat stores rebuild their tables from the chunks,
+        partitioned stores attach their snapshots cold. With
+        ``geomesa.journal.enabled`` (the default) the root's journal is
+        attached, and the records past each schema's checkpoint replay in
+        sequence order (torn tails truncated). A root with neither a
+        manifest nor a journal raises ``FileNotFoundError``."""
+        t0 = time.perf_counter()
+        mpath = os.path.join(path, "manifest.json")
+        has_journal = bool(config.JOURNAL_ENABLED.to_bool()) and _jr.journal_exists(path)
+        manifest: Dict[str, Any] = {"schemas": {}}
+        if os.path.exists(mpath) or not has_journal:
+            with open(mpath) as fh:
+                manifest = json.load(fh)
+        ds = GeoDataset(device=device, **options)
+        ds.load_seconds["manifest"] = time.perf_counter() - t0
+        ckpt: Dict[str, int] = {}
+        for name, meta in manifest["schemas"].items():
+            ds._attach_schema_entry(path, name, meta)
+            ckpt[name] = ds._applied_seq[name] = int(meta.get("journal_seq", 0))
+        if config.JOURNAL_ENABLED.to_bool():
+            ds.attach_journal(path)
+            t0 = time.perf_counter()
+            replayed = has_journal and ds._journal_replay(ckpt, truncate=True)
+            ds.load_seconds["replay"] = time.perf_counter() - t0
+            if replayed:
+                t0 = time.perf_counter()
+                ds.flush()
+                ds.load_seconds["replay_flush"] = time.perf_counter() - t0
+        return ds
+
+    @staticmethod
+    def _entry_fp(meta: Dict) -> int:
+        """Fingerprint of a manifest schema entry, stable across the JSON
+        round trip: what :meth:`refresh_schema` compares to see whether the
+        root's checkpoint moved under the journal."""
+        return zlib.crc32(json.dumps(meta, sort_keys=True, separators=(",", ":"),
+                                     default=str).encode()) & 0xFFFFFFFF
+
+    def _attach_schema_entry(self, path: str, name: str, meta: Dict) -> None:
+        """Create and fill one schema's store from its manifest entry."""
+        self._ckpt_fp[name] = self._entry_fp(meta)
+        ft = FeatureType.from_spec(name, meta["spec"])
+        prev = self.n_shards
+        self.n_shards = meta.get("n_shards") or prev
+        try:
+            with self._replay_scope():  # not a new mutation: no record
+                self.create_schema(ft)
+        finally:
+            self.n_shards = prev
+        st = self._store(name)
+        st.dicts = {k: DictionaryEncoder(v) for k, v in meta["dicts"].items() if k != _VIS}
+        st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
+        secs = self.load_seconds
+        if "partitions" in meta:
+            t0 = time.perf_counter()
+            st.attach_snapshots({int(b): os.path.join(path, rel)
+                                 for b, rel in meta["partitions"].items()})
+            secs["partitions"] = secs.get("partitions", 0.0) + time.perf_counter() - t0
+            return
+        chunk_files = meta.get("chunks")
+        if chunk_files is None:
+            raise ValueError(f"{path}: schema {name!r} has neither chunks nor partitions "
+                             "(the version-1 single-npz layout is not supported)")
+        t0 = time.perf_counter()
+        parts = []
+        for rel in chunk_files:
+            with np.load(os.path.join(path, rel), allow_pickle=False) as z:
+                cols = {k: (z[k].astype(object) if z[k].dtype.kind == "U" else z[k])
+                        for k in z.files}
+            vis = cols.pop(_VIS, None)
+            if vis is not None and np.any(vis):
+                raise NotImplementedError(
+                    f"{rel}: row visibilities: ROADMAP Queue 1, host layers")
+            if cols:
+                parts.append(ColumnBatch(cols, len(next(iter(cols.values())))))
+        secs["chunks"] = secs.get("chunks", 0.0) + time.perf_counter() - t0
+        if not parts:
+            return
+        t0 = time.perf_counter()
+        # schema-derived fills: chunks saved before a column existed
+        # null-fill by the layout's convention, not by a dtype guess
+        st._all = ColumnBatch.concat(parts, fills=schema_null_fills(ft))
+        if "epoch" in meta:
+            st.mutation_epoch = meta["epoch"]
+        key_cols = dict(st._all.columns)
+        for ks in st.keyspaces:
+            key_cols.update(ks.index_keys(ft, st._all.columns))
+            st.tables[ks.name].rebuild(key_cols, st.dicts)
+        # the key cache is seeded, so the next flush appends incrementally
+        st._key_cols = {k: v for k, v in key_cols.items() if k not in st._all.columns}
+        st.version += 1
+        secs["tables"] = secs.get("tables", 0.0) + time.perf_counter() - t0
+
+    def refresh_schema(self, name: str, path: str) -> bool:
+        """Bring schema ``name`` up to what the root at ``path`` holds (a
+        second dataset on a shared root catching up with a writer). With
+        this dataset's journal on that root and the schema's manifest
+        entry unchanged since it was attached, only the journal's records
+        past the last one applied here replay. Otherwise: a schema only in
+        the journal rebuilds from its records, one gone from the manifest
+        is dropped, and a moved entry re-attaches in full and replays the
+        records past it. Returns True when anything changed."""
+        mpath = os.path.join(path, "manifest.json")
+        schemas: Dict[str, Any] = {}
+        if os.path.exists(mpath):
+            with open(mpath) as fh:
+                schemas = json.load(fh).get("schemas", {})
+        meta = schemas.get(name)
+        old = self._stores.get(name)
+        j = self._journal
+        use_journal = j is not None and os.path.abspath(j.root) == os.path.abspath(path)
+        ckpt = int(meta.get("journal_seq", 0)) if meta is not None else 0
+        if use_journal:
+            have = self._applied_seq.get(name)
+            unmoved = meta is None or self._ckpt_fp.get(name) == self._entry_fp(meta)
+            if old is not None and have is not None and have >= ckpt and unmoved:
+                applied = self._journal_replay({name: have}, schema=name)
+                if applied and name in self._stores:
+                    self.flush(name)
+                return applied > 0
+            if meta is None:
+                # not checkpointed yet: the schema lives in the journal alone
+                if old is not None:
+                    with self._replay_scope():
+                        self.delete_schema(name)
+                applied = self._journal_replay({name: 0}, schema=name)
+                if applied and name in self._stores:
+                    self.flush(name)
+                return applied > 0 or old is not None
+        if meta is None:
+            if old is None:
+                return False
+            with self._replay_scope():
+                self.delete_schema(name)
+            return True
+        if old is not None:
+            del self._stores[name]
+            self._forget(name)
+        self._attach_schema_entry(path, name, meta)
+        self._applied_seq[name] = ckpt
+        if use_journal and self._journal_replay({name: ckpt}, schema=name) \
+                and name in self._stores:
+            self.flush(name)
+        return True
+
     # -- writes -------------------------------------------------------------
     def insert(self, name: str, data: Dict[str, Any], fids=None,
                visibilities=None) -> int:
@@ -367,7 +837,13 @@ class GeoDataset:
             raise NotImplementedError(
                 "row visibilities: ROADMAP Queue 1, host layers"
             )
-        return self._store(name).append(data, fids)
+        st = self._store(name)
+        if self._journal is not None and not self._replaying:
+            sink: list = []
+            self._journal_rec(
+                "insert", name, blobs=sink, data=_jr.enc_columns(data, sink),
+                fids=None if fids is None else _jr.enc_value(fids, sink), vis=None)
+        return st.append(data, fids)
 
     def flush(self, name: Optional[str] = None) -> None:
         for st in ([self._store(name)] if name else self._stores.values()):

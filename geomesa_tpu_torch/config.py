@@ -192,3 +192,19 @@ JOIN_ADAPTIVE_BRUTE_PAIRS = SystemProperty("geomesa.join.adaptive.brute.pairs", 
 #: a joint cell whose longer side holds at least this many times the
 #: shorter side's rows is skewed and tiles in its own narrow section
 JOIN_ADAPTIVE_SKEW_RATIO = SystemProperty("geomesa.join.adaptive.skew.ratio", "8")
+
+#: attach the write-ahead mutation journal (``fs/journal.py``): ``load``
+#: attaches it and every mutation is on disk before it returns (false:
+#: ``attach_journal`` does nothing and acked mutations live until the next
+#: ``save``)
+JOURNAL_ENABLED = SystemProperty("geomesa.journal.enabled", "true")
+
+#: group-commit widening window (ms), opened only after a commit found
+#: more than one pending record
+JOURNAL_GROUP_MS = SystemProperty("geomesa.journal.group.ms", "2")
+
+#: journal segment roll threshold (bytes)
+JOURNAL_SEGMENT_BYTES = SystemProperty("geomesa.journal.segment.bytes", str(8 << 20))
+
+#: allow ``resilience.inject_faults`` scopes (tests and crash drills)
+FAULT_INJECTION = SystemProperty("geomesa.fault.injection", "false")

@@ -36,9 +36,13 @@ spilled snapshots are upgraded when they load (null-filled new columns,
 missing index tables built), and a delete loads, rewrites and marks dirty
 every partition it touches.
 
+A checkpoint (``GeoDataset.save``) writes or copies each partition's
+snapshot under the checkpoint root (:meth:`PartitionedFeatureStore.checkpoint_into`,
+incremental by a per-partition content sequence); a load registers them
+cold (:meth:`PartitionedFeatureStore.attach_snapshots`).
+
 Not ported yet (ROADMAP Queue 1): spill retries and corrupt-snapshot
-quarantine (a corrupt snapshot raises ``LakeCorruptError``), checkpoints
-and attaching snapshots.
+quarantine (a corrupt snapshot raises ``LakeCorruptError``).
 """
 
 from __future__ import annotations
@@ -48,12 +52,13 @@ import os
 import shutil
 import tempfile
 import threading
-from typing import Dict, List, Optional
+import uuid
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, resilience
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.index.keyspace import AttributeKeySpace
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable, _init_stats
@@ -113,6 +118,32 @@ class _LazyCols(dict):
 
     def __len__(self):
         return len(set(self._zkeys) | set(super().keys()))
+
+
+def _fsync_tree(d: str) -> None:
+    """fsync every file under ``d``, then ``d`` itself."""
+    for dirpath, _, files in os.walk(d):
+        for fn in files:
+            fd = os.open(os.path.join(dirpath, fn), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+    resilience.fsync_dir(d)
+
+
+def _copy_dir(src: str, d: str) -> None:
+    """Copy ``src`` to the new directory ``d`` through ``d.tmp`` and a
+    rename, durable once it returns."""
+    tmp = d + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        shutil.copytree(src, tmp)
+        _fsync_tree(tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    resilience.durable_replace(tmp, d)
 
 
 def _npz_reader(path: str):
@@ -222,6 +253,12 @@ class PartitionedFeatureStore(FeatureStore):
         self._dirty: set = set()
         #: bin -> the snapshot dir a clean resident child was loaded from
         self._snapshot_paths: Dict[int, str] = {}
+        #: bin -> content sequence, bumped whenever the partition's rows
+        #: change (routing flush, delete)
+        self._part_seq: Dict[int, int] = {}
+        #: checkpoint dir -> bin -> (content sequence, snapshot dir) last
+        #: written there
+        self._ckpt_seqs: Dict[str, Dict[int, Tuple[int, str]]] = {}
         self.max_resident = max(1, config.MAX_RESIDENT_PARTITIONS.to_int() or 4)
         #: None makes a temporary directory, removed with the store
         self._spill_dir: Optional[str] = config.SPILL_DIR.get()
@@ -306,9 +343,10 @@ class PartitionedFeatureStore(FeatureStore):
         st.drop_device()
 
     @staticmethod
-    def _write_snapshot(st: FeatureStore, d: str) -> None:
+    def _write_snapshot(st: FeatureStore, d: str, durable: bool = False) -> None:
         """Write ``st``'s snapshot into ``d`` through ``d.tmp`` and a rename:
-        a lake file, or the npz layout with ``geomesa.lake.enabled`` off."""
+        a lake file, or the npz layout with ``geomesa.lake.enabled`` off
+        (``durable``: every file and the rename fsynced, for a checkpoint)."""
         tmp = d + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         if config.LAKE_ENABLED.to_bool():
@@ -343,6 +381,8 @@ class PartitionedFeatureStore(FeatureStore):
             }
             with open(os.path.join(tmp, "meta.json"), "w") as fh:
                 json.dump(meta, fh)
+        if durable:
+            _fsync_tree(tmp)
         if os.path.exists(d):
             shutil.rmtree(d)
         os.replace(tmp, d)
@@ -585,6 +625,7 @@ class PartitionedFeatureStore(FeatureStore):
             child = self.child(b, create=True)
             child._buffer.append(sub)
             self._dirty.add(b)
+            self._part_seq[b] = self._part_seq.get(b, 0) + 1
             child.flush()
             self.part_counts[b] = child.count
             self.evict()
@@ -642,12 +683,89 @@ class PartitionedFeatureStore(FeatureStore):
             if r:
                 removed += r
                 self._dirty.add(b)
+                self._part_seq[b] = self._part_seq.get(b, 0) + 1
                 self.part_counts[b] = child.count
             self.evict()
         if removed:
             self.version += 1
             self._merged_stats = None
         return removed
+
+    # -- checkpoints -------------------------------------------------------
+    def checkpoint_into(self, path: str) -> Dict[int, str]:
+        """Write or refresh every partition's snapshot under ``path``
+        without evicting residents and without aliasing live state: a
+        clean snapshot is copied, a dirty resident written, so deleting
+        the checkpoint never touches the live store. A partition whose
+        content sequence was already written to ``path`` keeps that
+        snapshot, and so does a clean one loaded from a snapshot under
+        ``path``. Every other goes into a new directory ``part_<bin>-<uuid>``
+        (through ``.tmp`` and a rename, fsynced): no snapshot that a
+        published manifest references is ever overwritten, and the caller
+        removes the superseded ones only once the manifest that replaces
+        them is durable. Returns bin -> snapshot dir."""
+        os.makedirs(path, exist_ok=True)
+        here = os.path.abspath(path)
+        out: Dict[int, str] = {}
+        written = self._ckpt_seqs.setdefault(here, {})
+
+        def fresh(b: int) -> str:
+            return os.path.join(path, f"part_{b}-{uuid.uuid4().hex[:8]}")
+
+        def kept(b: int, cur: int, src: str) -> Optional[str]:
+            seq, d = written.get(b, (None, ""))
+            if seq == cur and os.path.isdir(d):
+                return d
+            if b not in self._dirty and os.path.isdir(src) \
+                    and os.path.dirname(os.path.abspath(src)) == here:
+                return src  # loaded from this checkpoint and clean since
+            return None
+
+        with self._part_lock:
+            for b, st in list(self.partitions.items()):
+                st.flush()
+                cur = self._part_seq.get(b, 0)
+                src = self._snapshot_paths.get(b, "")
+                d = kept(b, cur, src)
+                if d is None:
+                    d = fresh(b)
+                    if b in self._dirty or not os.path.isdir(src):
+                        self._write_snapshot(st, d, durable=True)
+                    else:
+                        _copy_dir(src, d)
+                written[b] = (cur, d)
+                out[b] = d
+            for b, sd in list(self.spilled.items()):
+                cur = self._part_seq.get(b, 0)
+                d = kept(b, cur, sd)
+                if d is None:
+                    d = fresh(b)
+                    _copy_dir(sd, d)
+                written[b] = (cur, d)
+                out[b] = d
+        resilience.fsync_dir(path)
+        return out
+
+    def snapshot_dirs_in_use(self) -> set:
+        """Absolute paths of the snapshot dirs the live store may still
+        read: its spilled partitions' and its clean residents' sources."""
+        live = set(self.spilled.values())
+        live.update(d for b, d in self._snapshot_paths.items() if b not in self._dirty)
+        return {os.path.abspath(d) for d in live}
+
+    def attach_snapshots(self, mapping: Dict[int, str]) -> None:
+        """Register on-disk partition snapshots (the load path): only each
+        ``meta.json`` is read; the partitions stay cold until a query or a
+        write touches them, and a snapshot older than the schema upgrades
+        when it loads (:meth:`_upgrade_loaded`)."""
+        with self._part_lock:
+            for b, d in mapping.items():
+                with open(os.path.join(d, "meta.json")) as fh:
+                    meta = json.load(fh)
+                self.spilled[int(b)] = d
+                self.part_counts[int(b)] = int(meta["n"])
+        self._merged_stats = None
+        self.version += 1
 
     # -- read-side surface -------------------------------------------------
     @property

@@ -15,6 +15,7 @@ Each table uploads the columns a query reads on its first query.
 from __future__ import annotations
 
 import time
+import uuid
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -398,6 +399,11 @@ class FeatureStore:
         self._key_cols: Dict[str, np.ndarray] = {}
         #: bumped on every data mutation; keys the executor's caches
         self.version = 0
+        #: changes whenever stored rows are rewritten (a delete, a column
+        #: add) rather than appended: an incremental checkpoint appends one
+        #: chunk only while it is unchanged. Every path that rewrites rows
+        #: calls :meth:`_bump_epoch`.
+        self.mutation_epoch = uuid.uuid4().hex
         #: host seconds of the last flush by stage ("keys", "sketches",
         #: then one entry per table)
         self.flush_seconds: Dict[str, float] = {}
@@ -477,12 +483,18 @@ class FeatureStore:
         self.ft = new_ft
         n = self._all.n if self._all is not None else 0
         cols = null_columns(new_ft, added, n, self.dicts)
+        self._bump_epoch()
         if n:
             self._all.columns.update(cols)
             for t in self.tables.values():
                 t._master.update(cols)
         self.drop_device()
         self.version += 1
+
+    def _bump_epoch(self) -> None:
+        """Mark the stored rows as rewritten: the next incremental
+        checkpoint rewrites every chunk instead of appending one."""
+        self.mutation_epoch = uuid.uuid4().hex
 
     def _attr_stat_key(self, attr: str) -> str:
         return f"enum-{attr}" if self.ft.attr(attr).type == "string" else f"minmax-{attr}"
@@ -578,6 +590,7 @@ class FeatureStore:
         keep_mask = ~mask
         keep = self._all.select(keep_mask)
         self._all = keep
+        self._bump_epoch()
         self.stats["count"] = sk.CountStat(keep.n)
         key_cols: Dict[str, np.ndarray] = dict(keep.columns)
         self._key_cols = {k: v[keep_mask] for k, v in self._key_cols.items()}

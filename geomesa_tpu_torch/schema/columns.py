@@ -91,6 +91,10 @@ class DictionaryEncoder:
         included)."""
         return self._index.get(str(v), -2)
 
+    def to_list(self) -> List[str]:
+        """The values in code order (a checkpoint's manifest form)."""
+        return list(self.values)
+
 
 @dataclass
 class ColumnBatch:

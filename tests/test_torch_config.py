@@ -50,6 +50,10 @@ KNOBS = {
     "JOIN_PUSHDOWN": "JOIN_PUSHDOWN",
     "JOIN_PUSHDOWN_CELLS": "JOIN_PUSHDOWN_CELLS",
     "JOIN_PUSHDOWN_RESIDENCY_MB": "JOIN_PUSHDOWN_RESIDENCY_MB",
+    "JOURNAL_ENABLED": "JOURNAL_ENABLED",
+    "JOURNAL_GROUP_MS": "JOURNAL_GROUP_MS",
+    "JOURNAL_SEGMENT_BYTES": "JOURNAL_SEGMENT_BYTES",
+    "FAULT_INJECTION": "FAULT_INJECTION",
 }
 
 

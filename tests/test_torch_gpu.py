@@ -1076,3 +1076,68 @@ def test_lifecycle_on_the_card_matches_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(
             gpu.density("t", box, bbox=BBOX, width=256, height=256),
             cpu.density("t", box, bbox=BBOX, width=256, height=256))
+
+
+# -- slice 10: durable datasets on the card ------------------------------------------
+def test_save_load_replay_on_the_card(cuda, tmp_path):
+    """A flat store saved, loaded on the card (journal attached), journaled
+    inserts, a reload that replays them: the loaded store's count, polygon
+    count and grids equal the live store's, and both kernels on the loaded
+    store's operands equal their plain versions."""
+    from geomesa_tpu_torch import config
+
+    live, _ = _datasets(cuda, 300_000, seed=23)
+    root = str(tmp_path / "root")
+    live.save(root)
+    poly = f"INTERSECTS(geom, {_ngon(64, -90, 37, 6)}) AND {DURING}"
+
+    def answers(ds):
+        return (ds.count("t", ECQL), ds.count("t", poly),
+                ds.density("t", ECQL, bbox=BBOX, width=512, height=512),
+                ds.density("t", ECQL, bbox=BBOX, width=512, height=512, weight="weight"))
+
+    with config.DENSITY_PALLAS_MAX_DUP.scoped(1e9):
+        loaded = GeoDataset.load(root, compact_min_rows=1, compact_fraction=2.0)
+        assert loaded.device.type == "cuda" and loaded._journal is not None
+        pip0, den0 = kpip.launches, kg.launches
+        got, want = answers(loaded), answers(live)
+        assert kpip.launches > pip0 and kg.launches > den0
+        assert got[:2] == want[:2]
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_allclose(got[3], want[3], rtol=1e-4, atol=1e-3)
+        ex = loaded._executor("t")
+        cols = ex.scan_columns(loaded._plan("t", poly), ["geom__x", "geom__y"])
+        (x1, *_), packed = kpip.polygon_edge_tables(parse_wkt(_ngon(64, -90, 37, 6)))
+        edges = torch.from_numpy(packed).to(cuda)
+        assert torch.equal(kpip.pip_mask(cols["geom__x"], cols["geom__y"], edges, len(x1)),
+                           kpip.pip_mask_plain(cols["geom__x"], cols["geom__y"], edges, len(x1)))
+        o = ex.density_inputs(loaded._plan("t", ECQL), BBOX, 512, 512)
+        a = (o["x"], o["y"], o["mask"], o["weight"], BBOX, 512, 512, o["sched"])
+        assert torch.equal(kg.density_grouped(*a), kg.density_grouped_plain(*a))
+        rng = np.random.default_rng(3)
+        extra = {"geom__x": rng.uniform(-100, -80, 500), "geom__y": rng.uniform(30, 45, 500),
+                 "dtg": np.full(500, parse_iso_ms("2020-01-10"), "datetime64[ms]"),
+                 "weight": rng.uniform(0, 1, 500).astype(np.float32)}
+        for ds in (loaded, live):
+            ds.insert("t", extra, fids=[f"x{i}" for i in range(500)])
+        replayed = GeoDataset.load(root, compact_min_rows=1, compact_fraction=2.0)
+        assert replayed._journal_replayed == 1
+        got = answers(replayed)
+        assert got[:2] == answers(live)[:2]
+        np.testing.assert_array_equal(got[2], answers(live)[2])
+
+
+def test_partitioned_checkpoint_on_the_card(cuda, tmp_path):
+    """A partitioned store on the card checkpointed and attached cold: the
+    pruned children's answers equal the live store's."""
+    gpu = _partitioned(cuda, 2, tmp_path)
+    root = str(tmp_path / "root")
+    gpu.save(root)
+    loaded = GeoDataset.load(root, compact_min_rows=1, compact_fraction=2.0)
+    st = loaded._store("t")
+    assert not st.partitions and st.count == P_ROWS
+    box = f"BBOX(geom, -100, 30, -92, 36) AND {WEEKS}"
+    assert loaded.count("t", box) == gpu.count("t", box)
+    np.testing.assert_array_equal(
+        loaded.density("t", box, bbox=BBOX, width=512, height=512),
+        gpu.density("t", box, bbox=BBOX, width=512, height=512))

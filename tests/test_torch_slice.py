@@ -392,14 +392,25 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(
+PORT_SOURCES = sorted(
     str(p.relative_to(REPO)) for p in
     list((REPO / "geomesa_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-))
+)
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
 def test_port_imports_no_jax(path):
     for mod in _imports(REPO / path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "geomesa_tpu"), f"{path} imports {mod}"
+
+
+def test_import_rule_covers_the_durability_modules():
+    """The journal, the fault points and the checkpoint code are held to
+    the rule too."""
+    for path in ("geomesa_tpu_torch/resilience.py", "geomesa_tpu_torch/fs/journal.py",
+                 "geomesa_tpu_torch/fs/__init__.py", "geomesa_tpu_torch/api/dataset.py"):
+        assert path in PORT_SOURCES
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
