@@ -269,8 +269,42 @@ nothing else.)
    store, both kernels > 0 on the partitioned one. Its roots are deleted
    when it ends.
 
+13. Slice 11, the aggregate cache (``geomesa.cache.enabled`` scoped on,
+   off everywhere else), on slice 1's store right after slice 8, its
+   answers first taken with the cache off, each call timed cold (its first
+   call in the phase) and warm, and printed beside the cached calls' times
+   at the end of the phase: the main box's count cold (10
+   level-6 cells and the strips), warm (a whole-result hit, 0 dispatches)
+   and panned 2 degrees east (a partial hit); 512x512 densities over a
+   fixed CONUS raster of the box (decomposed) and of the pan, weighted
+   (whole result only) cold and warm; ``stats`` of
+   ``Count();MinMax(weight);Histogram(weight,20,0,2)`` (decomposed) and of
+   ``DescriptiveStats(weight)`` (whole result); bench.py's zoom-out at 2
+   cells an axis (four quadrants, then the domain) with the hierarchy off
+   (the flat arm) and on (the warm arm, which must run 0 device
+   dispatches); the 64-edge polygon as ``region=`` at 16 cells an axis,
+   count and density cold (interior cells + the boundary scan through pip)
+   and warm; a level-9 ``density_curve`` pyramid at 32 cells an axis (two
+   overlapping tiles, CONUS at level 9, the level-8 zoom-out served by the
+   downsampled chunks, and the polygon's chunk families).
+   Every line prints the call's ms, its ``exec.device.dispatch`` delta, the
+   cache counters it moved and the cache's exec-path notes; every answer is
+   bit-identical to its cache-off answer and equal to its oracle (counts
+   f64, grids as in 4, curves binned by the z2 normalization). pip and
+   density_grouped must launch in the phase, and are held against their
+   plain versions on a boundary scan's points and a cell density's
+   schedule. On slice 10's flat store the same zoom-out is warmed and
+   ``persist_cache`` written beside the checkpoint, then one 64-row insert
+   batch goes into that store, after which the main box's count (one
+   whole-result entry at 4 cells an axis) equals the new oracle with a
+   cache miss; the loaded dataset's ``restore_cache`` then serves the
+   zoom-out with 0 dispatches. On slice
+   5's store after slice 10: slice 9's 2-degree box over B, cold, warm and
+   panned, and B's polygon count at 2 cells an axis, each equal to cache
+   off.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8``, ``launches_slice9`` and ``launches_slice10``), the card's ``nvidia-smi``
+``launches_slice8`` to ``launches_slice11``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -801,9 +835,9 @@ def slice4(args, torch, ds, data, extra, fids, wkt, packed, n_edges, kpip):
     for key, fn in calls.items():
         knn_paths.clear()
         results[key], cold = timed(torch, fn)
-        # 2 warm reps for a call over a million rows or 0.2 s cold (cut in
-        # PRs 9 and 10)
-        reps = 2 if key in heavy or cold > 0.2 else args.reps
+        # 1 warm rep for a call over a million rows or 0.2 s cold (cut from
+        # 10 as later slices joined the script)
+        reps = 1 if key in heavy or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         latency[key] = (cold * 1e3, float(np.median(warm)) * 1e3, reps)
         paths[key] = (dict(ds._plan("gdelt3", query_of[key]).exec_path) if key in query_of
@@ -1233,9 +1267,9 @@ def slice6(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
         else:
             plan = ds._plan(schema, q)
         path = dict(plan.exec_path)
-        # 2 warm reps for a call that refines over 10k rows or whose cold
-        # call took over 0.2 s (cut in PRs 9 and 10 to fit slices 9 and 10)
-        reps = 2 if path.get("refined_rows", 0) > 10_000 or cold > 0.2 else args.reps
+        # 1 warm rep for a call that refines over 10k rows or whose cold
+        # call took over 0.2 s (cut from 10 to fit slices 9-11)
+        reps = 1 if path.get("refined_rows", 0) > 10_000 or cold > 0.2 else args.reps
         warm = [timed(torch, fn)[1] for _ in range(reps)]
         ans = results[key]
         rows = (ans if isinstance(ans, int) else len(ans) if hasattr(ans, "columns")
@@ -1681,9 +1715,9 @@ def slice7(args, torch, kpip, kgrouped):
         setattr(kj, k, capture(k, fn))
     rng = np.random.default_rng(args.seed + 12)
 
-    def run(label, fn, reps=2):
-        """Cold once, then ``reps`` warm calls under the profiler (3 before
-        PR 10's cut)."""
+    def run(label, fn, reps=1):
+        """Cold once, then ``reps`` warm calls under the profiler (cut from
+        3 to fit slices 10 and 11)."""
         out, cold = timed(torch, fn)
         walls = []
         wall, busy, top, _ = profile_warm(torch, fn, reps, out_dir / f"slice7_{label}.json",
@@ -2123,7 +2157,7 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
 
     def reps_of(key):  # kNN's host work runs about a second a call
         if key in pruned:
-            return 2
+            return 1  # cut from 2 to fit slice 11
         return max(3, args.reps // 4) if key == "knn_10_b" else args.reps
 
     t_phase = time.perf_counter()
@@ -2339,7 +2373,8 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
     s9, alive = slice9(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
     s10 = slice10_partitioned(args, torch, ds, data, alive, wkt, packed, n_edges, kpip,
                               kgrouped)
-    return launches, s8, s9, s10
+    s11 = slice11_partitioned(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped)
+    return launches, s8, s9, s10, s11
 
 
 #: slice 8: the curve's full CONUS crop and its level (85 x 72 = 6,120
@@ -2819,7 +2854,7 @@ def s9_pushdown(args, torch, ds, data, name, st):
 
     x, y, w = data["geom__x"], data["geom__y"], data["weight"]
     # the long window's pushdown-off answers come from one pass with every
-    # partition resident (a cold off call reloads all 23 whole partitions,
+    # partition resident (a cold off call reloads every whole partition,
     # about 40 s on the H100), so only its count times off against on
     windows = {
         "box_b": (S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00", 2, (True, False)),
@@ -2893,7 +2928,7 @@ def s9_pushdown(args, torch, ds, data, name, st):
                 f"{path.get('partitions_scanned')}{kern}; equal to the NumPy oracle")
         if wname == "box_long":
             # the pushdown-off answers in one pass with every partition
-            # resident: the first (count) reloads all 23 whole partitions
+            # resident: the first (count) reloads every whole partition
             # from a cold store, the others reuse them
             st.spill_all()
             budget = st.max_resident
@@ -3338,7 +3373,10 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
     t_phase = time.perf_counter()
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
     root = out_dir / "s10_flat"
-    shutil.rmtree(root, ignore_errors=True)
+    s11_cache = out_dir / "s11_cache"
+    for d in (root, s11_cache):
+        shutil.rmtree(d, ignore_errors=True)
+    s11_cache.mkdir(parents=True)
     name = "gdelt10"
     q_bbox = f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}"
     q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
@@ -3363,6 +3401,8 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
         log(f"[slice10] flat save of {S10_ROWS} rows: {save_s:.3f} s "
             f"({save_s / S10_ROWS * 1e6:.3f} s per million rows), {size} B on disk, "
             f"chunks {entry['chunks']}")
+        # slice 11: the warm cache persisted beside the checkpoint
+        s11_path, s11_zoom = s11_persist_warm(torch, ds, name, s11_cache)
         del ds
         torch.cuda.empty_cache()
 
@@ -3372,6 +3412,7 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
         loaded, load_s = timed(torch, lambda: GeoDataset.load(str(root)))
         log(f"[slice10] flat load: {load_s:.3f} s; by stage (s) {loaded.load_seconds}; "
             f"journal attached {loaded._journal is not None}")
+        s11_persist_restore(torch, loaded, name, s11_path, s11_zoom)
         got = s10_queries(loaded, name, q_bbox, q_poly)
         s10_check("the loaded store", got, live, oracle)
         paths = {q: dict(loaded._plan(name, q).exec_path) for q in (q_bbox, q_poly)}
@@ -3522,7 +3563,8 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
             raise AssertionError(f"pip never launched in slice 10's flat phase: {launches}")
         return launches
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for d in (root, s11_cache):
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def s10_part_answers(ds, name, wkt):
@@ -3665,6 +3707,485 @@ def slice10_partitioned(args, torch, ds, data, alive, wkt, packed, n_edges, kpip
         for d in (root, spill):
             shutil.rmtree(d, ignore_errors=True)
 
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the aggregate cache
+# ---------------------------------------------------------------------------
+
+#: the dashboard raster: a fixed CONUS render box around the filter boxes
+S11_RENDER = (-125.0, 24.0, -66.0, 50.0)
+#: the pan: the main box moved east
+S11_PAN = 2.0
+S11_STATS = "Count();MinMax(weight);Histogram(weight,20,0,2)"
+S11_STATS_WHOLE = "DescriptiveStats(weight)"
+#: the zoom-out's decomposition: 16 level-2 quadrant cells, the domain at
+#: level 1 (bench.py's smoke run takes 4, 80 cell plans; each cold cell
+#: pays a planner cover and a compaction cover on the host, so the phase
+#: halves the axis to stay inside the script's time limit)
+S11_ZOOM_AXIS = 2
+
+#: the polygon region and the curve pyramid: at the default 8 cells an axis
+#: the 64-edge polygon has no interior cell (level 6), at 16 it has 10
+S11_REGION_AXIS = 16
+S11_LEVEL = 9
+#: the curve pyramid's chunking: 4-block chunks at level 9 (2.8 x 1.4
+#: degrees), small enough that the polygon holds interior chunks
+S11_CURVE_AXIS = 32
+S11_TILES = ((-125.0, 24.0, -95.5, 50.0), (-100.0, 24.0, -66.0, 50.0))
+S11_INSERT = 64
+#: the partitioned store's decomposition (each cell sub-scan loads its own
+#: row groups there)
+S11_PART_AXIS = 2
+#: the cache counters the phase prints as per-call deltas
+S11_COUNTERS = ("exec.device.dispatch", "cache.hit", "cache.partial", "cache.miss",
+                "cache.put", "cache.invalidate", "cache.hierarchy.hit",
+                "cache.hierarchy.promote", "cache.hierarchy.residual", "cache.polygon",
+                "cache.curve.region", "cache.persist.restored")
+S11_NOTES = ("cache", "cache_cells", "cache_level", "cache_chunk", "hierarchy",
+             "cache_region", "cache_boundary_cells", "cache_residual_fraction",
+             "cache_region_chunks")
+
+
+def s11_zoom_queries(during=DURING):
+    """bench.py's zoom-out: the four quadrants, then the domain."""
+    quads = [f"BBOX(geom, {b}) AND {during}" for b in (
+        "-180, -90, 0, 0", "0, -90, 180, 0", "-180, 0, 0, 90", "0, 0, 180, 90")]
+    return quads, f"BBOX(geom, -180, -90, 180, 90) AND {during}"
+
+
+def s11_box(box) -> str:
+    return f"BBOX(geom, {', '.join(str(v) for v in box)}) AND {DURING}"
+
+
+class S11Calls:
+    """Runs one call of the phase: wall ms, the per-call counter deltas
+    (dispatches first) and the cache's exec-path notes, logged on one line."""
+
+    def __init__(self, torch, ds, name, label="[slice11]"):
+        from geomesa_tpu_torch import metrics
+
+        self.torch, self.ds, self.name, self.label = torch, ds, name, label
+        self.reg = metrics.registry()
+
+    def counts(self):
+        return {k: self.reg.counter(k).value for k in S11_COUNTERS}
+
+    def notes(self, plan_query):
+        if plan_query is None:
+            return {}
+        path = self.ds._plan(self.name, plan_query).__dict__.get("exec_path", {})
+        return {k: v for k, v in path.items() if k in S11_NOTES}
+
+    def __call__(self, key, fn, plan_query=None, extra=""):
+        c0 = self.counts()
+        out, s = timed(self.torch, fn)
+        c1 = self.counts()
+        d = {k: c1[k] - c0[k] for k in S11_COUNTERS}
+        moved = {k: v for k, v in d.items() if v and k != "exec.device.dispatch"}
+        log(f"{self.label} {key}: {s * 1e3:.3f} ms, dispatches "
+            f"{d['exec.device.dispatch']}, cache {moved}, exec_path "
+            f"{self.notes(plan_query)}{extra}")
+        return out, s * 1e3, d
+
+
+def s11_render_oracle(data, rows, render=S11_RENDER, box=None, width=WIDTH, height=HEIGHT):
+    """The unweighted grid of ``rows`` over ``render``: pixels in f32 op
+    by op, except rows in the f32 band of the filter ``box``, which the
+    host maps from f64 (density_oracles' semantics with the raster apart
+    from the filter)."""
+    x, y = data["geom__x"][rows], data["geom__y"][rows]
+    xmin, ymin, xmax, ymax = render
+    f = np.float32
+    x32, y32 = x.astype(f), y.astype(f)
+    px = ((x32 - f(xmin)) / f(xmax - xmin) * f(width)).astype(np.int32)
+    py = ((y32 - f(ymin)) / f(ymax - ymin) * f(height)).astype(np.int32)
+    if box is not None:
+        band = np.isin(x32, [f(box[0]), f(box[2])]) | np.isin(y32, [f(box[1]), f(box[3])])
+        px = np.where(band, ((x - xmin) / (xmax - xmin) * width).astype(np.int32), px)
+        py = np.where(band, ((y - ymin) / (ymax - ymin) * height).astype(np.int32), py)
+    idx = np.clip(py, 0, height - 1) * width + np.clip(px, 0, width - 1)
+    return np.bincount(idx, minlength=width * height).astype(np.float64).reshape(height, width)
+
+
+def s11_same(label, got, off, oracle=None):
+    """Cached answers bit-identical to the cache-off answer (and equal to
+    the oracle when one is given)."""
+    same = (np.array_equal(got, off) and got.dtype == off.dtype) \
+        if isinstance(got, np.ndarray) else got == off
+    if not same:
+        raise AssertionError(f"slice11 {label}: the cached answer differs from cache off")
+    if oracle is not None:
+        ok = np.array_equal(np.asarray(got, np.float64), oracle) \
+            if isinstance(got, np.ndarray) else got == oracle
+        if not ok:
+            raise AssertionError(f"slice11 {label}: differs from the oracle")
+
+
+def slice11(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped, n_bbox, n_poly):
+    """The slice-11 phase on slice 1's store (see the module docstring,
+    13). Returns its launches of both kernels."""
+    import dataclasses
+
+    from geomesa_tpu_torch import Query, config
+    from geomesa_tpu_torch.cache import AggregateCache
+
+    t_phase = time.perf_counter()
+    name = "gdelt"
+    st = ds._store(name)
+    kpip.launches = 0
+    kgrouped.launches = 0
+    tm = time_mask(data)
+    x, y = data["geom__x"], data["geom__y"]
+    pan = (QUERY_BBOX[0] + S11_PAN, QUERY_BBOX[1], QUERY_BBOX[2] + S11_PAN, QUERY_BBOX[3])
+    q_box, q_pan = s11_box(QUERY_BBOX), s11_box(pan)
+    quads, q_zoom = s11_zoom_queries()
+    run = S11Calls(torch, ds, name)
+
+    def rows_in(box):
+        return tm & (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3])
+
+    def dens(q, weight=None, region=None):
+        return lambda: ds.density(name, q, bbox=S11_RENDER, width=WIDTH, height=HEIGHT,
+                                  weight=weight, region=region)
+
+    def curve_q(region=None, q=DURING):
+        return dataclasses.replace(Query(ecql=ds._with_region(name, q, region)), index="z2")
+
+    # -- the cache-off answers the cached ones must equal, each call timed
+    # cold (its first call in the phase) and warm (the next) ---------------
+    t0 = time.perf_counter()
+    off, off_ms = {}, {}
+
+    def off_call(key, fn):
+        out, s_cold = timed(torch, fn)
+        _, s_warm = timed(torch, fn)
+        off[key], off_ms[key] = out, (s_cold * 1e3, s_warm * 1e3)
+        log(f"[slice11] cache off {key}: cold {s_cold * 1e3:.3f} ms, warm "
+            f"{s_warm * 1e3:.3f} ms")
+
+    with config.CACHE_ENABLED.scoped("false"):
+        off_call("count", lambda: ds.count(name, q_box))
+        off_call("count_pan", lambda: ds.count(name, q_pan))
+        off_call("density", dens(q_box))
+        off_call("density_pan", dens(q_pan))
+        off_call("density_weighted", dens(q_box, "weight"))
+        off_call("stats", lambda: ds.stats(name, S11_STATS, q_box).value())
+        off_call("stats_whole", lambda: ds.stats(name, S11_STATS_WHOLE, q_box).value())
+        for i, q in enumerate(quads):
+            off_call(f"quad{i}", lambda q=q: ds.count(name, q))
+        off_call("zoom", lambda: ds.count(name, q_zoom))
+        off_call("poly_count", lambda: ds.count(name, DURING, region=wkt))
+        off_call("poly_density", dens(DURING, region=wkt))
+        for i, b in enumerate(S11_TILES):
+            off_call(f"tile{i}", lambda b=b: ds.density_curve(
+                name, DURING, level=S11_LEVEL, bbox=b)[0])
+        off_call("curve", lambda: ds.density_curve(name, DURING, level=S11_LEVEL,
+                                                   bbox=S11_RENDER)[0])
+        off_call("curve8", lambda: ds.density_curve(name, DURING, level=S11_LEVEL - 1,
+                                                    bbox=S11_RENDER)[0])
+        off_call("curve_poly", lambda: ds.density_curve(name, DURING, level=S11_LEVEL,
+                                                        bbox=S11_RENDER, region=wkt)[0])
+    s11_same("cache off count", off["count"], n_bbox)
+    off_s = time.perf_counter() - t0
+    kpip.launches = 0
+    kgrouped.launches = 0
+    in_poly = polygon_rows(data, tm, packed, n_edges)
+    oracle = {
+        "count_pan": int(rows_in(pan).sum()),
+        "density": s11_render_oracle(data, rows_in(QUERY_BBOX), box=QUERY_BBOX),
+        "density_pan": s11_render_oracle(data, rows_in(pan), box=pan),
+        "zoom": int(tm.sum()),
+        "poly_density": s11_render_oracle(data, in_poly),
+    }
+    ds.cache = AggregateCache()
+    reg = S11Calls(torch, ds, name).reg
+    with config.CACHE_ENABLED.scoped("true"):
+        # 1. the main box's count: cold (10 cells + strips), warm, a pan
+        n, cold_ms, d = run("count cold", lambda: ds.count(name, q_box), q_box)
+        s11_same("count cold", n, n_bbox)
+        n, warm_ms, d = run("count warm", lambda: ds.count(name, q_box), q_box)
+        s11_same("count warm", n, n_bbox)
+        if d["exec.device.dispatch"] or d["cache.hit"] != 1:
+            raise AssertionError(f"slice11: the repeated count was not a whole hit: {d}")
+        n, pan_ms, d = run("count pan +2 deg", lambda: ds.count(name, q_pan), q_pan)
+        s11_same("count pan", n, off["count_pan"], oracle["count_pan"])
+        if d["cache.partial"] != 1:
+            raise AssertionError(f"slice11: the pan reused no cell: {d}")
+
+        # 2. 512x512 density over the fixed CONUS raster: decomposed
+        g, dens_ms, d = run("density cold (decomposed)", dens(q_box), q_box)
+        s11_same("density", g, off["density"], oracle["density"])
+        if "cache_cells" not in run.notes(q_box):
+            raise AssertionError("slice11: the dashboard density did not decompose")
+        g, dens_pan_ms, d = run("density pan +2 deg", dens(q_pan), q_pan)
+        s11_same("density pan", g, off["density_pan"], oracle["density_pan"])
+        # weighted grids add float atomics in an order the card sets, so
+        # two scans agree within rtol 1e-4 (check 4's tolerance); the warm
+        # hit returns the stored grid bit for bit
+        gw, _, d = run("density weighted cold (whole result)", dens(q_box, "weight"), q_box)
+        if "cache_cells" in run.notes(q_box) or not np.allclose(
+                gw, off["density_weighted"], rtol=1e-4, atol=1e-3):
+            raise AssertionError("slice11: the weighted density decomposed or left rtol 1e-4")
+        g, _, d = run("density weighted warm", dens(q_box, "weight"), q_box)
+        s11_same("density weighted warm", g, gw)
+
+        # 3. stats: exact-merge decomposed, descriptive whole result only
+        s, _, d = run(f"stats {S11_STATS} (decomposed)",
+                      lambda: ds.stats(name, S11_STATS, q_box), q_box)
+        s11_same("stats", s.value(), off["stats"])
+        if s.value()[0] != n_bbox:
+            raise AssertionError("slice11: the stats count differs from the oracle")
+        s, _, d = run(f"stats {S11_STATS_WHOLE} (whole result)",
+                      lambda: ds.stats(name, S11_STATS_WHOLE, q_box), q_box)
+        s11_same("stats descriptive", s.value(), off["stats_whole"])
+
+        # 4. the hierarchical zoom-out: flat arm, then the warm arm
+        with config.CACHE_CELLS_PER_AXIS.scoped(S11_ZOOM_AXIS):
+            with config.CACHE_HIERARCHY.scoped("false"):
+                ds.cache.store.invalidate()
+                for i, q in enumerate(quads):
+                    n, _, _ = run(f"zoom flat arm quad {i}", lambda q=q: ds.count(name, q), q)
+                    s11_same(f"zoom quad {i}", n, off[f"quad{i}"])
+                n, flat_ms, d_flat = run("zoom-out flat arm", lambda: ds.count(name, q_zoom),
+                                         q_zoom)
+                s11_same("zoom-out flat", n, off["zoom"], oracle["zoom"])
+            ds.cache.store.invalidate()
+            for i, q in enumerate(quads):
+                run(f"zoom warm arm quad {i}", lambda q=q: ds.count(name, q), q)
+            n, zoom_ms, d = run("zoom-out warm arm", lambda: ds.count(name, q_zoom), q_zoom)
+            s11_same("zoom-out warm", n, off["zoom"], oracle["zoom"])
+            hits, total = map(int, run.notes(q_zoom)["cache_cells"].split("/"))
+            if d["exec.device.dispatch"] != 0 or hits != total:
+                raise AssertionError(f"slice11: the warm zoom-out dispatched: {d}, "
+                                     f"cells {hits}/{total}")
+            log(f"[slice11] zoom-out: flat {flat_ms:.3f} ms ({d_flat['exec.device.dispatch']} "
+                f"dispatches) vs warm {zoom_ms:.3f} ms (0 dispatches), served fraction "
+                f"{hits / max(total, 1):.4f}")
+
+        # 5. the polygon region (count and density): interior cells cached,
+        # boundary cells through pip
+        with config.CACHE_CELLS_PER_AXIS.scoped(S11_REGION_AXIS):
+            q_region = ds._with_region(name, DURING, wkt)
+            pip0 = kpip.launches
+            n, region_ms, d = run("region count cold",
+                                  lambda: ds.count(name, DURING, region=wkt), q_region)
+            s11_same("region count", n, off["poly_count"], n_poly)
+            notes = run.notes(q_region)
+            if notes.get("cache_region") != "polygon" or kpip.launches <= pip0:
+                raise AssertionError(f"slice11: the region did not decompose through pip: "
+                                     f"{notes}, pip launches {kpip.launches - pip0}")
+            n_int = int(notes["cache_cells"].split("/")[1])
+            n, region_warm_ms, d = run("region count warm",
+                                       lambda: ds.count(name, DURING, region=wkt), q_region)
+            s11_same("region count warm", n, n_poly)
+            g, _, d = run("region density cold", dens(DURING, region=wkt), q_region)
+            s11_same("region density", g, off["poly_density"], oracle["poly_density"])
+            g, _, d = run("region density warm", dens(DURING, region=wkt), q_region)
+            s11_same("region density warm", g, off["poly_density"])
+            log(f"[slice11] region: {n_int} interior cells, {notes['cache_boundary_cells']} "
+                f"boundary cells at level {notes['cache_level']}; count {n_poly} equal to cache "
+                "off and the f32 parity oracle")
+
+        # 6. a level-9 density_curve pyramid: tiles, a zoom-out level,
+        # polygon chunk families
+        with config.CACHE_CELLS_PER_AXIS.scoped(S11_CURVE_AXIS):
+            cq = curve_q()
+            for i, b in enumerate(S11_TILES):
+                (g, snapped), _, d = run(f"curve tile {i}", lambda b=b: ds.density_curve(
+                    name, DURING, level=S11_LEVEL, bbox=b), cq)
+                s11_same(f"curve tile {i}", g, off[f"tile{i}"])
+                curve_check(f"slice11 curve tile {i}", g, curve_oracle(
+                    x[tm], y[tm], None, S11_LEVEL, ds._snap_blocks(b, S11_LEVEL)[0]))
+                if i and d["cache.partial"] != 1:
+                    raise AssertionError(f"slice11: the second tile reused no chunk: {d}")
+            for lvl, key in ((S11_LEVEL, "curve"), (S11_LEVEL - 1, "curve8")):
+                (g, _), _, d = run(f"curve CONUS level {lvl}", lambda lvl=lvl: ds.density_curve(
+                    name, DURING, level=lvl, bbox=S11_RENDER), cq)
+                s11_same(f"curve level {lvl}", g, off[key])
+                curve_check(f"slice11 curve level {lvl}", g, curve_oracle(
+                    x[tm], y[tm], None, lvl, ds._snap_blocks(S11_RENDER, lvl)[0]))
+            # the level-8 chunks are the level-9 ones downsampled (rolled
+            # up when those were stored, or assembled on the miss)
+            if int(run.notes(cq)["cache_cells"].split("/")[0]) <= 0:
+                raise AssertionError(f"slice11: the curve zoom-out reused no chunk: {d}")
+            cqr = curve_q(region=wkt)
+            (g, _), _, d = run("curve region", lambda: ds.density_curve(
+                name, DURING, level=S11_LEVEL, bbox=S11_RENDER, region=wkt), cqr)
+            s11_same("curve region", g, off["curve_poly"])
+            curve_check("slice11 curve region", g, curve_oracle(
+                x[in_poly], y[in_poly], None, S11_LEVEL,
+                ds._snap_blocks(S11_RENDER, S11_LEVEL)[0]))
+            fam = run.notes(cqr).get("cache_region_chunks", "")
+            hits = int(run.notes(cqr)["cache_cells"].split("/")[0])
+            if d["cache.curve.region"] != 1 or " 0 interior" in f" {fam}" or hits <= 0:
+                raise AssertionError(f"slice11: the interior chunks were not served from the "
+                                     f"plain family: {fam}, {hits} hits")
+
+        # 7. the kernels against their plain versions on cache-path operands
+        held = (kpip.launches, kgrouped.launches)
+        s11_kernels(torch, ds, name, st, q_box, q_region, wkt, packed, n_edges, kpip, kgrouped)
+        kpip.launches, kgrouped.launches = held
+
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    # cache on beside cache off, on the same calls (off: cold, warm)
+    side = (("count cold", cold_ms, "count"), ("count warm", warm_ms, "count"),
+            ("count pan", pan_ms, "count_pan"), ("density cold", dens_ms, "density"),
+            ("density pan", dens_pan_ms, "density_pan"), ("zoom-out warm arm", zoom_ms, "zoom"),
+            ("region count cold", region_ms, "poly_count"),
+            ("region count warm", region_warm_ms, "poly_count"))
+    log("[slice11] cache on vs off (ms; off cold / warm): " + "; ".join(
+        f"{k} {on:.3f} vs {off_ms[o][0]:.3f} / {off_ms[o][1]:.3f}" for k, on, o in side))
+    entries, nbytes = ds.cache.store.total_entries, ds.cache.store.total_bytes
+    ds.cache.store.invalidate()
+    log(f"[slice11] phase: {time.perf_counter() - t_phase:.3f} s (cache-off answers "
+        f"{off_s:.3f} s); {entries} entries, {nbytes} B cached at the end, dropped; launches "
+        f"of its own calls {launches} (the comparisons with the plain versions not counted); "
+        f"exec.device.dispatch total {reg.counter('exec.device.dispatch').value}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in slice 11's phase: {launches}")
+    return launches
+
+
+def s11_kernels(torch, ds, name, st, q_box, q_region, wkt, packed, n_edges, kpip, kgrouped):
+    """pip on one boundary scan's compact points and density_grouped on one
+    cell density's schedule, each against its plain version and timed in
+    turns with it."""
+    from geomesa_tpu_torch import config
+    from geomesa_tpu_torch.cache import decompose, decompose_region
+
+    ex = ds._executor(name)
+    geom = st.ft.geom_field
+    q = ds._as_query(q_region)
+    with config.CACHE_CELLS_PER_AXIS.scoped(S11_REGION_AXIS):
+        rdec = decompose_region(ds._plan(name, q_region).filter, st.ft)
+    bplan = ds.cache._sub_plan(ds, st, q, rdec.residual_scan_filter(geom))
+    cols = ex.scan_columns(bplan, ["geom__x", "geom__y"])
+    px, py = cols["geom__x"], cols["geom__y"]
+    edges = torch.from_numpy(packed).cuda()
+    got, want = kpip.pip_mask(px, py, edges, n_edges), kpip.pip_mask_plain(px, py, edges, n_edges)
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"pip disagrees with its plain version on {bad} boundary points")
+    ms, plain_ms, _ = in_turns(torch, lambda: kpip.pip_mask(px, py, edges, n_edges),
+                               lambda: kpip.pip_mask_plain(px, py, edges, n_edges), 10, 3)
+    log(f"[slice11] pip on the boundary scan's {tuple(px.shape)} points x {n_edges} edges: "
+        f"equal to its plain version; {ms:.6f} ms (plain {plain_ms:.6f} ms)")
+    dec = decompose(ds._plan(name, q_box).filter, st.ft)
+    o = None
+    for cell in dec.cells:
+        cplan = ds.cache._sub_plan(ds, st, ds._as_query(q_box), dec.cell_filter(cell, geom))
+        o = ex.density_inputs(cplan, S11_RENDER, WIDTH, HEIGHT)
+        if o is not None:
+            break
+    if o is None:
+        raise AssertionError("no cell density of the main box took the grouped rung")
+    a = (o["x"], o["y"], o["mask"], o["weight"], S11_RENDER, WIDTH, HEIGHT, o["sched"])
+    if not torch.equal(kgrouped.density_grouped(*a), kgrouped.density_grouped_plain(*a)):
+        raise AssertionError("density_grouped disagrees with its plain version on a cell")
+    ms, plain_ms, _ = in_turns(torch, lambda: kgrouped.density_grouped(*a),
+                               lambda: kgrouped.density_grouped_plain(*a), 10, 3)
+    log(f"[slice11] density_grouped on cell {cell}'s {tuple(o['x'].shape)} rows, "
+        f"{o['sched']['chunks'].numel()} pairs: equal to its plain version; {ms:.6f} ms "
+        f"(plain {plain_ms:.6f} ms)")
+
+
+def s11_persist_warm(torch, ds, name, root):
+    """Warm the zoom-out on slice 10's live flat store and persist the
+    cache beside its checkpoint: (cache file, the answers)."""
+    from geomesa_tpu_torch import config
+
+    quads, zoom = s11_zoom_queries()
+    run = S11Calls(torch, ds, name, "[slice11 persist]")
+    path = str(Path(root) / "cache.lake")
+    with config.CACHE_ENABLED.scoped("true"), \
+            config.CACHE_CELLS_PER_AXIS.scoped(S11_ZOOM_AXIS):
+        for i, q in enumerate(quads):
+            run(f"quad {i}", lambda q=q: ds.count(name, q), q)
+        n, _, _ = run("zoom-out", lambda: ds.count(name, zoom), zoom)
+    with config.CACHE_ENABLED.scoped("false"):
+        if ds.count(name, zoom) != n:
+            raise AssertionError("slice11 persist: the zoom-out differs from cache off")
+    summary, s = timed(torch, lambda: ds.persist_cache(path))
+    log(f"[slice11 persist] persist_cache: {s * 1e3:.3f} ms, entries {summary}, "
+        f"{Path(path).stat().st_size} B")
+    # invalidation: one insert batch into the persisted store (it is not
+    # read again), then the main box's count equals the new oracle and the
+    # counters show a miss. At 4 cells an axis the box holds no level-5
+    # cell: one whole-result entry, one scan a call
+    q_box = s11_box(QUERY_BBOX)
+    with config.CACHE_ENABLED.scoped("true"), config.CACHE_CELLS_PER_AXIS.scoped(4):
+        before, _, _ = run("main box count", lambda: ds.count(name, q_box), q_box)
+        rng = np.random.default_rng(11)
+        ds.insert(name, {
+            "geom__x": rng.uniform(QUERY_BBOX[0] + 1, QUERY_BBOX[2] - 1, S11_INSERT),
+            "geom__y": rng.uniform(QUERY_BBOX[1] + 1, QUERY_BBOX[3] - 1, S11_INSERT),
+            "dtg": np.full(S11_INSERT, np.datetime64("2020-01-10T00:00:00", "ms")),
+            "weight": np.full(S11_INSERT, 0.5, np.float32),
+        })
+        ds.flush(name)
+        n_after, _, d = run(f"main box count after a {S11_INSERT}-row insert",
+                            lambda: ds.count(name, q_box), q_box)
+    if n_after != before + S11_INSERT or d["cache.miss"] != 1 or d["cache.invalidate"] <= 0:
+        raise AssertionError(f"slice11: the insert did not invalidate: {n_after} after "
+                             f"{before}, {d}")
+    return path, n
+
+
+def s11_persist_restore(torch, ds, name, path, want):
+    """Restore the persisted cache into the loaded dataset; its zoom-out
+    then launches nothing and equals the live answer."""
+    from geomesa_tpu_torch import config
+
+    _, zoom = s11_zoom_queries()
+    run = S11Calls(torch, ds, name, "[slice11 persist]")
+    out, s = timed(torch, lambda: ds.restore_cache(path))
+    restored = out.get(name, {}).get("restored", 0)
+    log(f"[slice11 persist] restore_cache: {s * 1e3:.3f} ms, {out}")
+    if restored <= 0:
+        raise AssertionError(f"slice11 persist: nothing restored: {out}")
+    with config.CACHE_ENABLED.scoped("true"), \
+            config.CACHE_CELLS_PER_AXIS.scoped(S11_ZOOM_AXIS):
+        n, _, d = run("restored zoom-out", lambda: ds.count(name, zoom), zoom)
+    if n != want or d["exec.device.dispatch"] != 0:
+        raise AssertionError(f"slice11 persist: the restored zoom-out gave {n} (want {want}) "
+                             f"with {d['exec.device.dispatch']} dispatches")
+    ds.cache.store.invalidate()
+
+
+def slice11_partitioned(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped,
+                        name="gdelt5"):
+    """Slice 9's 2-degree box over B on slice 5's store: count cold, warm
+    and a pan, and B's polygon count, at S11_PART_AXIS cells an axis; each
+    equal to cache off. Returns the launches of its calls."""
+    from geomesa_tpu_torch import config
+    from geomesa_tpu_torch.cache import AggregateCache
+
+    t_phase = time.perf_counter()
+    b_lo, b_hi = "2020-01-05T00:00:00", "2020-01-15T00:00:00"
+    pan = (S9_BOX[0] + 1.0, S9_BOX[1], S9_BOX[2] + 1.0, S9_BOX[3])
+    q_b, q_pan = s9_query(S9_BOX, b_lo, b_hi), s9_query(pan, b_lo, b_hi)
+    during = f"dtg DURING {b_lo}Z/{b_hi}Z"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {during}"
+    with config.CACHE_ENABLED.scoped("false"):
+        off = {q: ds.count(name, q) for q in (q_b, q_pan, q_poly)}
+    want = {q_b: int(s9_box_rows(data, S9_BOX, b_lo, b_hi, alive).sum()),
+            q_pan: int(s9_box_rows(data, pan, b_lo, b_hi, alive).sum())}
+    kpip.launches = 0
+    kgrouped.launches = 0
+    ds.cache = AggregateCache()
+    run = S11Calls(torch, ds, name, "[slice11 partitioned]")
+    with config.CACHE_ENABLED.scoped("true"), \
+            config.CACHE_CELLS_PER_AXIS.scoped(S11_PART_AXIS):
+        for key, q in (("box B cold", q_b), ("box B warm", q_b), ("box B pan +1 deg", q_pan),
+                       ("polygon over B cold", q_poly), ("polygon over B warm", q_poly)):
+            n, _, _ = run(key, lambda q=q: ds.count(name, q), q)
+            s11_same(f"partitioned {key}", n, off[q], want.get(q))
+    ds.cache.store.invalidate()
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    log(f"[slice11 partitioned] {time.perf_counter() - t_phase:.3f} s; each answer equal to "
+        f"cache off (boxes to the oracle over the surviving rows); launches {launches}")
+    return launches
 
 
 def _iso(ms: int) -> str:
@@ -3911,6 +4432,10 @@ def main() -> int:
     # -- 10. slice 8: density_curve and the query-axis batches ---------------
     s8_launches = slice8(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
+    # -- 13. slice 11: the aggregate cache on slice 1's store ------------------
+    s11_flat = slice11(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped,
+                       n_bbox, n_poly)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -3938,11 +4463,13 @@ def main() -> int:
 
     # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
     # calls run on it at the end) ---------------------------------------------
-    _, s8_part, s9_part, s10_part = slice5(args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    _, s8_part, s9_part, s10_part, s11_part = slice5(args, torch, wkt, packed, n_edges, kpip,
+                                                      kgrouped)
     for k in kernels:
         k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
         k["launches_slice9"] = s9_flat.get(k["name"], 0) + s9_part.get(k["name"], 0)
         k["launches_slice10"] = s10_flat.get(k["name"], 0) + s10_part.get(k["name"], 0)
+        k["launches_slice11"] = s11_flat.get(k["name"], 0) + s11_part.get(k["name"], 0)
 
     log(f"[main] chip_smoke wall {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

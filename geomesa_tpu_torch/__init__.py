@@ -12,7 +12,10 @@ time-partitioned stores spilled as lake snapshots with row-group pushdown,
 the schema and data lifecycle (``update_schema``, attribute indices,
 ``delete_features``, ``age_off``), and durable datasets (``save`` /
 ``GeoDataset.load`` / ``refresh_schema`` over incremental checkpoints,
-with the write-ahead mutation journal), with
+with the write-ahead mutation journal), and the aggregate cache in front
+of the aggregates (``cache``, off by default; ``persist_cache`` /
+``restore_cache``; its counts and the device dispatches in ``metrics``),
+with
 the JAX package's two Pallas kernels and the join predicates written as
 CUDA kernels (``csrc/``). Its tunables are in
 ``config``. It imports torch and numpy, and nothing of JAX or

@@ -27,17 +27,23 @@ shared root), and the write-ahead mutation journal (``attach_journal``;
 before it applies and returns once the record is on disk. Roots and
 journals interchange with the JAX package's.
 
+With ``geomesa.cache.enabled`` (off by default) ``count``, ``density``,
+``density_curve`` and ``stats`` answer through the aggregate cache
+(``cache/``: whole results, partial-cover cells, hierarchical assembly,
+polygon regions, curve chunk families, epoch invalidation), and
+``persist_cache`` / ``restore_cache`` carry its entries across a restart;
+the batches, joins, sampled queries and feature queries bypass it.
+
 A schema with ``geomesa.partition='time'`` gets a time-partitioned,
 out-of-core store and serves the same calls partition at a time
 (``index/partitioned.py``, ``planning/partitioned_exec.py``).
 Extent-geometry columns take WKT strings or geometry objects on insert
 and come back as WKT.
 
-No counterpart here yet: the aggregate cache and its ``persist_cache`` /
-``restore_cache``, standing subscriptions (their journal records replay
-as unknown kinds and are skipped), audit, serving, tracing, metrics and
-the fleet (the journal's epoch marker and ``/healthz`` lag snapshot), and
-``explain``: every call goes to the executor directly.
+No counterpart here yet: standing subscriptions (their journal records
+replay as unknown kinds and are skipped), audit, serving, tracing, the
+metrics export and the fleet (the journal's epoch marker and
+``/healthz`` lag snapshot), and ``explain``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch.cache import AggregateCache
 from geomesa_tpu_torch.fs import journal as _jr
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import compile_filter
@@ -234,6 +241,9 @@ class GeoDataset:
         self._stores: Dict[str, FeatureStore] = {}
         self._executors: Dict[str, Any] = {}
         self._plans: Dict[tuple, QueryPlan] = {}
+        #: the aggregate cache in front of count / density / density_curve /
+        #: stats (``geomesa.cache.enabled``; off by default)
+        self.cache = AggregateCache()
         #: the write-ahead mutation journal (``fs/journal.py``), attached by
         #: :meth:`load` or :meth:`attach_journal`; None keeps mutations in
         #: memory until the next :meth:`save`. Attached, every mutation
@@ -275,10 +285,13 @@ class GeoDataset:
         return sorted(self._stores)
 
     def delete_schema(self, name: str) -> None:
-        self._store(name)  # raises if missing
+        st = self._store(name)  # raises if missing
         # the tombstone first: replay must not bring the schema back from
         # its checkpoint files
         self._journal_rec("delete-schema", name)
+        # the schema's uid is never read again, so neither the epoch check
+        # nor the per-uid LRU would reclaim its cached aggregates
+        self.cache.store.invalidate(st.uid)
         del self._stores[name]
         self._forget(name)
         self._applied_seq.pop(name, None)
@@ -678,6 +691,27 @@ class GeoDataset:
                         if os.path.join(fn, pd) not in ref and os.path.abspath(d) not in live:
                             shutil.rmtree(d, ignore_errors=True)
 
+    # -- aggregate-cache persistence ------------------------------------------
+    def persist_cache(self, path: str) -> Dict[str, Any]:
+        """Write the aggregate cache's warm entries (cells, hierarchy
+        nodes, curve chunks, whole results) to one lake file, so a
+        restarted process can :meth:`restore_cache` them and answer warm
+        zoom-outs with no device launch. Only entries whose epoch matches
+        their store are written; returns entries per schema."""
+        from geomesa_tpu_torch.lake import persist as lake_persist
+
+        return lake_persist.save_cache(self, path)
+
+    def restore_cache(self, path: str) -> Dict[str, Any]:
+        """Re-admit persisted cache entries for every schema whose data
+        still matches the persisted guard (row count and spec), typically
+        right after :meth:`load` of the checkpoint the cache was warmed
+        on. Imports take the LRU budget and the store's current epoch, so
+        later mutations invalidate as usual."""
+        from geomesa_tpu_torch.lake import persist as lake_persist
+
+        return lake_persist.restore_cache(self, path)
+
     @staticmethod
     def load(path: str, device=None, **options) -> "GeoDataset":
         """A dataset of the checkpoint at ``path`` (on the CUDA device
@@ -818,6 +852,7 @@ class GeoDataset:
                 self.delete_schema(name)
             return True
         if old is not None:
+            self.cache.store.invalidate(old.uid)
             del self._stores[name]
             self._forget(name)
         self._attach_schema_entry(path, name, meta)
@@ -891,6 +926,12 @@ class GeoDataset:
         plan.__dict__.pop("lake_acct", None)
         return plan
 
+    def _cache_args(self, name: str, query):
+        """(store, Query, fresh plan): what the aggregate cache is handed.
+        Its exec-path notes land on the plan :meth:`_plan` returns."""
+        q = self._as_query(query)
+        return self._store(name), q, self._fresh_plan(name, q)
+
     def _with_region(self, name: str, query, region):
         """Fold a polygon ``region`` (WKT text or a geometry object) into
         the query as one INTERSECTS conjunct on the schema's geometry.
@@ -921,10 +962,10 @@ class GeoDataset:
         planner's estimate from the write-time sketches, with no scan.
         ``region``: optional polygon (WKT or geometry) clipping the count
         (see :meth:`_with_region`)."""
-        plan = self._fresh_plan(name, self._with_region(name, query, region))
+        st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if not exact:
             return int(plan.est_count)
-        return self._executor(name).count(plan)
+        return self.cache.count(self, st, q, plan)
 
     def density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
                 height: int = 256, weight: Optional[str] = None,
@@ -932,10 +973,10 @@ class GeoDataset:
         """(height, width) f32 heatmap of ``query`` over ``bbox`` (default:
         the data's bounds), optionally summing the ``weight`` attribute.
         ``region``: optional polygon clipping the aggregate."""
-        plan = self._fresh_plan(name, self._with_region(name, query, region))
+        st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
-        return self._executor(name).density(plan, tuple(bbox), width, height, weight)
+        return self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
 
     # -- curve-aligned density ------------------------------------------------
     def density_curve(self, name: str, query="INCLUDE", level: int = 9, bbox=None,
@@ -951,11 +992,11 @@ class GeoDataset:
             raise ValueError("level must be in 1..15 (grid = 4^level blocks)")
         q = dataclasses.replace(
             self._as_query(self._with_region(name, query, region)), index="z2")
-        plan = self._fresh_plan(name, q)
+        st, q, plan = self._cache_args(name, q)
         if bbox is None:
             bbox = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
         window, snapped = self._snap_blocks(bbox, level)
-        return self._executor(name).density_curve(plan, level, window, weight), snapped
+        return self.cache.density_curve(self, st, q, plan, level, window, weight), snapped
 
     @staticmethod
     def _snap_blocks(bbox, level: int):
@@ -1202,9 +1243,9 @@ class GeoDataset:
         """Exact statistics of the matches, from the stat DSL
         (``Count();MinMax(a);Histogram(a,bins,lo,hi);...``). ``region``:
         optional polygon clipping the matches."""
-        plan = self._fresh_plan(name, self._with_region(name, query, region))
-        stat = parse_stat(stat_spec)
-        return self._executor(name).stats(plan, stat)
+        st, q, plan = self._cache_args(name, self._with_region(name, query, region))
+        parse_stat(stat_spec)  # validate the spec before any scan
+        return self.cache.stats(self, st, q, plan, stat_spec)
 
     def unique(self, name: str, attribute: str, query="INCLUDE") -> List:
         """Distinct values, sorted (None last)."""

@@ -208,3 +208,38 @@ JOURNAL_SEGMENT_BYTES = SystemProperty("geomesa.journal.segment.bytes", str(8 <<
 
 #: allow ``resilience.inject_faults`` scopes (tests and crash drills)
 FAULT_INJECTION = SystemProperty("geomesa.fault.injection", "false")
+
+#: the aggregate result cache (``cache/``): count, density, density_curve
+#: and stats answer through it (default off)
+CACHE_ENABLED = SystemProperty("geomesa.cache.enabled", "false")
+
+#: bytes of cached aggregates kept per feature store (size-aware LRU)
+CACHE_BUDGET_BYTES = SystemProperty("geomesa.cache.budget.bytes", str(64 << 20))
+
+#: a decomposed query covers at most this many grid cells per axis of its
+#: box (the cell level adapts to the box's span)
+CACHE_CELLS_PER_AXIS = SystemProperty("geomesa.cache.cells-per-axis", "8")
+
+#: finest cell level a decomposition may choose
+CACHE_MAX_LEVEL = SystemProperty("geomesa.cache.max.level", "12")
+
+#: interior cells per decomposed query beyond which the query caches its
+#: whole result only
+CACHE_MAX_CELLS = SystemProperty("geomesa.cache.max.cells", "256")
+
+#: a missing cell assembles from its four cached children, and a completed
+#: sibling quad writes its parent on put
+CACHE_HIERARCHY = SystemProperty("geomesa.cache.hierarchy", "true")
+
+#: levels an on-miss assembly may recurse down looking for cached children
+CACHE_HIERARCHY_DEPTH = SystemProperty("geomesa.cache.hierarchy.depth", "2")
+
+#: polygon-region queries split into interior cells (cached) and boundary
+#: cells (scanned under the polygon); off caches their whole result only
+CACHE_POLYGON = SystemProperty("geomesa.cache.polygon", "true")
+
+#: distinct (schema, cell) rows the cell-heat table keeps ("0" disables it)
+HEAT_CELLS_MAX = SystemProperty("geomesa.heat.cells", "4096")
+
+#: hottest rows a heat snapshot returns per schema
+HEAT_TOP = SystemProperty("geomesa.heat.top", "256")

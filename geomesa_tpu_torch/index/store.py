@@ -14,6 +14,7 @@ Each table uploads the columns a query reads on its first query.
 
 from __future__ import annotations
 
+import itertools
 import time
 import uuid
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -383,7 +384,12 @@ class FeatureStore:
     """Every index table, the write buffer, the dictionaries and the
     sketches of one schema on one device."""
 
+    _uids = itertools.count()
+
     def __init__(self, ft: FeatureType, n_shards: int, device: torch.device):
+        #: process-unique id: the aggregate cache scopes its entries by
+        #: ``(uid, version)``, and ``id()`` can be recycled after GC
+        self.uid = next(FeatureStore._uids)
         self.ft = ft
         self.n_shards = n_shards
         self.device = device

@@ -1,0 +1,293 @@
+"""Process-wide metrics registry: counters, gauges, histograms and timers.
+
+Copy of the core of ``geomesa_tpu/metrics.py`` (the geomesa-metrics
+analog): the metric kinds, ``MetricRegistry`` with ``report`` /
+``clear``, the process registry with the ``inc`` / ``observe``
+shorthands, and the names the aggregate cache, the cell-heat table and
+the executor's dispatch count use. The names equal the JAX package's, so
+one name reads the same count in both packages. The registry is per
+process, like the reference's.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+
+class Counter:
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1):
+        with self._lock:
+            self.value += n
+
+
+class Gauge:
+    """A sampled value, set explicitly or backed by a callable. Replacing
+    an installed callable needs ``replace=True``."""
+
+    def __init__(self, fn: Optional[Callable[[], float]] = None):
+        self._lock = threading.Lock()
+        self.fn = fn
+        self._value = 0.0
+
+    def set(self, v: float):
+        with self._lock:
+            self._value = float(v)
+
+    def set_fn(self, fn: Callable[[], float], replace: bool = False) -> None:
+        """Install (or explicitly replace) the callable backing."""
+        with self._lock:
+            if self.fn is not None and self.fn is not fn and not replace:
+                raise ValueError(
+                    "gauge is already callable-backed; pass replace=True to "
+                    "swap the backing function"
+                )
+            self.fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self.fn
+            if fn is None:
+                return self._value
+        return float(fn())  # sampled outside the lock: fn may be slow
+
+
+#: fixed histogram bucket upper bounds (seconds)
+DEFAULT_BUCKETS_S: Tuple[float, ...] = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+
+class Histogram:
+    """Fixed-bucket histogram, latency buckets (seconds) by default; pass
+    ``buckets`` and ``unit=None`` for a dimensionless distribution.
+    ``observe(seconds, trace_id=...)`` keeps the trace id as the bucket's
+    exemplar (last writer wins)."""
+
+    __slots__ = ("buckets", "counts", "count", "sum_s", "unit", "exemplars",
+                 "_lock")
+
+    def __init__(self, buckets: Optional[Tuple[float, ...]] = None,
+                 unit: Optional[str] = "s"):
+        self.unit = unit
+        self.buckets = tuple(buckets or DEFAULT_BUCKETS_S)
+        self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf overflow
+        self.count = 0
+        self.sum_s = 0.0
+        #: bucket index -> (trace_id, value, unix_ts); None until first use
+        self.exemplars: Optional[Dict[int, Tuple[str, float, float]]] = None
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float, trace_id: Optional[str] = None):
+        i = bisect.bisect_left(self.buckets, seconds)
+        with self._lock:
+            self.counts[i] += 1
+            self.count += 1
+            self.sum_s += seconds
+            if trace_id is not None:
+                if self.exemplars is None:
+                    self.exemplars = {}
+                self.exemplars[i] = (trace_id, seconds, time.time())
+
+    def quantile(self, q: float) -> float:
+        """Approximate quantile: the upper bound of the bucket holding the
+        q-th observation (+Inf resolves to the largest finite bound)."""
+        with self._lock:
+            total = self.count
+            counts = list(self.counts)
+        if total == 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            cum += c
+            if cum >= rank:
+                return self.buckets[min(i, len(self.buckets) - 1)]
+        return self.buckets[-1]
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            counts = list(self.counts)
+            total, s = self.count, self.sum_s
+            ex = dict(self.exemplars) if self.exemplars else {}
+        return {"count": total, "sum_s": s, "counts": counts,
+                "buckets": list(self.buckets), "exemplars": ex}
+
+
+class Timer:
+    """Count, total and max duration, and a latency histogram. Use
+    ``with timer.time():``."""
+
+    __slots__ = ("count", "total_s", "max_s", "hist", "_lock")
+
+    def __init__(self):
+        self.count = 0
+        self.total_s = 0.0
+        self.max_s = 0.0
+        self.hist = Histogram()
+        self._lock = threading.Lock()
+
+    def update(self, seconds: float):
+        with self._lock:
+            self.count += 1
+            self.total_s += seconds
+            self.max_s = max(self.max_s, seconds)
+        self.hist.observe(seconds)
+
+    def time(self):
+        return _TimerContext(self)
+
+    @property
+    def mean_s(self) -> float:
+        return self.total_s / self.count if self.count else 0.0
+
+
+class _TimerContext:
+    def __init__(self, timer: Timer):
+        self.timer = timer
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.update(time.perf_counter() - self._t0)
+        return False
+
+
+class MetricRegistry:
+    def __init__(self, prefix: str = "geomesa"):
+        self.prefix = prefix
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, name: str, cls, *args):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(*args)
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} already registered as {type(m).__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str, fn: Optional[Callable[[], float]] = None,
+              replace: bool = False) -> Gauge:
+        """A named gauge; ``fn`` installs a callable backing (replacing a
+        different one needs ``replace=True``)."""
+        g = self._get(name, Gauge)
+        if fn is not None:
+            g.set_fn(fn, replace=replace)
+        return g
+
+    def timer(self, name: str) -> Timer:
+        return self._get(name, Timer)
+
+    def histogram(self, name: str, buckets: Optional[Tuple[float, ...]] = None,
+                  unit: Optional[str] = "s") -> Histogram:
+        """A named histogram; ``buckets`` / ``unit`` apply on first
+        registration only."""
+        return self._get(name, Histogram, buckets, unit)
+
+    def report(self) -> Dict[str, object]:
+        out: Dict[str, object] = {}
+        with self._lock:
+            items = list(self._metrics.items())
+        for name, m in items:
+            if isinstance(m, Counter):
+                out[name] = m.value
+            elif isinstance(m, Gauge):
+                out[name] = m.value
+            elif isinstance(m, Timer):
+                out[name] = {
+                    "count": m.count, "total_s": m.total_s,
+                    "mean_s": m.mean_s, "max_s": m.max_s,
+                    "p50_s": m.hist.quantile(0.5),
+                    "p99_s": m.hist.quantile(0.99),
+                }
+            elif isinstance(m, Histogram):
+                snap = m.snapshot()
+                out[name] = {
+                    "count": snap["count"], "sum_s": snap["sum_s"],
+                    "p50_s": m.quantile(0.5), "p90_s": m.quantile(0.9),
+                    "p99_s": m.quantile(0.99),
+                }
+        return out
+
+    def clear(self):
+        with self._lock:
+            self._metrics.clear()
+
+
+_REGISTRY = MetricRegistry()
+
+
+def registry() -> MetricRegistry:
+    return _REGISTRY
+
+
+def inc(name: str, n: int = 1) -> None:
+    """Bump a counter of the process registry."""
+    _REGISTRY.counter(name).inc(n)
+
+
+def observe(name: str, seconds: float,
+            trace_id: Optional[str] = None) -> None:
+    """Record one latency observation into a process-registry histogram,
+    with an optional exemplar ``trace_id``."""
+    _REGISTRY.histogram(name).observe(seconds, trace_id)
+
+
+# Aggregate-cache names (cache/store.py, cache/service.py, lake/persist.py):
+#   cache.hit          whole-result hits (no scan at all)
+#   cache.partial      partial-cover hits (only the missing cells scanned)
+#   cache.miss         queries that found nothing reusable
+#   cache.put          entries admitted
+#   cache.evict        entries evicted by the size-aware LRU
+#   cache.invalidate   entries dropped by an epoch bump or an explicit drop
+#   cache.bytes        resident cached bytes (gauge)
+#   cache.entries      resident entry count (gauge)
+#   cache.hierarchy.hit       cells served by assembling cached children
+#   cache.hierarchy.promote   coarse entries written by assembly or roll-up
+#   cache.hierarchy.residual  cells that fell through to a scan after an
+#                             assembly attempt found no children
+#   cache.polygon             queries decomposed into interior and
+#                             boundary cells of a polygon region
+#   cache.curve.region        density_curve queries whose chunk loop split
+#                             into polygon chunk families
+#   cache.persist.restored    entries re-admitted by ``restore_cache``
+CACHE_HIT = "cache.hit"
+CACHE_PARTIAL = "cache.partial"
+CACHE_MISS = "cache.miss"
+CACHE_PUT = "cache.put"
+CACHE_EVICT = "cache.evict"
+CACHE_INVALIDATE = "cache.invalidate"
+CACHE_BYTES = "cache.bytes"
+CACHE_ENTRIES = "cache.entries"
+CACHE_HIER_HIT = "cache.hierarchy.hit"
+CACHE_HIER_PROMOTE = "cache.hierarchy.promote"
+CACHE_HIER_RESIDUAL = "cache.hierarchy.residual"
+CACHE_POLYGON = "cache.polygon"
+CACHE_CURVE_REGION = "cache.curve.region"
+CACHE_PERSIST_RESTORED = "cache.persist.restored"
+#   exec.device.dispatch   device scans the executors launched (a warm
+#                          zoom-out served by the cache launches none)
+EXEC_DEVICE_DISPATCH = "exec.device.dispatch"
+# Cell-heat table (heat.py):
+#   heat.cells     gauge: distinct (schema, cell) rows in the table
+#   heat.evicted   rows dropped by the table's size bound
+HEAT_CELLS = "heat.cells"
+HEAT_EVICTED = "heat.evicted"

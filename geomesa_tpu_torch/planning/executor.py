@@ -58,7 +58,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, metrics
 from geomesa_tpu_torch.curves.zorder import interleave2
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
@@ -431,6 +431,7 @@ class Executor:
         """Window mask & coarse predicate on the device over the padded
         [S, L] layout; the sorted-order positions it keeps, on the host."""
         cols = setup["table"].device_columns(setup["needed"])
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
         m = (self._padded_window_mask(setup) & plan.compiled(cols, torch)).cpu().numpy()
         return self._positions(setup, np.flatnonzero(m))
 
@@ -527,6 +528,9 @@ class Executor:
             self._maybe_compact(plan, setup)
         else:
             setup["compact"] = None
+        # one observable unit of device work (the reference's count at its
+        # device scan): a call the cache serves whole launches none
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
         cols, m = self._fused(plan, setup, agg_cols)
         d = setup["compact"]
         self._note(plan, **{path_key: "device-compact" if d is not None
@@ -985,6 +989,8 @@ class Executor:
         res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
         for p in plans:
             self._note(p, scan="device-batch", batch=len(plans))
+        # one dispatch for the whole batch, as the reference counts it
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
         outs = []
         for m, su in enumerate(bs["setups"]):
             if su is None:

@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, metrics
 from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
 from geomesa_tpu_torch.kernels import join as kjoin
 
@@ -495,6 +495,7 @@ def _run_slice(plan: JoinPlan, sec: TileSection, lx32, ly32, rx32, ry32,
         sec, 0, sec.n_tiles, lx32, ly32, rx32, ry32, lz32, rz32
     )
     ops = _on(device, lxb, lyb, rxb, ryb, lval, rval, lzb, rzb)
+    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
     m, counts = kjoin.pair_tiles(*ops[:6], plan.predicate, plan.p0, plan.p1,
                                  want_mask=want_pairs, lzb=ops[6], rzb=ops[7])
     n = int(counts[:C].sum())
@@ -525,6 +526,7 @@ def _run_brute_slice(plan: JoinPlan, lo: int, hi: int, lx32, ly32,
     lzv = None if lz32 is None else lz32[lidx]
     rzv = None if rz32 is None else rz32[ridx]
     ops = _on(device, lx32[lidx], ly32[lidx], rx32[ridx], ry32[ridx], lzv, rzv)
+    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
     m, n = kjoin.pair_flat(*ops[:4], K, plan.predicate, plan.p0, plan.p1,
                            want_mask=want_pairs, lzv=ops[4], rzv=ops[5])
     n = int(n)
@@ -759,5 +761,6 @@ def _run_poly_slice(rows: np.ndarray, px32, py32, tables, predicate: str, device
     idx = np.zeros(Np, np.int64)
     idx[:K] = rows
     pxv, pyv = _on(device, px32[idx], py32[idx])
+    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
     verdict = kjoin.polygon_verdict(pxv, pyv, tables, predicate)
     return verdict[:K].cpu().numpy()

@@ -54,6 +54,16 @@ KNOBS = {
     "JOURNAL_GROUP_MS": "JOURNAL_GROUP_MS",
     "JOURNAL_SEGMENT_BYTES": "JOURNAL_SEGMENT_BYTES",
     "FAULT_INJECTION": "FAULT_INJECTION",
+    "CACHE_ENABLED": "CACHE_ENABLED",
+    "CACHE_BUDGET_BYTES": "CACHE_BUDGET_BYTES",
+    "CACHE_CELLS_PER_AXIS": "CACHE_CELLS_PER_AXIS",
+    "CACHE_MAX_LEVEL": "CACHE_MAX_LEVEL",
+    "CACHE_MAX_CELLS": "CACHE_MAX_CELLS",
+    "CACHE_HIERARCHY": "CACHE_HIERARCHY",
+    "CACHE_HIERARCHY_DEPTH": "CACHE_HIERARCHY_DEPTH",
+    "CACHE_POLYGON": "CACHE_POLYGON",
+    "HEAT_CELLS_MAX": "HEAT_CELLS_MAX",
+    "HEAT_TOP": "HEAT_TOP",
 }
 
 

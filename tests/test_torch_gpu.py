@@ -1141,3 +1141,57 @@ def test_partitioned_checkpoint_on_the_card(cuda, tmp_path):
     np.testing.assert_array_equal(
         loaded.density("t", box, bbox=BBOX, width=512, height=512),
         gpu.density("t", box, bbox=BBOX, width=512, height=512))
+
+
+# -- slice 11: the aggregate cache on the card --------------------------------------
+def _dispatches():
+    from geomesa_tpu_torch import metrics
+
+    return metrics.registry().counter(metrics.EXEC_DEVICE_DISPATCH).value
+
+
+def test_cache_zoom_out_on_the_card_launches_nothing(cuda):
+    """bench.py's zoom-out with the cache on: the quadrants warm the cells
+    on the card, the domain count then launches nothing and equals the
+    cache-off scans on the card and on the CPU."""
+    from geomesa_tpu_torch import config
+
+    gpu, cpu = _datasets(cuda, 200_000, seed=21)
+    quads = [f"BBOX(geom, {b}) AND {DURING}" for b in (
+        "-180, -90, 0, 0", "0, -90, 180, 0", "-180, 0, 0, 90", "0, 0, 180, 90")]
+    zoom = f"BBOX(geom, -180, -90, 180, 90) AND {DURING}"
+    want = gpu.count("t", zoom)
+    assert want == cpu.count("t", zoom) > 0
+    with config.CACHE_ENABLED.scoped("true"), config.CACHE_CELLS_PER_AXIS.scoped(4):
+        d0 = _dispatches()
+        assert [gpu.count("t", q) for q in quads] == [cpu.count("t", q) for q in quads]
+        assert _dispatches() > d0
+        d0 = _dispatches()
+        assert gpu.count("t", zoom) == want
+        assert _dispatches() == d0
+        hits, total = map(int, gpu._plan("t", zoom).exec_path["cache_cells"].split("/"))
+        assert hits == total > 0
+
+
+def test_cache_polygon_region_through_pip_on_the_card(cuda):
+    """A polygon region with the cache on: interior cells cached, the
+    boundary scanned through pip.cu; count and density bit-identical to
+    the cache-off scans, the warm repeat a whole-result hit."""
+    from geomesa_tpu_torch import config
+
+    gpu, cpu = _datasets(cuda, 200_000, seed=23)
+    poly = _ngon(64, -95, 37, 8)
+    off = (gpu.count("t", DURING, region=poly),
+           gpu.density("t", DURING, bbox=BBOX, width=256, height=256, region=poly))
+    assert off[0] == cpu.count("t", DURING, region=poly) > 0
+    with config.CACHE_ENABLED.scoped("true"):
+        before = kpip.launches
+        n = gpu.count("t", DURING, region=poly)
+        path = gpu._plan("t", gpu._with_region("t", DURING, poly)).exec_path
+        assert path["cache_region"] == "polygon" and path["cache_boundary_cells"] > 0
+        assert kpip.launches > before
+        g = gpu.density("t", DURING, bbox=BBOX, width=256, height=256, region=poly)
+        d0 = _dispatches()
+        assert gpu.count("t", DURING, region=poly) == n == off[0]
+        assert _dispatches() == d0
+    np.testing.assert_array_equal(g, off[1])
