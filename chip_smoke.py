@@ -129,9 +129,10 @@ nothing else.)
    reloads on each call): count and density. Each call prints partitions
    pruned and scanned, snapshot writes and reloads, the path each
    partition's scan took, cold (after ``spill_all()``) and warm p50, and a
-   profile's device busy / idle share; the long window's warm calls run
-   with the prefetch pipeline on and off in turns (answers equal to the
-   cold call's), and kNN and the long count print a cProfile. Peak
+   profile's device busy / idle share; the long window's cold call is its
+   prefetch-on sample (each long call reloads its partitions) and one call
+   runs with the prefetch pipeline off (answer equal to the cold call's),
+   and kNN and the long count print a cProfile. Peak
    device memory over the long window is held to (budget + 1) x one whole
    partition's cold peak (pushdown off) + the merge's grids, and spilling every partition
    must give the device memory back. Both kernels' counters are zeroed
@@ -207,9 +208,10 @@ nothing else.)
    ``stats("Count();MinMax(weight)")`` of a 2 x 2 degree box over B's
    interval and over the long window, and the density of a 30 x 20 degree
    box over two days (its pruned child compacts, so it takes the grouped
-   kernel): each cold (after ``spill_all()``), warm, then with
-   ``geomesa.lake.pushdown`` on and off in turns from a cold store (the
-   long window's off answers in one pass with every partition resident),
+   kernel): each cold (after ``spill_all()``: the pushdown-on time from a
+   cold store), warm, then with ``geomesa.lake.pushdown`` off from a cold
+   store (the long window's off answers in one pass with every partition
+   resident),
    with the row groups and bytes loaded of the total and, for a density,
    the kernel each partition took (grouped or scatter); every answer equal
    to the pushdown-off answer and a NumPy f64 oracle, and row groups
@@ -303,8 +305,32 @@ nothing else.)
    panned, and B's polygon count at 2 cells an axis, each equal to cache
    off.
 
+14. Slice 13, the degradation contract and deadlines, no new data. On
+   slice 5's store after slice 11's partitioned part, over B's box and
+   2020-01-12/2020-01-22 (slice 9's age_off emptied B's first week; this
+   window keeps two live weekly partitions): count, the 512x512 density,
+   the polygon count, ``Count();MinMax(weight)`` and the level-9 curve
+   fault-free, then with the window's second partition failing at
+   ``exec.partition.scan``: strict mode raises on each call, under
+   ``allow_partial()`` each answer equals the NumPy oracle over the
+   surviving partition's rows, and the fault-free answers follow
+   unchanged (the count's warm ms healthy and degraded; pip must launch).
+   The long window's count under a 1 s ``geomesa.query.timeout``, strict
+   and partial: ``QueryTimeoutError``, the partitions scanned and how far
+   past the deadline it came. One byte flipped in a spilled partition's
+   lake file: a degraded 2-degree count skips the bin and quarantines it,
+   the next count skips it with no read of its file, and after the byte is
+   restored and ``clear_spill_quarantine`` the count equals the healthy
+   one. One row into a partition of its own (January 2021), spilled
+   through two transient ``OSError``s at ``index.spill.store``: one write,
+   the row read back. On slice 1's flat store, right after slice 11: a 0 ms
+   timeout raises on count and density, strict and partial. In slice 7:
+   the stations join with its largest tile section failing, under
+   ``allow_partial()``, equal to the healthy pairs that the surviving
+   sections and brute ranges test.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8`` to ``launches_slice11``), the card's ``nvidia-smi``
+``launches_slice8`` to ``launches_slice11`` and ``launches_slice13``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -313,6 +339,7 @@ the package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -1898,6 +1925,8 @@ def slice7(args, torch, kpip, kgrouped):
     log(f"[check] region: count {rc} ({len(rpoly.polygons)} parts, "
         f"{sum(len(t[0][0]) for t in r_tables)} edges), density and stats equal the f32 parity "
         f"oracle; checks took {time.perf_counter() - t0:.3f} s")
+    # slice 13: the stations join degraded, one tile section failing
+    s13_join(ds, kw2, res2)
 
     # the pip and grouped density kernels against their plain versions on
     # the region plan's own operands: its scanned rows against each part's
@@ -2148,8 +2177,10 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
         return got
 
     ex.knn_features = traced_knn
-    #: the long window's warm calls: prefetch on (True) and off, in turns
-    turns = {"count_long": (True, False), "density_long": (True, False)}
+    #: the long window's calls after the cold one: prefetch off. Every
+    #: long-window call reloads its partitions (23 against a budget of 4),
+    #: so the cold call, prefetch on, is the on sample
+    turns = {"count_long": (False,), "density_long": (False,)}
 
     #: B's additive unweighted calls reload their pruned row groups every
     #: call under the lake default (0.6-1.3 s on the H100)
@@ -2180,7 +2211,7 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
         cold_io = (st.spills - s0, st.loads - l0)
         s0, l0 = st.spills, st.loads
         if key in turns:
-            walls = {True: [], False: []}
+            walls = {True: [cold * 1e3], False: []}
             for on in turns[key]:
                 ex.prefetch = on
                 try:
@@ -2216,8 +2247,8 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
             f"reloads){'; sort ' + r['sort'] if r['sort'] else ''}; exec_path by "
             f"partition {r['paths']}")
     for key, walls in prefetch.items():
-        log(f"[slice5] {key} prefetch on {walls[True]} ms, off {walls[False]} ms (in turns "
-            f"{['on' if t else 'off' for t in turns[key]]}): mean on "
+        log(f"[slice5] {key} prefetch on {walls[True]} ms (the cold call), off "
+            f"{walls[False]} ms: mean on "
             f"{np.mean(walls[True]):.3f} ms, off {np.mean(walls[False]):.3f} ms; answers "
             "equal to the cold call's")
     up = ex.uploader
@@ -2374,7 +2405,8 @@ def _slice5(args, torch, n, wkt, packed, n_edges, kpip, kgrouped, GeoDataset, Qu
     s10 = slice10_partitioned(args, torch, ds, data, alive, wkt, packed, n_edges, kpip,
                               kgrouped)
     s11 = slice11_partitioned(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped)
-    return launches, s8, s9, s10, s11
+    s13 = slice13(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped)
+    return launches, s8, s9, s10, s11, s13
 
 
 #: slice 8: the curve's full CONUS crop and its level (85 x 72 = 6,120
@@ -2847,9 +2879,10 @@ def s9_codec(torch, st, log_prefix="[slice9]"):
 
 def s9_pushdown(args, torch, ds, data, name, st):
     """Count, unweighted density, unweighted curve and stats of three
-    windows with pushdown on: cold (after spill_all) and warm, then on and
-    off in turns from a cold store, each answer equal to the others and to
-    a NumPy oracle; the row groups and bytes each loaded."""
+    windows with pushdown on: cold (after spill_all; the on timing from a
+    cold store) and warm, then off from a cold store, each answer equal to
+    the others and to a NumPy oracle; the row groups and bytes each
+    loaded."""
     from geomesa_tpu_torch import Query, config
 
     x, y, w = data["geom__x"], data["geom__y"], data["weight"]
@@ -2857,9 +2890,9 @@ def s9_pushdown(args, torch, ds, data, name, st):
     # partition resident (a cold off call reloads every whole partition,
     # about 40 s on the H100), so only its count times off against on
     windows = {
-        "box_b": (S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00", 2, (True, False)),
-        "box_long": (S9_BOX, LONG_LO, LONG_HI, 1, (True,)),
-        "wide_2d": (S9_WIDE, S9_DAYS[0], S9_DAYS[1], 1, (True, False)),
+        "box_b": (S9_BOX, "2020-01-05T00:00:00", "2020-01-15T00:00:00", 2, (False,)),
+        "box_long": (S9_BOX, LONG_LO, LONG_HI, 1, ()),
+        "wide_2d": (S9_WIDE, S9_DAYS[0], S9_DAYS[1], 1, (False,)),
     }
     #: the wide window serves the grouped kernel on a pruned child: its
     #: density alone
@@ -2897,7 +2930,8 @@ def s9_pushdown(args, torch, ds, data, name, st):
             acct = dict(plan.__dict__.get("lake_acct") or {})
             path = dict(plan.exec_path)
             warm = [timed(torch, fn)[1] * 1e3 for _ in range(reps)]
-            walls = {True: [], False: []}
+            # the cold call is the pushdown-on call from a cold store
+            walls = {True: [cold * 1e3], False: []}
             for on in turns:
                 st.spill_all()
                 with config.LAKE_PUSHDOWN.scoped(on):
@@ -2919,8 +2953,8 @@ def s9_pushdown(args, torch, ds, data, name, st):
                 {k: [b for b, p in path["partitions"].items() if p.get("density_kernel") == k]
                  for k in ("grouped", "scatter")})
             log(f"[slice9] {wname} {op}: cold {cold * 1e3:.3f} ms, warm p50 "
-                f"{np.median(warm):.3f} ms ({reps} reps); from a cold store in turns "
-                f"{['on' if t else 'off' for t in turns]}: on {walls[True]} ms, off "
+                f"{np.median(warm):.3f} ms ({reps} reps); from a cold store: on (the cold "
+                f"call) {walls[True]} ms, off "
                 f"{walls[False]} ms; row groups loaded {acct['groups_loaded']}/"
                 f"{acct['groups_total']}, bytes {acct['bytes_loaded']}/"
                 f"{acct['bytes_payload']}; exec_path lake {path.get('lake')!r}, fallback "
@@ -2966,11 +3000,21 @@ def s9_join(args, torch, ds, data, name):
     st = ds._store(name)
     st.spill_all()
     kw = dict(predicate="dwithin", distance=S9_REACH)
-    n, cold = timed(torch, lambda: ds.join_count("stations9", name, **kw))
-    # the warm call: join_count's own body, for its JoinStats
-    res, warm = timed(torch, lambda: ds._join_run(
-        "stations9", name, "dwithin", S9_REACH, None, None, "INCLUDE", "INCLUDE", None,
-        want_pairs=False))
+    # the pushdown count's JoinStats, kept from the call itself
+    real, got = ds._join_pushdown_count, []
+
+    def keep(*a, **k):
+        got.append(real(*a, **k))
+        return got[-1]
+
+    ds._join_pushdown_count = keep
+    try:
+        n, cold = timed(torch, lambda: ds.join_count("stations9", name, **kw))
+    finally:
+        del ds._join_pushdown_count
+    if not got:
+        raise AssertionError("the join count did not take the pushdown path")
+    stats = got[0][2]
     x, y = data["geom__x"], data["geom__y"]
     pad = 0.01
     near = np.flatnonzero((x >= NYC[0] - pad) & (x <= NYC[2] + pad)
@@ -2978,15 +3022,15 @@ def s9_join(args, torch, ds, data, name):
     p0, p1 = kjoin.pair_params("dwithin", distance=S9_REACH)
     brute = len(kjoin.brute_force_pairs(stations["geom__x"], stations["geom__y"],
                                         x[near], y[near], "dwithin", p0, p1))
-    if not n == res.count == brute:
-        raise AssertionError(f"join pushdown count {n} / {res.count} != brute force {brute}")
-    if not res.stats.pushdown or not res.stats.pushdown.get("chunks"):
+    if not n == stats.matched == brute:
+        raise AssertionError(f"join pushdown count {n} / {stats.matched} != brute force {brute}")
+    if not stats.pushdown or not stats.pushdown.get("chunks"):
         raise AssertionError("the join count did not take the pushdown path")
     log(f"[slice9] join_count stations9 x {name} by dwithin {S9_REACH}: {n} pairs "
         f"(NumPy brute force over the {len(near)} right rows in NYC's box: {brute}); cold "
-        f"{cold * 1e3:.3f} ms, warm {warm * 1e3:.3f} ms; JoinStats.pushdown {res.stats.pushdown}; "
-        f"cells joint {res.stats.cells_joint}, candidate pairs {res.stats.candidate_pairs}, "
-        f"right rows scanned {res.stats.n_right}")
+        f"{cold * 1e3:.3f} ms; JoinStats.pushdown {stats.pushdown}; "
+        f"cells joint {stats.cells_joint}, candidate pairs {stats.candidate_pairs}, "
+        f"right rows scanned {stats.n_right}")
     ds.delete_schema("stations9")
     return n
 
@@ -4188,6 +4232,311 @@ def slice11_partitioned(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgro
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the degradation contract and deadlines
+# ---------------------------------------------------------------------------
+
+#: B moved one week later: slice 9's age_off at 2020-01-09 emptied B's first
+#: week, and this window keeps two live weekly partitions
+S13_LO, S13_HI = "2020-01-12T00:00:00", "2020-01-22T00:00:00"
+S13_LEVEL = 9
+#: the long window's deadline
+S13_TIMEOUT_S = 1.0
+#: where the spill-retry check's one row goes (outside every query box)
+S13_ROW_XY = (-124.4, 48.4)
+
+
+def s13_check(label, key, got, want):
+    """``got`` equal to the oracle ``want``: counts, the unweighted grid and
+    the curve exactly, the stats' count and f32 min / max exactly."""
+    if key == "stats":
+        c, mm = got.stats[0].value(), got.stats[1].value()
+        ok = [c, mm["min"], mm["max"]] == want
+    elif key in ("density", "curve"):
+        ok = np.array_equal(np.asarray(got, np.float64), want)
+    else:
+        ok = got == want
+    if not ok:
+        raise AssertionError(f"[slice13] {label} {key}: differs from the oracle over the "
+                             "surviving rows")
+
+
+def slice13(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped, name="gdelt5"):
+    """The slice-13 phase on slice 5's store after slice 11's partitioned
+    part (see the module docstring, 14). Returns the launches of its
+    calls."""
+    from geomesa_tpu_torch import config, resilience
+    from geomesa_tpu_torch.filter.ecql import parse_iso_ms
+    from geomesa_tpu_torch.lake.snapshot import PartitionSnapshot
+    from geomesa_tpu_torch.resilience import InjectedFault, QueryTimeoutError
+
+    t_phase = time.perf_counter()
+    st = ds._store(name)
+    during = f"dtg DURING {S13_LO}Z/{S13_HI}Z"
+    q = f"{BOX} AND {during}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {during}"
+    # the oracle rows: the window's surviving rows and the bin of each
+    sub = np.flatnonzero(time_mask(data, S13_LO, S13_HI) & alive)
+    part = {k: v[sub] for k, v in data.items()}
+    rbins = np.asarray(st.binned.to_bin_and_offset(part["dtg"].astype(np.int64))[0])
+    live = sorted(b for b in set(rbins.tolist()) if st.part_counts.get(b))
+    if len(live) != 2:
+        raise AssertionError(f"[slice13] the window holds live partitions {live}, want two")
+    dead = live[1]
+    in_poly = polygon_rows(part, np.ones(len(sub), bool), packed, n_edges)
+    window, _ = ds._snap_blocks(QUERY_BBOX, S13_LEVEL)
+    x, y = part["geom__x"], part["geom__y"]
+    xmin, ymin, xmax, ymax = QUERY_BBOX
+    in_box = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+
+    def oracle(keep):
+        m = keep & in_box
+        w = part["weight"][m]
+        return {"count": int(m.sum()), "density": density_oracles(part, keep)[0],
+                "count_polygon": int((in_poly & keep).sum()),
+                "stats": [int(m.sum()), float(w.min()), float(w.max())],
+                "curve": curve_oracle(x[m], y[m], None, S13_LEVEL, window)}
+
+    healthy = oracle(np.ones(len(sub), bool))
+    degraded = oracle(rbins != dead)
+    calls = {
+        "count": lambda: ds.count(name, q),
+        "density": lambda: ds.density(name, q, bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT),
+        "count_polygon": lambda: ds.count(name, q_poly),
+        "stats": lambda: ds.stats(name, S9_STATS, q),
+        "curve": lambda: ds.density_curve(name, q, level=S13_LEVEL, bbox=QUERY_BBOX)[0],
+    }
+    kpip.launches = 0
+    kgrouped.launches = 0
+    # 1. one of the window's two partitions failing at exec.partition.scan:
+    # strict mode raises, partial mode answers over the survivor, and the
+    # fault-free answers follow, equal to the oracle over both
+    fault = dict(times=None, where=lambda c: c.get("bin") == dead)
+    raised = 0
+    walls = {}
+    with config.FAULT_INJECTION.scoped("true"), resilience.inject_faults(seed=13) as inj:
+        inj.fail("exec.partition.scan", **fault)
+        for key, fn in calls.items():
+            try:
+                fn()
+            except InjectedFault:
+                raised += 1
+        for key, fn in calls.items():
+            with resilience.allow_partial() as partial:
+                got, walls[key, "degraded"] = timed(torch, fn)
+            if [s.part for s in partial.skipped] != [f"bin:{dead}"]:
+                raise AssertionError(f"[slice13] degraded {key} skipped {partial.skipped}")
+            s13_check("degraded", key, got, degraded[key])
+    if raised != len(calls):
+        raise AssertionError(f"[slice13] strict mode raised on {raised} of {len(calls)} calls")
+    for key, fn in calls.items():
+        got, walls[key, "healthy"] = timed(torch, fn)
+        s13_check("after", key, got, healthy[key])
+    healthy_ms, degraded_ms = (walls["count", k] * 1e3 for k in ("healthy", "degraded"))
+    per_call = {k: (round(walls[k, "healthy"] * 1e3, 3), round(walls[k, "degraded"] * 1e3, 3))
+                for k in calls}
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    if launches["pip"] <= 0:
+        raise AssertionError(f"[slice13] the polygon counts never launched pip: {launches}")
+    log(f"[slice13] window {S13_LO}/{S13_HI} over partitions {live}, bin {dead} failing at "
+        f"exec.partition.scan: strict mode raised on all {len(calls)} calls; under "
+        f"allow_partial() count {degraded['count']} of {healthy['count']}, polygon "
+        f"{degraded['count_polygon']} of {healthy['count_polygon']}, the 512x512 density, "
+        f"Count();MinMax(weight) and the level-{S13_LEVEL} curve equal the NumPy oracle over "
+        f"the surviving partition, and the fault-free answers after them equal the oracle "
+        f"over both partitions; "
+        f"warm count healthy {healthy_ms:.3f} ms, degraded {degraded_ms:.3f} ms; launches "
+        f"{launches}; warm ms of each call healthy / degraded {per_call}")
+
+    # 2. the deadline: the long window's count under geomesa.query.timeout
+    q_long = f"{BOX} AND {LONG}"
+    for mode in ("strict", "partial"):
+        seen = []
+        with config.FAULT_INJECTION.scoped("true"), resilience.inject_faults() as inj, \
+                config.QUERY_TIMEOUT.scoped(f"{int(S13_TIMEOUT_S * 1000)} ms"):
+            inj.fail("exec.partition.scan", times=None,
+                     where=lambda c: seen.append(c["bin"]) and False)
+            with (resilience.allow_partial() if mode == "partial"
+                  else contextlib.nullcontext()) as partial:
+                t0 = time.perf_counter()
+                try:
+                    ds.count(name, q_long)
+                except QueryTimeoutError:
+                    late = time.perf_counter() - t0 - S13_TIMEOUT_S
+                else:
+                    raise AssertionError(f"[slice13] the long window's {mode} count beat "
+                                         f"a {S13_TIMEOUT_S} s deadline")
+        if partial is not None and partial.skipped:
+            raise AssertionError(f"[slice13] a deadline was degraded: {partial.skipped}")
+        log(f"[slice13] long window count under geomesa.query.timeout {S13_TIMEOUT_S} s "
+            f"({mode}): QueryTimeoutError after {len(seen)} of {len(st.partition_bins())} "
+            f"partitions scanned, {late * 1e3:.3f} ms past the deadline")
+
+    # 3. quarantine: one flipped byte in a spilled partition's lake file
+    q_small = s9_query(S9_BOX, S13_LO, S13_HI)
+    small = int(s9_box_rows(data, S9_BOX, S13_LO, S13_HI, alive).sum())
+    qb = next((b for b in live if b in st.spilled), None)
+    if qb is None:
+        qb = live[0]
+        with st._part_lock:
+            st._spill(qb)
+    d = st.spilled[qb]
+    snap = PartitionSnapshot(d)
+    lo, hi = float(parse_iso_ms(S13_LO)), float(parse_iso_ms(S13_HI))
+    g = snap.prune([S9_BOX], [(lo, hi)])[0]
+    off = snap.file.blobs[snap.groups[g]["cols"]["c/geom__x"]["b"]][0] + 3
+    path = snap.file.path
+    snap.file.close()
+    with open(path, "r+b") as fh:
+        fh.seek(off)
+        byte = fh.read(1)
+        fh.seek(off)
+        fh.write(bytes([byte[0] ^ 0x5A]))
+    keep_small = s9_box_rows(data, S9_BOX, S13_LO, S13_HI, alive)
+    qbins = np.asarray(st.binned.to_bin_and_offset(
+        data["dtg"][keep_small].astype(np.int64))[0])
+    want_q = int((qbins != qb).sum())
+    try:
+        with resilience.allow_partial() as partial:
+            got1 = ds.count(name, q_small)
+        reads = []
+        with config.FAULT_INJECTION.scoped("true"), resilience.inject_faults() as inj:
+            inj.fail("lake.read", times=None, where=lambda c: reads.append(c["path"]) and False)
+            with resilience.allow_partial() as again:
+                got2 = ds.count(name, q_small)
+    finally:
+        with open(path, "r+b") as fh:
+            fh.seek(off)
+            fh.write(byte)
+    if [s.part for s in partial.skipped] != [f"bin:{qb}"] or got1 != want_q \
+            or list(st.spill_quarantine()) != [qb]:
+        raise AssertionError(f"[slice13] corrupt bin {qb}: count {got1} (oracle {want_q}), "
+                             f"skipped {partial.skipped}, quarantine {st.spill_quarantine()}")
+    if got2 != want_q or [s.part for s in again.skipped] != [f"bin:{qb}"] \
+            or any(r == path for r in reads):
+        raise AssertionError(f"[slice13] the quarantined bin {qb} was read again or answered "
+                             f"{got2}")
+    if st.clear_spill_quarantine(qb) != [qb] or ds.count(name, q_small) != small:
+        raise AssertionError("[slice13] the repaired bin's answers differ from the healthy ones")
+    log(f"[slice13] one byte flipped in bin {qb}'s lake file (row group {g}'s c/geom__x "
+        f"blob): the 2-degree count skipped it ({partial.skipped[0].source}, phase "
+        f"{partial.skipped[0].phase}) with {got1} of {small} rows, quarantined; the next count "
+        f"skipped it again ({again.skipped[0].source}) with {len(reads)} lake reads, none of "
+        f"bin {qb}; byte restored, clear_spill_quarantine, the count equals the healthy one")
+
+    # 4. spill retries: two transient OSErrors at index.spill.store, on a
+    # one-row partition of its own (a week past the data), so the write
+    # retried is one small snapshot
+    day = "2021-01-06"
+    row = {"geom__x": np.array([S13_ROW_XY[0]]), "geom__y": np.array([S13_ROW_XY[1]]),
+           "dtg": np.array([f"{day}T12:00:00"], "datetime64[ms]"),
+           "weight": np.array([0.5], np.float32)}
+    if st.ft.has("tag"):  # slice 9's update_schema added it
+        row["tag"] = np.array([0], np.int32)
+    ds.insert(name, row, fids=["s13_row"])
+    ds.flush(name)
+    b = int(st.binned.to_bin_and_offset(row["dtg"].astype(np.int64))[0][0])
+    spills = st.spills
+    with config.FAULT_INJECTION.scoped("true"), resilience.inject_faults() as inj:
+        rule = inj.fail("index.spill.store", OSError("transient write error"), times=2,
+                        where=lambda c: c.get("bin") == b)
+        t0 = time.perf_counter()
+        with st._part_lock:
+            st._spill(b)
+        spill_s = time.perf_counter() - t0
+    spilled = b in st.spilled and b not in st.partitions
+    x0, y0 = S13_ROW_XY
+    q_row = (f"BBOX(geom, {x0 - 0.01}, {y0 - 0.01}, {x0 + 0.01}, {y0 + 0.01}) AND "
+             f"dtg DURING {day}T00:00:00Z/{day}T23:59:59Z")
+    n_row = ds.count(name, q_row)
+    if rule.hits != 2 or not spilled or st.spills != spills + 1 or n_row != 1:
+        raise AssertionError(f"[slice13] spill retries: {rule.hits} faults, bin {b} spilled "
+                             f"{spilled}, writes {st.spills - spills}, row read back {n_row}")
+    log(f"[slice13] a one-row partition {b}, spilled through two transient OSErrors at "
+        f"index.spill.store in {spill_s:.3f} s: one snapshot write, the partition spilled, "
+        f"the row read back")
+    log(f"[slice13] the phase took {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+def slice13_flat(ds, name="gdelt"):
+    """``geomesa.query.timeout`` 0ms on slice 1's flat store: count and the
+    512x512 density raise ``QueryTimeoutError``, under ``allow_partial()``
+    too."""
+    from geomesa_tpu_torch import config, resilience
+    from geomesa_tpu_torch.resilience import QueryTimeoutError
+
+    q = f"{BOX} AND {DURING}"
+    outcomes = []
+    for partial in (False, True):
+        for key, fn in (("count", lambda: ds.count(name, q)),
+                        ("density", lambda: ds.density(name, q, bbox=QUERY_BBOX, width=WIDTH,
+                                                       height=HEIGHT))):
+            with config.QUERY_TIMEOUT.scoped("0ms"), \
+                    (resilience.allow_partial() if partial else contextlib.nullcontext()):
+                try:
+                    fn()
+                except QueryTimeoutError:
+                    outcomes.append(key)
+                    continue
+            raise AssertionError(f"[slice13] flat {key} answered under a 0 ms timeout")
+    log(f"[slice13] flat store, geomesa.query.timeout 0ms: {outcomes} raised "
+        "QueryTimeoutError, strict and under allow_partial()")
+
+
+def s13_join(ds, kw, healthy):
+    """One degraded ``join_spatial`` (``kw``, slice 7's stations join) with
+    its largest tile section (by padded pair slots) failing: the section is
+    skipped under ``allow_partial()``, and the pairs are the healthy join's
+    that the other sections and the brute ranges test. Each candidate pair
+    is tested in exactly one of them, so the oracle reads only the
+    surviving ones' candidates."""
+    from geomesa_tpu_torch import resilience
+    from geomesa_tpu_torch.planning import join_exec
+
+    real = join_exec._run_slice
+    failed = []
+
+    def failing(plan, sec, *a, **k):
+        big = max(plan.sections, key=lambda t: t.n_tiles * t.Bp * t.Pp)
+        if sec is big and not failed:
+            failed.append((plan, sec))
+            raise RuntimeError("injected tile failure")
+        return real(plan, sec, *a, **k)
+
+    join_exec._run_slice = failing
+    try:
+        with resilience.allow_partial() as partial:
+            res = ds.join_spatial("pickups", "stations", **kw)
+    finally:
+        join_exec._run_slice = real
+    if not failed:
+        raise AssertionError("[slice13] the stations join ran no tile section")
+    plan, sec = failed[0]
+    R = healthy._rbatch.n
+    cand = [np.zeros(0, np.int64)]
+    for t in plan.sections:
+        if t is sec or not t.n_tiles:
+            continue
+        # every (left, right) slot of the tiles within their valid counts
+        ok = ((np.arange(t.Bp)[None, :, None] < t.l_valid[:, None, None])
+              & (np.arange(t.Pp)[None, None, :] < t.r_valid[:, None, None]))
+        cand.append((t.l_rows.astype(np.int64)[:, :, None] * R
+                     + t.r_rows.astype(np.int64)[:, None, :])[ok])
+    if plan.n_brute:
+        cand.append(plan.brute_l.astype(np.int64) * R + plan.brute_r.astype(np.int64))
+    keys = healthy.pairs[:, 0] * R + healthy.pairs[:, 1]
+    want = healthy.pairs[np.isin(keys, np.concatenate(cand))]
+    label = f"tiles[0:{sec.n_tiles}]"
+    if res.stats.skipped != [label] or [s.part for s in partial.skipped] != [label] \
+            or not np.array_equal(res.pairs, want) or not res.count == len(want) < healthy.count:
+        raise AssertionError(f"[slice13] degraded stations join: skipped {res.stats.skipped}, "
+                             f"{len(res.pairs)} pairs, oracle {len(want)}")
+    log(f"[slice13] stations join with its {sec.strategy} section ({sec.n_tiles} tiles) "
+        f"failing: skipped {res.stats.skipped}, {res.count} of {healthy.count} pairs, equal "
+        f"to the healthy pairs that the other sections and the brute ranges test")
+
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -4435,6 +4784,8 @@ def main() -> int:
     # -- 13. slice 11: the aggregate cache on slice 1's store ------------------
     s11_flat = slice11(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped,
                        n_bbox, n_poly)
+    # -- slice 13's deadline on the flat store ---------------------------------
+    slice13_flat(ds)
 
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
@@ -4463,13 +4814,14 @@ def main() -> int:
 
     # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
     # calls run on it at the end) ---------------------------------------------
-    _, s8_part, s9_part, s10_part, s11_part = slice5(args, torch, wkt, packed, n_edges, kpip,
-                                                      kgrouped)
+    _, s8_part, s9_part, s10_part, s11_part, s13_part = slice5(
+        args, torch, wkt, packed, n_edges, kpip, kgrouped)
     for k in kernels:
         k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
         k["launches_slice9"] = s9_flat.get(k["name"], 0) + s9_part.get(k["name"], 0)
         k["launches_slice10"] = s10_flat.get(k["name"], 0) + s10_part.get(k["name"], 0)
         k["launches_slice11"] = s11_flat.get(k["name"], 0) + s11_part.get(k["name"], 0)
+        k["launches_slice13"] = s13_part.get(k["name"], 0)
 
     log(f"[main] chip_smoke wall {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

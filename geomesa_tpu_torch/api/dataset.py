@@ -73,7 +73,7 @@ from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
 from geomesa_tpu_torch.planning.batch import build_spec
-from geomesa_tpu_torch.planning.executor import Executor
+from geomesa_tpu_torch.planning.executor import Executor, query_deadline
 from geomesa_tpu_torch.planning.partitioned_exec import PartitionedExecutor
 from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
 from geomesa_tpu_torch.schema.columns import (
@@ -169,10 +169,12 @@ class FeatureCollection:
 
 class SpatialJoinResult:
     """Result of a co-partitioned spatial join: the exact matched-pair
-    total plus a streaming matched-pair view. ``batches()`` streams
-    matched pairs as ColumnBatches of at most ``geomesa.join.batch.rows``
-    rows: left columns verbatim, right columns prefixed ``right.`` (the
-    attribute equi-join's convention)."""
+    total plus a streaming matched-pair view. ``count`` is exact over the
+    completed tile ranges and polygon slices: the full answer unless
+    ``stats.skipped`` lists the ones an ``allow_partial()`` join skipped
+    (``degraded``). ``batches()`` streams matched pairs as ColumnBatches of
+    at most ``geomesa.join.batch.rows`` rows: left columns verbatim, right
+    columns prefixed ``right.`` (the attribute equi-join's convention)."""
 
     def __init__(self, lbatch: ColumnBatch, rbatch: ColumnBatch, pairs,
                  count: int, stats):
@@ -181,6 +183,10 @@ class SpatialJoinResult:
         self.pairs = pairs
         self.count = int(count)
         self.stats = stats
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.stats.skipped)
 
     def batches(self, batch_rows: Optional[int] = None):
         """Yield matched-pair ColumnBatches (chunked: peak memory is one
@@ -920,11 +926,20 @@ class GeoDataset:
         return plan
 
     def _fresh_plan(self, name: str, query) -> QueryPlan:
-        """:meth:`_plan` with its ``exec_path`` cleared for a new call."""
+        """:meth:`_plan` with its per-call state cleared for a new call: the
+        ``exec_path``, the lake account and the ``degraded`` list of skipped
+        partitions (a cached plan never reports an earlier call's skips)."""
         plan = self._plan(name, query)
         plan.__dict__["exec_path"] = {}
         plan.__dict__.pop("lake_acct", None)
+        plan.__dict__.pop("degraded", None)
         return plan
+
+    @staticmethod
+    def _timeout_s() -> Optional[float]:
+        """``geomesa.query.timeout`` in seconds (None: unlimited)."""
+        ms = config.QUERY_TIMEOUT.to_duration_ms()
+        return ms / 1000.0 if ms is not None else None
 
     def _cache_args(self, name: str, query):
         """(store, Query, fresh plan): what the aggregate cache is handed.
@@ -965,7 +980,8 @@ class GeoDataset:
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if not exact:
             return int(plan.est_count)
-        return self.cache.count(self, st, q, plan)
+        with query_deadline(self._timeout_s()):
+            return self.cache.count(self, st, q, plan)
 
     def density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
                 height: int = 256, weight: Optional[str] = None,
@@ -976,7 +992,8 @@ class GeoDataset:
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
-        return self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
+        with query_deadline(self._timeout_s()):
+            return self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
 
     # -- curve-aligned density ------------------------------------------------
     def density_curve(self, name: str, query="INCLUDE", level: int = 9, bbox=None,
@@ -996,7 +1013,9 @@ class GeoDataset:
         if bbox is None:
             bbox = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
         window, snapped = self._snap_blocks(bbox, level)
-        return self.cache.density_curve(self, st, q, plan, level, window, weight), snapped
+        with query_deadline(self._timeout_s()):
+            grid = self.cache.density_curve(self, st, q, plan, level, window, weight)
+        return grid, snapped
 
     @staticmethod
     def _snap_blocks(bbox, level: int):
@@ -1054,7 +1073,8 @@ class GeoDataset:
         self._check_members(members, len(bboxes), "bboxes")
         plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
         windows, snaps = self._curve_windows(name, bboxes, level)
-        grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
+        with query_deadline(self._timeout_s()):
+            grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
         return list(zip(grids, snaps))
 
     def density_curve_filter_batch(self, name: str, queries, level: int = 9, bboxes=None,
@@ -1078,8 +1098,9 @@ class GeoDataset:
         if spec is None:
             return None
         windows, snaps = self._curve_windows(name, bboxes, level)
-        grids = self._executor(name).density_curve_filter_batch(
-            plans, spec, level, windows, weight)
+        with query_deadline(self._timeout_s()):
+            grids = self._executor(name).density_curve_filter_batch(
+                plans, spec, level, windows, weight)
         return None if grids is None else list(zip(grids, snaps))
 
     # -- query-axis batches: M distinct viewports of one structural query
@@ -1120,7 +1141,8 @@ class GeoDataset:
         plans, spec = self._batch_plans(name, queries)
         if spec is None:
             return None
-        return self._executor(name).count_batch(plans, spec)
+        with query_deadline(self._timeout_s()):
+            return self._executor(name).count_batch(plans, spec)
 
     def density_batch(self, name: str, queries, bboxes=None, width: int = 256,
                       height: int = 256, weight: Optional[str] = None,
@@ -1146,7 +1168,9 @@ class GeoDataset:
                     default = self.bounds(name) or (-180, -90, 180, 90)
                 bb = default
             boxes.append(tuple(bb))
-        return self._executor(name).density_batch(plans, spec, boxes, width, height, weight)
+        with query_deadline(self._timeout_s()):
+            return self._executor(name).density_batch(plans, spec, boxes, width, height,
+                                                      weight)
 
     def stats_batch(self, name: str, stat_spec: str, queries,
                     members: Optional[List[Dict[str, Any]]] = None):
@@ -1162,7 +1186,8 @@ class GeoDataset:
         plans, spec = self._batch_plans(name, queries)
         if spec is None:
             return None
-        return self._executor(name).stats_batch(plans, spec, stats)
+        with query_deadline(self._timeout_s()):
+            return self._executor(name).stats_batch(plans, spec, stats)
 
     def query(self, name: str, query="INCLUDE") -> FeatureCollection:
         """Matching features. A sorted query with ``0 < max_features <=``
@@ -1174,26 +1199,8 @@ class GeoDataset:
         plan = self._fresh_plan(name, q)
         st = self._store(name)
         ex = self._executor(name)
-        batch = None
-        topk_max = config.TOPK_MAX.to_int() or 0
-        if q.sort_by and q.max_features is not None and 0 < q.max_features <= topk_max:
-            attr, desc = q.sort_by[0]
-            names = None
-            if q.properties:
-                names = list(q.properties) + [a for a, _ in q.sort_by]
-            ties = len(q.sort_by) > 1
-            if isinstance(ex, PartitionedExecutor):
-                # each partition's candidates; the exact sort below finishes
-                batch = ex.top_batch(plan, attr, desc, q.max_features, names,
-                                     include_ties=ties)
-            else:
-                pos = ex.top_rows(plan, attr, desc, q.max_features, include_ties=ties)
-                if pos is not None:
-                    batch = st.tables[plan.index_name].gather_sorted(pos, names)
-            if batch is not None:
-                plan.exec_path["sort"] = f"device-topk(k={q.max_features})"
-        if batch is None:
-            batch = ex.features(plan)
+        with query_deadline(self._timeout_s()):
+            batch = self._query_scan(q, plan, st, ex)
         if q.sort_by and batch.n:
             batch = _sort_batch(batch, q.sort_by, st.dicts)
         if q.max_features is not None and batch.n > q.max_features:
@@ -1204,6 +1211,30 @@ class GeoDataset:
         if q.properties:
             batch = _project(batch, q.properties)
         return FeatureCollection(st.ft, batch, st.dicts)
+
+    @staticmethod
+    def _query_scan(q: Query, plan: QueryPlan, st, ex) -> ColumnBatch:
+        """The scan half of :meth:`query`: the device top-k candidates of a
+        sorted, limited query, else every match."""
+        batch = None
+        topk_max = config.TOPK_MAX.to_int() or 0
+        if q.sort_by and q.max_features is not None and 0 < q.max_features <= topk_max:
+            attr, desc = q.sort_by[0]
+            names = None
+            if q.properties:
+                names = list(q.properties) + [a for a, _ in q.sort_by]
+            ties = len(q.sort_by) > 1
+            if isinstance(ex, PartitionedExecutor):
+                # each partition's candidates; query()'s exact sort finishes
+                batch = ex.top_batch(plan, attr, desc, q.max_features, names,
+                                     include_ties=ties)
+            else:
+                pos = ex.top_rows(plan, attr, desc, q.max_features, include_ties=ties)
+                if pos is not None:
+                    batch = st.tables[plan.index_name].gather_sorted(pos, names)
+            if batch is not None:
+                plan.exec_path["sort"] = f"device-topk(k={q.max_features})"
+        return ex.features(plan) if batch is None else batch
 
     def query_batches(self, name: str, query="INCLUDE",
                       batch_rows: Optional[int] = None):
@@ -1220,8 +1251,9 @@ class GeoDataset:
         ex = self._executor(name)
 
         def chunks():
-            for batch in ex.features_iter(plan, batch_rows):
-                yield _project(batch, q.properties) if q.properties else batch
+            with query_deadline(self._timeout_s()):
+                for batch in ex.features_iter(plan, batch_rows):
+                    yield _project(batch, q.properties) if q.properties else batch
 
         return chunks()
 
@@ -1245,7 +1277,8 @@ class GeoDataset:
         optional polygon clipping the matches."""
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         parse_stat(stat_spec)  # validate the spec before any scan
-        return self.cache.stats(self, st, q, plan, stat_spec)
+        with query_deadline(self._timeout_s()):
+            return self.cache.stats(self, st, q, plan, stat_spec)
 
     def unique(self, name: str, attribute: str, query="INCLUDE") -> List:
         """Distinct values, sorted (None last)."""
@@ -1381,26 +1414,28 @@ class GeoDataset:
         from geomesa_tpu_torch.kernels import join as kjoin
         from geomesa_tpu_torch.planning import join_exec
 
-        if predicate in kjoin.POLYGON_PREDICATES:
-            lst, lbatch, rst, rbatch = self._join_sides(
-                left, right, left_query, right_query, right_polygon=True)
-            lx, ly = self._side_xy(lst, lbatch)
-            geoms = self._side_polygons(rst, rbatch)
-            pairs, total, stats = join_exec.run_polygon_join(
-                lx, ly, geoms, predicate, level=level, device=self.device,
-                want_pairs=want_pairs)
-        elif not want_pairs and self._join_pushdown_ready(right, predicate, right_query):
-            lbatch, total, stats = self._join_pushdown_count(
-                left, right, predicate, distance, dx, dy, left_query,
-                right_query, level)
-            rbatch, pairs = ColumnBatch({}, 0), None
-        else:
-            lst, lbatch, rst, rbatch = self._join_sides(left, right, left_query, right_query)
-            lx, ly = self._side_xy(lst, lbatch)
-            rx, ry = self._side_xy(rst, rbatch)
-            pairs, total, stats = join_exec.run_join(
-                lx, ly, rx, ry, predicate, distance=distance, dx=dx, dy=dy,
-                level=level, device=self.device, want_pairs=want_pairs)
+        with query_deadline(self._timeout_s()):
+            if predicate in kjoin.POLYGON_PREDICATES:
+                lst, lbatch, rst, rbatch = self._join_sides(
+                    left, right, left_query, right_query, right_polygon=True)
+                lx, ly = self._side_xy(lst, lbatch)
+                geoms = self._side_polygons(rst, rbatch)
+                pairs, total, stats = join_exec.run_polygon_join(
+                    lx, ly, geoms, predicate, level=level, device=self.device,
+                    want_pairs=want_pairs)
+            elif not want_pairs and self._join_pushdown_ready(right, predicate, right_query):
+                lbatch, total, stats = self._join_pushdown_count(
+                    left, right, predicate, distance, dx, dy, left_query,
+                    right_query, level)
+                rbatch, pairs = ColumnBatch({}, 0), None
+            else:
+                lst, lbatch, rst, rbatch = self._join_sides(left, right, left_query,
+                                                            right_query)
+                lx, ly = self._side_xy(lst, lbatch)
+                rx, ry = self._side_xy(rst, rbatch)
+                pairs, total, stats = join_exec.run_join(
+                    lx, ly, rx, ry, predicate, distance=distance, dx=dx, dy=dy,
+                    level=level, device=self.device, want_pairs=want_pairs)
         return SpatialJoinResult(lbatch, rbatch, pairs, total, stats)
 
     def _join_pushdown_ready(self, right: str, predicate: str, right_query) -> bool:
@@ -1536,6 +1571,7 @@ class GeoDataset:
                              (stats.dispatched_pairs, cst.dispatched_pairs)):
                 for k, v in src.items():
                     dst[k] = dst.get(k, 0) + v
+            stats.skipped.extend(f"chunk{chunks - 1}:{s}" for s in cst.skipped)
             acct = rplan.__dict__.get("lake_acct") or {}
             bytes_loaded += int(acct.get("bytes_loaded", 0))
             groups_loaded += int(acct.get("groups_loaded", 0))
@@ -1616,6 +1652,8 @@ class GeoDataset:
             if analyze:
                 exp.kv("matched (analyze)", total)
                 exp.kv("kernel ms", round((time.perf_counter() - t0) * 1e3, 3))
+                if st.skipped:
+                    exp.kv("degraded", ", ".join(st.skipped))
             exp.pop()
             return str(exp)
         lst, lbatch, rst, rbatch = self._join_sides(
@@ -1668,6 +1706,8 @@ class GeoDataset:
                 want_pairs=False)
             exp.kv("matched (analyze)", total)
             exp.kv("pairwise ms", round((time.perf_counter() - t0) * 1e3, 3))
+            if st.skipped:
+                exp.kv("degraded", ", ".join(st.skipped))
         exp.pop()
         return str(exp)
 

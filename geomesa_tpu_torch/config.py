@@ -92,6 +92,33 @@ class SystemProperty:
             return None
         return str(v).strip().lower() in ("1", "true", "yes", "on")
 
+    def to_duration_ms(self) -> Optional[int]:
+        """Parse ``'100 ms'``, ``'10s'``, ``'5 minutes'``, ``'1h'`` and the
+        like to milliseconds (a bare number is milliseconds)."""
+        v = self.get()
+        if v is None:
+            return None
+        s = str(v).strip().lower()
+        num = ""
+        for ch in s:
+            if ch.isdigit() or ch == ".":
+                num += ch
+            else:
+                break
+        unit = s[len(num):].strip()
+        if not num:
+            raise ValueError(f"invalid duration: {v!r}")
+        factors = {
+            "": 1, "ms": 1, "millis": 1, "millisecond": 1, "milliseconds": 1,
+            "s": 1000, "sec": 1000, "second": 1000, "seconds": 1000,
+            "m": 60_000, "min": 60_000, "minute": 60_000, "minutes": 60_000,
+            "h": 3_600_000, "hour": 3_600_000, "hours": 3_600_000,
+            "d": 86_400_000, "day": 86_400_000, "days": 86_400_000,
+        }
+        if unit not in factors:
+            raise ValueError(f"invalid duration unit: {v!r}")
+        return int(float(num) * factors[unit])
+
 
 def registry() -> Dict[str, SystemProperty]:
     return dict(_REGISTRY)
@@ -208,6 +235,28 @@ JOURNAL_SEGMENT_BYTES = SystemProperty("geomesa.journal.segment.bytes", str(8 <<
 
 #: allow ``resilience.inject_faults`` scopes (tests and crash drills)
 FAULT_INJECTION = SystemProperty("geomesa.fault.injection", "false")
+
+#: a query's wall-clock budget (a duration: ``"500 ms"``, ``"2s"``); unset
+#: is unlimited. Checked between scan phases, so a kernel is never cut
+QUERY_TIMEOUT = SystemProperty("geomesa.query.timeout", None)
+
+#: degrade instead of raising: a failing partition or join slice is skipped
+#: and recorded, and the answer is exact over the survivors (the
+#: ``resilience.allow_partial()`` scope turns it on for one operation)
+SCAN_PARTIAL = SystemProperty("geomesa.scan.partial", "false")
+
+#: total tries of a retried file edge (spill store and load; 1: no retry)
+RETRY_ATTEMPTS = SystemProperty("geomesa.retry.attempts", "3")
+
+#: backoff base delay (ms): retry i waits base * 2^(i-1), capped below
+RETRY_BASE_MS = SystemProperty("geomesa.retry.base.ms", "50")
+
+#: backoff delay cap (ms)
+RETRY_MAX_MS = SystemProperty("geomesa.retry.max.ms", "5000")
+
+#: jitter fraction in [0, 1): each delay scales by 1 - jitter * U(0, 1) from
+#: the policy's seeded RNG
+RETRY_JITTER = SystemProperty("geomesa.retry.jitter", "0.2")
 
 #: the aggregate result cache (``cache/``): count, density, density_curve
 #: and stats answer through it (default off)

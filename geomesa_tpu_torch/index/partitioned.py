@@ -41,8 +41,18 @@ snapshot under the checkpoint root (:meth:`PartitionedFeatureStore.checkpoint_in
 incremental by a per-partition content sequence); a load registers them
 cold (:meth:`PartitionedFeatureStore.attach_snapshots`).
 
-Not ported yet (ROADMAP Queue 1): spill retries and corrupt-snapshot
-quarantine (a corrupt snapshot raises ``LakeCorruptError``).
+Fault posture (the ``index.spill.store`` and ``index.spill.load`` fault
+points): a snapshot write or load is retried in place on a transient
+``OSError`` under a ``RetryPolicy`` seeded by the bin
+(``geomesa.retry.*``), and a partition leaves memory only after its
+snapshot is on disk, so a failed spill raises with the partition still
+resident. Any other load failure, or a crc or decode failure of a column
+read lazily after the load, marks the snapshot corrupt: the bin is
+quarantined (:meth:`PartitionedFeatureStore.spill_quarantine`) and every
+later load of it fails fast, with no read, until
+:meth:`PartitionedFeatureStore.clear_spill_quarantine` re-admits it. The
+query layer's degradation contract decides whether a failed load fails the
+query or skips the partition.
 """
 
 from __future__ import annotations
@@ -58,10 +68,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch import config, metrics, resilience
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.index.keyspace import AttributeKeySpace
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable, _init_stats
+from geomesa_tpu_torch.lake.format import LakeCorruptError
 from geomesa_tpu_torch.lake.snapshot import SNAPSHOT_FILE, PartitionSnapshot, write_snapshot
 from geomesa_tpu_torch.schema.columns import ColumnBatch, null_columns
 from geomesa_tpu_torch.schema.feature_type import FeatureType
@@ -77,18 +88,26 @@ class _LazyCols(dict):
     """Master-column mapping that reads a snapshot member on first access
     (``read(member)``: an npz member, or a lake column over the loaded row
     groups), so a reloaded partition pays reads only for the columns its
-    queries touch."""
+    queries touch. ``on_corrupt(err)`` hears of a lake crc or decode
+    failure of a lazy read, which surfaces mid-scan after the load was
+    committed: the store quarantines the bin there."""
 
-    def __init__(self, read, zkeys: Dict[str, str]):
+    def __init__(self, read, zkeys: Dict[str, str], on_corrupt=None):
         super().__init__()
         self._read = read
         self._zkeys = dict(zkeys)   # column name -> snapshot member
+        self._on_corrupt = on_corrupt
 
     def __missing__(self, k):
         zk = self._zkeys.get(k)
         if zk is None:
             raise KeyError(k)
-        v = self._read(zk)
+        try:
+            v = self._read(zk)
+        except LakeCorruptError as e:
+            if self._on_corrupt is not None:
+                self._on_corrupt(e)
+            raise
         self[k] = v
         return v
 
@@ -164,12 +183,14 @@ class _LakeTable(IndexTable):
     any of them (under a lock: the prefetch thread may read first), so a
     query, or a delete that removes nothing, pays only for the tables it
     reads. ``n``, ``key_shifts`` and ``shard_bounds`` are set by the
-    loader; a rebuild replaces the pending state."""
+    loader; a rebuild replaces the pending state. A corrupt blob goes to
+    ``on_corrupt`` as a lazy column read's does (:class:`_LazyCols`)."""
 
-    def __init__(self, t: IndexTable, snap: PartitionSnapshot, name: str):
+    def __init__(self, t: IndexTable, snap: PartitionSnapshot, name: str, on_corrupt=None):
         super().__init__(t.keyspace, t.n_shards, t.device)
         self.shard_len_multiple = t.shard_len_multiple
         self._pending = (snap, name)
+        self._on_corrupt = on_corrupt
         self._lock = threading.Lock()
 
     def _load(self) -> None:
@@ -177,10 +198,16 @@ class _LakeTable(IndexTable):
             if self._pending is None:
                 return
             snap, name = self._pending
-            order = snap.table_order(name)
+            try:
+                order = snap.table_order(name)
+                keys = snap.table_keys(name)
+                vocab = snap.table_vocab(name)
+            except LakeCorruptError as e:
+                if self._on_corrupt is not None:
+                    self._on_corrupt(e)
+                raise
             self._order = np.arange(self.n, dtype=np.int64) if order is None else order
-            self._key_columns = snap.table_keys(name)
-            vocab = snap.table_vocab(name)
+            self._key_columns = keys
             if vocab is not None:
                 self._rank_vocab_ = vocab.astype(object)
             self._pending = None  # only now: other threads wait on the lock
@@ -220,11 +247,13 @@ class _LakeTable(IndexTable):
         self._rank_vocab_ = v
 
 
-def _lake_cols(snap: PartitionSnapshot, prefixes, groups=None, cache=None) -> _LazyCols:
+def _lake_cols(snap: PartitionSnapshot, prefixes, groups=None, cache=None,
+               on_corrupt=None) -> _LazyCols:
     """Lazy columns of a lake snapshot: the members with ``prefixes``,
     decoded over ``groups`` (every row group when None)."""
     return _LazyCols(lambda zk: snap.read_column(zk, groups, cache=cache),
-                     {c[2:]: c for c in snap.columns if c.startswith(prefixes)})
+                     {c[2:]: c for c in snap.columns if c.startswith(prefixes)},
+                     on_corrupt)
 
 
 class PartitionedFeatureStore(FeatureStore):
@@ -270,6 +299,9 @@ class PartitionedFeatureStore(FeatureStore):
         self._part_lock = threading.RLock()
         self._merged_stats = None
         self._merged_stats_version = -1
+        #: corrupt-snapshot quarantine: bin -> the first failure's repr.
+        #: Transient OSErrors are retried in place and never quarantined
+        self._spill_quarantine: Dict[int, str] = {}
         self.spills = 0
         self.loads = 0
 
@@ -327,13 +359,23 @@ class PartitionedFeatureStore(FeatureStore):
     def _spill(self, b: int) -> None:
         """Write partition ``b``'s snapshot (unless it is clean since its
         last load and the snapshot is still there), then drop it and its
-        device columns. The partition leaves memory only after the write."""
+        device columns. The write passes the ``index.spill.store`` fault
+        point and is retried in place on a transient ``OSError`` (a
+        ``RetryPolicy`` seeded by the bin); the partition leaves memory only
+        after the write, so a spill whose retries run out raises with the
+        partition still resident."""
         st = self.partitions[b]
         st.flush()
         d = self._snapshot_paths.get(b, self._part_dir(b))
         if b in self._dirty or not os.path.isdir(d):
             d = self._part_dir(b)
-            self._write_snapshot(st, d)
+
+            def attempt():
+                resilience.fault_point("index.spill.store", bin=int(b), path=d)
+                self._write_snapshot(st, d)
+
+            resilience.RetryPolicy.from_config(seed=int(b)).call(
+                attempt, retryable=resilience.transient_os_error)
             self._snapshot_paths[b] = d
             self.spills += 1
         self.partitions.pop(b)  # only now: the snapshot is on disk
@@ -389,9 +431,26 @@ class PartitionedFeatureStore(FeatureStore):
 
     def _load(self, b: int) -> FeatureStore:
         """Reload a spilled partition and make it the most recent resident
-        (evicting over budget). The ``spilled`` entry goes only on success."""
+        (evicting over budget), through the ``index.spill.load`` fault
+        point. A transient ``OSError`` is retried in place (a ``RetryPolicy``
+        seeded by the bin) and never quarantined; any other failure
+        quarantines the bin and raises ``ValueError``, and a quarantined
+        bin raises at once. The ``spilled`` entry goes only on success, so
+        a failed load can be retried."""
+        self._check_quarantine(b)
         d = self.spilled[b]
-        st = self._load_snapshot(d)
+
+        def attempt():
+            resilience.fault_point("index.spill.load", bin=int(b), path=d)
+            return self._load_snapshot(d, self._quarantiner(b))
+
+        try:
+            st = resilience.RetryPolicy.from_config(seed=int(b)).call(
+                attempt, retryable=resilience.transient_os_error)
+        except OSError:
+            raise  # transient: never quarantined, the next read retries
+        except Exception as e:
+            raise self._quarantine(b, e) from e
         self.spilled.pop(b, None)
         self.partitions[b] = st
         self.part_counts[b] = st.count
@@ -400,12 +459,57 @@ class PartitionedFeatureStore(FeatureStore):
         self.evict()
         return st
 
-    def _load_snapshot(self, d: str) -> FeatureStore:
+    # -- corrupt-snapshot quarantine ---------------------------------------------
+    def _check_quarantine(self, b: int) -> None:
+        q = self._spill_quarantine.get(b)
+        if q is not None:
+            raise ValueError(f"partition {b} snapshot quarantined: {q} "
+                             "(clear_spill_quarantine() re-admits after repair)")
+
+    def _quarantine(self, b: int, e: BaseException) -> ValueError:
+        """Quarantine bin ``b`` for the failure ``e``; the error to raise."""
+        with self._part_lock:
+            self._spill_quarantine[b] = repr(e)[:300]
+        metrics.inc(metrics.SPILL_QUARANTINED)
+        return ValueError(f"corrupt partition snapshot for bin {b}: {e!r}")
+
+    def _quarantiner(self, b: int):
+        """The ``on_corrupt`` hook of bin ``b``'s lazy reads: quarantine on
+        the first failure (the reads themselves re-raise)."""
+
+        def mark(e: BaseException) -> None:
+            with self._part_lock:
+                if b in self._spill_quarantine:
+                    return
+                self._spill_quarantine[b] = repr(e)[:300]
+            metrics.inc(metrics.SPILL_QUARANTINED)
+
+        return mark
+
+    def spill_quarantine(self) -> Dict[int, str]:
+        """The quarantined bins, each with its first failure."""
+        with self._part_lock:
+            return dict(self._spill_quarantine)
+
+    def clear_spill_quarantine(self, b: Optional[int] = None) -> List[int]:
+        """Re-admit bin ``b`` (every bin when None) after its snapshot was
+        repaired; returns the bins cleared. A repeated failure quarantines
+        again."""
+        with self._part_lock:
+            if b is not None:
+                return [b] if self._spill_quarantine.pop(b, None) is not None else []
+            cleared = list(self._spill_quarantine)
+            self._spill_quarantine.clear()
+            return cleared
+
+    def _load_snapshot(self, d: str, on_corrupt=None) -> FeatureStore:
         """One snapshot dir (lake or npz) -> a fresh child: sort
-        permutations and key columns read now, master columns on first
-        access; then upgraded to the current schema and indices."""
+        permutations and key columns read now (a lake table's on first
+        use), master columns on first access; then upgraded to the current
+        schema and indices. ``on_corrupt``: the lake reads' quarantine hook
+        (:class:`_LazyCols`)."""
         if os.path.exists(os.path.join(d, SNAPSHOT_FILE)):
-            return self._load_lake_snapshot(d)
+            return self._load_lake_snapshot(d, on_corrupt)
         st = self._new_child()
         with open(os.path.join(d, "meta.json")) as fh:
             meta = json.load(fh)
@@ -436,7 +540,7 @@ class PartitionedFeatureStore(FeatureStore):
         self._upgrade_loaded(st, master)
         return st
 
-    def _load_lake_snapshot(self, d: str) -> FeatureStore:
+    def _load_lake_snapshot(self, d: str, on_corrupt=None) -> FeatureStore:
         """Full (every row group) load of a lake snapshot: each table's
         permutation and sorted keys on the table's first use, master and
         cached key columns per column on first access."""
@@ -445,16 +549,16 @@ class PartitionedFeatureStore(FeatureStore):
         meta = snap.meta
         st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
         n = int(meta["n"])
-        master = _lake_cols(snap, ("c/", "k/"))
+        master = _lake_cols(snap, ("c/", "k/"), on_corrupt=on_corrupt)
         # key columns decode on first use too (a flush, a delete, a table
         # built on load), through ``master`` so each decodes once
         st._key_cols = _LazyCols(lambda zk: master[zk[2:]],
                                  {c[2:]: c for c in snap.columns if c.startswith("k/")})
-        st._all = ColumnBatch(_lake_cols(snap, ("c/",)), n)
+        st._all = ColumnBatch(_lake_cols(snap, ("c/",), on_corrupt=on_corrupt), n)
         for name, t in list(st.tables.items()):
             if name not in snap.tables:
                 continue  # the snapshot predates this index: built below
-            t = st.tables[name] = _LakeTable(t, snap, name)
+            t = st.tables[name] = _LakeTable(t, snap, name, on_corrupt)
             sh = meta["shifts"].get(name)
             t.key_shifts = {k: int(v) for k, v in sh.items()} if sh else None
             t._master = master
@@ -498,7 +602,10 @@ class PartitionedFeatureStore(FeatureStore):
         map. Otherwise the ordinary :meth:`child` load: without a window,
         when nothing prunes (a full load caches), or as a recorded
         fallback (``legacy-snapshot``, ``unknown-keyspace``,
-        ``no-primary-order``, ``keyspace-not-buildable``)."""
+        ``no-primary-order``, ``keyspace-not-buildable``). Quarantine and
+        retries as :meth:`_load`: the footer read and the pruned load retry
+        a transient ``OSError``, and any other failure quarantines the
+        bin."""
         with self._part_lock:
             st = self.partitions.get(b)
             if st is not None:
@@ -506,6 +613,7 @@ class PartitionedFeatureStore(FeatureStore):
                 return st
             if b not in self.spilled:
                 return None
+            self._check_quarantine(b)
             d = self.spilled[b]
         if window is None:
             return self.child(b)
@@ -517,40 +625,54 @@ class PartitionedFeatureStore(FeatureStore):
         if ks is None:
             self._pushdown_fallback(b, window, "unknown-keyspace")
             return self.child(b)
-        snap = PartitionSnapshot(d)
-        groups = snap.prune(window.get("boxes"), window.get("times"))
-        have = set(snap.columns)
-        buildable = requested == snap.primary or all(
-            ("k/" + kc) in have or ("c/" + kc) in have for kc in ks.key_cols)
-        if snap.primary is None or snap.primary not in snap.tables:
-            self._pushdown_fallback(b, window, "no-primary-order")
-            return self.child(b)
-        if not buildable:
-            self._pushdown_fallback(b, window, "keyspace-not-buildable")
-            return self.child(b)
-        if len(groups) == len(snap.groups):
-            # nothing prunes: a full resident load is better (it caches);
-            # deliberate, so not a fallback
-            return self.child(b)
-        return self._load_pruned(snap, groups, ks, cache=window.get("residency"))
+        policy = resilience.RetryPolicy.from_config(seed=int(b))
+        try:
+            snap = policy.call(lambda: PartitionSnapshot(d),
+                               retryable=resilience.transient_os_error)
+            groups = snap.prune(window.get("boxes"), window.get("times"))
+            have = set(snap.columns)
+            buildable = requested == snap.primary or all(
+                ("k/" + kc) in have or ("c/" + kc) in have for kc in ks.key_cols)
+            if snap.primary is None or snap.primary not in snap.tables:
+                self._pushdown_fallback(b, window, "no-primary-order")
+                return self.child(b)
+            if not buildable:
+                self._pushdown_fallback(b, window, "keyspace-not-buildable")
+                return self.child(b)
+            if len(groups) == len(snap.groups):
+                # nothing prunes: a full resident load is better (it caches);
+                # deliberate, so not a fallback
+                return self.child(b)
+
+            def attempt():
+                resilience.fault_point("index.spill.load", bin=int(b), path=d)
+                return self._load_pruned(snap, groups, ks, cache=window.get("residency"),
+                                         on_corrupt=self._quarantiner(b))
+
+            return policy.call(attempt, retryable=resilience.transient_os_error)
+        except OSError:
+            raise  # transient: never quarantined, the next read retries
+        except Exception as e:
+            raise self._quarantine(b, e) from e
 
     def _load_pruned(self, snap: PartitionSnapshot, groups: List[int], ks,
-                     cache=None) -> FeatureStore:
+                     cache=None, on_corrupt=None) -> FeatureStore:
         """The ephemeral child of the surviving row groups, holding only the
         plan's index table. On the snapshot's primary index the groups are
         contiguous stretches of its order: the identity permutation and
         the groups' key chunks, nothing re-sorts. Any other index rebuilds
         its permutation over the loaded rows' key columns (the compiled
         predicate still decides every match). ``lake_note`` carries the
-        load's account and marks the child as ephemeral."""
+        load's account and marks the child as ephemeral. ``on_corrupt``:
+        the lazy reads' quarantine hook."""
         primary, requested = snap.primary, ks.name
         st = self._new_child()
         meta = snap.meta
         st.stats = {k: sk.Stat.from_json(v) for k, v in meta["stats"].items()}
         nsel = snap.group_rows(groups)
-        master = _lake_cols(snap, ("c/", "k/"), groups, cache)
+        master = _lake_cols(snap, ("c/", "k/"), groups, cache, on_corrupt)
         st._key_cols = {}
-        st._all = ColumnBatch(_lake_cols(snap, ("c/",), groups, cache), nsel)
+        st._all = ColumnBatch(_lake_cols(snap, ("c/",), groups, cache, on_corrupt), nsel)
         t = st.tables[requested]
         st.tables = {requested: t}
         st.keyspaces = [k for k in st.keyspaces if k.name == requested]
@@ -603,7 +725,10 @@ class PartitionedFeatureStore(FeatureStore):
     def flush(self) -> None:
         """Route buffered rows to their time partitions: one stable i32
         argsort by bin, contiguous copies per partition, each child flushed
-        and the store evicted to its budget after each."""
+        and the store evicted to its budget after each. A spill that fails
+        mid-route (``index.spill.store``) puts the rows not routed yet back
+        into the buffer before it raises, so the next flush routes them:
+        no row is lost."""
         if not self._buffer:
             return
         fresh = ColumnBatch.concat(self._buffer)
@@ -615,20 +740,34 @@ class PartitionedFeatureStore(FeatureStore):
         sorted_cols = {k: v[order] for k, v in fresh.columns.items()}
         cuts = np.flatnonzero(np.concatenate(([True], sb[1:] != sb[:-1])))
         bounds = np.concatenate((cuts, [len(sb)]))
-        for i, c in enumerate(cuts):
-            b = int(sb[c])
-            hi = bounds[i + 1]
-            # copies, not views: a view would pin the whole sorted batch in
-            # every child's master columns past its eviction
-            sub = ColumnBatch({k: v[c:hi].copy() for k, v in sorted_cols.items()},
-                              int(hi - c))
-            child = self.child(b, create=True)
-            child._buffer.append(sub)
-            self._dirty.add(b)
-            self._part_seq[b] = self._part_seq.get(b, 0) + 1
-            child.flush()
-            self.part_counts[b] = child.count
-            self.evict()
+        done = 0
+        try:
+            for i, c in enumerate(cuts):
+                b = int(sb[c])
+                hi = bounds[i + 1]
+                # copies, not views: a view would pin the whole sorted batch
+                # in every child's master columns past its eviction
+                sub = ColumnBatch({k: v[c:hi].copy() for k, v in sorted_cols.items()},
+                                  int(hi - c))
+                child = self.child(b, create=True)
+                child._buffer.append(sub)
+                # routed: the child's next flush commits it even if this
+                # one fails, so it is not buffered again below
+                done = i + 1
+                self._dirty.add(b)
+                self._part_seq[b] = self._part_seq.get(b, 0) + 1
+                child.flush()
+                self.part_counts[b] = child.count
+                self.evict()
+        except BaseException:
+            rest = int(cuts[done]) if done < len(cuts) else len(sb)
+            if rest < len(sb):
+                self._buffer.append(ColumnBatch(
+                    {k: v[rest:].copy() for k, v in sorted_cols.items()},
+                    int(len(sb) - rest)))
+            if done:
+                self.version += 1  # some partitions took rows
+            raise
         self.version += 1
 
     # -- schema and index lifecycle ------------------------------------------------

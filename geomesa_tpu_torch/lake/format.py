@@ -24,8 +24,9 @@ The bit packing works on 64-bit words: 64 values of ``w`` bits fill ``w``
 words exactly, so a column packs in 64 vectorized shift-or steps over
 ``n / 64`` rows, with no per-bit temporaries, and only when the packed
 length (known from the width) beats the raw bytes. A crc mismatch, a bad magic
-or a torn footer raises :class:`LakeCorruptError` (the reference's strict
-mode: nothing here quarantines).
+or a torn footer raises :class:`LakeCorruptError`; the partitioned store
+quarantines the snapshot (``index/partitioned.py``). Each blob write and
+read passes the ``lake.write`` / ``lake.read`` fault point.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from geomesa_tpu_torch import resilience
 
 MAGIC = b"GMLAKE01"
 _TAIL = len(MAGIC) + 8
@@ -194,6 +197,7 @@ class LakeWriter:
 
     def add_blob(self, payload: bytes) -> int:
         """Append one blob; returns its index in the blob table."""
+        resilience.fault_point("lake.write", path=self.path, blob=len(self.blobs))
         self._fh.write(payload)
         self.blobs.append([self._off, len(payload), zlib.crc32(payload) & 0xFFFFFFFF])
         self._off += len(payload)
@@ -273,6 +277,7 @@ class LakeFile:
 
     def read_blob(self, ref: int) -> bytes:
         off, length, crc = self.blobs[ref]
+        resilience.fault_point("lake.read", path=self.path, blob=ref)
         with self._lock:
             self._fh.seek(off)
             payload = self._fh.read(length)

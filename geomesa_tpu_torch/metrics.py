@@ -286,6 +286,9 @@ CACHE_PERSIST_RESTORED = "cache.persist.restored"
 #   exec.device.dispatch   device scans the executors launched (a warm
 #                          zoom-out served by the cache launches none)
 EXEC_DEVICE_DISPATCH = "exec.device.dispatch"
+# Partition spills (index/partitioned.py):
+#   index.spill.quarantined   corrupt snapshots quarantined
+SPILL_QUARANTINED = "index.spill.quarantined"
 # Cell-heat table (heat.py):
 #   heat.cells     gauge: distinct (schema, cell) rows in the table
 #   heat.evicted   rows dropped by the table's size bound

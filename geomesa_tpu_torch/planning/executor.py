@@ -43,6 +43,12 @@ member's window mask, literal compares and aggregate after it.
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
 
+:func:`query_deadline` scopes ``geomesa.query.timeout`` over a call;
+``check_deadline`` runs at the reference's sites (each scan's start, the
+host predicate and refinement passes, each query-axis batch's start), so
+an expired query raises ``QueryTimeoutError`` between phases and never
+inside a kernel.
+
 A time partition's child store runs under its own executor
 (``version_source`` = the partitioned parent): its per-plan caches live in
 the child's device state, so they go when the partition is spilled, and
@@ -52,6 +58,7 @@ return partials the partitioned executor merges.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Optional
 
@@ -69,6 +76,10 @@ from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.kernels.density_mxu import ladder8
 from geomesa_tpu_torch.kernels.registry import bucket_batch
 from geomesa_tpu_torch.planning.planner import QueryPlan
+# QueryTimeoutError is re-exported here, as the reference's executor does
+from geomesa_tpu_torch.resilience import (  # noqa: F401
+    QueryTimeoutError, check_deadline, deadline_scope,
+)
 from geomesa_tpu_torch.schema.columns import ColumnBatch
 from geomesa_tpu_torch.stats import sketches as sk
 
@@ -92,6 +103,15 @@ BATCH_ROWS = 1_000_000
 
 #: plans whose caches a partition child's executor keeps
 _PLAN_CACHES = 64
+
+
+@contextlib.contextmanager
+def query_deadline(timeout_s: Optional[float]):
+    """Scope a wall-clock deadline of ``timeout_s`` seconds (None:
+    unlimited) over a query's scan phases; see ``resilience.check_deadline``
+    for where it is enforced."""
+    with deadline_scope(timeout_s):
+        yield
 
 
 def _host(out) -> np.ndarray:
@@ -465,9 +485,11 @@ class Executor:
         else:
             pos = self._window_positions(setup)
             if len(pos):
+                check_deadline()  # the host predicate pass
                 m = np.asarray(compiled(table.rows(setup["needed"], pos), np))
                 pos = pos if m.ndim == 0 and bool(m) else pos[np.broadcast_to(m, pos.shape)]
         if compiled.refine is not None and len(pos):
+            check_deadline()  # the host refinement pass
             t0 = time.perf_counter()
             names = list(dict.fromkeys(compiled.columns + compiled.refine_columns))
             n_cand = len(pos)
@@ -502,7 +524,7 @@ class Executor:
     # -- the scan ---------------------------------------------------------------
     def _run(self, plan: QueryPlan, agg_cols, device_agg: Callable,
              host_agg: Callable, additive: bool = True, compactable: bool = True,
-             path_key: str = "scan"):
+             path_key: str = "scan", deadline: bool = True):
         """One scan of ``plan``: ``device_agg(setup, cols, mask)`` on the
         device path, plus ``host_agg(rows, pos)`` of the band rows when the
         aggregate is ``additive``; or ``host_agg(rows, pos)`` of the exact
@@ -510,7 +532,10 @@ class Executor:
         serves band rows of non-additive or sampled scans. Not
         ``compactable``: the device scans the padded layout (its results
         address flat [S, L] rows). ``exec_path[path_key]`` records the
-        path. None for an empty scan."""
+        path. None for an empty scan. ``deadline``: check the query's
+        deadline first (the host passes check theirs in any case)."""
+        if deadline:
+            check_deadline()
         setup = self._scan_setup(plan, agg_cols)
         if setup is None:
             return None
@@ -856,6 +881,7 @@ class Executor:
         (the caller runs the members one at a time). A member with
         surviving f32 band rows makes the batch ineligible: its serial scan
         would run on the host."""
+        check_deadline()
         agg_cols = [weight] if weight else []
         bs = self._batch_setups(plans, spec, agg_cols)
         if bs is None:
@@ -1010,6 +1036,7 @@ class Executor:
         """``(partials or None, corrs)`` before the host copy: one device
         count per member and each member's band-row count; None when the
         batch is ineligible here."""
+        check_deadline()
         bs = self._batch_setups(plans, spec)
         if bs is None:
             return None
@@ -1038,6 +1065,7 @@ class Executor:
         """``(grids or None, corrs)`` before the host copy: one f32 grid per
         member over that member's own bbox, its origin and span read from
         one [Mp, 4] f32 device tensor; None when ineligible."""
+        check_deadline()
         agg_cols = self._density_cols(weight)
         xc, yc = agg_cols[:2]
         bs = self._batch_setups(plans, spec, agg_cols)
@@ -1094,6 +1122,7 @@ class Executor:
         ineligible: a descriptive leaf (layout-dependent f32 sums), a leaf
         without a device reduction, or a member with surviving band rows
         (its serial scan runs on the host)."""
+        check_deadline()
         if any(not kstats.batch_supported(s) for s in stats):
             return None
         bundle = self._stats_bundle(plans[0], stats[0])
@@ -1154,8 +1183,10 @@ class Executor:
         if plan.hints.properties:
             names = list(plan.hints.properties) + [
                 a for a, _ in (plan.hints.sort_by or [])]
+        # as the reference's, a device feature scan is no deadline site (a
+        # partitioned store checks per partition); its host paths check
         pos = self._run(plan, (), self._mask_positions, lambda rows, pos: pos,
-                        additive=False, path_key="feature_scan")
+                        additive=False, path_key="feature_scan", deadline=False)
         if pos is None:
             return ColumnBatch({}, 0)
         return self._table(plan).gather_sorted(pos, names)

@@ -31,8 +31,12 @@ The tile operands are gathered on the host, as in the reference, and the
 verdicts run on the dataset's device: the ``pair_tiles`` / ``pair_flat``
 / ``polygon_verdict`` CUDA kernels on a CUDA device, their plain versions
 on the CPU. One device runs every section (the reference's multi-device
-fan-out is not ported), and any failure raises: there is no partial
-degradation.
+fan-out is not ported), so each section is one tile range, labelled as
+the reference labels its single-device slices (``tiles[0:n]``,
+``brute[lo:hi]``, ``poly[0:n]``). The deadline is checked before each
+range; a failing range raises in strict mode, and under
+``resilience.allow_partial()`` it is recorded in ``JoinStats.skipped``
+and the pairs and total are exact over the ranges that completed.
 
 Polygon-dataset joins (:func:`run_polygon_join`) classify each occupied
 point cell against each candidate polygon row with
@@ -52,6 +56,9 @@ import torch
 from geomesa_tpu_torch import config, metrics
 from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
 from geomesa_tpu_torch.kernels import join as kjoin
+from geomesa_tpu_torch.resilience import (
+    QueryTimeoutError, check_deadline, partial_allowed, record_skip,
+)
 
 #: fixed section order: sections execute in this order, pairs concatenate
 #: in section order, and the canonical row-major sort at the end makes the
@@ -102,7 +109,7 @@ class JoinStats:
     tiles: int = 0
     matched: int = 0
     devices: int = 1
-    #: tile ranges skipped by a degraded join (the port never skips)
+    #: tile ranges and polygon slices an ``allow_partial()`` join skipped
     skipped: List[str] = field(default_factory=list)
     #: whether per-cell strategy selection ran (vs the single-strategy A/B)
     adaptive: bool = False
@@ -442,14 +449,31 @@ def _on(device, *arrays):
                  for a in arrays)
 
 
+def _range_or_skip(stats: "JoinStats", label: str, fn):
+    """One tile range or polygon slice under the degradation contract: the
+    deadline first; a failure re-raises in strict mode, and under
+    ``allow_partial()`` is recorded as ``label`` and returns None. A
+    deadline is never degraded."""
+    try:
+        check_deadline()
+        return fn()
+    except Exception as e:
+        if isinstance(e, QueryTimeoutError) or not partial_allowed():
+            raise
+        record_skip("join", label, e, phase="pairs")
+        stats.skipped.append(label)
+        return None
+
+
 def execute(plan: JoinPlan, lx, ly, rx, ry, device=None,
             want_pairs: bool = True, lz=None, rz=None):
     """Run every strategy section and the flat brute list on ``device``
     (default: the CUDA device). Returns ``(pairs, total)``: matched global
     (left, right) row positions as int64 [K, 2] sorted row-major (None when
-    ``want_pairs`` is False) and the exact match total. For
-    ``dwithin_meters``, the coordinate operands are the sides' f32 unit
-    vectors ((lx, ly, lz) / (rx, ry, rz) — kernels/join.unit_vectors)."""
+    ``want_pairs`` is False) and the match total, exact over the ranges
+    that completed (see :func:`_range_or_skip`). For ``dwithin_meters``,
+    the coordinate operands are the sides' f32 unit vectors ((lx, ly, lz) /
+    (rx, ry, rz) — kernels/join.unit_vectors)."""
     stats = plan.stats
     if plan.n_tiles == 0 and plan.n_brute == 0:
         return (np.zeros((0, 2), np.int64) if want_pairs else None), 0
@@ -463,15 +487,20 @@ def execute(plan: JoinPlan, lx, ly, rx, ry, device=None,
     # one dispatch per section (the reference's single-device fan-out),
     # then fixed-size brute chunks: every brute dispatch, the last one
     # included, pads to the same Kp of four dense tiles' slots
-    partials = [_run_slice(plan, sec, lx32, ly32, rx32, ry32, device, want_pairs,
-                           lz32=lz32, rz32=rz32)
-                for sec in plan.sections if sec.n_tiles]
+    partials = [
+        _range_or_skip(stats, f"tiles[0:{sec.n_tiles}]", lambda sec=sec: _run_slice(
+            plan, sec, lx32, ly32, rx32, ry32, device, want_pairs, lz32=lz32, rz32=rz32))
+        for sec in plan.sections if sec.n_tiles]
     if plan.n_brute:
         bchunk = 4 * _pow2(_tile()) ** 2
         for lo in range(0, plan.n_brute, bchunk):
             hi = min(lo + bchunk, plan.n_brute)
-            partials.append(_run_brute_slice(plan, lo, hi, lx32, ly32, rx32, ry32, device,
-                                             want_pairs, lz32=lz32, rz32=rz32, Kp=bchunk))
+            partials.append(_range_or_skip(
+                stats, f"brute[{lo}:{hi}]",
+                lambda lo=lo, hi=hi: _run_brute_slice(
+                    plan, lo, hi, lx32, ly32, rx32, ry32, device, want_pairs,
+                    lz32=lz32, rz32=rz32, Kp=bchunk)))
+    partials = [p for p in partials if p is not None]
     total = int(sum(p[1] for p in partials))
     stats.matched = total
     if not want_pairs:
@@ -731,16 +760,19 @@ def run_polygon_join(px, py, geoms, predicate: str,
         dev_tables = kjoin.table_tensors(tables, _device(device))
         px32 = px.astype(np.float32)
         py32 = py.astype(np.float32)
-        verdict = _run_poly_slice(brows, px32, py32, dev_tables, predicate,
-                                  _device(device))
-        hit = verdict[:, :R] & candmask
-        kernel_total = int(hit.sum())
-        b, j = np.nonzero(hit)
-        if len(b):
-            matched_blocks.append(np.stack([
-                brows[b].astype(np.int64),
-                j.astype(np.int64),
-            ], axis=1))
+        verdict = _range_or_skip(
+            stats, f"poly[0:{len(brows)}]",
+            lambda: _run_poly_slice(brows, px32, py32, dev_tables, predicate,
+                                    _device(device)))
+        if verdict is not None:
+            hit = verdict[:, :R] & candmask
+            kernel_total = int(hit.sum())
+            b, j = np.nonzero(hit)
+            if len(b):
+                matched_blocks.append(np.stack([
+                    brows[b].astype(np.int64),
+                    j.astype(np.int64),
+                ], axis=1))
     total = len(wholesale) + kernel_total
     stats.matched = total
     if not want_pairs:

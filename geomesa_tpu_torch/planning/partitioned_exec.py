@@ -16,7 +16,19 @@ the worker loads partition i+1 and stages the columns the plan reads
 buffers of a reused pool and copied on a side stream, and the query thread
 waits on each copy's event before it reads the column. A host error while
 staging is dropped (the scan stacks the column itself); CUDA errors and
-load errors reach the query thread.
+load errors reach the query thread, where the sequential load would have
+raised.
+
+The degradation contract (``resilience``): each partition's scan passes
+the ``exec.partition.scan`` fault point. Strict mode (the default)
+re-raises a failing load, staging or scan. Under
+``resilience.allow_partial()`` or ``geomesa.scan.partial`` the partition
+is recorded (the collector, and ``plan.degraded``) and skipped, so every
+additive answer is exact over the surviving partitions, merged in the same
+pruned-bin order; under partial mode ``features_iter`` materializes each
+partition before it yields, so a failing partition drops whole. A
+``QueryTimeoutError`` always propagates: the deadline is checked per
+partition, and a timed-out scan is never reported as a degraded one.
 
 ``density_curve`` merges host f64 grids; the query-axis batches scan the
 members' pruned-bin union once, one batched pass per partition, and merge
@@ -35,19 +47,19 @@ whole, by reason. Weighted density keeps full loads (a NaN weight on a
 pruned non-matching row could still reach the grid), as the reference's
 does, and extent schemas push down only their time interval.
 
-Not ported yet (ROADMAP Queue 1): the multi-device sharded scan and the
-degradation contract (``allow_partial``, fault points, retries).
+Not ported yet (ROADMAP Queue 1): the multi-device sharded scan.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from contextlib import closing
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, resilience
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
@@ -55,11 +67,15 @@ from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.parallel.devices import TreeReducer
 from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.planning.planner import QueryPlan
+from geomesa_tpu_torch.resilience import QueryTimeoutError, check_deadline
 from geomesa_tpu_torch.schema.columns import ColumnBatch
 from geomesa_tpu_torch.stats import sketches as sk
 
 #: exec_path entries a child executor writes per partition
 _PART_KEYS = ("scan", "feature_scan", "B", "band_rows", "density_kernel", "sampling")
+
+#: a partition's scan degraded away (the scan itself may return None)
+_SKIPPED = object()
 
 
 def _coalesce_boxes(boxes: List[Tuple[float, float, float, float]]
@@ -268,7 +284,11 @@ class PartitionedExecutor:
         staged. Lake accounts are noted here, on the query thread."""
         if len(bins) < 2 or not self.prefetch:
             for b in bins:
-                child = self._get_child(b, window)
+                try:
+                    child = self._get_child(b, window)
+                except BaseException as e:
+                    self._contain(plan, b, e, "index.spill.load", "load")
+                    continue
                 if child is not None and child.lake_note is not None:
                     self._note_lake(plan, child.lake_note)
                 yield b, child
@@ -289,16 +309,18 @@ class PartitionedExecutor:
                     if stop.is_set():
                         return
                     child = err = None
+                    where = ("index.spill.load", "load")
                     try:
                         child = self._get_child(b, window)
-                    except BaseException as e:  # re-raised on the query thread
+                    except BaseException as e:  # contained on the query thread
                         err = e
                     if err is None:
+                        where = ("exec.partition.scan", "stage")
                         try:
                             self._stage(child, plan)
                         except BaseException as e:  # CUDA errors included
                             err = e
-                    out.put((b, child, err))
+                    out.put((b, child, err, where))
             finally:
                 out.put(None)
 
@@ -312,15 +334,19 @@ class PartitionedExecutor:
                     return
                 # grant the next load: it overlaps this partition's run
                 slot.release()
-                b, child, err = item
+                b, child, err, where = item
                 if err is not None:
-                    raise err
+                    if child is not None:
+                        self._free_staging(child, plan)
+                    self._contain(plan, b, err, *where)
+                    continue
                 if child is not None and child.lake_note is not None:
                     self._note_lake(plan, child.lake_note)
                 yield b, child
         finally:
             stop.set()
-            t.join()
+            if t is not threading.current_thread():  # a finalizer may run here
+                t.join()
             # free what was staged for partitions never run
             while True:
                 try:
@@ -346,8 +372,10 @@ class PartitionedExecutor:
         path["partitions_scanned"] = len(bins)
         parts = path["partitions"] = {}
         tot_scanned = 0
+        pipe = self._pipeline(plan, bins, window)
         try:
-            for b, child in self._pipeline(plan, bins, window):
+            for b, child in pipe:
+                check_deadline()
                 if child is None or child.count == 0:
                     continue
                 plan.__dict__.pop("scanned_rows", None)
@@ -363,6 +391,8 @@ class PartitionedExecutor:
                     if self._execs[bb].store is not resident.get(bb):
                         del self._execs[bb]
         finally:
+            # the worker stops on this thread, not at some later collection
+            pipe.close()
             # an early exit closes the generator at the yield: fold in the
             # counters of the partition that was running
             plan.__dict__["scanned_rows"] = tot_scanned + plan.__dict__.get("scanned_rows", 0)
@@ -376,15 +406,61 @@ class PartitionedExecutor:
         finally:
             self._note_pushdown_fallbacks(plan, window)
 
+    # -- the degradation contract ------------------------------------------------
+    @staticmethod
+    def _contain(plan: QueryPlan, b: int, err: BaseException, source: str,
+                 phase: str) -> None:
+        """A partition that failed before its scan (a spill load, or the
+        prefetch's staging): under ``allow_partial()`` it is recorded in the
+        collector and ``plan.degraded`` and skipped; strict mode, a
+        deadline and any non-``Exception`` re-raise here, where the
+        sequential load would have raised."""
+        if isinstance(err, QueryTimeoutError) or not isinstance(err, Exception) \
+                or not resilience.partial_allowed():
+            raise err
+        rec = resilience.record_skip(source, f"bin:{b}", err, phase=phase)
+        plan.__dict__.setdefault("degraded", []).append(rec)
+
+    @staticmethod
+    def _scan_part(plan: QueryPlan, b: int, op: str, fn, probe: bool = True):
+        """``fn()``, one partition's scan (or, ``probe=False``, the merge of
+        its partial, where a device error surfaces at the sync) under the
+        degradation contract: strict mode re-raises; under
+        ``allow_partial()`` / ``geomesa.scan.partial`` a failure is recorded
+        and :data:`_SKIPPED` returned. The ``exec.partition.scan`` fault
+        point fires once a partition, before its scan."""
+        try:
+            if probe:
+                resilience.fault_point("exec.partition.scan", bin=b, op=op)
+            return fn()
+        except QueryTimeoutError:
+            raise
+        except Exception as e:
+            if not resilience.partial_allowed():
+                raise
+            rec = resilience.record_skip("exec.partition.scan", f"bin:{b}", e, phase=op)
+            plan.__dict__.setdefault("degraded", []).append(rec)
+            return _SKIPPED
+
+    def _additive(self, plan: QueryPlan, op: str, parts, dispatch, finish) -> None:
+        """Each partition of ``parts`` ((bin, executor) in pruned-bin order):
+        ``dispatch(ex)``, then ``finish(partial)`` unless the partition was
+        skipped or empty, both under :meth:`_scan_part`, so the merge sees
+        the survivors in pruned-bin order. A raise closes ``parts`` (and
+        its prefetch worker) here."""
+        with closing(parts):
+            for b, ex in parts:
+                r = self._scan_part(plan, b, op, lambda: dispatch(ex))
+                if r is not _SKIPPED and r is not None:
+                    self._scan_part(plan, b, op, lambda: finish(r), probe=False)
+
     # -- additive operations -----------------------------------------------------
     def count(self, plan: QueryPlan) -> int:
         """Exact host integers, summed in pruned-bin order."""
-        total = 0
-        for _, ex in self._pushed(plan):
-            p = ex.count_partial(plan)
-            if p is not None:
-                total += int(p)
-        return total
+        totals: List[int] = []
+        self._additive(plan, "count", self._pushed(plan),
+                       lambda ex: ex.count_partial(plan), lambda p: totals.append(int(p)))
+        return sum(totals)
 
     def density(self, plan: QueryPlan, bbox, width: int, height: int,
                 weight: Optional[str] = None) -> np.ndarray:
@@ -392,16 +468,18 @@ class PartitionedExecutor:
         (the reference's association: unweighted grids are exact, weighted
         ones add in the same order), then one copy to the host."""
         red = TreeReducer(lambda a, b: a + b)
-        for _, ex in self._pushed(plan, push=weight is None):
-            red.push(ex.density(plan, bbox, width, height, weight, as_numpy=False))
+        self._additive(plan, "density", self._pushed(plan, push=weight is None),
+                       lambda ex: ex.density(plan, bbox, width, height, weight, as_numpy=False),
+                       red.push)
         out = red.result()
         return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
 
     def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
         """Each partition's scan absorbs into ``stat`` in pruned-bin order
         (sketches observe only matching rows, so pushdown is exact)."""
-        for _, ex in self._pushed(plan):
-            ex.stats(plan, stat)
+        with closing(self._pushed(plan)) as each:
+            for b, ex in each:
+                self._scan_part(plan, b, "stats", lambda: ex.stats(plan, stat))
         return stat
 
     # -- curve-aligned density -------------------------------------------------
@@ -415,9 +493,9 @@ class PartitionedExecutor:
         """Each partition's host f64 grid, reduced in pruned-bin tree order
         (integer counts are exact to 2^53)."""
         red = TreeReducer(lambda a, b: a + b)
-        for _, ex in self._pushed(plan, push=weight is None):
-            red.push(Executor.decode_curve(
-                ex.density_curve_raw(plan, level, block_window, weight)))
+        self._additive(plan, "density_curve", self._pushed(plan, push=weight is None),
+                       lambda ex: ex.density_curve_raw(plan, level, block_window, weight),
+                       lambda p: red.push(Executor.decode_curve(p)))
         out = red.result()
         return self._curve_zeros(block_window) if out is None else out
 
@@ -436,9 +514,9 @@ class PartitionedExecutor:
         """Crops of one filter: each pruned partition runs one shared scan
         for every crop, and per-crop grids tree-merge across partitions."""
         red = self._member_reducer()
-        for _, ex in self._each(plan):
-            red.push(Executor.decode_curve_batch(
-                ex.density_curve_batch_raw(plan, level, block_windows, weight)))
+        self._additive(plan, "density_curve", self._each(plan),
+                       lambda ex: ex.density_curve_batch_raw(plan, level, block_windows, weight),
+                       lambda p: red.push(Executor.decode_curve_batch(p)))
         return self._curve_grids(red.result(), block_windows)
 
     def density_curve_filter_batch(self, plans: List[QueryPlan], spec, level: int,
@@ -452,13 +530,15 @@ class PartitionedExecutor:
         if not self._batch_ok(plans, spec, bins, [weight] if weight else []):
             return None
         red = self._member_reducer()
-        for _, ex in self._each(plans[0], bins):
+
+        def dispatch(ex):
             r = ex.density_curve_filter_batch_raw(plans, spec, level, block_windows, weight)
             if r is None:
-                red.push([Executor.decode_curve(ex.density_curve_raw(p, level, bw, weight))
-                          for p, bw in zip(plans, block_windows)])
-            else:
-                red.push(Executor.decode_curve_filter_batch(r))
+                return [Executor.decode_curve(ex.density_curve_raw(p, level, bw, weight))
+                        for p, bw in zip(plans, block_windows)]
+            return Executor.decode_curve_filter_batch(r)
+
+        self._additive(plans[0], "density_curve", self._each(plans[0], bins), dispatch, red.push)
         return self._curve_grids(red.result(), block_windows)
 
     # -- query-axis batches: each pruned partition runs one batched pass for
@@ -493,14 +573,20 @@ class PartitionedExecutor:
         if not self._batch_ok(plans, spec, bins):
             return None
         totals = [0] * len(plans)
-        for _, ex in self._each(plans[0], bins):
+
+        def dispatch(ex):
             r = ex.count_batch_partial(plans, spec)
             if r is None:
                 # eligibility holds for every partition (checked above): a
                 # None here would drop the partition's counts
                 raise RuntimeError("batched count ineligible mid-scan")
+            return r
+
+        def finish(r):
             for m, v in enumerate(Executor.decode_count_batch(r, len(plans))):
                 totals[m] += v
+
+        self._additive(plans[0], "count", self._each(plans[0], bins), dispatch, finish)
         return totals
 
     def density_batch(self, plans: List[QueryPlan], spec, bboxes, width: int,
@@ -513,11 +599,16 @@ class PartitionedExecutor:
         if not self._batch_ok(plans, spec, bins, agg_cols):
             return None
         red = self._member_reducer()
-        for _, ex in self._each(plans[0], bins):
+
+        def dispatch(ex):
             r = ex.density_batch_partial(plans, spec, bboxes, width, height, weight)
             if r is None:
                 raise RuntimeError("batched density ineligible mid-scan")
-            red.push(Executor.decode_density_batch(r, len(plans), width, height))
+            return r
+
+        self._additive(plans[0], "density", self._each(plans[0], bins), dispatch,
+                       lambda r: red.push(Executor.decode_density_batch(
+                           r, len(plans), width, height)))
         merged = red.result()
         if merged is None:
             return [np.zeros((height, width), np.float32) for _ in plans]
@@ -534,11 +625,17 @@ class PartitionedExecutor:
         bins = self._union_bins(plans)
         if not self._batch_ok(plans, spec, bins):
             return None
-        for _, ex in self._each(plans[0], bins):
-            r = ex.stats_batch_partials(plans, spec, stats)
-            if r is None:
-                return None
-            Executor.absorb_stats_batch(r, stats, self.store.dicts)
+        with closing(self._each(plans[0], bins)) as each:
+            for b, ex in each:
+                r = self._scan_part(plans[0], b, "stats",
+                                    lambda: ex.stats_batch_partials(plans, spec, stats))
+                if r is _SKIPPED:
+                    continue
+                if r is None:
+                    return None
+                self._scan_part(plans[0], b, "stats",
+                                lambda: Executor.absorb_stats_batch(r, stats, self.store.dicts),
+                                probe=False)
         return stats
 
     # -- features ---------------------------------------------------------------
@@ -551,22 +648,35 @@ class PartitionedExecutor:
         plan's matches."""
         got = 0
         limit = plan.hints.max_features if not plan.hints.sort_by else None
-        for _, ex in self._each(plan, window=window):
-            for batch in ex.features_iter(plan, batch_rows):
-                if not batch.n:
-                    continue
-                if limit is not None:
-                    if got >= limit:
-                        return
-                    if got + batch.n > limit:
-                        keep = limit - got
-                        yield ColumnBatch({k: v[:keep] for k, v in batch.columns.items()},
-                                          keep)
-                        return
-                got += batch.n
-                yield batch
-            if limit is not None and got >= limit:
-                return
+        with closing(self._each(plan, window=window)) as each:
+            for b, ex in each:
+                if resilience.partial_allowed():
+                    # materialize the partition before any yield, so a failing
+                    # partition drops whole, never half-streamed
+                    batches = self._scan_part(plan, b, "features",
+                                              lambda: list(ex.features_iter(plan, batch_rows)))
+                    if batches is _SKIPPED:
+                        continue
+                else:
+                    # strict mode streams chunk at a time: max_features can end
+                    # mid-partition
+                    resilience.fault_point("exec.partition.scan", bin=b, op="features")
+                    batches = ex.features_iter(plan, batch_rows)
+                for batch in batches:
+                    if not batch.n:
+                        continue
+                    if limit is not None:
+                        if got >= limit:
+                            return
+                        if got + batch.n > limit:
+                            keep = limit - got
+                            yield ColumnBatch({k: v[:keep] for k, v in batch.columns.items()},
+                                              keep)
+                            return
+                    got += batch.n
+                    yield batch
+                if limit is not None and got >= limit:
+                    return
 
     def features(self, plan: QueryPlan) -> ColumnBatch:
         batches = list(self.features_iter(plan))
@@ -593,17 +703,23 @@ class PartitionedExecutor:
         partition selected on the device."""
         parts: List[ColumnBatch] = []
         pushed = 0
-        for _, ex in self._each(plan):
-            pos = ex.top_rows(plan, attr, descending, k, include_ties=include_ties)
-            if pos is None:
-                batch = ex.features(plan)
-            else:
-                pushed += 1
-                if not len(pos):
+        with closing(self._each(plan)) as each:
+            for b, ex in each:
+                def one_part(ex=ex):
+                    pos = ex.top_rows(plan, attr, descending, k, include_ties=include_ties)
+                    if pos is None:
+                        return False, ex.features(plan)
+                    if not len(pos):
+                        return True, None  # the device ran and found nothing
+                    return True, ex.store.tables[plan.index_name].gather_sorted(pos, names)
+
+                got = self._scan_part(plan, b, "top", one_part)
+                if got is _SKIPPED:
                     continue
-                batch = ex.store.tables[plan.index_name].gather_sorted(pos, names)
-            if batch.n:
-                parts.append(batch)
+                dev, batch = got
+                pushed += dev
+                if batch is not None and batch.n:
+                    parts.append(batch)
         if pushed == 0:
             return None
         return ColumnBatch.concat(parts) if parts else ColumnBatch({}, 0)
@@ -613,8 +729,15 @@ class PartitionedExecutor:
         """Each partition's k nearest rows, gathered in table order; the
         union holds the global k nearest (the caller orders and cuts)."""
         parts = []
-        for _, ex in self._each(plan):
-            pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
-            if len(pos):
-                parts.append(ex.store.tables[plan.index_name].gather_sorted(np.sort(pos)))
+        with closing(self._each(plan)) as each:
+            for b, ex in each:
+                def one_part(ex=ex):
+                    pos, _ = ex.knn(plan, x, y, k, boxes=boxes)
+                    if not len(pos):
+                        return None
+                    return ex.store.tables[plan.index_name].gather_sorted(np.sort(pos))
+
+                batch = self._scan_part(plan, b, "knn", one_part)
+                if batch is not _SKIPPED and batch is not None:
+                    parts.append(batch)
         return ColumnBatch.concat(parts) if parts else ColumnBatch({}, 0)

@@ -1,22 +1,35 @@
-"""Fault points, the skip trail and durable file publishes.
+"""Retry policies, deadlines, fault points and the degradation contract.
 
-Copy of the parts of ``geomesa_tpu/resilience.py`` that the mutation
-journal and the checkpoint call:
+Copy of the parts of ``geomesa_tpu/resilience.py`` that the port's scan,
+spill, lake, join and journal paths call:
 
-* :func:`fault_point` with :class:`FaultInjector`, :class:`InjectedFault`
-  and :func:`inject_faults`: named I/O edges that crash tests drive. Inert
-  (one global load) unless an injector is installed, which
-  ``geomesa.fault.injection`` must allow.
-* :func:`record_skip`: a record that failed to apply during journal replay
-  is skipped and kept as a :class:`Skipped` in a process-local list
-  (:func:`skipped`). The reference also feeds its audit trail and tracing;
-  the port has neither yet.
+* :class:`RetryPolicy`: exponential backoff with full jitter from a seeded
+  ``random.Random``, so a seed gives the reference's backoff schedule draw
+  for draw; ``from_config`` reads ``geomesa.retry.*``.
+  :func:`transient_os_error` says which ``OSError`` a file edge retries.
+* :class:`Deadline`, :func:`deadline_scope`, :func:`adopt_deadline`,
+  :func:`current_deadline` and :func:`check_deadline`: a thread-local
+  wall-clock budget (``geomesa.query.timeout``) checked between scan
+  phases, never inside a kernel; an expiry raises
+  :class:`QueryTimeoutError`.
+* :func:`fault_point` with a seeded :class:`FaultInjector`
+  (:func:`inject_faults`): named I/O edges that tests and drills drive; a
+  rule may fire with a probability ``p`` from the injector's seeded RNG
+  and sleep ``delay_s`` before it raises. Inert (one global load) unless
+  an injector is installed, which ``geomesa.fault.injection`` must allow.
+* The degradation contract: strict mode (the default) re-raises a
+  failing partition or join slice; inside :func:`allow_partial` (or with
+  ``geomesa.scan.partial``) the scan records it with :func:`record_skip`
+  and goes on, and the answer is exact over the survivors.
+  :func:`record_skip` feeds the innermost :class:`DegradationCollector`
+  and a process-local trail (:func:`skipped`); the reference also feeds
+  its audit trail and tracing, which the port has not yet.
 * :func:`fsync_dir`, :func:`durable_replace` and
   :func:`durable_write_json`: the tmp-then-rename publish with file and
   directory fsyncs, so a crash leaves either the old or the new file.
 
-The retry policies, deadlines, breakers and the partial-result scopes of
-the reference's scan paths are not here yet.
+The circuit breakers, ``guarded_root_io``, ``PartialResult`` and the
+serving and fleet errors are not here yet.
 """
 
 from __future__ import annotations
@@ -24,15 +37,198 @@ from __future__ import annotations
 import fnmatch
 import json
 import os
+import random
 import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
 
 from geomesa_tpu_torch import config
+
+T = TypeVar("T")
+
+
+class QueryTimeoutError(RuntimeError):
+    """A scan exceeded its :class:`Deadline` (``geomesa.query.timeout``)."""
 
 
 class InjectedFault(RuntimeError):
     """Default error type raised by a fault-injection rule."""
+
+
+# -- retry policy ------------------------------------------------------------------------------
+
+@dataclass
+class RetryPolicy:
+    """Exponential backoff with full jitter from a seeded RNG.
+
+    ``attempts`` is the total number of tries (1: no retry). The delay
+    before retry ``i`` (1-based) is ``min(base_ms * 2**(i-1), max_ms)``
+    scaled by ``1 - jitter * rng.random()``, the same draws as the
+    reference's for the same seed."""
+
+    attempts: int = 3
+    base_ms: float = 50.0
+    max_ms: float = 5_000.0
+    jitter: float = 0.2
+    seed: Optional[int] = None
+    sleep: Callable[[float], None] = time.sleep
+
+    def __post_init__(self):
+        self._rng = random.Random(self.seed)
+
+    @staticmethod
+    def from_config(seed: Optional[int] = None) -> "RetryPolicy":
+        """The policy of the ``geomesa.retry.*`` knobs. An explicit 0 is a
+        setting (no delay, no retry); only an unset knob takes the
+        default, and an unset jitter is 0, as in the reference."""
+        def cfg(v, default):
+            return default if v is None else v
+
+        return RetryPolicy(
+            attempts=cfg(config.RETRY_ATTEMPTS.to_int(), 3),
+            base_ms=cfg(config.RETRY_BASE_MS.to_float(), 50.0),
+            max_ms=cfg(config.RETRY_MAX_MS.to_float(), 5_000.0),
+            jitter=cfg(config.RETRY_JITTER.to_float(), 0.0),
+            seed=seed,
+        )
+
+    def delays_ms(self) -> List[float]:
+        """The backoff schedule of this policy's retries (draws from the
+        RNG: one call per schedule run)."""
+        out = []
+        for i in range(max(self.attempts - 1, 0)):
+            d = min(self.base_ms * (2.0 ** i), self.max_ms)
+            if self.jitter:
+                d *= 1.0 - self.jitter * self._rng.random()
+            out.append(d)
+        return out
+
+    def call(self, fn: Callable[[], T],
+             retryable: Callable[[BaseException], bool] = lambda e: True,
+             deadline: "Optional[Deadline]" = None,
+             on_retry: Optional[Callable[[int, BaseException], None]] = None) -> T:
+        """Run ``fn`` with retries. ``retryable(exc)`` gates each retry; a
+        live ``deadline`` stops retrying once its budget is spent and trims
+        each sleep to what is left."""
+        last: Optional[BaseException] = None
+        attempts = max(self.attempts, 1)  # 0 or negative: still one try
+        for attempt in range(1, attempts + 1):
+            try:
+                return fn()
+            except Exception as e:  # KeyboardInterrupt / SystemExit propagate
+                last = e
+                if attempt >= attempts or not retryable(e):
+                    raise
+                d = min(self.base_ms * (2.0 ** (attempt - 1)), self.max_ms)
+                if self.jitter:
+                    d *= 1.0 - self.jitter * self._rng.random()
+                if deadline is not None:
+                    rem = deadline.remaining_s()
+                    if rem is not None:
+                        if rem <= 0:
+                            raise
+                        d = min(d, rem * 1000.0)
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                if d > 0:
+                    self.sleep(d / 1000.0)
+        raise last  # pragma: no cover (the loop returns or raises)
+
+
+def transient_os_error(e: BaseException) -> bool:
+    """Whether a file edge (spill store and load) retries ``e``: fd
+    pressure and network-filesystem blips do; a missing file, a wrong node
+    type or a denied permission fail at once, since a retry meets the same
+    error."""
+    return isinstance(e, OSError) and not isinstance(
+        e, (FileNotFoundError, IsADirectoryError, NotADirectoryError, PermissionError))
+
+
+# -- deadlines --------------------------------------------------------------------------------
+
+_deadline_local = threading.local()
+
+
+@dataclass(frozen=True)
+class Deadline:
+    """A wall-clock budget on ``time.monotonic()``; ``expires_at`` None is
+    unlimited (checks are no-ops)."""
+
+    expires_at: Optional[float]
+
+    @staticmethod
+    def after(timeout_s: Optional[float]) -> "Deadline":
+        return Deadline(None if timeout_s is None else time.monotonic() + timeout_s)
+
+    def remaining_s(self) -> Optional[float]:
+        if self.expires_at is None:
+            return None
+        return self.expires_at - time.monotonic()
+
+    @property
+    def expired(self) -> bool:
+        return self.expires_at is not None and time.monotonic() > self.expires_at
+
+    def check(self, what: str = "query") -> None:
+        if self.expired:
+            raise QueryTimeoutError(
+                f"{what} exceeded geomesa.query.timeout; narrow the filter "
+                "or raise the timeout"
+            )
+
+
+UNLIMITED = Deadline(None)
+
+
+def current_deadline() -> Deadline:
+    """The innermost deadline scope of this thread (UNLIMITED when none)."""
+    d = getattr(_deadline_local, "stack", None)
+    return d[-1] if d else UNLIMITED
+
+
+class _DeadlineScope:
+    def __init__(self, deadline: Deadline):
+        self.deadline = deadline
+
+    def __enter__(self) -> Deadline:
+        stack = getattr(_deadline_local, "stack", None)
+        if stack is None:
+            stack = _deadline_local.stack = []
+        stack.append(self.deadline)
+        self._stack = stack  # a generator may exit on another thread
+        return self.deadline
+
+    def __exit__(self, *exc):
+        # remove this scope's own deadline from the stack it entered, even
+        # if other scopes interleaved
+        try:
+            self._stack.remove(self.deadline)
+        except ValueError:
+            pass
+        return False
+
+
+def deadline_scope(timeout_s: Optional[float]) -> _DeadlineScope:
+    """Scope a deadline of ``timeout_s`` seconds (None: unlimited) over
+    this thread; scopes nest and :func:`check_deadline` reads the
+    innermost."""
+    return _DeadlineScope(Deadline.after(timeout_s))
+
+
+def adopt_deadline(deadline: Deadline) -> _DeadlineScope:
+    """Install an existing deadline as this thread's innermost scope: a
+    worker serving a query re-enters the caller's
+    :func:`current_deadline`, so one budget bounds both threads."""
+    return _DeadlineScope(deadline)
+
+
+def check_deadline(what: str = "query") -> None:
+    """Raise :class:`QueryTimeoutError` if the innermost deadline passed.
+    Called between host passes, before device dispatches and per
+    partition: a kernel is not interrupted, so a query stops at the end of
+    the phase that was running."""
+    current_deadline().check(what)
 
 
 # -- deterministic fault injection ----------------------------------------------------------
@@ -42,27 +238,33 @@ class _FaultRule:
     pattern: str
     error: Any                      # exception instance, type or factory
     times: Optional[int] = None     # None: every matching hit
-    hits: int = 0                   # matched (after times gating)
+    p: float = 1.0                  # probability per hit (the injector's RNG)
+    delay_s: float = 0.0            # sleep before raising
+    hits: int = 0                   # matched (after p and times gating)
     #: the rule matches only where ``where(ctx)`` is truthy (ctx: the
     #: fault point's keyword arguments)
     where: Optional[Callable[[Dict[str, Any]], bool]] = None
 
 
 class FaultInjector:
-    """Registry of fault rules matched against fault-point names
-    (``fnmatch`` patterns: ``journal.*``, ``fs.save.manifest``, ...)."""
+    """Seeded registry of fault rules matched against fault-point names
+    (``fnmatch`` patterns: ``journal.*``, ``exec.partition.scan``, ...)."""
 
-    def __init__(self):
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+        self._rng = random.Random(seed)
         self._rules: List[_FaultRule] = []
         self._lock = threading.Lock()
         self.fired: List[Tuple[str, str]] = []  # (site, error repr)
 
     def fail(self, pattern: str, error: Any = None, times: Optional[int] = 1,
+             p: float = 1.0, delay_s: float = 0.0,
              where: Optional[Callable[[Dict[str, Any]], bool]] = None) -> _FaultRule:
         """Arm a rule. ``error``: an exception instance or type, or a
         zero-argument factory (default :class:`InjectedFault`);
-        ``times=None`` fires on every match."""
-        rule = _FaultRule(pattern, error, times, where=where)
+        ``times=None`` fires on every match; ``p`` < 1 fires a match with
+        that probability (seeded); ``delay_s`` sleeps before the raise."""
+        rule = _FaultRule(pattern, error, times, p, delay_s, where=where)
         with self._lock:
             self._rules.append(rule)
         return rule
@@ -86,12 +288,17 @@ class FaultInjector:
                     continue
                 if rule.where is not None and not rule.where(ctx):
                     continue
+                if rule.p < 1.0 and self._rng.random() >= rule.p:
+                    continue
                 rule.hits += 1
                 err = self._materialize(rule, site)
                 self.fired.append((site, repr(err)))
+                delay = rule.delay_s
                 break
             else:
                 return
+        if delay:
+            time.sleep(delay)
         raise err
 
 
@@ -129,22 +336,77 @@ class _InjectScope:
         return False
 
 
-def inject_faults() -> _InjectScope:
-    """Install a process-global :class:`FaultInjector` for the scope (it
-    fires on every thread, the journal's committer included)."""
-    return _InjectScope(FaultInjector())
+def inject_faults(seed: int = 0) -> _InjectScope:
+    """Install a process-global seeded :class:`FaultInjector` for the
+    scope (it fires on every thread, the journal's committer and the
+    prefetch worker included)."""
+    return _InjectScope(FaultInjector(seed))
 
 
-# -- the skip trail ---------------------------------------------------------------------------
+# -- the degradation contract ------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class Skipped:
     """One unit of work that was skipped, and why."""
 
-    source: str        # e.g. "journal.replay"
-    part: str          # schema@seq, partition or file
+    source: str        # e.g. "exec.partition.scan", "journal.replay"
+    part: str          # partition ("bin:<b>"), join slice, schema@seq
     error: str         # repr of the failure
-    phase: str = ""    # optional sub-phase ("apply", ...)
+    phase: str = ""    # optional sub-phase ("count", "load", "apply", ...)
+
+
+class DegradationCollector:
+    """The :class:`Skipped` records of one operation, installed on its
+    thread by :func:`allow_partial`."""
+
+    def __init__(self):
+        self.skipped: List[Skipped] = []
+        self._lock = threading.Lock()
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.skipped)
+
+    def add(self, rec: Skipped) -> None:
+        with self._lock:
+            self.skipped.append(rec)
+
+
+_partial_local = threading.local()
+
+
+def _collectors() -> List[DegradationCollector]:
+    st = getattr(_partial_local, "stack", None)
+    if st is None:
+        st = _partial_local.stack = []
+    return st
+
+
+class _PartialScope:
+    def __enter__(self) -> DegradationCollector:
+        c = DegradationCollector()
+        _collectors().append(c)
+        return c
+
+    def __exit__(self, *exc):
+        _collectors().pop()
+        return False
+
+
+def allow_partial() -> _PartialScope:
+    """``with allow_partial() as partial:`` a failing partition or join
+    slice inside the scope is skipped and recorded instead of raising;
+    ``partial.skipped`` holds the account. Scopes nest; records land in
+    the innermost collector. A deadline is never degraded."""
+    return _PartialScope()
+
+
+def partial_allowed() -> bool:
+    """Whether the current operation may degrade: inside
+    :func:`allow_partial`, or with ``geomesa.scan.partial`` set."""
+    if _collectors():
+        return True
+    return bool(config.SCAN_PARTIAL.to_bool())
 
 
 _skipped: List[Skipped] = []
@@ -153,15 +415,20 @@ _skipped_lock = threading.Lock()
 
 def record_skip(source: str, part: str, error: BaseException,
                 phase: str = "") -> Skipped:
-    """Record one skipped unit in the process-local trail."""
+    """Record one skipped unit: into the innermost collector (if any) and
+    the process-local trail. The caller decides whether to go on
+    (:func:`partial_allowed`)."""
     rec = Skipped(source=source, part=str(part), error=repr(error), phase=phase)
+    st = _collectors()
+    if st:
+        st[-1].add(rec)
     with _skipped_lock:
         _skipped.append(rec)
     return rec
 
 
 def skipped(clear: bool = False) -> List[Skipped]:
-    """The skip trail so far (``clear``: and empty it)."""
+    """The process-local skip trail so far (``clear``: and empty it)."""
     with _skipped_lock:
         out = list(_skipped)
         if clear:

@@ -54,6 +54,12 @@ KNOBS = {
     "JOURNAL_GROUP_MS": "JOURNAL_GROUP_MS",
     "JOURNAL_SEGMENT_BYTES": "JOURNAL_SEGMENT_BYTES",
     "FAULT_INJECTION": "FAULT_INJECTION",
+    "QUERY_TIMEOUT": "QUERY_TIMEOUT",
+    "SCAN_PARTIAL": "SCAN_PARTIAL",
+    "RETRY_ATTEMPTS": "RETRY_ATTEMPTS",
+    "RETRY_BASE_MS": "RETRY_BASE_MS",
+    "RETRY_MAX_MS": "RETRY_MAX_MS",
+    "RETRY_JITTER": "RETRY_JITTER",
     "CACHE_ENABLED": "CACHE_ENABLED",
     "CACHE_BUDGET_BYTES": "CACHE_BUDGET_BYTES",
     "CACHE_CELLS_PER_AXIS": "CACHE_CELLS_PER_AXIS",
