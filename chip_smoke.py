@@ -115,10 +115,12 @@ nothing else.)
    end on the scatter rung (``geomesa.density.pallas.max.dup`` 0, the
    reference's rung for xz) and the grouped rung in turns, with equal grids.
 8. Slice 5, a time-partitioned store (``...;geomesa.partition='time'``) at
-   BASELINE config #3's scale: N5 (default 100,000,000) points from the
-   bench's generator (20M a month, so five months of ``dtg``; seed as
-   above), ingested in the bench's 25M-row chunks with ``fids`` 0..N5-1;
-   23 weekly partitions under the default budget of 4 resident, the rest
+   BASELINE config #3's shape: N5 (default 50,000,000; the config's 100,000,000, cut
+   for the time limit) points from the
+   bench's generator (20M a month, so two and a half months of ``dtg`` at
+   50M, five at 100M; seed as above), ingested in the bench's 25M-row
+   chunks with ``fids`` 0..N5-1; 11 weekly partitions at 50M (23 at 100M)
+   under the default budget of 4 resident, the rest
    spilled as lake snapshots (the default) to
    ``chiprun_out/chip_smoke/spill`` (removed at the end); the additive
    unweighted calls load only the row groups their box meets. On B
@@ -328,9 +330,33 @@ nothing else.)
    the stations join with its largest tile section failing, under
    ``allow_partial()``, equal to the healthy pairs that the surviving
    sections and brute ranges test.
+15. Slice 14, span tracing, the cost ledger, the audit log, guards and
+   ``explain``, no new data. On slice 1's flat store right after slice 13's
+   0 ms timeout: the main path's four calls (count, the 512x512 density,
+   weighted, the polygon count), each run warm untraced and then with
+   ``geomesa.trace.enabled``: the traced answer equals the untraced one and
+   the oracle-checked one, the trace's preorder span names equal
+   ``S14_SPANS`` (which the CPU tests fix for the same calls), and every
+   traced launch of pip and density_grouped sits in a ``scan.kernel`` span.
+   The count's warm p50 traced against untraced, in turns (the reference's
+   ``trace_overhead_pct``; over 5% is logged, not a failure).
+   ``explain(analyze=True)`` of the main box: its sections in order and
+   ``Matched`` equal to the count. With ``geomesa.audit.path`` in a
+   temporary directory and ``geomesa.trace.slow.ms`` 0: one QueryEvent and
+   one slow-query tree per call, each with the call's trace id. Under
+   ``geomesa.scan.block-full-table`` ``count(INCLUDE)`` raises the
+   reference's ``ValueError`` with no dispatch. On slice 5's store, inside
+   slice 13's phase: B's traced count has a ``scan.partition`` span per
+   partition scanned and the prefetch worker's ``scan.stage`` spans, its
+   ``partitions_scanned`` + ``partitions_pruned`` are the store's partitions
+   and its ``lake_bytes_read`` the bytes its exec path says it loaded; one
+   count with a partition failing under ``allow_partial()``, traced: the
+   trace is degraded and one ``DegradationEvent`` names the bin. Both parts
+   together must take at most 15 s.
 
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8`` to ``launches_slice11`` and ``launches_slice13``), the card's ``nvidia-smi``
+``launches_slice8`` to ``launches_slice11``, ``launches_slice13`` and
+``launches_slice14``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -2078,9 +2104,11 @@ def slice7(args, torch, kpip, kgrouped):
 
 
 PART_SPEC = "weight:Float,dtg:Date,*geom:Point;geomesa.partition='time'"
-#: BASELINE config #3's scale; the JAX bench partitions from 50M rows on
-#: (bench.py:1082), the least this phase may be cut to
-PART_ROWS = 100_000_000
+#: slice 5's rows: cut from BASELINE config #3's 100M so that the whole
+#: script keeps within its time limit on the slower card hosts (PERF.md
+#: §4); the JAX bench partitions from 50M rows on (bench.py:1082), the
+#: least this phase may be cut to
+PART_ROWS = 50_000_000
 PART_MIN_ROWS = 50_000_000
 #: the bench's ingest chunk (bench.py:1120)
 PART_CHUNK = 25_000_000
@@ -2927,7 +2955,8 @@ def s9_pushdown(args, torch, ds, data, name, st):
             got, cold = timed(torch, fn)
             answers[op] = got
             plan = ds._plan(name, pq)
-            acct = dict(plan.__dict__.get("lake_acct") or {})
+            # the call's audit event carries its lake account
+            acct = dict(ds.audit.recent(1)[0].hints.get("lake") or {})
             path = dict(plan.exec_path)
             warm = [timed(torch, fn)[1] * 1e3 for _ in range(reps)]
             # the cold call is the pushdown-on call from a cold store
@@ -3014,7 +3043,7 @@ def s9_join(args, torch, ds, data, name):
         del ds._join_pushdown_count
     if not got:
         raise AssertionError("the join count did not take the pushdown path")
-    stats = got[0][2]
+    stats = got[0][3]
     x, y = data["geom__x"], data["geom__y"]
     pad = 0.01
     near = np.flatnonzero((x >= NYC[0] - pad) & (x <= NYC[2] + pad)
@@ -4263,8 +4292,9 @@ def s13_check(label, key, got, want):
 
 def slice13(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped, name="gdelt5"):
     """The slice-13 phase on slice 5's store after slice 11's partitioned
-    part (see the module docstring, 14). Returns the launches of its
-    calls."""
+    part (see the module docstring, 14), with slice 14's partitioned part
+    after its degraded calls. Returns the launches of its calls and
+    :func:`s14_partitioned`'s (launches, wall)."""
     from geomesa_tpu_torch import config, resilience
     from geomesa_tpu_torch.filter.ecql import parse_iso_ms
     from geomesa_tpu_torch.lake.snapshot import PartitionSnapshot
@@ -4347,6 +4377,9 @@ def slice13(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped, name="
         f"over both partitions; "
         f"warm count healthy {healthy_ms:.3f} ms, degraded {degraded_ms:.3f} ms; launches "
         f"{launches}; warm ms of each call healthy / degraded {per_call}")
+
+    # slice 14's part on this store: B traced, then one degraded count
+    s14 = s14_partitioned(torch, ds, name, f"{BOX} AND {DURING}", dead, q, kpip, kgrouped)
 
     # 2. the deadline: the long window's count under geomesa.query.timeout
     q_long = f"{BOX} AND {LONG}"
@@ -4455,8 +4488,9 @@ def slice13(torch, ds, data, alive, wkt, packed, n_edges, kpip, kgrouped, name="
     log(f"[slice13] a one-row partition {b}, spilled through two transient OSErrors at "
         f"index.spill.store in {spill_s:.3f} s: one snapshot write, the partition spilled, "
         f"the row read back")
-    log(f"[slice13] the phase took {time.perf_counter() - t_phase:.3f} s")
-    return launches
+    log(f"[slice13] the phase took {time.perf_counter() - t_phase - s14[1]:.3f} s "
+        f"(slice 14's part apart)")
+    return launches, s14
 
 
 def slice13_flat(ds, name="gdelt"):
@@ -4535,6 +4569,254 @@ def s13_join(ds, kw, healthy):
     log(f"[slice13] stations join with its {sec.strategy} section ({sec.n_tiles} tiles) "
         f"failing: skipped {res.stats.skipped}, {res.count} of {healthy.count} pairs, equal "
         f"to the healthy pairs that the other sections and the brute ranges test")
+
+
+# ---------------------------------------------------------------------------
+# slice 14: span tracing, the cost ledger, the audit log, guards, explain
+# ---------------------------------------------------------------------------
+
+#: preorder span names of each main-path call traced warm (the compacted
+#: layout, its column slabs already gathered): the CPU tests fix the same
+#: lists on a small compacted store (tests/test_torch_trace.py)
+S14_SPANS = {
+    "count_bbox": ["count", "plan", "scan.kernel", "scan.sync"],
+    "density": ["density", "plan", "scan.kernel", "scan.sync"],
+    "density_weighted": ["density", "plan", "scan.kernel", "scan.sync"],
+    "count_polygon": ["count", "plan", "scan.kernel", "scan.sync"],
+}
+#: explain(analyze=True)'s sections, in order
+S14_SECTIONS = ["Planning 'gdelt' query", "Aggregate cache", "Hierarchy", "Warm path",
+                "Observability", "Selectivity (analyze)", "Cost"]
+#: warm traced / untraced count pairs for the overhead p50s
+S14_OVERHEAD_REPS = 40
+#: the phase's budget, its flat and partitioned parts together
+S14_BUDGET_S = 15.0
+S14_GUARD_MSG = ("full-table scan blocked (geomesa.scan.block-full-table=true); "
+                 "add spatial/temporal/attribute predicates")
+
+
+def span_names(trace) -> list:
+    """Preorder span names of a finished trace."""
+    out = []
+
+    def walk(s):
+        out.append(s.name)
+        for c in s.children:
+            walk(c)
+
+    walk(trace.root)
+    return out
+
+
+@contextlib.contextmanager
+def kernel_spans(kpip, kgrouped, tracing):
+    """The span current at each launch of pip and density_grouped while
+    the scope runs (``{"pip": [...], "density_grouped": [...]}``): the
+    wrappers pass through to the kernels and are put back on exit."""
+    seen = {"pip": [], "density_grouped": []}
+    real_pip, real_dg = kpip.pip_mask, kgrouped.density_grouped
+
+    def pip_mask(*a, **k):
+        seen["pip"].append(getattr(tracing.current_span(), "name", None))
+        return real_pip(*a, **k)
+
+    def density_grouped(*a, **k):
+        seen["density_grouped"].append(getattr(tracing.current_span(), "name", None))
+        return real_dg(*a, **k)
+
+    kpip.pip_mask, kgrouped.density_grouped = pip_mask, density_grouped
+    try:
+        yield seen
+    finally:
+        kpip.pip_mask, kgrouped.density_grouped = real_pip, real_dg
+
+
+def s14_host_profile(torch, fn, n: int, top: int = 8):
+    """``n`` warm calls under cProfile: the ``top`` functions by own time,
+    as (name (file:line), ms a call)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [(f"{f[2]} ({Path(f[0]).name}:{f[1]})", round(v[2] * 1e3 / n, 4)) for f, v in rows]
+
+
+def slice14(torch, ds, calls, want, kpip, kgrouped, n_bbox, name="gdelt"):
+    """The slice-14 phase on slice 1's flat store after slice 13's (see the
+    module docstring, 15): ``calls`` are the main path's four calls,
+    ``want`` their oracle-checked answers. Returns (launches, wall s, the
+    count's warm p50s untraced / traced)."""
+    import tempfile
+
+    from geomesa_tpu_torch import audit, config, metrics, tracing
+
+    t_phase = time.perf_counter()
+    q_bbox = f"{BOX} AND {DURING}"
+    kpip.launches = 0
+    kgrouped.launches = 0
+    # 1. the main path traced: answers, span trees, launches under spans
+    with kernel_spans(kpip, kgrouped, tracing) as seen:
+        for key, fn in calls.items():
+            plain = fn()  # warm: the traced call finds its slabs gathered
+            with config.TRACE_ENABLED.scoped("true"):
+                got = fn()
+            tr = tracing.last_trace()
+            if key == "density_weighted":  # float atomics: rtol 1e-4
+                same = (np.allclose(got, plain, rtol=1e-4, atol=1e-3)
+                        and np.allclose(got, want[key], rtol=1e-4, atol=1e-3))
+            elif isinstance(got, np.ndarray):
+                same = np.array_equal(got, plain) and np.array_equal(got, want[key])
+            else:
+                same = got == plain == want[key]
+            if not same:
+                raise AssertionError(f"[slice14] traced {key} differs from the untraced call "
+                                     f"or the oracle-checked answer")
+            names = span_names(tr)
+            if names != S14_SPANS[key]:
+                raise AssertionError(f"[slice14] {key} spans {names}, want {S14_SPANS[key]}")
+            log(f"[slice14] {key}: traced = untraced = oracle; spans {names}; trace "
+                f"{tr.trace_id} {tr.root.duration_ms:.3f} ms")
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    for k, names in seen.items():
+        traced = [n for n in names if n is not None]
+        if not traced or set(traced) != {"scan.kernel"}:
+            raise AssertionError(f"[slice14] {k} launched under spans {names}")
+    log(f"[slice14] launches {launches}; under tracing each launch sat in a scan.kernel "
+        f"span ({ {k: len([n for n in v if n]) for k, v in seen.items()} } traced launches)")
+
+    # 2. the reference's trace_overhead_pct: the count's warm p50, traced
+    # against untraced, in turns (untraced, traced, traced, untraced)
+    count = calls["count_bbox"]
+    walls = {False: [], True: []}
+    for _ in range(S14_OVERHEAD_REPS // 2):
+        for on in (False, True, True, False):
+            with config.TRACE_ENABLED.scoped(str(on).lower()):
+                walls[on].append(timed(torch, count)[1] * 1e3)
+    p50_off, p50_on = (float(np.median(walls[k])) for k in (False, True))
+    pct = (p50_on - p50_off) / p50_off * 100.0
+    log(f"[slice14] warm count p50 untraced {p50_off:.6f} ms, traced {p50_on:.6f} ms "
+        f"({len(walls[True])} calls each, in turns): trace overhead {pct:.3f}%"
+        + (" (over 5%: a finding, not a failure)" if pct > 5.0 else ""))
+    # where the difference goes: the span API alone (a root and the count's
+    # three children, no query), and each mode's host profile over 20 calls
+    def skeleton():
+        with tracing.start("count", schema=name):
+            for span_name in ("plan", "scan.kernel", "scan.sync"):
+                with tracing.span(span_name):
+                    pass
+
+    with config.TRACE_ENABLED.scoped("true"):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            skeleton()
+        skel_us = (time.perf_counter() - t0) / 2000 * 1e6
+    log(f"[slice14] the span API alone: {skel_us:.3f} us a trace of 4 spans (host)")
+    for on in (False, True):
+        with config.TRACE_ENABLED.scoped(str(on).lower()):
+            log(f"[slice14] host profile of 20 warm counts, traced {on}: "
+                f"{s14_host_profile(torch, count, 20)}")
+
+    # 3. explain(analyze=True) of the main box
+    with config.TRACE_ENABLED.scoped("true"):
+        text = ds.explain(name, q_bbox, analyze=True)
+    heads = [ln for ln in text.splitlines() if not ln.startswith(" ")]
+    if heads != S14_SECTIONS or f"  Matched: {n_bbox}" not in text.splitlines():
+        raise AssertionError(f"[slice14] explain sections {heads} or its match count")
+    log("[slice14] explain(analyze=True):\n" + text)
+
+    # 4. the audit JSONL and the slow-query log: one event per call with its
+    # trace id, and one slow tree per call at geomesa.trace.slow.ms 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "audit.jsonl"
+        ids = []
+        with config.TRACE_ENABLED.scoped("true"), config.AUDIT_PATH.scoped(str(path)), \
+                config.TRACE_SLOW_MS.scoped("0"):
+            for fn in calls.values():
+                fn()
+                ids.append(tracing.last_trace().trace_id)
+        audit._appender.reset()
+        recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    events = [r["hints"]["trace_id"] for r in recs if "hints" in r]
+    slow = [r["trace_id"] for r in recs if r.get("kind") == "slow_trace"]
+    if events != ids or slow != ids:
+        raise AssertionError(f"[slice14] audit file trace ids {events}, slow {slow}, want {ids}")
+    log(f"[slice14] audit file: {len(events)} QueryEvents and {len(slow)} slow-query trees, "
+        f"one each per call, carrying the calls' trace ids")
+
+    # 5. the full-table-scan guard: refused before any dispatch
+    d0 = metrics.registry().counter(metrics.EXEC_DEVICE_DISPATCH).value
+    with config.BLOCK_FULL_TABLE_SCANS.scoped("true"):
+        try:
+            ds.count(name, "INCLUDE")
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("[slice14] count(INCLUDE) passed the full-table-scan guard")
+    delta = metrics.registry().counter(metrics.EXEC_DEVICE_DISPATCH).value - d0
+    if msg != S14_GUARD_MSG or delta:
+        raise AssertionError(f"[slice14] guard: {msg!r}, dispatch delta {delta}")
+    log(f"[slice14] geomesa.scan.block-full-table: count(INCLUDE) raised ValueError "
+        f"{msg!r}; exec.device.dispatch delta {delta}")
+    wall = time.perf_counter() - t_phase
+    log(f"[slice14] the flat part took {wall:.3f} s")
+    return launches, wall, (p50_off, p50_on)
+
+
+def s14_partitioned(torch, ds, name, q_b, dead, q_dead, kpip, kgrouped):
+    """Slice 14's part on slice 5's store, inside slice 13's phase: a
+    traced count of B (a ``scan.partition`` span per partition scanned,
+    the prefetch worker's ``scan.stage`` spans, the pruning and lake
+    costs), then one count of ``q_dead`` with bin ``dead`` failing, traced
+    under ``allow_partial()``: the trace is degraded and one
+    ``DegradationEvent`` names the bin. Returns (launches, wall s)."""
+    from geomesa_tpu_torch import audit, config, resilience, tracing
+
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    st = ds._store(name)
+    with config.TRACE_ENABLED.scoped("true"):
+        n = ds.count(name, q_b)
+    tr = tracing.last_trace()
+    names = span_names(tr)
+    path = ds._plan(name, q_b).exec_path
+    cost = tr.cost
+    scanned = int(cost.get("partitions_scanned", 0))
+    lake = path.get("lake")
+    loaded = int(lake.split(", ")[1].split("/")[0]) if lake else 0
+    # an emptied partition (slice 9's age_off) is pruned in but not scanned
+    if (names.count("scan.partition") != len(path["partitions"])
+            or scanned != path["partitions_scanned"]
+            or scanned + int(cost["partitions_pruned"]) != len(st.partition_bins())
+            or int(cost.get("lake_bytes_read", 0)) != loaded
+            or (scanned >= 2 and "scan.stage" not in names)):
+        raise AssertionError(f"[slice14] B's traced count: spans {names}, cost {cost}, "
+                             f"exec_path {path}")
+    log(f"[slice14] B's traced count {n}: {names.count('scan.partition')} scan.partition, "
+        f"{names.count('scan.stage')} scan.stage spans; cost {cost}; lake {lake}")
+    d0 = len(audit.degradations.events)
+    with config.TRACE_ENABLED.scoped("true"), config.FAULT_INJECTION.scoped("true"), \
+            resilience.inject_faults(seed=14) as inj:
+        inj.fail("exec.partition.scan", times=None, where=lambda c: c.get("bin") == dead)
+        with resilience.allow_partial():
+            ds.count(name, q_dead)
+    tr = tracing.last_trace()
+    evs = list(audit.degradations.events)[d0:]
+    if not tr.degraded or [e.part for e in evs] != [f"bin:{dead}"]:
+        raise AssertionError(f"[slice14] degraded count: trace degraded {tr.degraded}, "
+                             f"events {evs}")
+    log(f"[slice14] the degraded count's trace is marked degraded; one DegradationEvent "
+        f"({evs[0].source}, {evs[0].part}, phase {evs[0].phase})")
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    wall = time.perf_counter() - t_phase
+    log(f"[slice14] the partitioned part took {wall:.3f} s; launches {launches}")
+    return launches, wall
 
 
 def _iso(ms: int) -> str:
@@ -4787,6 +5069,10 @@ def main() -> int:
     # -- slice 13's deadline on the flat store ---------------------------------
     slice13_flat(ds)
 
+    # -- 15. slice 14: tracing, the audit log, guards and explain -------------
+    s14_flat, s14_wall, s14_p50 = slice14(torch, ds, queries, results, kpip, kgrouped,
+                                          n_bbox)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -4814,14 +5100,23 @@ def main() -> int:
 
     # -- 8. slice 5, on a partitioned store of its own (slice 8's partitioned
     # calls run on it at the end) ---------------------------------------------
-    _, s8_part, s9_part, s10_part, s11_part, s13_part = slice5(
+    _, s8_part, s9_part, s10_part, s11_part, (s13_part, (s14_part, s14_part_wall)) = slice5(
         args, torch, wkt, packed, n_edges, kpip, kgrouped)
+    s14_wall += s14_part_wall
+    log(f"[slice14] the phase took {s14_wall:.3f} s (flat and partitioned parts); warm "
+        f"count p50 untraced {s14_p50[0]:.6f} ms, traced {s14_p50[1]:.6f} ms")
+    if s14_wall > S14_BUDGET_S:
+        raise AssertionError(f"[slice14] the phase took {s14_wall:.3f} s, over its "
+                             f"{S14_BUDGET_S} s")
     for k in kernels:
         k["launches_slice8"] = s8_launches.get(k["name"], 0) + s8_part.get(k["name"], 0)
         k["launches_slice9"] = s9_flat.get(k["name"], 0) + s9_part.get(k["name"], 0)
         k["launches_slice10"] = s10_flat.get(k["name"], 0) + s10_part.get(k["name"], 0)
         k["launches_slice11"] = s11_flat.get(k["name"], 0) + s11_part.get(k["name"], 0)
         k["launches_slice13"] = s13_part.get(k["name"], 0)
+        k["launches_slice14"] = s14_flat.get(k["name"], 0) + s14_part.get(k["name"], 0)
+    if min(s14_flat.values()) <= 0:
+        raise AssertionError(f"[slice14] a main-path kernel never launched traced: {s14_flat}")
 
     log(f"[main] chip_smoke wall {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

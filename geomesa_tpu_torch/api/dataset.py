@@ -40,20 +40,33 @@ out-of-core store and serves the same calls partition at a time
 Extent-geometry columns take WKT strings or geometry objects on insert
 and come back as WKT.
 
+Every public query call opens one root span (``tracing.py``; off unless
+``geomesa.trace.enabled``) and plans through the schema's interceptors and
+the built-in guards
+(``geomesa.scan.block-full-table``, ``geomesa.guard.temporal.max.days``),
+which a cached plan checks again on every call. ``query``,
+``query_batches``, the exact ``count``, ``density``, ``density_curve``,
+``stats`` and the joins write one ``QueryEvent`` each to ``self.audit``
+(``audit.py``), a query-axis batch one per member. ``explain`` prints the
+planner's explain tree and the cache, hierarchy, warm-path,
+observability and (``analyze=True``) selectivity and cost sections.
+
 No counterpart here yet: standing subscriptions (their journal records
-replay as unknown kinds and are skipped), audit, serving, tracing, the
-metrics export and the fleet (the journal's epoch marker and
-``/healthz`` lag snapshot), and ``explain``.
+replay as unknown kinds and are skipped), serving admission, the kernel
+registry's accounting, the trace export, the metrics export and the fleet
+(the journal's epoch marker and ``/healthz`` lag snapshot).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import shutil
+import threading
 import time
 import uuid
 import zlib
@@ -64,7 +77,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch import config, metrics, resilience, tracing
+from geomesa_tpu_torch.audit import AuditWriter
 from geomesa_tpu_torch.cache import AggregateCache
 from geomesa_tpu_torch.fs import journal as _jr
 from geomesa_tpu_torch.filter import ir
@@ -72,10 +86,13 @@ from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
+from geomesa_tpu_torch.kernels.registry import WINDOW_BUCKET_FLOOR
+from geomesa_tpu_torch.planning import interceptors
 from geomesa_tpu_torch.planning.batch import build_spec
 from geomesa_tpu_torch.planning.executor import Executor, query_deadline
+from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.planning.partitioned_exec import PartitionedExecutor
-from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, plan_query
+from geomesa_tpu_torch.planning.planner import QueryHints, QueryPlan, guard, plan_query
 from geomesa_tpu_torch.schema.columns import (
     ColumnBatch, DictionaryEncoder, decode_batch, fid_strs, schema_null_fills,
 )
@@ -229,6 +246,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _traced(op: str):
+    """Open one ROOT span per public query operation (a child span when a
+    trace is already open) and run the call as the caller's identity (see
+    :meth:`GeoDataset._identity`)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, name, *args, **kw):
+            with tracing.start(op, schema=name), self._identity():
+                return fn(self, name, *args, **kw)
+
+        return wrapper
+
+    return deco
+
+
 class GeoDataset:
     """Schema catalog + stores on one device.
 
@@ -247,6 +280,10 @@ class GeoDataset:
         self._stores: Dict[str, FeatureStore] = {}
         self._executors: Dict[str, Any] = {}
         self._plans: Dict[tuple, QueryPlan] = {}
+        #: the query audit log: one QueryEvent per public query call
+        self.audit = AuditWriter()
+        #: the identity of the public call running on this thread
+        self._tls = threading.local()
         #: the aggregate cache in front of count / density / density_curve /
         #: stats (``geomesa.cache.enabled``; off by default)
         self.cache = AggregateCache()
@@ -903,37 +940,274 @@ class GeoDataset:
                 f"reprojecting results to EPSG:{q.srid}: {_HOST_LAYERS}")
         return q
 
-    def _plan(self, name: str, query) -> QueryPlan:
-        """The plan of ECQL text or a ``Query``, cached per (query, store
-        version); its ``exec_path`` describes the last call that ran it."""
+    def _plan(self, name: str, query, explain: Optional[Explainer] = None) -> QueryPlan:
+        """The plan of ECQL text or a ``Query`` under a ``plan`` span, cached
+        per (query, store version, interceptor registry); its ``exec_path``
+        describes the last call that ran it. A cached plan checks the
+        guards again (a guard knob may have flipped since). A plan built
+        for ``explain`` records its explain lines and is not cached."""
+        with tracing.span("plan"):
+            return self._plan_inner(name, query, explain)
+
+    def _plan_inner(self, name: str, query, explain: Optional[Explainer]) -> QueryPlan:
         q = self._as_query(query)
         st = self._store(name)
         st.flush()
-        # the knobs planning reads key the cache too, so a scoped change
-        # never serves a plan compiled under another setting
-        key = (name, repr(q), id(st), st.version, config.LOOSE_BBOX.get(),
-               config.SCAN_RANGES_TARGET.get())
-        plan = self._plans.get(key)
-        if plan is None:
+        key = None
+        if explain is None:
+            # the knobs planning reads key the cache too, so a scoped change
+            # never serves a plan compiled under another setting
+            key = (name, repr(q), id(st), st.version, config.LOOSE_BBOX.get(),
+                   config.SCAN_RANGES_TARGET.get(), interceptors.version())
+            plan = self._plans.get(key)
+            if plan is not None:
+                guard(st, plan.key_plan, plan.filter)
+                interceptors.apply_guards(st.ft, plan)
+                return plan
+        t0 = time.perf_counter()
+        with metrics.registry().timer("query.plan").time():
+            plan = plan_query(st, q.ecql, q.hints(), explain)
+        if isinstance(q.ecql, str):
+            # a plan of ECQL text can be reproduced from it: the
+            # reference's ``cache_token``, which a query-axis batch
+            # requires of every member
+            plan.__dict__["cache_token"] = q.ecql
+        plan.__dict__["plan_time_ms"] = (time.perf_counter() - t0) * 1e3
+        if key is not None:
             if len(self._plans) >= 256:
                 self._plans.clear()
-            plan = self._plans[key] = plan_query(st, q.ecql, q.hints())
-            if isinstance(q.ecql, str):
-                # a plan of ECQL text can be reproduced from it: the
-                # reference's ``cache_token``, which a query-axis batch
-                # requires of every member
-                plan.__dict__["cache_token"] = q.ecql
+            self._plans[key] = plan
         return plan
 
     def _fresh_plan(self, name: str, query) -> QueryPlan:
         """:meth:`_plan` with its per-call state cleared for a new call: the
-        ``exec_path``, the lake account and the ``degraded`` list of skipped
-        partitions (a cached plan never reports an earlier call's skips)."""
+        ``exec_path``, the device coarse mask's ms, the lake account and the
+        ``degraded`` list of skipped partitions (a cached plan never reports
+        an earlier call's skips). The audit after the call pops the last
+        two."""
         plan = self._plan(name, query)
         plan.__dict__["exec_path"] = {}
-        plan.__dict__.pop("lake_acct", None)
-        plan.__dict__.pop("degraded", None)
+        for k in ("device_coarse_ms", "lake_acct", "degraded"):
+            plan.__dict__.pop(k, None)
         return plan
+
+    # -- audit ----------------------------------------------------------------
+    @contextlib.contextmanager
+    def _identity(self):
+        """Run a public call as ``geomesa.user`` (or ``"anonymous"``): the
+        ``user`` of the audit events written inside it. A nested call keeps
+        the outer call's identity."""
+        if getattr(self._tls, "user", None) is not None:
+            yield
+            return
+        self._tls.user = config.USER.get() or "anonymous"
+        try:
+            yield
+        finally:
+            self._tls.user = None
+
+    def _current_user(self) -> str:
+        return getattr(self._tls, "user", None) or ""
+
+    @staticmethod
+    def _plan_audit_extras(plan: QueryPlan) -> Dict[str, Any]:
+        """Execution-path hints shared by every audit writer: the exec
+        path, the device coarse mask's ms, the lake account and the
+        degraded-partition account. Pops ``lake_acct`` and ``degraded``:
+        a cached plan runs again, and each execution's accounts are
+        reported once."""
+        extras: Dict[str, Any] = {}
+        path = plan.__dict__.get("exec_path")
+        if path:
+            extras["exec_path"] = {k: v for k, v in path.items() if v is not None}
+        if "device_coarse_ms" in plan.__dict__:
+            extras["device_coarse_ms"] = round(plan.__dict__["device_coarse_ms"], 3)
+        acct = plan.__dict__.pop("lake_acct", None)
+        if acct:
+            extras["lake"] = dict(acct)
+        degraded = plan.__dict__.pop("degraded", None)
+        if degraded:
+            extras["degraded"] = [
+                {"part": d.part, "error": d.error, "phase": d.phase}
+                for d in degraded
+            ]
+        return extras
+
+    def _audit(self, name: str, q: Query, plan: QueryPlan, t_scan0: float,
+               hits: int, op: str = "query") -> None:
+        """One ``QueryEvent`` for a finished call, carrying the call's
+        trace id when it is traced."""
+        hints = {"op": op, "index": plan.index_name,
+                 "max_features": q.max_features, "sampling": q.sampling}
+        tid = tracing.current_trace_id()
+        if tid is not None:
+            hints["trace_id"] = tid
+        hints.update(self._plan_audit_extras(plan))
+        self.audit.record(
+            name, plan.ecql, hints,
+            plan.__dict__.get("plan_time_ms", 0.0),
+            (time.perf_counter() - t_scan0) * 1e3, hits,
+            user=self._current_user(),
+            scanned=plan.__dict__.get("scanned_rows", 0),
+            table_rows=plan.__dict__.get("table_rows", 0),
+        )
+
+    def _batch_audit(self, name: str, op: str, plans, hits, t0: float,
+                     members, extra_hints=None, distinct: bool = True) -> None:
+        """One ``QueryEvent`` per member of a query-axis batch: the shared
+        scan cost and execution-path extras ride member 0, so sums over
+        events never count twice. ``plans`` is per member, or of length 1
+        when every member shares one plan (the curve crops); ``members``:
+        optional per-member ``trace_id`` / ``user``; ``distinct`` marks
+        distinct-literal batches."""
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        extras = self._plan_audit_extras(plans[0])
+        shared_plan = len(plans) != len(hits)
+        for i in range(len(hits)):
+            plan = plans[0] if shared_plan else plans[i]
+            hints: Dict[str, Any] = {
+                "op": op, "index": plan.index_name, "fused": True,
+                "fused_batch": len(hits), "fused_member": i,
+            }
+            if distinct:
+                hints["distinct"] = True
+            if extra_hints:
+                hints.update(extra_hints)
+            m = members[i] if members is not None else {}
+            tid = m.get("trace_id") or tracing.current_trace_id()
+            if tid is not None:
+                hints["trace_id"] = tid
+            if m.get("user"):
+                hints["user"] = m["user"]
+            if i == 0:
+                hints.update(extras)
+            self.audit.record(
+                name, plan.ecql, hints,
+                plan.__dict__.get("plan_time_ms", 0.0) if i == 0 else 0.0,
+                scan_ms if i == 0 else 0.0,
+                int(hits[i]),
+                user=m.get("user") or self._current_user(),
+                scanned=plan.__dict__.get("scanned_rows", 0) if i == 0 else 0,
+                table_rows=plan.__dict__.get("table_rows", 0),
+            )
+
+    # -- explain ------------------------------------------------------------
+    @_traced("explain")
+    def explain(self, name: str, query, analyze: bool = False, region=None) -> str:
+        """The planner's explain tree, then the query's posture: the
+        aggregate cache's decomposition, the hierarchy's resident cells,
+        the warm path, tracing, and the call's cost ledger.
+        ``analyze=True`` also runs a count and reports selectivity (window
+        candidates against matches) and the execution path. ``region``:
+        optional polygon, folded in as the aggregates fold it."""
+        from geomesa_tpu_torch.cache import decompose, decompose_region
+        from geomesa_tpu_torch.cache import hierarchy as _hier
+
+        exp = Explainer(enabled=True)
+        st = self._store(name)
+        q0 = self._as_query(self._with_region(name, query, region))
+        plan = self._plan(name, q0, exp)
+        # the cache's participation: served from / populating the
+        # aggregate cache, and in what shape
+        exp.push("Aggregate cache")
+        exp.kv("enabled", bool(config.CACHE_ENABLED.to_bool()))
+        d = decompose(plan.filter, st.ft)
+        if d is not None:
+            exp.kv("partial-cover", f"level {d.level}, "
+                   f"{len(d.cells)} interior cells, "
+                   f"{len(d.strips)} boundary strips")
+            exp.kv("residual filter", d.residual_key)
+        else:
+            dr = decompose_region(plan.filter, st.ft)
+            if dr is not None:
+                exp.kv("polygon cover", f"level {dr.level}, "
+                       f"{len(dr.cells)} interior cells, "
+                       f"{len(dr.boundary)} boundary cells")
+                exp.kv("residual filter", dr.residual_key)
+            else:
+                exp.line("partial-cover: not decomposable "
+                         "(whole-result caching only)")
+        exp.pop()
+        # hierarchical pre-aggregation: would the query's cells come from
+        # the quadtree, and from which levels
+        exp.push("Hierarchy")
+        exp.kv("enabled", _hier.enabled())
+        exp.kv("depth", _hier.depth())
+        probe = self.cache.probe_cover(self, st, q0, plan) if _hier.enabled() else None
+        if probe is not None:
+            served = sum(probe["levels"].values())
+            exp.kv(
+                "cells resident/assemblable",
+                f"{served}/{probe['cells']}"
+                + (f" ({probe['boundary']} boundary cells scan exactly)"
+                   if probe["kind"] == "polygon" else ""),
+            )
+            if probe["levels"]:
+                exp.kv("levels hit", ", ".join(
+                    f"L{lvl}={n}" for lvl, n in sorted(probe["levels"].items())))
+            exp.kv("residual fraction", probe["residual_fraction"])
+        else:
+            exp.line("no cell cover for this query (whole-result only)")
+        exp.pop()
+        exp.push("Warm path")
+        # the port always pads a scan's window count to its bucket
+        exp.kv("shape bucketing", f"on (K floor {WINDOW_BUCKET_FLOOR})")
+        exp.kv("prefetch pipeline", bool(config.PIPELINE_PREFETCH.to_bool()))
+        exp.pop()
+        # tracing: the trace id is this explain call's own (explain writes
+        # no audit event)
+        exp.push("Observability")
+        exp.kv("tracing", "on" if tracing.enabled() else "off")
+        tid = tracing.current_trace_id()
+        if tid is not None:
+            exp.kv("trace_id (this explain call)", tid)
+        slow = config.TRACE_SLOW_MS.get()
+        exp.kv("slow-query threshold", f"{slow} ms" if slow else "off")
+        exp.pop()
+        if analyze:
+            plan.__dict__["exec_path"] = {}
+            matched = self._executor(name).count(plan)
+            scanned = plan.__dict__.get("scanned_rows", 0)
+            total = plan.__dict__.get("table_rows", 0)
+            exp.push("Selectivity (analyze)")
+            exp.line(f"Table rows: {total}")
+            exp.line(f"Window candidates (scanned): {scanned}")
+            exp.line(f"Matched: {matched}")
+            if scanned:
+                exp.line(f"Match ratio: {matched / scanned:.4f}")
+            if "device_coarse_ms" in plan.__dict__:
+                exp.line(
+                    "Device coarse kernel: "
+                    f"{plan.__dict__['device_coarse_ms']:.3f} ms "
+                    "(host refined candidates only)"
+                )
+            path = plan.__dict__.get("exec_path")
+            if path:
+                exp.push("Execution path")
+                for k, v in path.items():
+                    if v is not None:
+                        exp.line(f"{k}: {v}")
+                # achieved scan bandwidth of the device coarse mask, when
+                # one ran
+                ms = plan.__dict__.get("device_coarse_ms")
+                if ms and scanned:
+                    n_cols = len(plan.compiled.columns) or 1
+                    gbs = scanned * n_cols * 4 / (ms * 1e-3) / 1e9
+                    exp.line(f"achieved scan bandwidth: {gbs:.1f} GB/s "
+                             f"({scanned} rows x {n_cols} f32 cols)")
+                exp.pop()
+            exp.pop()
+        # this explain call's cost ledger (filled by analyze's count)
+        exp.push("Cost")
+        cost = tracing.current_cost()
+        if cost:
+            for k, v in sorted(cost.items()):
+                exp.kv(k, round(v, 3))
+        else:
+            exp.line("(none recorded — enable geomesa.trace.enabled and "
+                     "analyze=True for device/partition attribution)")
+        exp.pop()
+        return str(exp)
 
     @staticmethod
     def _timeout_s() -> Optional[float]:
@@ -971,6 +1245,7 @@ class GeoDataset:
         return q if isinstance(query, Query) or not isinstance(combined, str) \
             else combined
 
+    @_traced("count")
     def count(self, name: str, query="INCLUDE", exact: bool = True,
               region=None) -> int:
         """Feature count of ``query``: exact, or (``exact=False``) the
@@ -980,9 +1255,13 @@ class GeoDataset:
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if not exact:
             return int(plan.est_count)
+        t0 = time.perf_counter()
         with query_deadline(self._timeout_s()):
-            return self.cache.count(self, st, q, plan)
+            n = self.cache.count(self, st, q, plan)
+        self._audit(name, q, plan, t0, n, op="count")
+        return n
 
+    @_traced("density")
     def density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
                 height: int = 256, weight: Optional[str] = None,
                 region=None) -> np.ndarray:
@@ -992,10 +1271,14 @@ class GeoDataset:
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
+        t0 = time.perf_counter()
         with query_deadline(self._timeout_s()):
-            return self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
+            grid = self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
+        self._audit(name, q, plan, t0, int(np.count_nonzero(grid)), op="density")
+        return grid
 
     # -- curve-aligned density ------------------------------------------------
+    @_traced("density_curve")
     def density_curve(self, name: str, query="INCLUDE", level: int = 9, bbox=None,
                       weight: Optional[str] = None, region=None):
         """Exact density over the Morton-block grid at ``level`` (a global
@@ -1013,8 +1296,10 @@ class GeoDataset:
         if bbox is None:
             bbox = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
         window, snapped = self._snap_blocks(bbox, level)
+        t0 = time.perf_counter()
         with query_deadline(self._timeout_s()):
             grid = self.cache.density_curve(self, st, q, plan, level, window, weight)
+        self._audit(name, q, plan, t0, int(np.count_nonzero(grid)), op="density_curve")
         return grid, snapped
 
     @staticmethod
@@ -1071,11 +1356,18 @@ class GeoDataset:
             raise ValueError("level must be in 1..15 (grid = 4^level blocks)")
         bboxes = list(bboxes)
         self._check_members(members, len(bboxes), "bboxes")
-        plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
-        windows, snaps = self._curve_windows(name, bboxes, level)
-        with query_deadline(self._timeout_s()):
-            grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
-        return list(zip(grids, snaps))
+        with tracing.start("density_curve_batch", schema=name, batch=len(bboxes)), \
+                self._identity():
+            plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
+            windows, snaps = self._curve_windows(name, bboxes, level)
+            t0 = time.perf_counter()
+            with query_deadline(self._timeout_s()):
+                grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
+            # one event per member; every member shares the one plan
+            self._batch_audit(name, "density_curve", [plan],
+                              [int(np.count_nonzero(g)) for g in grids], t0, members,
+                              extra_hints={"level": level}, distinct=False)
+            return list(zip(grids, snaps))
 
     def density_curve_filter_batch(self, name: str, queries, level: int = 9, bboxes=None,
                                    weight: Optional[str] = None,
@@ -1094,14 +1386,22 @@ class GeoDataset:
         if len(bboxes) != len(queries):
             raise ValueError("bboxes must align with queries")
         qs = [dataclasses.replace(self._as_query(q), index="z2") for q in queries]
-        plans, spec = self._batch_plans(name, qs)
-        if spec is None:
-            return None
-        windows, snaps = self._curve_windows(name, bboxes, level)
-        with query_deadline(self._timeout_s()):
-            grids = self._executor(name).density_curve_filter_batch(
-                plans, spec, level, windows, weight)
-        return None if grids is None else list(zip(grids, snaps))
+        with tracing.start("density_curve_filter_batch", schema=name, batch=len(qs)), \
+                self._identity():
+            plans, spec = self._batch_plans(name, qs)
+            if spec is None:
+                return None
+            windows, snaps = self._curve_windows(name, bboxes, level)
+            t0 = time.perf_counter()
+            with query_deadline(self._timeout_s()):
+                grids = self._executor(name).density_curve_filter_batch(
+                    plans, spec, level, windows, weight)
+            if grids is None:
+                return None
+            self._batch_audit(name, "density_curve", plans,
+                              [int(np.count_nonzero(g)) for g in grids], t0, members,
+                              extra_hints={"level": level})
+            return list(zip(grids, snaps))
 
     # -- query-axis batches: M distinct viewports of one structural query
     # shape in one batched call. Each returns None when the members cannot
@@ -1138,11 +1438,18 @@ class GeoDataset:
         if not exact:
             return None
         self._check_members(members, len(queries))
-        plans, spec = self._batch_plans(name, queries)
-        if spec is None:
-            return None
-        with query_deadline(self._timeout_s()):
-            return self._executor(name).count_batch(plans, spec)
+        with tracing.start("count_batch", schema=name, batch=len(queries)), \
+                self._identity():
+            plans, spec = self._batch_plans(name, queries)
+            if spec is None:
+                return None
+            t0 = time.perf_counter()
+            with query_deadline(self._timeout_s()):
+                res = self._executor(name).count_batch(plans, spec)
+            if res is None:
+                return None
+            self._batch_audit(name, "count", plans, res, t0, members)
+            return res
 
     def density_batch(self, name: str, queries, bboxes=None, width: int = 256,
                       height: int = 256, weight: Optional[str] = None,
@@ -1157,20 +1464,28 @@ class GeoDataset:
         bboxes = list(bboxes) if bboxes is not None else [None] * len(queries)
         if len(bboxes) != len(queries):
             raise ValueError("bboxes must align with queries")
-        plans, spec = self._batch_plans(name, queries)
-        if spec is None:
-            return None
-        default = None
-        boxes = []
-        for bb in bboxes:
-            if bb is None:
-                if default is None:
-                    default = self.bounds(name) or (-180, -90, 180, 90)
-                bb = default
-            boxes.append(tuple(bb))
-        with query_deadline(self._timeout_s()):
-            return self._executor(name).density_batch(plans, spec, boxes, width, height,
-                                                      weight)
+        with tracing.start("density_batch", schema=name, batch=len(queries)), \
+                self._identity():
+            plans, spec = self._batch_plans(name, queries)
+            if spec is None:
+                return None
+            default = None
+            boxes = []
+            for bb in bboxes:
+                if bb is None:
+                    if default is None:
+                        default = self.bounds(name) or (-180, -90, 180, 90)
+                    bb = default
+                boxes.append(tuple(bb))
+            t0 = time.perf_counter()
+            with query_deadline(self._timeout_s()):
+                grids = self._executor(name).density_batch(plans, spec, boxes, width,
+                                                           height, weight)
+            if grids is None:
+                return None
+            self._batch_audit(name, "density", plans,
+                              [int(np.count_nonzero(g)) for g in grids], t0, members)
+            return grids
 
     def stats_batch(self, name: str, stat_spec: str, queries,
                     members: Optional[List[Dict[str, Any]]] = None):
@@ -1182,13 +1497,22 @@ class GeoDataset:
         if not queries:
             return []
         self._check_members(members, len(queries))
-        stats = [parse_stat(stat_spec) for _ in queries]
-        plans, spec = self._batch_plans(name, queries)
-        if spec is None:
-            return None
-        with query_deadline(self._timeout_s()):
-            return self._executor(name).stats_batch(plans, spec, stats)
+        with tracing.start("stats_batch", schema=name, batch=len(queries)), \
+                self._identity():
+            stats = [parse_stat(stat_spec) for _ in queries]
+            plans, spec = self._batch_plans(name, queries)
+            if spec is None:
+                return None
+            t0 = time.perf_counter()
+            with query_deadline(self._timeout_s()):
+                out = self._executor(name).stats_batch(plans, spec, stats)
+            if out is None:
+                return None
+            self._batch_audit(name, "stats", plans, [0] * len(out), t0, members,
+                              extra_hints={"stat": stat_spec})
+            return out
 
+    @_traced("query")
     def query(self, name: str, query="INCLUDE") -> FeatureCollection:
         """Matching features. A sorted query with ``0 < max_features <=``
         ``geomesa.topk.max`` (0 disables) first selects candidates on the device by the
@@ -1198,9 +1522,11 @@ class GeoDataset:
         q = self._as_query(query)
         plan = self._fresh_plan(name, q)
         st = self._store(name)
+        t0 = time.perf_counter()
         ex = self._executor(name)
         with query_deadline(self._timeout_s()):
             batch = self._query_scan(q, plan, st, ex)
+        self._audit(name, q, plan, t0, batch.n)
         if q.sort_by and batch.n:
             batch = _sort_batch(batch, q.sort_by, st.dicts)
         if q.max_features is not None and batch.n > q.max_features:
@@ -1247,13 +1573,43 @@ class GeoDataset:
         if q.sort_by:
             fc = self.query(name, q)
             return iter([fc.batch] if fc.batch.n else [])
-        plan = self._fresh_plan(name, q)
+        # the root span is opened and closed by hand (adopt + finish): it
+        # covers the consumer-driven iteration, which outlives this frame
+        root = tracing.start("query_batches", schema=name)
+        traced = root is not tracing.NOOP
+        prev = tracing.snapshot()
+        if traced:
+            root.t0 = time.perf_counter()
+            tracing.adopt(root)
+        try:
+            with self._identity():
+                plan = self._fresh_plan(name, q)
+        except BaseException:
+            # the stream, which owns the finish, never runs
+            if traced:
+                root.finish()
+            raise
+        finally:
+            if traced:
+                tracing.adopt(prev)  # restore any enclosing span
         ex = self._executor(name)
 
         def chunks():
-            with query_deadline(self._timeout_s()):
-                for batch in ex.features_iter(plan, batch_rows):
-                    yield _project(batch, q.properties) if q.properties else batch
+            t0 = time.perf_counter()
+            hits = 0
+            iter_prev = tracing.snapshot()  # the consumer thread's context
+            if traced:
+                tracing.adopt(root)
+            try:
+                with query_deadline(self._timeout_s()):
+                    for batch in ex.features_iter(plan, batch_rows):
+                        hits += batch.n
+                        yield _project(batch, q.properties) if q.properties else batch
+                self._audit(name, q, plan, t0, hits)
+            finally:
+                if traced:
+                    root.finish()
+                    tracing.adopt(iter_prev)
 
         return chunks()
 
@@ -1270,6 +1626,7 @@ class GeoDataset:
         return st.bounds()
 
     # -- stats -------------------------------------------------------------
+    @_traced("stats")
     def stats(self, name: str, stat_spec: str, query="INCLUDE",
               region=None) -> sk.Stat:
         """Exact statistics of the matches, from the stat DSL
@@ -1277,8 +1634,11 @@ class GeoDataset:
         optional polygon clipping the matches."""
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         parse_stat(stat_spec)  # validate the spec before any scan
+        t0 = time.perf_counter()
         with query_deadline(self._timeout_s()):
-            return self.cache.stats(self, st, q, plan, stat_spec)
+            out = self.cache.stats(self, st, q, plan, stat_spec)
+        self._audit(name, q, plan, t0, 0, op="stats")
+        return out
 
     def unique(self, name: str, attribute: str, query="INCLUDE") -> List:
         """Distinct values, sorted (None last)."""
@@ -1383,9 +1743,10 @@ class GeoDataset:
                     f"[GM-ARG] spatial join requires a POINT geometry "
                     f"on schema {nm!r}"
                 )
-        lbatch = self._executor(left).features(lplan)
-        rbatch = self._executor(right).features(rplan)
-        return lst, lbatch, rst, rbatch
+        with tracing.span("scan.join.sides"):
+            lbatch = self._executor(left).features(lplan)
+            rbatch = self._executor(right).features(rplan)
+        return lst, lplan, lbatch, rst, rbatch
 
     @staticmethod
     def _side_xy(st: FeatureStore, batch: ColumnBatch):
@@ -1414,9 +1775,10 @@ class GeoDataset:
         from geomesa_tpu_torch.kernels import join as kjoin
         from geomesa_tpu_torch.planning import join_exec
 
+        t0 = time.perf_counter()
         with query_deadline(self._timeout_s()):
             if predicate in kjoin.POLYGON_PREDICATES:
-                lst, lbatch, rst, rbatch = self._join_sides(
+                lst, lplan, lbatch, rst, rbatch = self._join_sides(
                     left, right, left_query, right_query, right_polygon=True)
                 lx, ly = self._side_xy(lst, lbatch)
                 geoms = self._side_polygons(rst, rbatch)
@@ -1424,18 +1786,48 @@ class GeoDataset:
                     lx, ly, geoms, predicate, level=level, device=self.device,
                     want_pairs=want_pairs)
             elif not want_pairs and self._join_pushdown_ready(right, predicate, right_query):
-                lbatch, total, stats = self._join_pushdown_count(
+                lplan, lbatch, total, stats = self._join_pushdown_count(
                     left, right, predicate, distance, dx, dy, left_query,
                     right_query, level)
                 rbatch, pairs = ColumnBatch({}, 0), None
             else:
-                lst, lbatch, rst, rbatch = self._join_sides(left, right, left_query,
+                lst, lplan, lbatch, rst, rbatch = self._join_sides(left, right, left_query,
                                                             right_query)
                 lx, ly = self._side_xy(lst, lbatch)
                 rx, ry = self._side_xy(rst, rbatch)
                 pairs, total, stats = join_exec.run_join(
                     lx, ly, rx, ry, predicate, distance=distance, dx=dx, dy=dy,
                     level=level, device=self.device, want_pairs=want_pairs)
+        hints = {
+            "op": "join", "index": lplan.index_name, "right": right,
+            "predicate": predicate, "level": stats.level,
+            "cells_joint": stats.cells_joint,
+            "candidate_pairs": stats.candidate_pairs,
+            "naive_pairs": stats.naive_pairs,
+            "strip_fraction": round(stats.strip_fraction, 4),
+            "adaptive": stats.adaptive,
+        }
+        if stats.strategy_cells:
+            # the decision trail: joint cells per strategy
+            hints["strategies"] = dict(stats.strategy_cells)
+        if stats.wholesale_pairs:
+            hints["wholesale_pairs"] = stats.wholesale_pairs
+        if stats.pushdown:
+            hints["pushdown"] = dict(stats.pushdown)
+        if stats.skipped:
+            hints["degraded"] = list(stats.skipped)
+        tid = tracing.current_trace_id()
+        if tid is not None:
+            hints["trace_id"] = tid
+        hints.update(self._plan_audit_extras(lplan))
+        self.audit.record(
+            left, lplan.ecql, hints,
+            lplan.__dict__.get("plan_time_ms", 0.0),
+            (time.perf_counter() - t0) * 1e3, total,
+            user=self._current_user(),
+            scanned=lplan.__dict__.get("scanned_rows", 0),
+            table_rows=lplan.__dict__.get("table_rows", 0),
+        )
         return SpatialJoinResult(lbatch, rbatch, pairs, total, stats)
 
     def _join_pushdown_ready(self, right: str, predicate: str, right_query) -> bool:
@@ -1473,7 +1865,7 @@ class GeoDataset:
         row within reach of it lies in that chunk's window (one margin for
         the strip contract, one for the scan's f32 edges; the bounds round
         outward to nine decimals), so the chunk counts partition the pair
-        set. Returns ``(left batch, total, JoinStats)`` with
+        set. Returns ``(left plan, left batch, total, JoinStats)`` with
         ``JoinStats.pushdown``."""
         from geomesa_tpu_torch.cache import cells as gcells
         from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
@@ -1488,7 +1880,8 @@ class GeoDataset:
             raise ValueError(f"[GM-ARG] spatial join requires a POINT geometry "
                              f"on schema {left!r}")
         rgeom = self._store(right).ft.geom_field
-        lbatch = self._executor(left).features(lplan)
+        with tracing.span("scan.join.sides"):
+            lbatch = self._executor(left).features(lplan)
         lx, ly = self._side_xy(lst, lbatch)
         lx = np.asarray(lx, np.float64)
         ly = np.asarray(ly, np.float64)
@@ -1503,7 +1896,7 @@ class GeoDataset:
             level = join_exec.choose_level(len(lx), len(lx), max(reach_x, reach_y), bounds)
         stats = join_exec.JoinStats(level=level, n_left=len(lx))
         if not len(lx):
-            return lbatch, 0, stats
+            return lplan, lbatch, 0, stats
         # window cells sized to the reach, finer than the join grid, so a
         # window is comparable to a row group's footprint (exactness holds
         # at any level)
@@ -1548,7 +1941,8 @@ class GeoDataset:
             if residency is not None:
                 rplan.__dict__["residency"] = residency
             try:
-                rb = rex.features_pushdown(rplan)
+                with tracing.span("scan.join.side.window", chunk=chunks):
+                    rb = rex.features_pushdown(rplan)
             finally:
                 rplan.__dict__.pop("residency", None)
             rx, ry = self._side_xy(self._store(right), rb)
@@ -1587,8 +1981,12 @@ class GeoDataset:
             "residency_hits": residency.hits if residency is not None else 0,
             "bytes_saved_residency": residency.bytes_saved if residency is not None else 0,
         }
-        return lbatch, total, stats
+        tracing.add_cost("join_pushdown_bytes", float(bytes_loaded))
+        tracing.add_cost("join_cells", float(stats.cells_joint))
+        tracing.add_cost("join_candidate_pairs", float(stats.candidate_pairs))
+        return lplan, lbatch, total, stats
 
+    @_traced("join")
     def join_spatial(self, left: str, right: str, *, predicate: str,
                      distance=None, dx=None, dy=None, left_query="INCLUDE",
                      right_query="INCLUDE",
@@ -1599,6 +1997,7 @@ class GeoDataset:
         return self._join_run(left, right, predicate, distance, dx, dy,
                               left_query, right_query, level, want_pairs=True)
 
+    @_traced("join")
     def join_count(self, left: str, right: str, *, predicate: str,
                    distance=None, dx=None, dy=None, left_query="INCLUDE",
                    right_query="INCLUDE", level: Optional[int] = None) -> int:
@@ -1609,6 +2008,7 @@ class GeoDataset:
                               left_query, right_query, level,
                               want_pairs=False).count
 
+    @_traced("explain_join")
     def explain_join(self, left: str, right: str, *, predicate: str,
                      distance=None, dx=None, dy=None, left_query="INCLUDE",
                      right_query="INCLUDE", level: Optional[int] = None,
@@ -1623,7 +2023,7 @@ class GeoDataset:
 
         exp = Explainer(enabled=True)
         if predicate in kjoin.POLYGON_PREDICATES:
-            lst, lbatch, rst, rbatch = self._join_sides(
+            lst, lplan, lbatch, rst, rbatch = self._join_sides(
                 left, right, left_query, right_query, right_polygon=True)
             lx, ly = self._side_xy(lst, lbatch)
             geoms = self._side_polygons(rst, rbatch)
@@ -1656,7 +2056,7 @@ class GeoDataset:
                     exp.kv("degraded", ", ".join(st.skipped))
             exp.pop()
             return str(exp)
-        lst, lbatch, rst, rbatch = self._join_sides(
+        lst, lplan, lbatch, rst, rbatch = self._join_sides(
             left, right, left_query, right_query)
         lx, ly = self._side_xy(lst, lbatch)
         rx, ry = self._side_xy(rst, rbatch)
@@ -1712,6 +2112,7 @@ class GeoDataset:
         return str(exp)
 
     # -- kNN ---------------------------------------------------------------
+    @_traced("knn")
     def knn(self, name: str, x: float, y: float, k: int = 10,
             query="INCLUDE") -> FeatureCollection:
         """The k nearest matches to (x, y) by great-circle distance, by the

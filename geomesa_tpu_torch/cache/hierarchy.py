@@ -61,6 +61,7 @@ def assemble(
     max_depth: Optional[int] = None,
     max_level: Optional[int] = None,
     stats: Optional[Dict[str, int]] = None,
+    count_promotes: bool = True,
 ) -> Optional[Any]:
     """Assemble ``cell`` at ``level`` from cached children, recursively up
     to ``max_depth`` levels down; promote (``put``) every assembled node
@@ -72,7 +73,9 @@ def assemble(
     ``get``/``put`` speak PACKED (storable) values; ``merge4`` receives
     the four packed children in :data:`CHILD_ORDER` and returns the packed
     parent. ``stats`` (optional) accumulates ``assembled`` node counts and
-    the ``deepest`` child level consulted, for the exec-path notes."""
+    the ``deepest`` child level consulted, for the exec-path notes.
+    ``count_promotes=False``: a dry run (``explain``'s residency probe
+    passes a no-op put) leaves ``cache.hierarchy.promote`` alone."""
     if max_depth is None:
         max_depth = depth()
     if max_level is None:
@@ -84,7 +87,7 @@ def assemble(
         v = get(level + 1, ch)
         if v is None:
             v = assemble(get, put, merge4, level + 1, ch,
-                         max_depth - 1, max_level, stats)
+                         max_depth - 1, max_level, stats, count_promotes)
             if v is None:
                 return None
         elif stats is not None:
@@ -92,7 +95,8 @@ def assemble(
         vals.append(v)
     packed = merge4(vals)
     put(level, cell, packed)
-    metrics.inc(metrics.CACHE_HIER_PROMOTE)
+    if count_promotes:
+        metrics.inc(metrics.CACHE_HIER_PROMOTE)
     if stats is not None:
         stats["assembled"] = stats.get("assembled", 0) + 1
         stats["deepest"] = max(stats.get("deepest", 0), level + 1)

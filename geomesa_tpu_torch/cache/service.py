@@ -35,6 +35,12 @@ host copies (numpy arrays, ints, stat JSON), never device tensors.
 Degraded aggregates (``plan.degraded``) are never cached; sampling
 bypasses the cache. Queries are planned all-public, as every port path
 is, so the auth part of every key is None.
+
+Under tracing, the reference's spans mark each stage (``cache.lookup``,
+``cache.cells``, ``cache.hierarchy``, ``cache.cell.scan``,
+``cache.residual``, ``cache.merge``) and every cached piece served adds
+one to the trace's ``cache_hits`` cost. :meth:`AggregateCache.probe_cover`
+is ``explain``'s dry run of a query's cell cover.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config, heat, metrics
+from geomesa_tpu_torch import config, heat, metrics, tracing
 from geomesa_tpu_torch.cache import cells as cellmod
 from geomesa_tpu_torch.cache import hierarchy
 from geomesa_tpu_torch.cache.store import CacheStore
@@ -202,10 +208,12 @@ class AggregateCache:
     # -- the generic serve loop --------------------------------------------
     def _whole_hit(self, plan, st, wkey, op: "_Op"):
         """The stored whole result of ``wkey`` (unpacked), or None."""
-        hit = self.store.get(st.uid, st.version, wkey)
+        with tracing.span("cache.lookup", key="whole"):
+            hit = self.store.get(st.uid, st.version, wkey)
         if hit is None:
             return None
         metrics.inc(metrics.CACHE_HIT)
+        tracing.add_cost("cache_hits", 1.0)
         self._note(plan, cache="hit")
         plan.__dict__["scanned_rows"] = 0
         plan.__dict__.setdefault("table_rows", 0)
@@ -277,50 +285,59 @@ class AggregateCache:
         hier_hits = 0
         scan_acc = [0, 0]  # [scanned_rows, table_rows] over executed pieces
         all_cacheable = True
-        for cell in decomp.cells:
-            ckey = cell_key(decomp.level, cell)
-            cprefix = cellmod.cell_prefix(decomp.level, cell)
-            got = self.store.get(uid, epoch, ckey)
-            if got is None and use_hier:
-                # the zoom-out path: merge the cell from cached finer
-                # children before paying a scan
-                got = hierarchy.assemble(hier_get, hier_put, merge4,
-                                         decomp.level, cell, stats=hstats)
+        with tracing.span("cache.cells", total=len(decomp.cells),
+                          level=decomp.level, kind=decomp.kind) as cells_span:
+            for cell in decomp.cells:
+                ckey = cell_key(decomp.level, cell)
+                cprefix = cellmod.cell_prefix(decomp.level, cell)
+                with tracing.span("cache.lookup", key="cell"):
+                    got = self.store.get(uid, epoch, ckey)
+                if got is None and use_hier:
+                    # the zoom-out path: merge the cell from cached finer
+                    # children before paying a scan
+                    with tracing.span("cache.hierarchy", level=decomp.level):
+                        got = hierarchy.assemble(hier_get, hier_put, merge4,
+                                                 decomp.level, cell, stats=hstats)
+                    if got is not None:
+                        hier_hits += 1
+                        metrics.inc(metrics.CACHE_HIER_HIT)
+                    else:
+                        metrics.inc(metrics.CACHE_HIER_RESIDUAL)
                 if got is not None:
-                    hier_hits += 1
-                    metrics.inc(metrics.CACHE_HIER_HIT)
+                    hits += 1
+                    tracing.add_cost("cache_hits", 1.0)
+                    # a hit is a touch with no attributed cost
+                    heat.record(st.ft.name, decomp.level, cprefix, hit=1)
+                    acc = op.merge(acc, op.unpack(got))
+                    continue
+                t_cell = time.perf_counter()
+                with tracing.span("cache.cell.scan"):
+                    value, cacheable = self._run_sub(
+                        ds, st, q, decomp.cell_filter(cell, geom), op, plan, scan_acc)
+                # a miss carries the scan's wall-clock ms
+                heat.record(st.ft.name, decomp.level, cprefix, miss=1,
+                            device_ms=(time.perf_counter() - t_cell) * 1e3)
+                if cacheable:
+                    self.store.put(uid, epoch, ckey, op.pack(value))
+                    if use_hier:
+                        # a completed sibling quad writes its parent for the
+                        # next zoom-out
+                        hierarchy.rollup(hier_get, hier_put, merge4,
+                                         decomp.level, cell)
                 else:
-                    metrics.inc(metrics.CACHE_HIER_RESIDUAL)
-            if got is not None:
-                hits += 1
-                # a hit is a touch with no attributed cost
-                heat.record(st.ft.name, decomp.level, cprefix, hit=1)
-                acc = op.merge(acc, op.unpack(got))
-                continue
-            t_cell = time.perf_counter()
-            value, cacheable = self._run_sub(
-                ds, st, q, decomp.cell_filter(cell, geom), op, plan, scan_acc)
-            # a miss carries the scan's wall-clock ms
-            heat.record(st.ft.name, decomp.level, cprefix, miss=1,
-                        device_ms=(time.perf_counter() - t_cell) * 1e3)
-            if cacheable:
-                self.store.put(uid, epoch, ckey, op.pack(value))
-                if use_hier:
-                    # a completed sibling quad writes its parent for the
-                    # next zoom-out
-                    hierarchy.rollup(hier_get, hier_put, merge4,
-                                     decomp.level, cell)
-            else:
-                all_cacheable = False
-            acc = op.merge(acc, value)
+                    all_cacheable = False
+                acc = op.merge(acc, value)
+            cells_span.set(hits=hits, assembled=hier_hits)
         strip_f = decomp.residual_scan_filter(geom)
         if strip_f is not None:
-            value, cacheable = self._run_sub(ds, st, q, strip_f, op, plan, scan_acc)
+            with tracing.span("cache.residual", kind=decomp.kind):
+                value, cacheable = self._run_sub(ds, st, q, strip_f, op, plan, scan_acc)
             if not cacheable:
                 all_cacheable = False
             acc = op.merge(acc, value)
-        if all_cacheable:
-            self.store.put(uid, epoch, wkey, op.pack(acc))
+        with tracing.span("cache.merge"):
+            if all_cacheable:
+                self.store.put(uid, epoch, wkey, op.pack(acc))
         plan.__dict__["scanned_rows"] = scan_acc[0]
         plan.__dict__["table_rows"] = scan_acc[1]
         metrics.inc(metrics.CACHE_PARTIAL if hits else metrics.CACHE_MISS)
@@ -345,6 +362,67 @@ class AggregateCache:
                           f" (children to level {hstats.get('deepest', 0)})",
             )
         return acc
+
+    # -- explain support -----------------------------------------------------
+    def probe_cover(self, ds, st, q, plan) -> Optional[dict]:
+        """Dry-run decomposition and residency probe for ``explain``'s
+        Hierarchy section: which cells the query would cover, how many are
+        resident at the query's own level, how many the hierarchy could
+        assemble from finer children (probed with the ``count``
+        fingerprint, promoting nothing), and the residual fraction a
+        polygon query would scan exactly. None when the query has no cell
+        cover."""
+        if plan.is_empty:
+            return None
+        decomp = cellmod.decompose(plan.filter, st.ft)
+        if decomp is None:
+            decomp = cellmod.decompose_region(plan.filter, st.ft)
+        if decomp is None:
+            return None
+        uid, epoch = st.uid, st.version
+        akey = self._auth_key(ds, q)
+        fp = ("count",)
+
+        def key(level, cell):
+            return ("cell",) + fp + (
+                decomp.residual_key, akey, level,
+                cellmod.cell_prefix(level, cell),
+            )
+
+        levels: dict = {}
+        missing = 0
+        dep = hierarchy.depth() if hierarchy.enabled() else 0
+        for cell in decomp.cells:
+            if self.store.get(uid, epoch, key(decomp.level, cell)) is not None:
+                levels[decomp.level] = levels.get(decomp.level, 0) + 1
+                continue
+            hstats: dict = {}
+            got = hierarchy.assemble(
+                lambda lvl, c: self.store.get(uid, epoch, key(lvl, c)),
+                lambda lvl, c, v: None,  # probe: never promote
+                lambda vals: 0,          # count probe: values irrelevant
+                decomp.level, cell, max_depth=dep, stats=hstats,
+                count_promotes=False,
+            ) if dep else None
+            if got is not None:
+                lvl = hstats.get("deepest", decomp.level + 1)
+                levels[lvl] = levels.get(lvl, 0) + 1
+            else:
+                missing += 1
+        boundary = decomp.residual_count()
+        covered = len(decomp.cells) + (boundary if decomp.kind == "polygon" else 0)
+        return {
+            "kind": decomp.kind,
+            "level": decomp.level,
+            "cells": len(decomp.cells),
+            "boundary": boundary,
+            "levels": levels,
+            "missing": missing,
+            "residual_fraction": round(
+                (missing + (boundary if decomp.kind == "polygon" else 0))
+                / max(covered, 1), 3
+            ),
+        }
 
     # -- ops ----------------------------------------------------------------
     def count(self, ds, st, q, plan) -> int:
@@ -504,39 +582,45 @@ class AggregateCache:
         hits = hier_hits = n_outside = 0
         #: (sub_window, out-slice, full-chunk coords or None, plain?)
         misses = []
-        for ky in range(cy0, cy1 + 1):
-            for kx in range(cx0, cx1 + 1):
-                plain = False
-                if codes is not None:
-                    code = codes[(kx, ky)]
-                    if code == jk.CELL_OUTSIDE:
-                        # wholly outside the polygon (with margin): the
-                        # slice stays zero, no scan, no entry
-                        n_outside += 1
-                        continue
-                    plain = code == jk.CELL_INTERIOR
-                get_, put_ = families[plain]
-                bx0, by0 = kx * c, ky * c
-                bx1, by1 = bx0 + c - 1, by0 + c - 1
-                sx0, sy0 = max(bx0, ix0), max(by0, iy0)
-                sx1, sy1 = min(bx1, ix1), min(by1, iy1)
-                full = (sx0, sy0, sx1, sy1) == (bx0, by0, bx1, by1)
-                g = get_(level, c, kx, ky)
-                if g is None and use_hier:
-                    g = hierarchy.assemble_curve(get_, put_, level, c, kx, ky,
-                                                 stats=hstats)
+        with tracing.span("cache.cells", total=n_chunks, level=level,
+                          kind="curve", chunk=c) as cells_span:
+            for ky in range(cy0, cy1 + 1):
+                for kx in range(cx0, cx1 + 1):
+                    plain = False
+                    if codes is not None:
+                        code = codes[(kx, ky)]
+                        if code == jk.CELL_OUTSIDE:
+                            # wholly outside the polygon (with margin): the
+                            # slice stays zero, no scan, no entry
+                            n_outside += 1
+                            continue
+                        plain = code == jk.CELL_INTERIOR
+                    get_, put_ = families[plain]
+                    bx0, by0 = kx * c, ky * c
+                    bx1, by1 = bx0 + c - 1, by0 + c - 1
+                    sx0, sy0 = max(bx0, ix0), max(by0, iy0)
+                    sx1, sy1 = min(bx1, ix1), min(by1, iy1)
+                    full = (sx0, sy0, sx1, sy1) == (bx0, by0, bx1, by1)
+                    with tracing.span("cache.lookup", key="chunk"):
+                        g = get_(level, c, kx, ky)
+                    if g is None and use_hier:
+                        with tracing.span("cache.hierarchy", level=level):
+                            g = hierarchy.assemble_curve(get_, put_, level, c, kx, ky,
+                                                         stats=hstats)
+                        if g is not None:
+                            hier_hits += 1
+                            metrics.inc(metrics.CACHE_HIER_HIT)
+                        else:
+                            metrics.inc(metrics.CACHE_HIER_RESIDUAL)
+                    dst = np.s_[sy0 - iy0: sy1 - iy0 + 1, sx0 - ix0: sx1 - ix0 + 1]
                     if g is not None:
-                        hier_hits += 1
-                        metrics.inc(metrics.CACHE_HIER_HIT)
+                        hits += 1
+                        tracing.add_cost("cache_hits", 1.0)
+                        out[dst] = g[sy0 - by0: sy1 - by0 + 1, sx0 - bx0: sx1 - bx0 + 1]
                     else:
-                        metrics.inc(metrics.CACHE_HIER_RESIDUAL)
-                dst = np.s_[sy0 - iy0: sy1 - iy0 + 1, sx0 - ix0: sx1 - ix0 + 1]
-                if g is not None:
-                    hits += 1
-                    out[dst] = g[sy0 - by0: sy1 - by0 + 1, sx0 - bx0: sx1 - bx0 + 1]
-                else:
-                    misses.append(((sx0, sy0, sx1, sy1), dst,
-                                   (kx, ky) if full else None, plain))
+                        misses.append(((sx0, sy0, sx1, sy1), dst,
+                                       (kx, ky) if full else None, plain))
+            cells_span.set(hits=hits, assembled=hier_hits, outside=n_outside)
 
         all_cacheable = True
         if misses:
@@ -552,11 +636,11 @@ class AggregateCache:
                     scan_acc[0] += p.__dict__.pop("scanned_rows", 0)
                     scan_acc[1] = max(scan_acc[1], p.__dict__.pop("table_rows", 0))
 
-                if len(windows) > 1:
-                    grids = ex.density_curve_batch(p, level, windows, None)
-                    _fold()
-                else:
-                    grids = [np.asarray(ex.density_curve(p, level, windows[0], None))]
+                with tracing.span("cache.cell.scan", n=len(windows)):
+                    if len(windows) > 1:
+                        grids = ex.density_curve_batch(p, level, windows, None)
+                    else:
+                        grids = [np.asarray(ex.density_curve(p, level, windows[0], None))]
                     _fold()
                 if p is not plan:
                     deg = p.__dict__.pop("degraded", None)
@@ -599,8 +683,9 @@ class AggregateCache:
             # fully chunk-warm: nothing executed
             plan.__dict__["scanned_rows"] = 0
             plan.__dict__.setdefault("table_rows", 0)
-        if all_cacheable:
-            self.store.put(uid, epoch, wkey, op.pack(out))
+        with tracing.span("cache.merge"):
+            if all_cacheable:
+                self.store.put(uid, epoch, wkey, op.pack(out))
         metrics.inc(metrics.CACHE_PARTIAL if hits else metrics.CACHE_MISS)
         self._note(
             plan,

@@ -292,3 +292,36 @@ HEAT_CELLS_MAX = SystemProperty("geomesa.heat.cells", "4096")
 
 #: hottest rows a heat snapshot returns per schema
 HEAT_TOP = SystemProperty("geomesa.heat.top", "256")
+
+#: refuse a plan that scans the whole table (the full-table-scan guard)
+BLOCK_FULL_TABLE_SCANS = SystemProperty("geomesa.scan.block-full-table", "false")
+
+#: the temporal guard: a schema with a date must be queried over at most
+#: this many days (unset: no limit)
+TEMPORAL_GUARD_MAX_DAYS = SystemProperty("geomesa.guard.temporal.max.days", None)
+
+#: the query audit log's JSONL file (unset: the in-memory ring only)
+AUDIT_PATH = SystemProperty("geomesa.audit.path", None)
+
+#: write ``QueryEvent`` / ``DegradationEvent`` records at all
+AUDIT_ENABLED = SystemProperty("geomesa.audit.enabled", "true")
+
+#: span-tree tracing of every public call (default off)
+TRACE_ENABLED = SystemProperty("geomesa.trace.enabled", "false")
+
+#: a finished trace at least this slow (ms) writes its span tree to the
+#: slow-query log and the audit file (unset: never)
+TRACE_SLOW_MS = SystemProperty("geomesa.trace.slow.ms", None)
+
+#: spans kept per trace; later ones are dropped and counted
+TRACE_MAX_SPANS = SystemProperty("geomesa.trace.max.spans", "512")
+
+#: mirror every span into a ``torch.profiler.record_function`` range (the
+#: reference's name: there it opens ``jax.profiler.TraceAnnotation``)
+TRACE_JAX_PROFILER = SystemProperty("geomesa.trace.jax.profiler", "false")
+
+#: finished traces retained by id (``tracing.finished_trace``)
+TRACE_RETAIN = SystemProperty("geomesa.trace.retain", "256")
+
+#: the identity audit events carry (unset: "anonymous")
+USER = SystemProperty("geomesa.user", None)

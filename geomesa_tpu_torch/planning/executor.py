@@ -43,6 +43,13 @@ member's window mask, literal compares and aggregate after it.
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
 
+Under tracing each scan opens the reference's spans: ``scan.device_put``
+where device columns are gathered or fetched, ``scan.kernel`` around the
+mask and aggregate launches, ``scan.host`` around a host path's predicate,
+refinement and aggregate, and ``scan.sync`` at the copies back to the
+host of ``count``, ``density`` and ``features``. A span closes when its
+launches return; no span waits for the device.
+
 :func:`query_deadline` scopes ``geomesa.query.timeout`` over a call;
 ``check_deadline`` runs at the reference's sites (each scan's start, the
 host predicate and refinement passes, each query-axis batch's start), so
@@ -65,7 +72,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, metrics
+from geomesa_tpu_torch import config, metrics, tracing
 from geomesa_tpu_torch.curves.zorder import interleave2
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
@@ -213,6 +220,7 @@ class Executor:
         host_only = any(table.is_host_only(n) for n in needed)
         compiled = plan.compiled
         plan.__dict__["scanned_rows"] = int(np.maximum(ends - starts, 0).sum())
+        plan.__dict__["table_rows"] = int(table.n)
         # the partition pipeline stages these columns of the next partition
         plan.__dict__["needed_cols"] = tuple(needed)
         return {
@@ -360,13 +368,14 @@ class Executor:
             hit = self._gathered.get(key0 + (n,))
             (out.__setitem__(n, hit) if hit is not None else missing.append(n))
         if missing:
-            full = table.device_columns(missing)
-            cs = self._tensor(d["cstart"].astype(np.int64))
-            idx = cs[:, None] + torch.arange(d["B"], device=self.device)[None, :]
-            if len(self._gathered) + len(missing) > _GATHER_CACHE:
-                self._gathered.clear()
-            for n in missing:
-                out[n] = self._gathered[key0 + (n,)] = full[n].reshape(-1)[idx]
+            with tracing.span("scan.device_put", compact=True):
+                full = table.device_columns(missing)
+                cs = self._tensor(d["cstart"].astype(np.int64))
+                idx = cs[:, None] + torch.arange(d["B"], device=self.device)[None, :]
+                if len(self._gathered) + len(missing) > _GATHER_CACHE:
+                    self._gathered.clear()
+                for n in missing:
+                    out[n] = self._gathered[key0 + (n,)] = full[n].reshape(-1)[idx]
         return out
 
     def scan_columns(self, plan: QueryPlan, names) -> Dict[str, torch.Tensor]:
@@ -388,20 +397,40 @@ class Executor:
             )
         return kmasks.window_mask(*c["padded_win"], setup["L"])
 
+    def _scan_cols(self, setup, agg_cols) -> Dict[str, torch.Tensor]:
+        """The scan's device columns: compact [C, B] slabs, or the padded
+        [S, L] columns."""
+        names = list(dict.fromkeys(setup["needed"] + list(agg_cols)))
+        if setup["compact"] is not None:
+            return self._compact_cols(setup, names)
+        with tracing.span("scan.device_put"):
+            return setup["table"].device_columns(names)
+
+    @staticmethod
+    def _kernel_span(setup, site: Optional[str]):
+        """The ``scan.kernel`` span of one scan (attributes as the
+        reference's: ``compact`` on the compacted layout, and the site)."""
+        if setup["compact"] is not None:
+            return tracing.span("scan.kernel", compact=True, site=site)
+        return tracing.span("scan.kernel", site=site)
+
     def _fused(self, plan: QueryPlan, setup, agg_cols):
         """(columns, mask): window & compiled predicate & ~band."""
-        names = list(dict.fromkeys(setup["needed"] + list(agg_cols)))
+        cols = self._scan_cols(setup, agg_cols)
+        return cols, self._fused_mask(plan, setup, cols)
+
+    def _fused_mask(self, plan: QueryPlan, setup, cols) -> torch.Tensor:
+        """The scan's mask over ``cols``: window & compiled predicate &
+        ~band, then sampling."""
         c = setup["cache"]
         d = setup["compact"]
         if d is not None:
-            cols = self._compact_cols(setup, names)
             if "compact_win" not in c:
                 c["compact_win"] = (self._tensor(d["lo"]), self._tensor(d["valid"]))
             lo, valid = c["compact_win"]
             iota = torch.arange(d["B"], dtype=torch.int32, device=self.device)[None, :]
             m = (iota >= lo[:, None]) & (iota < (lo + valid)[:, None])
         else:
-            cols = setup["table"].device_columns(names)
             m = self._padded_window_mask(setup)
         compiled = plan.compiled
         m = m & compiled(cols, torch)
@@ -418,7 +447,7 @@ class Executor:
                 m, h.sampling, cols[h.sample_by] - setup["sb_off"], setup["sb_vocab"])
         elif h.sampling:
             m = kmasks.sampling_mask(m, h.sampling)
-        return cols, m
+        return m
 
     # -- the f32 band --------------------------------------------------------
     def _band_info(self, plan: QueryPlan, setup) -> Optional[np.ndarray]:
@@ -449,10 +478,18 @@ class Executor:
     # -- the host paths ------------------------------------------------------
     def _device_coarse_mask(self, plan: QueryPlan, setup) -> np.ndarray:
         """Window mask & coarse predicate on the device over the padded
-        [S, L] layout; the sorted-order positions it keeps, on the host."""
-        cols = setup["table"].device_columns(setup["needed"])
-        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        m = (self._padded_window_mask(setup) & plan.compiled(cols, torch)).cpu().numpy()
+        [S, L] layout; the sorted-order positions it keeps, on the host.
+        Its milliseconds, the copy back included, add to
+        ``device_coarse_ms``."""
+        t0 = time.perf_counter()
+        with tracing.span("scan.device_put"):
+            cols = setup["table"].device_columns(setup["needed"])
+        with tracing.span("scan.kernel", site="coarse_mask"):
+            metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+            m = self._padded_window_mask(setup) & plan.compiled(cols, torch)
+        m = m.cpu().numpy()
+        plan.__dict__["device_coarse_ms"] = (
+            plan.__dict__.get("device_coarse_ms", 0.0) + (time.perf_counter() - t0) * 1e3)
         return self._positions(setup, np.flatnonzero(m))
 
     @staticmethod
@@ -474,14 +511,15 @@ class Executor:
         first = np.repeat(base, lens)
         return np.unique(first + np.arange(n) - np.repeat(np.cumsum(lens) - lens, lens))
 
-    def _host_positions(self, plan: QueryPlan, setup) -> np.ndarray:
+    def _host_positions(self, plan: QueryPlan, setup,
+                        coarse: Optional[np.ndarray]) -> np.ndarray:
         """The exact matches' sorted-order positions on the host: the
-        device's coarse rows, or the window rows under the predicate, then
-        the exact refinement on the rows kept."""
+        device's ``coarse`` rows, or (None) the window rows under the
+        predicate, then the exact refinement on the rows kept."""
         compiled = plan.compiled
         table = setup["table"]
-        if setup["coarse_device"]:
-            pos = self._device_coarse_mask(plan, setup)
+        if coarse is not None:
+            pos = coarse
         else:
             pos = self._window_positions(setup)
             if len(pos):
@@ -524,7 +562,9 @@ class Executor:
     # -- the scan ---------------------------------------------------------------
     def _run(self, plan: QueryPlan, agg_cols, device_agg: Callable,
              host_agg: Callable, additive: bool = True, compactable: bool = True,
-             path_key: str = "scan", deadline: bool = True):
+             path_key: str = "scan", deadline: bool = True,
+             site: Optional[str] = None, device_sync: Optional[Callable] = None,
+             host_span: bool = True):
         """One scan of ``plan``: ``device_agg(setup, cols, mask)`` on the
         device path, plus ``host_agg(rows, pos)`` of the band rows when the
         aggregate is ``additive``; or ``host_agg(rows, pos)`` of the exact
@@ -533,7 +573,11 @@ class Executor:
         ``compactable``: the device scans the padded layout (its results
         address flat [S, L] rows). ``exec_path[path_key]`` records the
         path. None for an empty scan. ``deadline``: check the query's
-        deadline first (the host passes check theirs in any case)."""
+        deadline first (the host passes check theirs in any case).
+        ``site`` names the ``scan.kernel`` span; ``device_sync(setup,
+        out)`` brings a device result to the host under a ``scan.sync``
+        span; ``host_span`` False leaves a host path's ``scan.host`` span
+        out (a feature scan's, as the reference's)."""
         if deadline:
             check_deadline()
         setup = self._scan_setup(plan, agg_cols)
@@ -545,24 +589,31 @@ class Executor:
         band_rows = 0 if info is None else len(info)
         if not setup["use_device"] or (
                 band_rows and (not additive or plan.hints.sampling)):
-            pos = self._host_positions(plan, setup)
+            coarse = self._device_coarse_mask(plan, setup) if setup["coarse_device"] else None
             self._note(plan, **{path_key: "host+device-coarse" if setup["coarse_device"]
                                 else "host"}, band_rows=band_rows)
-            return host_agg(table.rows(agg_cols, pos), pos)
+            with tracing.span("scan.host") if host_span else tracing.NOOP:
+                pos = self._host_positions(plan, setup, coarse)
+                return host_agg(table.rows(agg_cols, pos), pos)
         if compactable:
             self._maybe_compact(plan, setup)
         else:
             setup["compact"] = None
-        # one observable unit of device work (the reference's count at its
-        # device scan): a call the cache serves whole launches none
-        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        cols, m = self._fused(plan, setup, agg_cols)
+        cols = self._scan_cols(setup, agg_cols)
+        with self._kernel_span(setup, site):
+            # one observable unit of device work (the reference's count at
+            # its device scan): a call the cache serves whole launches none
+            metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+            m = self._fused_mask(plan, setup, cols)
+            out = device_agg(setup, cols, m)
         d = setup["compact"]
-        self._note(plan, **{path_key: "device-compact" if d is not None
-                            else "device-padded"}, band_rows=band_rows)
         if d is not None:
-            self._note(plan, B=d["B"])
-        out = device_agg(setup, cols, m)
+            self._note(plan, **{path_key: "device-compact"}, B=d["B"], band_rows=band_rows)
+        else:
+            self._note(plan, **{path_key: "device-padded"}, band_rows=band_rows)
+        if device_sync is not None:
+            with tracing.span("scan.sync"):
+                out = device_sync(setup, out)
         if not band_rows:
             return out
         return out + host_agg(table.rows(agg_cols, info), info)
@@ -572,11 +623,14 @@ class Executor:
         """:meth:`count` before the device sync: a device scalar (plus the
         band rows), a host int, or None for an empty scan."""
         return self._run(plan, (), lambda setup, cols, m: m.sum(),
-                         lambda rows, pos: len(pos))
+                         lambda rows, pos: len(pos), site="count")
 
     def count(self, plan: QueryPlan) -> int:
         out = self.count_partial(plan)
-        return 0 if out is None else int(out)
+        if out is None:
+            return 0
+        with tracing.span("scan.sync"):
+            return int(out)
 
     def padded_rows(self, plan: QueryPlan, agg_cols, fn: Callable, fill,
                     dtype) -> Optional[np.ndarray]:
@@ -603,7 +657,7 @@ class Executor:
             return out
 
         return self._run(plan, agg_cols, device_agg, host_agg, additive=False,
-                         compactable=False)
+                         compactable=False, site="rows")
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
@@ -685,10 +739,13 @@ class Executor:
                 rows[weight] if weight else None,
             ))
 
-        out = self._run(plan, agg_cols, device_agg, host_agg)
+        out = self._run(plan, agg_cols, device_agg, host_agg, site="density")
         if not as_numpy:
             return out
-        return np.zeros((height, width), np.float32) if out is None else out.cpu().numpy()
+        if out is None:
+            return np.zeros((height, width), np.float32)
+        with tracing.span("scan.sync"):
+            return out.cpu().numpy()
 
     # -- curve-aligned density (the index-native heatmap) ---------------------
     def _curve_positions(self, plan: QueryPlan, level: int, block_window):
@@ -852,7 +909,7 @@ class Executor:
 
         out = self._run(plan, agg_cols, device_agg,
                         self._curve_host_agg(plan, weight, p0s, p1s),
-                        additive=False, compactable=False)
+                        additive=False, compactable=False, site="curve")
         return out, infos
 
     @staticmethod
@@ -1000,7 +1057,8 @@ class Executor:
         table, L = bs["table"], bs["L"]
         bf = spec.bf
         names = list(dict.fromkeys(list(bf.columns) + list(agg_cols)))
-        cols = table.device_columns(names)
+        with tracing.span("scan.device_put", batch=len(plans)):
+            cols = table.device_columns(names)
         wcache = self.store.device_state.setdefault("batch_win", {})
         # keyed by the window bytes: another batch's windows must never
         # serve this one
@@ -1011,25 +1069,27 @@ class Executor:
                 wcache.clear()
             win = wcache[wkey] = tuple(self._tensor(bs[k]) for k in ("starts", "ends", "counts"))
         lf, li = self._tensor(spec.lits_f), self._tensor(spec.lits_i)
-        res = bf.residual(cols, torch)
-        res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
         for p in plans:
             self._note(p, scan="device-batch", batch=len(plans))
-        # one dispatch for the whole batch, as the reference counts it
-        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        outs = []
-        for m, su in enumerate(bs["setups"]):
-            if su is None:
-                outs.append(None)
-                continue
-            mm = kmasks.window_mask_batch(*win, L, m) & res & bf.slots(cols, torch, lf[m], li[m])
-            band = res_band
-            if bf.slots_band is not None:
-                sb = bf.slots_band(cols, torch, lf[m], li[m])
-                band = sb if band is None else band | sb
-            if band is not None:
-                mm = mm & ~band
-            outs.append(member_agg(m, cols, mm))
+        with tracing.span("scan.kernel", site="batch", batch=len(plans)):
+            # one dispatch for the whole batch, as the reference counts it
+            metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+            res = bf.residual(cols, torch)
+            res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
+            outs = []
+            for m, su in enumerate(bs["setups"]):
+                if su is None:
+                    outs.append(None)
+                    continue
+                mm = (kmasks.window_mask_batch(*win, L, m) & res
+                      & bf.slots(cols, torch, lf[m], li[m]))
+                band = res_band
+                if bf.slots_band is not None:
+                    sb = bf.slots_band(cols, torch, lf[m], li[m])
+                    band = sb if band is None else band | sb
+                if band is not None:
+                    mm = mm & ~band
+                outs.append(member_agg(m, cols, mm))
         return outs
 
     def count_batch_partial(self, plans, spec):
@@ -1162,7 +1222,7 @@ class Executor:
                 kstats.absorb_partials(st, part, dicts)
 
     # -- features --------------------------------------------------------------
-    def _mask_positions(self, setup, cols, m) -> np.ndarray:
+    def _mask_positions(self, setup, m) -> np.ndarray:
         """Device mask -> the sorted-order positions it keeps: the bool mask
         comes back ([C, B] compact or [S, L] padded) and expands on the
         host. Compact chunks are in global row order, so the positions
@@ -1185,8 +1245,9 @@ class Executor:
                 a for a, _ in (plan.hints.sort_by or [])]
         # as the reference's, a device feature scan is no deadline site (a
         # partitioned store checks per partition); its host paths check
-        pos = self._run(plan, (), self._mask_positions, lambda rows, pos: pos,
-                        additive=False, path_key="feature_scan", deadline=False)
+        pos = self._run(plan, (), lambda setup, cols, m: m, lambda rows, pos: pos,
+                        additive=False, path_key="feature_scan", deadline=False,
+                        site="mask", device_sync=self._mask_positions, host_span=False)
         if pos is None:
             return ColumnBatch({}, 0)
         return self._table(plan).gather_sorted(pos, names)
@@ -1243,7 +1304,7 @@ class Executor:
             return pos[idx], v[idx]
 
         out = self._run(plan, [attr], device_agg, host_agg, additive=False,
-                        compactable=False)
+                        compactable=False, site="topk")
         if out is None:
             return np.zeros(0, np.int64)
         pos, vals = out
@@ -1290,7 +1351,7 @@ class Executor:
             return pos[sel[:B]], len(sel)
 
         out = self._run(plan, [attr], device_agg, host_agg, additive=False,
-                        compactable=False)
+                        compactable=False, site="topk")
         if out is None:
             return np.zeros(0, np.int64)
         pos, cnt = out
@@ -1341,7 +1402,7 @@ class Executor:
             lambda setup, cols, m: kstats.device_update(stat, cols, m, vocab),
             lambda rows, pos: kstats.device_update_np(
                 stat, rows, np.ones(len(pos), bool), vocab),
-            additive=False,
+            additive=False, site="stats",
         )
 
     def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
@@ -1396,7 +1457,7 @@ class Executor:
             return pos[idx], d
 
         out = self._run(plan, [xc, yc], device_agg, host_agg, additive=False,
-                        compactable=False)
+                        compactable=False, site="knn")
         if out is None:
             return np.zeros(0, np.int64), np.zeros(0)
         pos, d = out

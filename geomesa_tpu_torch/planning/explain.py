@@ -1,5 +1,5 @@
 """Explain tree: an indented push/pop log, surfaced by
-``GeoDataset.explain_join``.
+``GeoDataset.explain`` and ``GeoDataset.explain_join``.
 
 Copy of ``geomesa_tpu/planning/explain.py`` (the reference's
 ``Explainer``, geomesa-index-api/.../utils/Explainer.scala).

@@ -43,6 +43,11 @@ point cell against each candidate polygon row with
 ``kernels/join.classify_cells`` + ``CLASSIFY_MARGIN``: interior cells match
 wholesale with no pairwise work, outside cells are skipped, and only the
 points of boundary cells go through the polygon kernel.
+
+Under tracing, a ``scan.join.partition`` span covers the co-partition and
+``scan.join.pairs`` / ``scan.join.brute`` / ``scan.join.poly`` spans each
+launch; ``join_cells`` and ``join_candidate_pairs`` go to the trace's
+cost ledger.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, metrics
+from geomesa_tpu_torch import config, metrics, tracing
 from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
 from geomesa_tpu_torch.kernels import join as kjoin
 from geomesa_tpu_torch.resilience import (
@@ -524,9 +529,10 @@ def _run_slice(plan: JoinPlan, sec: TileSection, lx32, ly32, rx32, ry32,
         sec, 0, sec.n_tiles, lx32, ly32, rx32, ry32, lz32, rz32
     )
     ops = _on(device, lxb, lyb, rxb, ryb, lval, rval, lzb, rzb)
-    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-    m, counts = kjoin.pair_tiles(*ops[:6], plan.predicate, plan.p0, plan.p1,
-                                 want_mask=want_pairs, lzb=ops[6], rzb=ops[7])
+    with tracing.span("scan.join.pairs", tiles=C, device=_device(device).index):
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+        m, counts = kjoin.pair_tiles(*ops[:6], plan.predicate, plan.p0, plan.p1,
+                                     want_mask=want_pairs, lzb=ops[6], rzb=ops[7])
     n = int(counts[:C].sum())
     if not want_pairs:
         return np.zeros((0, 2), np.int64), n
@@ -555,9 +561,10 @@ def _run_brute_slice(plan: JoinPlan, lo: int, hi: int, lx32, ly32,
     lzv = None if lz32 is None else lz32[lidx]
     rzv = None if rz32 is None else rz32[ridx]
     ops = _on(device, lx32[lidx], ly32[lidx], rx32[ridx], ry32[ridx], lzv, rzv)
-    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-    m, n = kjoin.pair_flat(*ops[:4], K, plan.predicate, plan.p0, plan.p1,
-                           want_mask=want_pairs, lzv=ops[4], rzv=ops[5])
+    with tracing.span("scan.join.brute", pairs=K, device=_device(device).index):
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+        m, n = kjoin.pair_flat(*ops[:4], K, plan.predicate, plan.p0, plan.p1,
+                               want_mask=want_pairs, lzv=ops[4], rzv=ops[5])
     n = int(n)
     if not want_pairs:
         return np.zeros((0, 2), np.int64), n
@@ -611,9 +618,12 @@ def run_join(lx, ly, rx, ry, predicate: str, distance=None, dx=None,
     ``adaptive`` None reads ``geomesa.join.adaptive``."""
     p0, p1 = kjoin.pair_params(predicate, distance=distance, dx=dx, dy=dy)
     reach_x, reach_y, wrap_x = join_reach(predicate, p0, p1, distance, ry)
-    plan = co_partition(lx, ly, rx, ry, predicate, reach_x, reach_y,
-                        level=level, p0=p0, p1=p1, wrap_x=wrap_x,
-                        adaptive=adaptive)
+    with tracing.span("scan.join.partition"):
+        plan = co_partition(lx, ly, rx, ry, predicate, reach_x, reach_y,
+                            level=level, p0=p0, p1=p1, wrap_x=wrap_x,
+                            adaptive=adaptive)
+    tracing.add_cost("join_cells", float(plan.stats.cells_joint))
+    tracing.add_cost("join_candidate_pairs", float(plan.stats.candidate_pairs))
     pairs, total = execute_predicate(plan, lx, ly, rx, ry, predicate,
                                      device=device, want_pairs=want_pairs)
     return pairs, total, plan.stats
@@ -793,6 +803,7 @@ def _run_poly_slice(rows: np.ndarray, px32, py32, tables, predicate: str, device
     idx = np.zeros(Np, np.int64)
     idx[:K] = rows
     pxv, pyv = _on(device, px32[idx], py32[idx])
-    metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-    verdict = kjoin.polygon_verdict(pxv, pyv, tables, predicate)
+    with tracing.span("scan.join.poly", points=K, device=_device(device).index):
+        metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
+        verdict = kjoin.polygon_verdict(pxv, pyv, tables, predicate)
     return verdict[:K].cpu().numpy()

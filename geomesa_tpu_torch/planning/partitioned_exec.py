@@ -47,6 +47,13 @@ whole, by reason. Weighted density keeps full loads (a NaN weight on a
 pruned non-matching row could still reach the grid), as the reference's
 does, and extent schemas push down only their time interval.
 
+Under tracing, each partition's scan opens a ``scan.partition`` span
+(``part``, ``op``) and the worker stages under ``scan.stage`` spans, in
+the query's tree (the worker adopts the query thread's span). The cost
+ledger takes ``partitions_scanned`` / ``partitions_pruned`` per scan,
+``bytes_staged`` per staging, and ``lake_bytes_read`` /
+``lake_bytes_skipped`` per pruned load.
+
 Not ported yet (ROADMAP Queue 1): the multi-device sharded scan.
 """
 
@@ -59,7 +66,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch import config, resilience, tracing
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
@@ -235,6 +242,8 @@ class PartitionedExecutor:
             f"{acct['groups_loaded']}/{acct['groups_total']} rowgroups, "
             f"{acct['bytes_loaded']}/{acct['bytes_payload']} bytes"
         )
+        tracing.add_cost("lake_bytes_read", float(note["bytes_loaded"]))
+        tracing.add_cost("lake_bytes_skipped", float(note["bytes_skipped"]))
 
     @staticmethod
     def _note_pushdown_fallbacks(plan: QueryPlan, window: Optional[Dict]) -> None:
@@ -260,7 +269,11 @@ class PartitionedExecutor:
             return
         t = child.tables.get(plan.index_name)
         if t is not None and t.n:
-            t.stage_host(names, self.uploader)
+            staged = t.stage_host(names, self.uploader)
+            if staged:
+                # the worker adopted the query's span, so the bytes land on
+                # the query's cost ledger
+                tracing.add_cost("bytes_staged", float(staged))
 
     @staticmethod
     def _free_staging(child, plan: QueryPlan) -> None:
@@ -281,7 +294,13 @@ class PartitionedExecutor:
         next partition while the caller runs the current one (one partition
         in flight); a load error re-raises here, where a sequential load
         would have raised. An early exit joins the worker and frees what it
-        staged. Lake accounts are noted here, on the query thread."""
+        staged. Lake accounts are noted here, on the query thread. The
+        worker adopts the query thread's config overrides and span, and
+        stages each partition under a ``scan.stage`` span."""
+        # the cost ledger: the partition pruning of this scan
+        total_bins = len(self.store.partition_bins())
+        tracing.add_cost("partitions_scanned", float(len(bins)))
+        tracing.add_cost("partitions_pruned", float(max(total_bins - len(bins), 0)))
         if len(bins) < 2 or not self.prefetch:
             for b in bins:
                 try:
@@ -297,10 +316,13 @@ class PartitionedExecutor:
         stop = threading.Event()
         slot = threading.Semaphore(0)  # one permit per granted load
         ov = config.snapshot_overrides()
+        tspan = tracing.snapshot()
 
         def worker():
-            # the worker resolves every knob as the query thread does
+            # the worker resolves every knob as the query thread does, and
+            # its spans nest under the query's tree
             config.adopt_overrides(ov)
+            tracing.adopt(tspan)
             try:
                 for b in bins:
                     while not slot.acquire(timeout=0.1):
@@ -314,10 +336,11 @@ class PartitionedExecutor:
                         child = self._get_child(b, window)
                     except BaseException as e:  # contained on the query thread
                         err = e
-                    if err is None:
+                    if err is None and child is not None:
                         where = ("exec.partition.scan", "stage")
                         try:
-                            self._stage(child, plan)
+                            with tracing.span("scan.stage", part=int(b)):
+                                self._stage(child, plan)
                         except BaseException as e:  # CUDA errors included
                             err = e
                     out.put((b, child, err, where))
@@ -371,7 +394,7 @@ class PartitionedExecutor:
         path["partitions_pruned"] = len(self.store.partition_bins()) - len(bins)
         path["partitions_scanned"] = len(bins)
         parts = path["partitions"] = {}
-        tot_scanned = 0
+        tot_scanned = tot_rows = 0
         pipe = self._pipeline(plan, bins, window)
         try:
             for b, child in pipe:
@@ -379,10 +402,12 @@ class PartitionedExecutor:
                 if child is None or child.count == 0:
                     continue
                 plan.__dict__.pop("scanned_rows", None)
+                plan.__dict__.pop("table_rows", None)
                 for k in _PART_KEYS:
                     path.pop(k, None)
                 yield b, self._executor_for(b, child)
                 tot_scanned += plan.__dict__.pop("scanned_rows", 0)
+                tot_rows += plan.__dict__.pop("table_rows", 0)
                 parts[b] = {k: path[k] for k in _PART_KEYS if path.get(k) is not None}
                 self._free_staging(child, plan)
                 self.store.evict()
@@ -396,6 +421,7 @@ class PartitionedExecutor:
             # an early exit closes the generator at the yield: fold in the
             # counters of the partition that was running
             plan.__dict__["scanned_rows"] = tot_scanned + plan.__dict__.get("scanned_rows", 0)
+            plan.__dict__["table_rows"] = tot_rows + plan.__dict__.get("table_rows", 0)
 
     def _pushed(self, plan: QueryPlan, push: bool = True) -> Iterator[Tuple[int, Executor]]:
         """:meth:`_each` with the plan's pushdown window (when ``push``),
@@ -430,9 +456,11 @@ class PartitionedExecutor:
         and :data:`_SKIPPED` returned. The ``exec.partition.scan`` fault
         point fires once a partition, before its scan."""
         try:
-            if probe:
-                resilience.fault_point("exec.partition.scan", bin=b, op=op)
-            return fn()
+            if not probe:
+                return fn()
+            resilience.fault_point("exec.partition.scan", bin=b, op=op)
+            with tracing.span("scan.partition", part=int(b), op=op):
+                return fn()
         except QueryTimeoutError:
             raise
         except Exception as e:

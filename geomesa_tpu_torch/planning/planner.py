@@ -8,7 +8,12 @@ cheapest wins (extent schemas carry no z histograms: xz plans estimate
 from their cover's share of the key space); with
 no candidate, the first index scans in full. ``QueryHints`` ride on the
 plan; the ``query_index`` hint restricts the candidates to one index.
-Interceptors, guards and the explainer are not ported.
+The schema's interceptors (``planning/interceptors.py``) may rewrite the
+filter before planning and veto the chosen plan after it; the built-in
+guards refuse a full-table scan under ``geomesa.scan.block-full-table``
+and a date-less or too-long query under
+``geomesa.guard.temporal.max.days``. An ``Explainer`` records each step
+in the reference's words (``GeoDataset.explain``).
 """
 
 from __future__ import annotations
@@ -16,11 +21,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple, Union
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.compile import CompiledFilter, compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.index.keyspace import KeyPlan
 from geomesa_tpu_torch.index.store import FeatureStore
+from geomesa_tpu_torch.planning import interceptors
+from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.stats import sketches as sk
 
 #: index preference multipliers of the decider
@@ -47,7 +55,9 @@ class QueryHints:
 
 @dataclass
 class QueryPlan:
-    """Everything the executor needs for one query."""
+    """Everything the executor needs for one query. ``ecql`` is the
+    query's text (``"<ir>"`` for a parsed filter), as the audit log
+    records it."""
 
     schema: str
     filter: ir.Filter
@@ -56,6 +66,7 @@ class QueryPlan:
     index_name: str
     est_count: float = 0.0
     hints: QueryHints = field(default_factory=QueryHints)
+    ecql: str = "<ir>"
 
     @property
     def is_empty(self) -> bool:
@@ -63,13 +74,26 @@ class QueryPlan:
 
 
 def plan_query(store: FeatureStore, ecql: Union[str, ir.Filter],
-               hints: Optional[QueryHints] = None) -> QueryPlan:
+               hints: Optional[QueryHints] = None,
+               explain: Optional[Explainer] = None) -> QueryPlan:
     """Plan ECQL text or an already-parsed filter. With the
     ``query_index`` hint only that index may serve, and a query it cannot
-    serve raises."""
+    serve raises. A guard or an interceptor's veto raises ``ValueError``.
+    ``explain`` receives the reference's explain lines."""
     ft = store.ft
     hints = hints or QueryHints()
-    f = ecql if isinstance(ecql, ir.Filter) else parse_ecql(ecql)
+    exp = explain or Explainer(enabled=False)
+    if isinstance(ecql, ir.Filter):
+        f, text = ecql, "<ir>"
+    else:
+        text = ecql
+        f = parse_ecql(ecql)
+    exp.push(f"Planning '{ft.name}' query")
+    exp.line(f"Filter: {text}")
+    f2 = interceptors.apply_rewrite(ft, f)
+    if f2 is not f:
+        exp.line("Filter rewritten by interceptor")
+        f = f2
     candidates = [kp for kp in (ks.plan(ft, f) for ks in store.keyspaces
                                 if not hints.query_index
                                 or ks.name == hints.query_index)
@@ -78,22 +102,64 @@ def plan_query(store: FeatureStore, ecql: Union[str, ir.Filter],
         if hints.query_index:
             raise ValueError(f"index {hints.query_index!r} cannot serve this query")
         candidates = [KeyPlan(store.keyspaces[0], full_scan=True)]
-    chosen, cost = _decide(store, candidates)
-    return QueryPlan(ft.name, f, compile_filter(f, ft, store.dicts), chosen,
-                     chosen.keyspace.name, cost, hints)
+    exp.push(f"Candidate indices: {[c.keyspace.name for c in candidates]}")
+    chosen, cost = _decide(store, candidates, exp)
+    exp.pop()
+    exp.line(
+        f"Chosen index: {chosen.keyspace.name} "
+        f"(estimated count {cost:.0f}, {len(chosen.ranges)} ranges"
+        + (f", {len(chosen.bins)} time bins" if chosen.bins is not None else "")
+        + ")"
+    )
+    guard(store, chosen, f)
+    compiled = compile_filter(f, ft, store.dicts)
+    exp.line(f"Predicate columns: {compiled.columns}")
+    exp.pop()
+    plan = QueryPlan(ft.name, f, compiled, chosen, chosen.keyspace.name, cost, hints, text)
+    # the schema's guard hooks may veto the chosen plan (raise)
+    interceptors.apply_guards(ft, plan)
+    return plan
 
 
-def _decide(store: FeatureStore, candidates: List[KeyPlan]) -> Tuple[KeyPlan, float]:
+def _decide(store: FeatureStore, candidates: List[KeyPlan],
+            exp: Explainer) -> Tuple[KeyPlan, float]:
     """The cheapest candidate by weighted estimate (the first on ties; a
     disjoint plan always wins)."""
     total = float(store.count)
     best, best_cost = None, None
     for kp in candidates:
-        weighted = (_estimate(store, kp, total) * _MULTIPLIER.get(kp.keyspace.kind, 2.0)
-                    if not kp.disjoint else -1.0)
+        cost = _estimate(store, kp, total)
+        weighted = cost * _MULTIPLIER.get(kp.keyspace.kind, 2.0) if not kp.disjoint else -1.0
+        exp.line(f"{kp.keyspace.name}: estimated {cost:.0f} (weighted {weighted:.0f})")
         if best_cost is None or weighted < best_cost:
             best, best_cost = kp, weighted
     return best, max(best_cost, 0.0)
+
+
+def guard(store: FeatureStore, kp: KeyPlan, f: ir.Filter) -> None:
+    """The built-in guards: refuse a full-table scan under
+    ``geomesa.scan.block-full-table``, and under
+    ``geomesa.guard.temporal.max.days`` a query of a dated schema that does
+    not bound its date or spans more days than the limit. Config-dependent,
+    so a cached plan checks them again on every call."""
+    if kp.full_scan and config.BLOCK_FULL_TABLE_SCANS.to_bool():
+        raise ValueError(
+            "full-table scan blocked (geomesa.scan.block-full-table=true); "
+            "add spatial/temporal/attribute predicates"
+        )
+    max_days = config.TEMPORAL_GUARD_MAX_DAYS.to_int()
+    if max_days and store.ft.dtg_field:
+        iv = ir.extract_intervals(f, store.ft.dtg_field)
+        if iv.is_empty:
+            raise ValueError(
+                f"temporal guard: query must constrain {store.ft.dtg_field!r}"
+            )
+        span_ms = sum(hi - lo for lo, hi in iv.values)
+        if span_ms > max_days * 86_400_000:
+            raise ValueError(
+                f"temporal guard: query spans {span_ms / 86_400_000:.1f} days "
+                f"> limit {max_days}"
+            )
 
 
 def _estimate(store: FeatureStore, kp: KeyPlan, total: float) -> float:

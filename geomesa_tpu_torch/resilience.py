@@ -22,8 +22,8 @@ spill, lake, join and journal paths call:
   ``geomesa.scan.partial``) the scan records it with :func:`record_skip`
   and goes on, and the answer is exact over the survivors.
   :func:`record_skip` feeds the innermost :class:`DegradationCollector`
-  and a process-local trail (:func:`skipped`); the reference also feeds
-  its audit trail and tracing, which the port has not yet.
+  a process-local trail (:func:`skipped`), the audit log's
+  ``DegradationEvent`` trail, and marks the current trace degraded.
 * :func:`fsync_dir`, :func:`durable_replace` and
   :func:`durable_write_json`: the tmp-then-rename publish with file and
   directory fsyncs, so a crash leaves either the old or the new file.
@@ -43,7 +43,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import audit, config, tracing
 
 T = TypeVar("T")
 
@@ -415,15 +415,18 @@ _skipped_lock = threading.Lock()
 
 def record_skip(source: str, part: str, error: BaseException,
                 phase: str = "") -> Skipped:
-    """Record one skipped unit: into the innermost collector (if any) and
-    the process-local trail. The caller decides whether to go on
-    (:func:`partial_allowed`)."""
+    """Record one skipped unit: into the innermost collector (if any), the
+    process-local trail and the audit log's degradation trail
+    (``audit.degradations``), and mark the current trace degraded. The
+    caller decides whether to go on (:func:`partial_allowed`)."""
     rec = Skipped(source=source, part=str(part), error=repr(error), phase=phase)
     st = _collectors()
     if st:
         st[-1].add(rec)
     with _skipped_lock:
         _skipped.append(rec)
+    audit.record_degradation(rec)
+    tracing.mark_degraded()
     return rec
 
 

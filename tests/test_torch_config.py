@@ -70,6 +70,16 @@ KNOBS = {
     "CACHE_POLYGON": "CACHE_POLYGON",
     "HEAT_CELLS_MAX": "HEAT_CELLS_MAX",
     "HEAT_TOP": "HEAT_TOP",
+    "BLOCK_FULL_TABLE_SCANS": "BLOCK_FULL_TABLE_SCANS",
+    "TEMPORAL_GUARD_MAX_DAYS": "TEMPORAL_GUARD_MAX_DAYS",
+    "AUDIT_PATH": "AUDIT_PATH",
+    "AUDIT_ENABLED": "AUDIT_ENABLED",
+    "TRACE_ENABLED": "TRACE_ENABLED",
+    "TRACE_SLOW_MS": "TRACE_SLOW_MS",
+    "TRACE_MAX_SPANS": "TRACE_MAX_SPANS",
+    "TRACE_JAX_PROFILER": "TRACE_JAX_PROFILER",
+    "TRACE_RETAIN": "TRACE_RETAIN",
+    "USER": "USER",
 }
 
 
@@ -345,3 +355,15 @@ def test_join_pushdown_knobs_read_at_join_time(tmp_path):
     with config.JOIN_PUSHDOWN.scoped(False):
         off = run()
     assert off.count == res.count and off.stats.pushdown == {}
+
+
+def test_trace_knobs_read_at_call_time():
+    from geomesa_tpu_torch import tracing
+
+    assert tracing.span("x") is tracing.NOOP
+    with config.TRACE_ENABLED.scoped("true"), config.TRACE_MAX_SPANS.scoped("2"):
+        with tracing.start("op") as root:
+            for _ in range(3):
+                with tracing.span("s"):
+                    pass
+    assert root.trace.max_spans == 2 and root.trace.dropped == 2

@@ -255,7 +255,8 @@ def test_seeded_probabilistic_rule_skips_the_same_bins(pair, seed):
 
 def test_scan_partial_knob_degrades_without_a_scope(pair):
     """``geomesa.scan.partial=true`` degrades as ``allow_partial()`` does;
-    the skip lands on the plan and the process trail."""
+    the skip lands in the call's audit event (the plan's account, which the
+    audit takes) and the process trail, as in the JAX package."""
     j, p, _, bins = pair
     dead = sorted(set(bins.tolist()))[4]
     outs = []
@@ -265,7 +266,9 @@ def test_scan_partial_knob_degrades_without_a_scope(pair):
                               times=None, where=lambda c: c.get("bin") == dead)
         outs.append(got)
     assert outs[0] == outs[1] == survivors(pair, [dead]).count("t", BOX)
-    assert [r.part for r in _plan_of(p, BOX).__dict__["degraded"]] == [f"bin:{dead}"]
+    for ds in (p, j):
+        assert [r["part"] for r in ds.audit.recent(1)[0].hints["degraded"]] == [f"bin:{dead}"]
+        assert "degraded" not in _plan_of(ds, BOX).__dict__
     assert resilience.skipped()[-1].part == f"bin:{dead}"
 
 
@@ -281,16 +284,20 @@ def test_features_drop_a_failed_partition_whole(pair):
 
 
 def test_plan_degraded_is_per_call(pair):
-    """The plan records this call's skips; a cached plan's next healthy
-    call reports none."""
-    _, p, _, bins = pair
+    """The plan records this call's skips and the call's audit event takes
+    them, as the JAX package's does; a cached plan's next healthy call
+    reports none."""
+    j, p, _, bins = pair
     dead = sorted(set(bins.tolist()))[1]
-    _faulted(p, resilience, config, lambda ds: ds.count("t", BOX), times=None,
-             where=lambda c: c.get("bin") == dead)
-    plan = p._plan("t", BOX)
-    assert [r.part for r in plan.__dict__["degraded"]] == [f"bin:{dead}"]
-    p.count("t", BOX)
-    assert "degraded" not in plan.__dict__
+    for ds, mod, cfg in ((p, resilience, config), (j, jres, jconfig)):
+        _faulted(ds, mod, cfg, lambda ds: ds.count("t", BOX), times=None,
+                 where=lambda c: c.get("bin") == dead)
+        plan = _plan_of(ds, BOX)
+        assert [r["part"] for r in ds.audit.recent(1)[0].hints["degraded"]] == [f"bin:{dead}"]
+        assert "degraded" not in plan.__dict__
+        ds.count("t", BOX)
+        assert "degraded" not in ds.audit.recent(1)[0].hints
+        assert "degraded" not in plan.__dict__
 
 
 def test_lake_read_fault_degrades_a_pruned_pushdown_count(pair, tmp_path):

@@ -1040,7 +1040,8 @@ def test_pruned_child_on_the_card_equals_the_full_load(cuda, tmp_path):
             launched = (kpip.launches - pip0, kg.launches - den0)
             q = poly if key == "polygon" else box
             path = gpu._plan("t", q).exec_path
-            assert "lake" in path and gpu._plan("t", q).lake_acct["groups_pruned"] > 0, path
+            # the call's audit event carries its lake account
+            assert "lake" in path and gpu.audit.recent(1)[0].hints["lake"]["groups_pruned"] > 0, path
             assert not st.partitions, "a pruned child became resident"
             st.spill_all()
             with config.LAKE_PUSHDOWN.scoped(False):
@@ -1195,3 +1196,53 @@ def test_cache_polygon_region_through_pip_on_the_card(cuda):
         assert gpu.count("t", DURING, region=poly) == n == off[0]
         assert _dispatches() == d0
     np.testing.assert_array_equal(g, off[1])
+
+
+# -- slice 14: tracing on the card -------------------------------------------------
+def test_traced_calls_on_the_card_equal_untraced(cuda, monkeypatch):
+    """Traced count, density and polygon count equal the untraced calls;
+    ``density_grouped.cu`` and ``pip.cu`` launch under ``scan.kernel``
+    spans; tracing adds no ``torch.cuda.synchronize``."""
+    from geomesa_tpu_torch import config, tracing
+
+    gpu, _ = _datasets(cuda, 200_000, seed=29)
+    poly = f"INTERSECTS(geom, {_ngon(64, -95, 37, 8)}) AND {DURING}"
+    calls = [lambda: gpu.count("t", ECQL),
+             lambda: gpu.density("t", ECQL, bbox=BBOX, width=512, height=512),
+             lambda: gpu.count("t", poly)]
+    want = [c() for c in calls]
+    syncs = []
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (syncs.append(1), real_sync(*a, **k))[1])
+    spans = {"pip": [], "grouped": []}
+    real_pip, real_dg = kpip.pip_mask, kg.density_grouped
+
+    def pip_mask(*a, **k):
+        spans["pip"].append(getattr(tracing.current_span(), "name", None))
+        return real_pip(*a, **k)
+
+    def density_grouped(*a, **k):
+        spans["grouped"].append(getattr(tracing.current_span(), "name", None))
+        return real_dg(*a, **k)
+
+    monkeypatch.setattr(kpip, "pip_mask", pip_mask)
+    monkeypatch.setattr(kg, "density_grouped", density_grouped)
+    untraced_syncs = len(syncs)
+    for c in calls:
+        c()
+    untraced_syncs = len(syncs) - untraced_syncs
+    l_pip, l_dg = kpip.launches, kg.launches
+    with config.TRACE_ENABLED.scoped("true"):
+        n0 = len(syncs)
+        got = []
+        for c in calls:
+            got.append(c())
+            names = [s.name for s in tracing.last_trace().root.children]
+            assert "scan.kernel" in names and "scan.sync" in names
+        traced_syncs = len(syncs) - n0
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_array_equal(got[1], want[1])
+    assert kpip.launches > l_pip and kg.launches > l_dg
+    assert spans["pip"][-1] == "scan.kernel" and spans["grouped"][-1] == "scan.kernel"
+    assert traced_syncs == untraced_syncs
