@@ -353,10 +353,36 @@ nothing else.)
    count with a partition failing under ``allow_partial()``, traced: the
    trace is degraded and one ``DegradationEvent`` names the bin. Both parts
    together must take at most 15 s.
+16. Slice 15, the kernel registry, device utilization, trace export,
+   breakers, SLO burn and the endpoints, no new data. On slice 1's flat
+   store right after slice 14's flat part, with a fresh scan-callable
+   registry, tracing on and the file sink of ``tracing_export`` in a
+   temporary directory at sample rate ``S15_SAMPLE_RATE`` and seed
+   ``S15_SAMPLE_SEED``: the main path's four calls cold, then warm
+   ``S15_WARM`` times, each answer equal to the oracle-checked one. The
+   registry builds one callable on each call's first run (``kernel`` note
+   ``trace``, a ``kernel.recompile`` event) and none on the warm repeats
+   (``hit``), and the recompile alert stays 0. Every call's
+   ``device_ms.0`` (CUDA events around its dispatch and copy back) is
+   above 0 and at most the call's wall. The sink holds exactly the first
+   calls (kept as ``recompile``) and the warm calls ``sampled_in`` keeps,
+   and each exported OTLP span tree equals the retained finished trace of
+   its id. ``S15_PROFILED`` more traced warm calls of each under one
+   ``torch.profiler`` session: their ``device_ms.0`` at least 0.9x the
+   profiler's busy union (kernels, memcpy, memset) of the calls, which
+   must be above 0, and at most their walls. ``device.busy.0`` in (0, 1]. Through
+   ``obs.handle``: ``/healthz`` 200 naming the card, 503 while a
+   ``trace.otlp`` breaker is forced open, 200 once the breakers are reset;
+   ``/metrics`` parses as prometheus text and holds ``kernel_recompiles``,
+   ``device_busy_0`` and the trace histograms; ``/debug/devices`` and
+   ``/debug/queries?trace=<id>`` answer. One ``obs.serve`` round trip on
+   127.0.0.1, port 0. The count's warm p50 untraced, traced with export
+   off and traced with export on, in turns, once before the profiler
+   sessions and once after the endpoints.
 
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
-``launches_slice8`` to ``launches_slice11``, ``launches_slice13`` and
-``launches_slice14``), the card's ``nvidia-smi``
+``launches_slice8`` to ``launches_slice11`` and ``launches_slice13`` to
+``launches_slice15``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -2709,7 +2735,7 @@ def slice8(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped):
     plans, spec = ds._batch_plans(name, db_q)
     agg = ex._density_cols("weight")
     bs = ex._batch_setups(plans, spec, agg)
-    masks = ex._batch_device_agg(plans, spec, bs, lambda m, cols, mm: mm, agg)
+    masks = ex._batch_device_agg(plans, spec, bs, lambda m, cols, mm: mm, agg, "mask_batch")
     cols = bs["table"].device_columns(agg)
     mm = masks[0]
     g = torch.from_numpy(kdensity.grid_params(db[0][1])).cuda()
@@ -4819,6 +4845,305 @@ def s14_partitioned(torch, ds, name, q_b, dead, q_dead, kpip, kgrouped):
     return launches, wall
 
 
+#: slice 15's export sampling, warm repetitions, overhead turns and budget
+S15_SAMPLE_RATE = "0.5"
+S15_SAMPLE_SEED = "15"
+S15_WARM = 5
+S15_PROFILED = 5
+S15_OVERHEAD_REPS = 40
+S15_BUDGET_S = 60.0
+
+
+def _otlp_plain(v):
+    """An OTLP attribute value as the value it encodes."""
+    if "intValue" in v:
+        return int(v["intValue"])
+    return next(iter(v.values()))
+
+
+def otlp_trees(spans):
+    """trace id (16 hex) -> the exported span tree as nested
+    ``{"name", "attrs", "children"}``, by parent links."""
+    nodes, roots = {}, {}
+    for sp in spans:
+        nodes[sp["spanId"]] = {"name": sp["name"], "children": [], "attrs": {
+            a["key"]: _otlp_plain(a["value"]) for a in sp.get("attributes", ())}}
+    for sp in spans:
+        parent = sp.get("parentSpanId")
+        if parent:
+            nodes[parent]["children"].append(nodes[sp["spanId"]])
+        else:
+            roots[sp["traceId"][:16]] = nodes[sp["spanId"]]
+    return roots
+
+
+def tree_shape(node):
+    """(name, attributes as strings, children) of an OTLP or finished-trace
+    tree; the exporter's ``geomesa.*`` root attributes left out."""
+    attrs = sorted((k, str(v)) for k, v in (node.get("attrs") or {}).items()
+                   if not k.startswith("geomesa."))
+    return (node["name"], attrs, [tree_shape(c) for c in node.get("children", ())])
+
+
+def profiler_busy_ms(torch, fn, n: int, trace_path: Path):
+    """(results, busy ms) of ``n`` calls under one ``torch.profiler``
+    session, each ending synchronized: the union of the kernel, memcpy and
+    memset intervals of its trace. (A session of one short call can come
+    back without its device events.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = []
+        for _ in range(n):
+            out.append(fn())
+            torch.cuda.synchronize()
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for s0, s1 in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+    return out, busy / 1e3
+
+
+def _s15_same(key, got, want) -> bool:
+    if key == "density_weighted":  # float atomics: rtol 1e-4
+        return bool(np.allclose(got, want, rtol=1e-4, atol=1e-3))
+    if isinstance(got, np.ndarray):
+        return bool(np.array_equal(got, want))
+    return got == want
+
+
+def slice15(torch, ds, calls, want, kpip, kgrouped, name="gdelt"):
+    """The slice-15 phase on slice 1's flat store after slice 14's flat part
+    (see the module docstring, 16): ``calls`` are the main path's four
+    calls, ``want`` their oracle-checked answers. Returns (launches, wall
+    s, a dict of the phase's numbers)."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from geomesa_tpu_torch import config, metrics, obs, resilience, tracing, tracing_export
+    from geomesa_tpu_torch import utilization
+    from geomesa_tpu_torch.kernels import registry as kreg
+
+    t_phase = time.perf_counter()
+    queries = {"count_bbox": f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}",
+               "count_polygon": f"INTERSECTS(geom, {polygon_wkt()}) AND {DURING}"}
+    queries["density"] = queries["density_weighted"] = queries["count_bbox"]
+    kpip.launches = 0
+    kgrouped.launches = 0
+    tracing_export.reset()
+    resilience.reset_breakers()
+    utilization.reset()
+    kreg.reset_alert()
+    # a fresh registry: the four calls build their callables again
+    ds._store(name).__dict__["_kernel_registry"] = kreg.KernelRegistry()
+    reg = ds._executor(name).kernel_registry()
+    tmp = Path(tempfile.mkdtemp(prefix="geomesa_s15_"))
+    sink = tmp / "spans.jsonl"
+    rebuilds = metrics.registry().counter(metrics.KERNEL_RECOMPILES)
+    rows, kept_want = [], {}
+    out = {}
+    try:
+        with config.TRACE_ENABLED.scoped("true"), config.TRACE_EXPORT_PATH.scoped(str(sink)),                 config.TRACE_SAMPLE_RATE.scoped(S15_SAMPLE_RATE),                 config.TRACE_SAMPLE_SEED.scoped(S15_SAMPLE_SEED):
+            # 1. cold, then warm: registry builds, device_ms, answers
+            for rnd in range(1 + S15_WARM):
+                for key, fn in calls.items():
+                    r0 = rebuilds.value
+                    got = fn()
+                    tr = tracing.last_trace()
+                    builds = rebuilds.value - r0
+                    path = ds._plan(name, queries[key]).exec_path
+                    dev_ms = tr.cost.get("device_ms.0", 0.0)
+                    wall = tr.root.duration_ms
+                    if not _s15_same(key, got, want[key]):
+                        raise AssertionError(f"[slice15] {key} differs from the oracle-checked answer")
+                    if rnd == 0 and not (builds >= 1 and path.get("kernel") == "trace"
+                                         and tr.recompiles == builds):
+                        raise AssertionError(f"[slice15] cold {key}: {builds} builds, "
+                                             f"kernel note {path.get('kernel')}, "
+                                             f"{tr.recompiles} recompile events")
+                    if rnd > 0 and not (builds == 0 and path.get("kernel") == "hit"
+                                        and tr.recompiles == 0):
+                        raise AssertionError(f"[slice15] warm {key}: {builds} builds, "
+                                             f"kernel note {path.get('kernel')}")
+                    if not 0.0 < dev_ms <= wall:
+                        raise AssertionError(f"[slice15] {key}: device_ms.0 {dev_ms} outside "
+                                             f"(0, wall {wall}]")
+                    kept_want[tr.trace_id] = "recompile" if rnd == 0 else (
+                        "sampled" if tracing_export.sampled_in(tr.trace_id) else None)
+                    rows.append((rnd, key, tr.trace_id, builds, dev_ms, wall))
+                    if rnd == 0:
+                        log(f"[slice15] cold {key}: {builds} build(s), exec_path kernel notes "
+                            f"{ {k: v for k, v in path.items() if k.startswith(('kernel', 'shape'))} }, "
+                            f"device_ms.0 {dev_ms:.6f} of wall {wall:.6f} ms")
+            tracing_export.flush()
+        for key in calls:
+            mine = [r for r in rows if r[1] == key and r[0] > 0]
+            log(f"[slice15] warm {key} x{len(mine)}: device_ms.0 "
+                f"{[round(r[4], 6) for r in mine]} ms of walls {[round(r[5], 6) for r in mine]} ms")
+        traces = reg.traces()
+        alert = metrics.registry().gauge(metrics.KERNEL_RECOMPILE_ALERT).value
+        if sum(traces.values()) != len(calls) or alert != 0:
+            raise AssertionError(f"[slice15] registry builds {traces} (want one per call) "
+                                 f"or alert {alert}")
+        log(f"[slice15] registry: builds by site {traces}, {len(reg)} entries, evictions "
+            f"{reg.evicts()}, alert gauge {alert}")
+
+        # 2. the file sink against the retained traces
+        spans = [sp for ln in sink.read_text().splitlines()
+                 for sp in json.loads(ln)["resourceSpans"][0]["scopeSpans"][0]["spans"]]
+        trees = otlp_trees(spans)
+        want_ids = {t for t, why in kept_want.items() if why}
+        if set(trees) != want_ids:
+            raise AssertionError(f"[slice15] exported {sorted(trees)}, want {sorted(want_ids)}")
+        for tid in want_ids:
+            rec = tracing.finished_trace(tid)
+            got_keep = trees[tid]["attrs"].get("geomesa.keep")
+            if tree_shape(trees[tid]) != tree_shape(rec["tree"]) or got_keep != kept_want[tid]:
+                raise AssertionError(f"[slice15] exported tree {tid} ({got_keep}) differs from "
+                                     f"the retained trace ({kept_want[tid]})")
+        n_warm = len(rows) - len(calls)
+        n_warm_kept = sum(1 for t, why in kept_want.items() if why == "sampled")
+        log(f"[slice15] file sink: {len(trees)} traces, {len(spans)} spans; the {len(calls)} "
+            f"cold calls kept as recompile, {n_warm_kept} of {n_warm} warm calls as sampled "
+            f"(sampled_in at rate {S15_SAMPLE_RATE}, seed {S15_SAMPLE_SEED}); every tree "
+            f"equals its retained trace")
+        out["exported"] = (len(trees), n_warm_kept, n_warm)
+
+        # 2b. the count's warm p50 untraced, traced with export off and traced
+        # with export on, in turns, before any profiler session of the phase
+        count = calls["count_bbox"]
+        modes = ("untraced", "export off", "export on")
+
+        def turns(when):
+            walls = {m: [] for m in modes}
+            with config.TRACE_SAMPLE_RATE.scoped(S15_SAMPLE_RATE), \
+                    config.TRACE_SAMPLE_SEED.scoped(S15_SAMPLE_SEED):
+                for _ in range(S15_OVERHEAD_REPS // 2):
+                    for m in modes + modes[::-1]:
+                        with config.TRACE_ENABLED.scoped("false" if m == "untraced" else "true"), \
+                                config.TRACE_EXPORT_PATH.scoped(str(sink) if m == "export on" else ""):
+                            walls[m].append(timed(torch, count)[1] * 1e3)
+                tracing_export.flush()
+            p50 = {m: float(np.median(walls[m])) for m in modes}
+            log(f"[slice15] warm count p50 {when}: untraced {p50['untraced']:.6f} ms, traced "
+                f"export off {p50['export off']:.6f} ms, export on {p50['export on']:.6f} ms "
+                f"({len(walls['untraced'])} calls each, in turns): tracing adds "
+                f"{(p50['export off'] - p50['untraced']) * 1e3:.3f} us, export "
+                f"{(p50['export on'] - p50['export off']) * 1e3:.3f} us")
+            return p50
+
+        out["turns_before"] = turns("before the profiler sessions")
+
+        # 3. device_ms.0 against the profiler's busy union of the same calls
+        prof_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+        ratios = {}
+        with config.TRACE_ENABLED.scoped("true"):
+            for key, fn in calls.items():
+                ids = []
+
+                def traced_call(fn=fn, ids=ids):
+                    out = fn()
+                    ids.append(tracing.last_trace())
+                    return out
+
+                _, union = profiler_busy_ms(torch, traced_call, S15_PROFILED,
+                                            prof_dir / f"s15_{key}.json")
+                dev_ms = sum(tr.cost["device_ms.0"] for tr in ids)
+                wall = sum(tr.root.duration_ms for tr in ids)
+                ratios[key] = (dev_ms / len(ids), union / len(ids), wall / len(ids))
+                log(f"[slice15] {key} under the profiler, {len(ids)} calls: device_ms.0 "
+                    f"{dev_ms / len(ids):.6f} ms a call, busy union {union / len(ids):.6f} "
+                    f"(ratio {dev_ms / union if union else math.inf:.4f}), wall "
+                    f"{wall / len(ids):.6f}")
+                if not (0.0 < union and 0.9 * union <= dev_ms <= wall):
+                    raise AssertionError(f"[slice15] {key}: device_ms.0 {dev_ms} not in "
+                                         f"[0.9 x busy union {union} > 0, wall {wall}]")
+        out["device_ms"] = ratios
+        busy = metrics.registry().gauge("device.busy.0").value
+        if not 0.0 < busy <= 1.0:
+            raise AssertionError(f"[slice15] device.busy.0 {busy}")
+        usage = utilization.snapshot()["devices"]["0"]
+        log(f"[slice15] device.busy.0 {busy}; /debug/devices totals {usage}")
+
+        # 4. the endpoints through obs.handle
+        card = torch.cuda.get_device_name(0)
+        code, _, body = obs.handle("/healthz", ds)
+        h = json.loads(body)
+        if code != 200 or h["status"] != "ok" or card not in (h["device"].get("devices") or ()):
+            raise AssertionError(f"[slice15] /healthz {code}: {h}")
+        resilience.breaker("trace.otlp", threshold=1).record_failure()
+        code_open, _, body = obs.handle("/healthz", ds)
+        if code_open != 503 or json.loads(body)["open_breakers"] != ["trace.otlp"]:
+            raise AssertionError(f"[slice15] /healthz with trace.otlp open: {code_open}")
+        resilience.reset_breakers()
+        code_back = obs.handle("/healthz", ds)[0]
+        if code_back != 200:
+            raise AssertionError(f"[slice15] /healthz after the reset: {code_back}")
+        log(f"[slice15] /healthz {code} (devices {h['device']['devices']}, mesh {h['mesh']}), "
+            f"{code_open} with trace.otlp forced open, {code_back} after reset_breakers")
+        code, ctype, body = obs.handle("/metrics", ds)
+        text = body.decode()
+        metric_names = set()
+        for line in text.splitlines():
+            mname, _, value = line.rpartition(" ")
+            float(value)  # every sample line ends in a number
+            metric_names.add(mname.split("{")[0])
+        need = ("geomesa_kernel_recompiles", "geomesa_device_busy_0",
+                "geomesa_trace_count_seconds_bucket", "geomesa_trace_scan_kernel_seconds_bucket")
+        if code != 200 or not ctype.startswith("text/plain") or not all(
+                n in metric_names for n in need):
+            raise AssertionError(f"[slice15] /metrics {code} {ctype}: missing "
+                                 f"{[n for n in need if n not in metric_names]}")
+        code_dev, _, body = obs.handle("/debug/devices", ds)
+        devs = json.loads(body)
+        tid = rows[-1][2]
+        code_q, _, qbody = obs.handle(f"/debug/queries?trace={tid}", ds)
+        if code_dev != 200 or "0" not in devs["devices"] or code_q != 200                 or json.loads(qbody)["trace_id"] != tid:
+            raise AssertionError(f"[slice15] /debug/devices {code_dev}, /debug/queries "
+                                 f"?trace= {code_q}")
+        log(f"[slice15] /metrics {code}: {len(text.splitlines())} lines, {len(metric_names)} "
+            f"series; /debug/devices {code_dev} (health {devs['health']}); "
+            f"/debug/queries?trace={tid} {code_q}")
+
+        # 5. one obs.serve round trip on 127.0.0.1
+        srv = obs.serve(ds, host="127.0.0.1", port=0, background=True)
+        try:
+            port = srv.server_address[1]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                served = (r.status, json.loads(r.read())["status"])
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                served += (r.status, len(r.read()))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        if served[0] != 200 or served[1] != "ok" or served[2] != 200:
+            raise AssertionError(f"[slice15] obs.serve round trip {served}")
+        log(f"[slice15] obs.serve on 127.0.0.1:{port}: /healthz {served[0]} {served[1]}, "
+            f"/metrics {served[2]} ({served[3]} B)")
+
+        # 6. the same turns after the profiler sessions and the endpoints
+        out["turns_after"] = turns("after the profiler sessions")
+    finally:
+        tracing_export.reset()
+        resilience.reset_breakers()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[slice15] a main-path kernel never launched: {launches}")
+    wall = time.perf_counter() - t_phase
+    log(f"[slice15] launches {launches}; the phase took {wall:.3f} s")
+    if wall > S15_BUDGET_S:
+        raise AssertionError(f"[slice15] the phase took {wall:.3f} s, over its {S15_BUDGET_S} s")
+    return launches, wall, out
+
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -5073,6 +5398,9 @@ def main() -> int:
     s14_flat, s14_wall, s14_p50 = slice14(torch, ds, queries, results, kpip, kgrouped,
                                           n_bbox)
 
+    # -- 16. slice 15: the kernel registry, utilization, export and endpoints --
+    s15_flat, _, _ = slice15(torch, ds, queries, results, kpip, kgrouped)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -5115,6 +5443,7 @@ def main() -> int:
         k["launches_slice11"] = s11_flat.get(k["name"], 0) + s11_part.get(k["name"], 0)
         k["launches_slice13"] = s13_part.get(k["name"], 0)
         k["launches_slice14"] = s14_flat.get(k["name"], 0) + s14_part.get(k["name"], 0)
+        k["launches_slice15"] = s15_flat.get(k["name"], 0)
     if min(s14_flat.values()) <= 0:
         raise AssertionError(f"[slice14] a main-path kernel never launched traced: {s14_flat}")
 

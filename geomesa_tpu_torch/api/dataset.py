@@ -77,7 +77,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, metrics, resilience, tracing
+from geomesa_tpu_torch import config, metrics, resilience, tracing, utilization
 from geomesa_tpu_torch.audit import AuditWriter
 from geomesa_tpu_torch.cache import AggregateCache
 from geomesa_tpu_torch.fs import journal as _jr
@@ -86,7 +86,7 @@ from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql, parse_iso_ms
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore, is_partitioned_schema
 from geomesa_tpu_torch.index.store import FeatureStore
-from geomesa_tpu_torch.kernels.registry import WINDOW_BUCKET_FLOOR
+from geomesa_tpu_torch.kernels import registry as kreg
 from geomesa_tpu_torch.planning import interceptors
 from geomesa_tpu_torch.planning.batch import build_spec
 from geomesa_tpu_torch.planning.executor import Executor, query_deadline
@@ -255,7 +255,12 @@ def _traced(op: str):
         @functools.wraps(fn)
         def wrapper(self, name, *args, **kw):
             with tracing.start(op, schema=name), self._identity():
-                return fn(self, name, *args, **kw)
+                try:
+                    return fn(self, name, *args, **kw)
+                finally:
+                    # the call's CUDA busy intervals, complete once its
+                    # host copies returned, go to this trace's ledger
+                    utilization.resolve_pending()
 
         return wrapper
 
@@ -946,6 +951,8 @@ class GeoDataset:
         describes the last call that ran it. A cached plan checks the
         guards again (a guard knob may have flipped since). A plan built
         for ``explain`` records its explain lines and is not cached."""
+        # the per-query build window of the kernel registry's alert
+        kreg.begin_query_window()
         with tracing.span("plan"):
             return self._plan_inner(name, query, explain)
 
@@ -969,9 +976,11 @@ class GeoDataset:
             plan = plan_query(st, q.ecql, q.hints(), explain)
         if isinstance(q.ecql, str):
             # a plan of ECQL text can be reproduced from it: the
-            # reference's ``cache_token``, which a query-axis batch
+            # reference's ``cache_token`` (text, auths, effective filter:
+            # an interceptor may rewrite the filter of the same text),
+            # which keys the kernel registry and which a query-axis batch
             # requires of every member
-            plan.__dict__["cache_token"] = q.ecql
+            plan.__dict__["cache_token"] = (q.ecql, None, hash(repr(plan.filter)))
         plan.__dict__["plan_time_ms"] = (time.perf_counter() - t0) * 1e3
         if key is not None:
             if len(self._plans) >= 256:
@@ -1149,10 +1158,27 @@ class GeoDataset:
         else:
             exp.line("no cell cover for this query (whole-result only)")
         exp.pop()
+        # the warm path: shape buckets, the shared registry of scan
+        # callables (its builds are the reference's traces) and the alert
         exp.push("Warm path")
-        # the port always pads a scan's window count to its bucket
-        exp.kv("shape bucketing", f"on (K floor {WINDOW_BUCKET_FLOOR})")
+        floor = config.COMPACT_BUCKET_FLOOR.to_int()
+        exp.kv("shape bucketing",
+               f"on (K floor {8 if floor is None else floor})"
+               if config.COMPACT_BUCKETING.to_bool() else "off")
+        reg = self._executor(name).kernel_registry()
+        tr = reg.traces()
+        exp.kv("kernel registry",
+               f"{len(reg)} compiled kernels, {sum(tr.values())} traces to date")
+        if tr:
+            exp.kv("traces by site", ", ".join(
+                f"{site}={n}" for site, n in sorted(tr.items(), key=lambda kv: -kv[1])[:8]))
+        thr = kreg.alert_threshold()
+        over = {s: n for s, n in kreg.query_recompiles().items() if n > thr}
+        exp.kv("recompile alert",
+               f"TRIPPED ({', '.join(f'{s}={n}' for s, n in sorted(over.items()))})"
+               if over else f"clear (threshold {thr}/query)")
         exp.kv("prefetch pipeline", bool(config.PIPELINE_PREFETCH.to_bool()))
+        exp.kv("persistent compile cache", config.COMPILE_CACHE_DIR.get() or "off")
         exp.pop()
         # tracing: the trace id is this explain call's own (explain writes
         # no audit event)
@@ -2156,6 +2182,9 @@ class GeoDataset:
                 # the box prunes through the plan's windows and inside the
                 # scan; the predicate stays the location-free base filter
                 plan.compiled = base_compiled
+            # one location-free token: every origin and radius shares the
+            # registry's scan callable, as the reference's kernel
+            plan.__dict__["cache_token"] = ("knn", q.ecql, None)
             if isinstance(ex, PartitionedExecutor):  # each partition's k nearest
                 batch = ex.knn_features(plan, x, y, k, boxes=boxes)
             else:

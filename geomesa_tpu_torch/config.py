@@ -325,3 +325,94 @@ TRACE_RETAIN = SystemProperty("geomesa.trace.retain", "256")
 
 #: the identity audit events carry (unset: "anonymous")
 USER = SystemProperty("geomesa.user", None)
+
+# -- the kernel registry, breakers, device health, trace export, utilization
+# and SLO knobs (names and defaults of geomesa_tpu/config.py) --
+
+#: pad a scan's per-shard window count to a power of two above the floor
+#: below ("false": exact powers of two, no floor)
+COMPACT_BUCKETING = SystemProperty("geomesa.compact.bucketing", "true")
+
+#: floor of the bucketed per-shard window count
+COMPACT_BUCKET_FLOOR = SystemProperty("geomesa.compact.bucket.floor", "8")
+
+#: entries of the shared scan-callable registry (LRU, one eviction at a
+#: time)
+KERNEL_CACHE_SIZE = SystemProperty("geomesa.kernel.cache.size", "512")
+
+#: a registry site paying more than this many builds within one query
+#: trips the ``kernel.recompile.alert`` gauge
+KERNEL_ALERT_THRESHOLD = SystemProperty("geomesa.kernel.alert.threshold", "3")
+
+#: the reference's persistent XLA compile cache directory; the port reads
+#: it and reports it, but has no compile cache behind it
+COMPILE_CACHE_DIR = SystemProperty("geomesa.compile.cache.dir", None)
+
+#: consecutive failures that open a named circuit breaker
+BREAKER_THRESHOLD = SystemProperty("geomesa.breaker.threshold", "5")
+
+#: open -> half-open reset window (ms)
+BREAKER_RESET_MS = SystemProperty("geomesa.breaker.reset.ms", "30000")
+
+#: devices cordoned out of scheduling, comma-separated ids
+MESH_CORDON = SystemProperty("geomesa.mesh.cordon", None)
+
+#: consecutive dispatch failures that open a ``device:<id>`` breaker
+DEVICE_BREAKER_THRESHOLD = SystemProperty("geomesa.device.breaker.threshold", "3")
+
+#: broken-device reset window (ms)
+DEVICE_BREAKER_RESET_MS = SystemProperty("geomesa.device.breaker.reset.ms", "30000")
+
+#: HTTP OTLP sink of finished traces (unset: none)
+TRACE_OTLP_ENDPOINT = SystemProperty("geomesa.trace.otlp.endpoint", None)
+
+#: JSONL file sink of finished traces, one OTLP batch per line (unset: none)
+TRACE_EXPORT_PATH = SystemProperty("geomesa.trace.export.path", None)
+
+#: keep rate of healthy traces in [0, 1], decided from (seed, trace id)
+TRACE_SAMPLE_RATE = SystemProperty("geomesa.trace.sample.rate", "1.0")
+
+#: seed of the sampling hash
+TRACE_SAMPLE_SEED = SystemProperty("geomesa.trace.sample.seed", "0")
+
+#: bounded export queue; a full queue drops the trace and counts it
+TRACE_EXPORT_QUEUE = SystemProperty("geomesa.trace.export.queue", "1024")
+
+#: traces converted and written per flusher pass (one OTLP batch)
+TRACE_EXPORT_BATCH = SystemProperty("geomesa.trace.export.batch", "64")
+
+#: trailing window (s) of the ``device.busy.<id>`` gauges
+DEVICE_BUSY_WINDOW = SystemProperty("geomesa.device.busy.window", "60")
+
+#: SLO burn: fast window (s), slow window (s) and the fast-window burn
+#: past which /healthz degrades
+SLO_WINDOW_FAST_S = SystemProperty("geomesa.slo.window.fast.s", "300")
+SLO_WINDOW_SLOW_S = SystemProperty("geomesa.slo.window.slow.s", "3600")
+SLO_BURN_THRESHOLD = SystemProperty("geomesa.slo.burn.threshold", "14.4")
+
+#: per-op p99 targets are ``geomesa.slo.<op>.p99.ms`` (see slo_targets)
+SLO_PREFIX = "geomesa.slo."
+SLO_SUFFIX = ".p99.ms"
+
+
+def slo_targets() -> Dict[str, float]:
+    """Per-op p99 targets in ms, ``{op: target_ms}``: thread-local
+    overrides (``geomesa.slo.<op>.p99.ms``) over the environment
+    (``GEOMESA_SLO_<OP>_P99_MS``); an unparseable value is ignored."""
+    out: Dict[str, float] = {}
+    env_pre, env_suf = "GEOMESA_SLO_", "_P99_MS"
+    for k, v in os.environ.items():
+        if k.startswith(env_pre) and k.endswith(env_suf) \
+                and len(k) > len(env_pre) + len(env_suf):
+            try:
+                out[k[len(env_pre):-len(env_suf)].lower()] = float(v)
+            except ValueError:
+                pass
+    for k, v in _overrides().items():
+        if k.startswith(SLO_PREFIX) and k.endswith(SLO_SUFFIX) \
+                and len(k) > len(SLO_PREFIX) + len(SLO_SUFFIX):
+            try:
+                out[k[len(SLO_PREFIX):-len(SLO_SUFFIX)]] = float(v)
+            except ValueError:
+                pass
+    return out

@@ -43,6 +43,7 @@ from geomesa_tpu_torch import config, geofn
 from geomesa_tpu_torch.curves.binned_time import BinnedTime
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.kernels import pip as kpip
+from geomesa_tpu_torch.kernels import registry as kreg
 from geomesa_tpu_torch.schema.columns import DictionaryEncoder
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.utils import geometry as geo
@@ -191,6 +192,8 @@ def _pip_fn(g: geo.Geometry, xcol: str, ycol: str, need_band=None,
                 (torch.from_numpy(packed).to(x.device), len(t[0]))
                 for t, packed in tables
             ]
+        # the route, noted in exec_path when a scan callable is built
+        kreg.record_dispatch("pip", "cuda" if x.is_cuda else "plain")
         for packed, n_edges in edges:
             inside = kpip.pip_mask(x, y, packed, n_edges)
             out = inside if out is None else (out | inside)

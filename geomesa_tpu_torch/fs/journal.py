@@ -41,6 +41,7 @@ import os
 import struct
 import threading
 import time
+import weakref
 import zlib
 from collections import Counter
 from typing import Any, Dict, List, Optional, Tuple
@@ -195,6 +196,22 @@ class _Pending:
         self.error: Optional[BaseException] = None
 
 
+#: every live journal of the process (the /healthz journal section)
+_JOURNALS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def lag_snapshot() -> Dict[str, int]:
+    """root -> appended records not yet durable, across every live journal
+    of the process."""
+    out: Dict[str, int] = {}
+    for j in list(_JOURNALS):
+        try:
+            out[j.root] = j.lag()
+        except Exception:
+            continue
+    return out
+
+
 class MutationJournal:
     """Append-only, crc-framed, fsynced mutation log of one storage root.
 
@@ -229,6 +246,7 @@ class MutationJournal:
         self.torn_tails = 0
         self.truncated_bytes = 0
         self._recover_segments()
+        _JOURNALS.add(self)
 
     # -- write path -------------------------------------------------------------------
     def last_seq(self) -> int:

@@ -1,10 +1,12 @@
 """Process-wide metrics registry: counters, gauges, histograms and timers.
 
 Copy of the core of ``geomesa_tpu/metrics.py`` (the geomesa-metrics
-analog): the metric kinds, ``MetricRegistry`` with ``report`` /
-``clear``, the process registry with the ``inc`` / ``observe``
-shorthands, and the names the aggregate cache, the cell-heat table and
-the executor's dispatch count use. The names equal the JAX package's, so
+analog): the metric kinds, ``MetricRegistry`` with ``report``,
+``prometheus`` (the ``/metrics`` text, with OpenMetrics exemplars on
+request), ``export_snapshot`` and ``clear``, the process registry with the
+``inc`` / ``observe`` shorthands, and the names the aggregate cache, the
+cell-heat table, the executor's dispatch count, the kernel registry, the
+trace exporter, utilization, device health and the SLO monitor use. The names equal the JAX package's, so
 one name reads the same count in both packages. The registry is per
 process, like the reference's.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 import bisect
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -227,6 +229,93 @@ class MetricRegistry:
                 }
         return out
 
+    @staticmethod
+    def _prom_hist_lines(metric: str, snap: Dict[str, object],
+                         exemplars: bool = False) -> List[str]:
+        """Cumulative prometheus histogram lines of one histogram snapshot.
+        ``exemplars`` (legal in the OpenMetrics exposition only) appends
+        each bucket's exemplar as ``# {trace_id="..."} value timestamp``."""
+        ex = (snap.get("exemplars") or {}) if exemplars else {}
+
+        def _ex(i: int) -> str:
+            e = ex.get(i)
+            if e is None:
+                return ""
+            tid, val, ts = e
+            return f' # {{trace_id="{tid}"}} {val:.6f} {ts:.3f}'
+
+        lines: List[str] = []
+        cum = 0
+        for i, (le, c) in enumerate(zip(snap["buckets"], snap["counts"])):
+            cum += c
+            lines.append(f'{metric}_bucket{{le="{le}"}} {cum}{_ex(i)}')
+        cum += snap["counts"][-1]
+        lines.append(
+            f'{metric}_bucket{{le="+Inf"}} {cum}'
+            f'{_ex(len(snap["buckets"]))}'
+        )
+        lines.append(f"{metric}_sum {snap['sum_s']:.6f}")
+        lines.append(f"{metric}_count {snap['count']}")
+        return lines
+
+    def prometheus(self, exemplars: bool = False) -> str:
+        """Prometheus text exposition of every metric: timers as their
+        count / total / max lines plus ``_seconds`` histogram buckets,
+        histograms as the bucket / sum / count triple, counters and gauges
+        as one line. ``exemplars`` adds the per-bucket exemplar suffixes of
+        the OpenMetrics exposition (never legal in the classic text)."""
+        lines: List[str] = []
+        p = self.prefix
+        with self._lock:
+            items = list(self._metrics.items())
+        for name, m in items:
+            metric = f"{p}_{name}".replace(".", "_").replace("-", "_")
+            if isinstance(m, Timer):
+                lines.append(f"{metric}_count {m.count}")
+                lines.append(f"{metric}_seconds_total {m.total_s:.6f}")
+                lines.append(f"{metric}_seconds_max {m.max_s:.6f}")
+                lines.extend(self._prom_hist_lines(
+                    metric + "_seconds", m.hist.snapshot(), exemplars))
+            elif isinstance(m, Histogram):
+                suffix = "_seconds" if m.unit == "s" else ""
+                lines.extend(self._prom_hist_lines(
+                    metric + suffix, m.snapshot(), exemplars))
+            elif isinstance(m, (Counter, Gauge)):
+                lines.append(f"{metric} {m.value}")
+        return "\n".join(lines) + "\n"
+
+    def export_snapshot(self) -> Dict[str, object]:
+        """Raw counters, sampled gauges and full histogram bucket vectors
+        (not the quantile summaries of :meth:`report`), for federation.
+        Exemplars are left out: they point into this process's traces."""
+        counters: Dict[str, int] = {}
+        gauges: Dict[str, float] = {}
+        hists: Dict[str, object] = {}
+        timers: Dict[str, object] = {}
+        with self._lock:
+            items = list(self._metrics.items())
+        for name, m in items:
+            if isinstance(m, Counter):
+                counters[name] = m.value
+            elif isinstance(m, Gauge):
+                try:
+                    gauges[name] = float(m.value)
+                except Exception:
+                    continue  # a dead callable backing must not kill export
+            elif isinstance(m, Timer):
+                snap = m.hist.snapshot()
+                snap.pop("exemplars", None)
+                snap["unit"] = m.hist.unit
+                timers[name] = {"count": m.count, "total_s": m.total_s,
+                                "max_s": m.max_s, "hist": snap}
+            elif isinstance(m, Histogram):
+                snap = m.snapshot()
+                snap.pop("exemplars", None)
+                snap["unit"] = m.unit
+                hists[name] = snap
+        return {"counters": counters, "gauges": gauges,
+                "histograms": hists, "timers": timers}
+
     def clear(self):
         with self._lock:
             self._metrics.clear()
@@ -294,3 +383,41 @@ SPILL_QUARANTINED = "index.spill.quarantined"
 #   heat.evicted   rows dropped by the table's size bound
 HEAT_CELLS = "heat.cells"
 HEAT_EVICTED = "heat.evicted"
+# Kernel registry (kernels/registry.py, planning/executor.py):
+#   kernel.recompiles[.<site>]  scan callables built (registry misses)
+#   kernel.bucket_hit           registry hits
+#   kernel.evict[.<site>]       LRU evictions
+#   kernel.recompiles.evicted   builds of keys the LRU had evicted
+#   kernel.recompile.alert      gauge: sites over geomesa.kernel.alert.
+#                               threshold in the last tripped query window
+#   kernel.recompile.alerts     alert trips
+KERNEL_RECOMPILES = "kernel.recompiles"
+KERNEL_BUCKET_HIT = "kernel.bucket_hit"
+KERNEL_EVICT = "kernel.evict"
+KERNEL_RECOMPILE_EVICTED = "kernel.recompiles.evicted"
+KERNEL_RECOMPILE_ALERT = "kernel.recompile.alert"
+KERNEL_RECOMPILE_ALERTS = "kernel.recompile.alerts"
+# Trace export (tracing_export.py):
+#   trace.export.exported   traces handed to a sink (after sampling)
+#   trace.export.sampled    healthy traces dropped by the sample rate
+#   trace.export.dropped    traces dropped on a full export queue
+#   trace.export.failed     traces whose sink write failed
+#   trace.export.batches    OTLP batches written
+TRACE_EXPORT_EXPORTED = "trace.export.exported"
+TRACE_EXPORT_SAMPLED = "trace.export.sampled"
+TRACE_EXPORT_DROPPED = "trace.export.dropped"
+TRACE_EXPORT_FAILED = "trace.export.failed"
+TRACE_EXPORT_BATCHES = "trace.export.batches"
+# Utilization, device health and SLO burn (utilization.py,
+# parallel/health.py, slo.py):
+#   device.busy.<id>            gauge: busy fraction over the trailing
+#                               geomesa.device.busy.window
+#   serving.slot.occupancy.<s>  gauge: busy fraction of a serving slot
+#   device.health.<id>          gauge: 1 ok, 0 cordoned, -1 broken
+#   slo.burn.<op>               gauge: fast-window burn rate
+#   slo.breaker.<name>          gauge: 1 open, 0.5 half-open, 0 closed
+DEVICE_BUSY_PREFIX = "device.busy"
+SLOT_OCCUPANCY_PREFIX = "serving.slot.occupancy"
+DEVICE_HEALTH_PREFIX = "device.health"
+SLO_BURN_PREFIX = "slo.burn"
+SLO_BREAKER_PREFIX = "slo.breaker"

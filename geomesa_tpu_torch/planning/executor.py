@@ -43,6 +43,18 @@ member's window mask, literal compares and aggregate after it.
 Unlike the reference, nothing here catches a device failure and answers
 from the host: a kernel that fails to build or launch raises.
 
+The warm path (``kernels/registry.py``): each device scan runs through a
+scan callable (:class:`_ScanFn`: the compiled predicate and band, the
+sampling mode and the aggregate) cached in the store's
+:class:`KernelRegistry` under the reference's version-stable ``fn_key`` of
+the same site, so a repeated query builds nothing and records
+``kernel="hit"`` where the reference records a cache hit, and a new one
+``kernel="trace"`` with a ``kernel.recompile`` event; padded scans note
+``shape_bucket`` (L, K), and a freshly built callable's first run notes
+its kernels' routes as ``kernel:<name>``. Every launch site runs inside
+``utilization.device_busy``, which feeds ``device.busy.<id>`` and the
+call's ``device_ms.<id>`` cost.
+
 Under tracing each scan opens the reference's spans: ``scan.device_put``
 where device columns are gathered or fetched, ``scan.kernel`` around the
 mask and aggregate launches, ``scan.host`` around a host path's predicate,
@@ -72,7 +84,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, metrics, tracing
+from geomesa_tpu_torch import config, metrics, tracing, utilization
 from geomesa_tpu_torch.curves.zorder import interleave2
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
@@ -81,7 +93,8 @@ from geomesa_tpu_torch.kernels import knn as kknn
 from geomesa_tpu_torch.kernels import masks as kmasks
 from geomesa_tpu_torch.kernels import stats_scan as kstats
 from geomesa_tpu_torch.kernels.density_mxu import ladder8
-from geomesa_tpu_torch.kernels.registry import bucket_batch
+from geomesa_tpu_torch.kernels import registry as kreg
+from geomesa_tpu_torch.kernels.registry import KernelRegistry, bucket_batch, dict_fingerprint
 from geomesa_tpu_torch.planning.planner import QueryPlan
 # QueryTimeoutError is re-exported here, as the reference's executor does
 from geomesa_tpu_torch.resilience import (  # noqa: F401
@@ -139,6 +152,138 @@ def _host_list(outs, n: int):
     return [None if o is None else next(it) for o in outs]
 
 
+def _coarse_agg(setup, cols, m):
+    return m
+
+
+def _member_count(m, cols, mm):
+    return mm.sum()
+
+
+def _member_stats(m, cols, mm, stats, vocab):
+    return kstats.device_update(stats[m], cols, mm, vocab)
+
+
+def _stat_signature(stat: sk.Stat) -> tuple:
+    """Shape signature of a stat tree: everything the device reduction of
+    each leaf fixes (the reference's ``_stat_signature``)."""
+    sig = []
+    for leaf in kstats.leaf_stats(stat):
+        if isinstance(leaf, sk.DescriptiveStats):
+            attrs = tuple(leaf.attributes)
+        else:
+            attrs = (getattr(leaf, "attribute", None),)
+        extra = ()
+        if leaf.kind == "histogram":
+            extra = (leaf.bins, leaf.lo, leaf.hi)
+        elif leaf.kind == "topk":
+            extra = (getattr(leaf, "k", None),)
+        sig.append((leaf.kind, attrs, extra))
+    return tuple(sig)
+
+
+def _count_agg(setup, cols, m):
+    return m.sum()
+
+
+def _padded_agg(setup, cols, m, fn, args):
+    return fn(cols, m, torch, *args).reshape(-1).cpu().numpy()
+
+
+def _scan_mask(compiled, cols, wm: torch.Tensor, excise_band=True, sampling=None,
+               sample_by=None, sb_mode=None, sb_off=0, sb_vocab=0) -> torch.Tensor:
+    """window & compiled predicate & ~band, then sampling."""
+    m = wm & compiled(cols, torch)
+    if compiled.band is not None and excise_band:
+        # f32-uncertain rows are excised here and added back exactly
+        # from their f64 values by the band correction
+        m = m & ~compiled.band(cols, torch)
+    if sampling and sample_by and sb_mode == "hash":
+        m = kmasks.sampling_mask_by_key_hash(m, sampling, cols[sample_by],
+                                             kmasks.SAMPLE_HASH_BUCKETS)
+    elif sampling and sample_by:
+        m = kmasks.sampling_mask_by_key_device(m, sampling, cols[sample_by] - sb_off, sb_vocab)
+    elif sampling:
+        m = kmasks.sampling_mask(m, sampling)
+    return m
+
+
+class _ScanFn:
+    """One scan's mask-and-aggregate callable, the registry entry of the
+    port (the reference caches a jitted kernel there): the compiled
+    predicate and f32 band, the sampling mode and the aggregate, fixed
+    when it is built. ``fn(setup, cols, window_mask, extra)`` returns
+    ``agg(setup, cols, mask, *extra)``; ``extra`` carries each call's
+    data operands (positions, literals, query points, polygon edges), as
+    the reference's traced arguments, so the entry holds no data of the
+    call that built it. Its first run counts as the build for
+    ``kernel:<name>`` dispatch records."""
+
+    __slots__ = ("compiled", "excise_band", "sampling", "sample_by", "sb_mode",
+                 "sb_off", "sb_vocab", "agg", "fresh")
+
+    def __init__(self, compiled, agg, sampling=None, sample_by=None, sb_mode=None,
+                 sb_off=0, sb_vocab=0, excise_band=True):
+        self.compiled = compiled
+        self.excise_band = excise_band
+        self.sampling, self.sample_by = sampling, sample_by
+        self.sb_mode, self.sb_off, self.sb_vocab = sb_mode, sb_off, sb_vocab
+        self.agg = agg
+        self.fresh = True
+
+    def mask(self, cols, wm: torch.Tensor) -> torch.Tensor:
+        return _scan_mask(self.compiled, cols, wm, self.excise_band, self.sampling,
+                          self.sample_by, self.sb_mode, self.sb_off, self.sb_vocab)
+
+    def __call__(self, setup, cols, wm, extra=()):
+        if self.fresh:
+            self.fresh = False
+            with kreg.building():
+                return self.agg(setup, cols, self.mask(cols, wm), *extra)
+        return self.agg(setup, cols, self.mask(cols, wm), *extra)
+
+
+class _BatchFn:
+    """A query-axis batch's callable (the registry entry of the
+    reference's batched kernel): the template's residual, slot compares
+    and bands and the member aggregate, fixed when built; each call passes
+    the columns, the stacked windows, the literals, which members have a
+    scan, and its extra operands."""
+
+    __slots__ = ("bf", "member_agg", "fresh")
+
+    def __init__(self, bf, member_agg):
+        self.bf, self.member_agg = bf, member_agg
+        self.fresh = True
+
+    def _run(self, cols, win, L, lf, li, present, extra):
+        bf = self.bf
+        res = bf.residual(cols, torch)
+        res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
+        outs = []
+        for m, live in enumerate(present):
+            if not live:
+                outs.append(None)
+                continue
+            mm = (kmasks.window_mask_batch(*win, L, m) & res
+                  & bf.slots(cols, torch, lf[m], li[m]))
+            band = res_band
+            if bf.slots_band is not None:
+                sb = bf.slots_band(cols, torch, lf[m], li[m])
+                band = sb if band is None else band | sb
+            if band is not None:
+                mm = mm & ~band
+            outs.append(self.member_agg(m, cols, mm, *extra))
+        return outs
+
+    def __call__(self, *args):
+        if self.fresh:
+            self.fresh = False
+            with kreg.building():
+                return self._run(*args)
+        return self._run(*args)
+
+
 class Executor:
     """Runs plans over one store. ``compact_min_rows`` /
     ``compact_fraction`` are the JAX package's ``geomesa.compact.min.rows``
@@ -153,6 +298,75 @@ class Executor:
         #: the store whose version also keys the caches: the partitioned
         #: parent for a partition child, else the store itself
         self.version_source = version_source or store
+
+    # -- the kernel registry ---------------------------------------------------
+    def kernel_registry(self) -> KernelRegistry:
+        """The shared scan-callable LRU: one per parent store, shared by
+        every partition child and every aggregate-cache cell query."""
+        reg = self.version_source.__dict__.get("_kernel_registry")
+        if reg is None:
+            reg = self.version_source.__dict__["_kernel_registry"] = KernelRegistry()
+        return reg
+
+    @staticmethod
+    def _plan_registry(plan: QueryPlan) -> KernelRegistry:
+        """Token-less plans (raw filters) keep their callables on the plan."""
+        reg = plan.__dict__.get("_kernel_fns")
+        if reg is None:
+            reg = plan.__dict__["_kernel_fns"] = KernelRegistry()
+        return reg
+
+    def _dict_fp(self):
+        """Dictionary growth, the one store change that invalidates a
+        compiled predicate (string codes resolve when it is compiled)."""
+        return dict_fingerprint(self.store.dicts)
+
+    def _scan_fn(self, plan: QueryPlan, setup, cache_key, agg: Callable,
+                 sampled: bool = True, excise_band: bool = True) -> _ScanFn:
+        """The registry's callable for this scan under the reference's
+        ``fn_key`` (``("compact", cache_key, B, C, ...)`` on the compacted
+        layout, ``(cache_key, L, K, ...)`` on the padded one, with the
+        plan's token, index and dictionary fingerprint when it has a
+        token, else on the plan); built and put on a miss. ``cache_key``
+        None builds a fresh callable every call, as the reference jits one
+        per call there."""
+        h = plan.hints
+        sampling = h.sampling if sampled else None
+        sample_by = h.sample_by if sampled else None
+        sb_mode = setup["sb_mode"] if sampled else None
+        sb_off = setup["sb_off"]
+        if sb_mode == "exact-span":
+            sb_vocab = setup["sb_vocab"]
+        else:
+            sb_vocab = (len(self.store.dicts[sample_by])
+                        if sample_by and sample_by in self.store.dicts else 0)
+        reg = key = None
+        if cache_key is not None:
+            d = setup["compact"]
+            if d is not None:
+                head = ("compact", cache_key, d["B"], d["C"])
+            else:
+                head = (cache_key, setup["L"], setup["starts"].shape[1])
+            key = head + (sampling, sample_by, sb_mode, sb_off, sb_vocab,
+                          kmasks.SAMPLE_HASH_BUCKETS)
+            token = plan.__dict__.get("cache_token")
+            if token is not None:
+                reg = self.kernel_registry()
+                key += (token, plan.index_name, self._dict_fp())
+            else:
+                reg = self._plan_registry(plan)
+            if d is None:
+                self._note(plan, shape_bucket=(setup["L"], setup["starts"].shape[1]))
+            fn = reg.get(key)
+            if fn is not None:
+                self._note(plan, kernel="hit")
+                return fn
+        fn = _ScanFn(plan.compiled, agg, sampling, sample_by, sb_mode, sb_off,
+                     sb_vocab, excise_band)
+        if reg is not None:
+            reg.put(key, fn)
+            self._note(plan, kernel="trace")
+        return fn
 
     @property
     def _gathered(self) -> Dict[tuple, torch.Tensor]:
@@ -176,7 +390,9 @@ class Executor:
                     plans.clear()
                 ent = plans[id(plan)] = (plan, {})
             holder = ent[1]
-        version = (self.store.version, self.version_source.version)
+        # the bucketing knobs shape the windows (K), so they key them too
+        version = (self.store.version, self.version_source.version,
+                   config.COMPACT_BUCKETING.get(), config.COMPACT_BUCKET_FLOOR.get())
         c = holder.get("_exec_cache")
         if c is None or c["version"] != version:
             c = holder["_exec_cache"] = {"version": version}
@@ -231,6 +447,8 @@ class Executor:
             and (compiled.refine is None or compiled.refine_only_if_band),
             "coarse_device": not host_only and compiled.refine is not None,
             "sb_mode": sb_mode, "sb_off": sb_off, "sb_vocab": sb_vocab,
+            # a cached scan callable reads the call's plan and executor here
+            "plan": plan, "ex": self,
         }
 
     def _sample_mode(self, table: IndexTable, sb: Optional[str], c: Dict):
@@ -419,35 +637,25 @@ class Executor:
         cols = self._scan_cols(setup, agg_cols)
         return cols, self._fused_mask(plan, setup, cols)
 
+    def _window_mask(self, setup) -> torch.Tensor:
+        """The scan windows' mask: [C, B] on the compacted layout (chunk
+        c's valid rows at [lo, lo + valid)), else [S, L]."""
+        d = setup["compact"]
+        if d is None:
+            return self._padded_window_mask(setup)
+        c = setup["cache"]
+        if "compact_win" not in c:
+            c["compact_win"] = (self._tensor(d["lo"]), self._tensor(d["valid"]))
+        lo, valid = c["compact_win"]
+        iota = torch.arange(d["B"], dtype=torch.int32, device=self.device)[None, :]
+        return (iota >= lo[:, None]) & (iota < (lo + valid)[:, None])
+
     def _fused_mask(self, plan: QueryPlan, setup, cols) -> torch.Tensor:
         """The scan's mask over ``cols``: window & compiled predicate &
         ~band, then sampling."""
-        c = setup["cache"]
-        d = setup["compact"]
-        if d is not None:
-            if "compact_win" not in c:
-                c["compact_win"] = (self._tensor(d["lo"]), self._tensor(d["valid"]))
-            lo, valid = c["compact_win"]
-            iota = torch.arange(d["B"], dtype=torch.int32, device=self.device)[None, :]
-            m = (iota >= lo[:, None]) & (iota < (lo + valid)[:, None])
-        else:
-            m = self._padded_window_mask(setup)
-        compiled = plan.compiled
-        m = m & compiled(cols, torch)
-        if compiled.band is not None:
-            # f32-uncertain rows are excised here and added back exactly
-            # from their f64 values by the band correction
-            m = m & ~compiled.band(cols, torch)
         h = plan.hints
-        if h.sampling and h.sample_by and setup["sb_mode"] == "hash":
-            m = kmasks.sampling_mask_by_key_hash(m, h.sampling, cols[h.sample_by],
-                                                 kmasks.SAMPLE_HASH_BUCKETS)
-        elif h.sampling and h.sample_by:
-            m = kmasks.sampling_mask_by_key_device(
-                m, h.sampling, cols[h.sample_by] - setup["sb_off"], setup["sb_vocab"])
-        elif h.sampling:
-            m = kmasks.sampling_mask(m, h.sampling)
-        return m
+        return _scan_mask(plan.compiled, cols, self._window_mask(setup), True, h.sampling,
+                          h.sample_by, setup["sb_mode"], setup["sb_off"], setup["sb_vocab"])
 
     # -- the f32 band --------------------------------------------------------
     def _band_info(self, plan: QueryPlan, setup) -> Optional[np.ndarray]:
@@ -484,9 +692,13 @@ class Executor:
         t0 = time.perf_counter()
         with tracing.span("scan.device_put"):
             cols = setup["table"].device_columns(setup["needed"])
-        with tracing.span("scan.kernel", site="coarse_mask"):
+        setup["compact"] = None
+        go = self._scan_fn(plan, setup, ("coarse_mask",), _coarse_agg,
+                           sampled=False, excise_band=False)
+        with tracing.span("scan.kernel", site="coarse_mask"), \
+                utilization.device_busy(self.device):
             metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-            m = self._padded_window_mask(setup) & plan.compiled(cols, torch)
+            m = go(setup, cols, self._padded_window_mask(setup))
         m = m.cpu().numpy()
         plan.__dict__["device_coarse_ms"] = (
             plan.__dict__.get("device_coarse_ms", 0.0) + (time.perf_counter() - t0) * 1e3)
@@ -563,8 +775,9 @@ class Executor:
     def _run(self, plan: QueryPlan, agg_cols, device_agg: Callable,
              host_agg: Callable, additive: bool = True, compactable: bool = True,
              path_key: str = "scan", deadline: bool = True,
-             site: Optional[str] = None, device_sync: Optional[Callable] = None,
-             host_span: bool = True):
+             device_sync: Optional[Callable] = None,
+             host_span: bool = True, cache_key: Optional[tuple] = None,
+             extra=(), compact_key: Optional[Callable] = None):
         """One scan of ``plan``: ``device_agg(setup, cols, mask)`` on the
         device path, plus ``host_agg(rows, pos)`` of the band rows when the
         aggregate is ``additive``; or ``host_agg(rows, pos)`` of the exact
@@ -574,15 +787,37 @@ class Executor:
         address flat [S, L] rows). ``exec_path[path_key]`` records the
         path. None for an empty scan. ``deadline``: check the query's
         deadline first (the host passes check theirs in any case).
-        ``site`` names the ``scan.kernel`` span; ``device_sync(setup,
-        out)`` brings a device result to the host under a ``scan.sync``
-        span; ``host_span`` False leaves a host path's ``scan.host`` span
-        out (a feature scan's, as the reference's)."""
+        ``device_sync(setup, out)`` brings a device result to the host
+        under a ``scan.sync`` span; ``host_span`` False leaves a host
+        path's ``scan.host`` span out (a feature scan's, as the
+        reference's). ``cache_key`` is the reference's registry key of the
+        site (see :meth:`_scan_fn`); its first element names the
+        ``scan.kernel`` span's site;
+        ``device_agg(setup, cols, mask, *extra)`` must read everything a
+        call varies in from ``setup`` (``plan``, ``ex``) and ``extra``, since
+        the registry reuses the first call's callable. ``compact_key(setup)``
+        gives the suffix the compacted layout's key takes (the density
+        schedule's shape). A feature scan (``path_key`` ``feature_scan``)
+        notes no ``kernel:<name>`` routes, as the reference's runs outside
+        its scan runner."""
         if deadline:
             check_deadline()
         setup = self._scan_setup(plan, agg_cols)
         if setup is None:
             return None
+        kreg.take_dispatch()  # drop records a prior scan's build left
+        try:
+            return self._run_inner(plan, setup, agg_cols, device_agg, host_agg, additive,
+                                   compactable, path_key, device_sync, host_span,
+                                   cache_key, extra, compact_key)
+        finally:
+            disp = kreg.take_dispatch()
+            if disp and path_key != "feature_scan":
+                self._note(plan, **{f"kernel:{k}": v for k, v in disp.items()})
+
+    def _run_inner(self, plan, setup, agg_cols, device_agg, host_agg, additive,
+                   compactable, path_key, device_sync, host_span, cache_key,
+                   extra, compact_key):
         self._note(plan, sampling=setup["sb_mode"] if plan.hints.sample_by else None)
         table = setup["table"]
         info = self._band_info(plan, setup) if setup["use_device"] else None
@@ -600,12 +835,19 @@ class Executor:
         else:
             setup["compact"] = None
         cols = self._scan_cols(setup, agg_cols)
-        with self._kernel_span(setup, site):
+        ckey = cache_key
+        if ckey is not None and setup["compact"] is not None and compact_key is not None:
+            ckey = ckey + compact_key(setup)
+        go = self._scan_fn(plan, setup, ckey, device_agg)
+        if callable(extra):
+            extra = extra()
+        # the span's site is the registry key's, as the reference's
+        site = None if cache_key is None else str(cache_key[0])
+        with self._kernel_span(setup, site), utilization.device_busy(self.device):
             # one observable unit of device work (the reference's count at
             # its device scan): a call the cache serves whole launches none
             metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-            m = self._fused_mask(plan, setup, cols)
-            out = device_agg(setup, cols, m)
+            out = go(setup, cols, self._window_mask(setup), extra)
         d = setup["compact"]
         if d is not None:
             self._note(plan, **{path_key: "device-compact"}, B=d["B"], band_rows=band_rows)
@@ -614,6 +856,7 @@ class Executor:
         if device_sync is not None:
             with tracing.span("scan.sync"):
                 out = device_sync(setup, out)
+                utilization.extend_last(self.device)
         if not band_rows:
             return out
         return out + host_agg(table.rows(agg_cols, info), info)
@@ -622,42 +865,46 @@ class Executor:
     def count_partial(self, plan: QueryPlan):
         """:meth:`count` before the device sync: a device scalar (plus the
         band rows), a host int, or None for an empty scan."""
-        return self._run(plan, (), lambda setup, cols, m: m.sum(),
-                         lambda rows, pos: len(pos), site="count")
+        return self._run(plan, (), _count_agg, lambda rows, pos: len(pos), cache_key=("count",))
 
     def count(self, plan: QueryPlan) -> int:
         out = self.count_partial(plan)
         if out is None:
             return 0
         with tracing.span("scan.sync"):
-            return int(out)
+            n = int(out)
+            utilization.extend_last(self.device)
+            return n
 
     def padded_rows(self, plan: QueryPlan, agg_cols, fn: Callable, fill,
-                    dtype) -> Optional[np.ndarray]:
+                    dtype, cache_key: Optional[tuple] = None, args=(),
+                    device_args=None) -> Optional[np.ndarray]:
         """A per-row, non-additive aggregate addressed in the padded [S, L]
-        layout, flat [S * L] on the host: ``fn(cols, mask, xp)`` gives one
-        value per row, ``fill`` where the mask is false. The device scans
-        the padded layout, never the compacted one. On a host path (the
-        plan refines, or its scan holds f32 band rows, whose exact
-        contribution a per-row aggregate cannot add) ``fn`` runs with
-        NumPy on the exact matches' host rows, as the reference's host
-        runner runs it over the padded host stack, and every other row
-        gets ``fill``. None for an empty scan."""
+        layout, flat [S * L] on the host: ``fn(cols, mask, xp, *args)``
+        gives one value per row, ``fill`` where the mask is false
+        (``device_args``, default ``args``, are its operands on the device
+        path). The device scans the padded layout, never the compacted
+        one. On a host path (the plan refines, or its scan holds f32 band
+        rows, whose exact contribution a per-row aggregate cannot add)
+        ``fn`` runs with NumPy on the exact matches' host rows, as the
+        reference's host runner runs it over the padded host stack, and
+        every other row gets ``fill``. None for an empty scan.
+        ``cache_key``: the registry key of the caller's site; ``fn`` and
+        its operands reach the registry's callable as call operands, so a
+        hit never reads the data of the call that built it."""
         table = self._table(plan)
-
-        def device_agg(setup, cols, m):
-            return fn(cols, m, torch).reshape(-1).cpu().numpy()
 
         def host_agg(rows, pos):
             out = np.full(table.n_shards * table.shard_len, fill, dtype)
             if len(pos):
                 s = np.searchsorted(table.shard_bounds, pos, side="right") - 1
                 flat = s * table.shard_len + pos - table.shard_bounds[s]
-                out[flat] = fn(rows, np.ones(len(pos), bool), np)
+                out[flat] = fn(rows, np.ones(len(pos), bool), np, *args)
             return out
 
-        return self._run(plan, agg_cols, device_agg, host_agg, additive=False,
-                         compactable=False, site="rows")
+        return self._run(plan, agg_cols, _padded_agg, host_agg, additive=False,
+                         compactable=False, cache_key=cache_key,
+                         extra=(fn, tuple(args if device_args is None else device_args)))
 
     def _grouped_schedule(self, plan: QueryPlan, setup, bbox, width, height):
         """The grouped kernel's schedule (tensors on the device), cached per
@@ -682,6 +929,9 @@ class Executor:
                 seg = kgrouped.tile_segments(gr)
                 hit = {k: self._tensor(v) if isinstance(v, np.ndarray) else v
                        for k, v in seg.items()}
+                # the registry key's suffix, the reference's grouped one
+                hit["key"] = ("grouped", int(gr["n_pairs"]), int(d["B"]),
+                              int(gr["ntx"]), int(gr["nty"]))
             c[key] = hit
         return hit or None
 
@@ -719,19 +969,24 @@ class Executor:
         xc, yc = agg_cols[:2]
 
         def device_agg(setup, cols, m):
-            sched = self._grouped_schedule(plan, setup, bbox, width, height)
+            ex, p = setup["ex"], setup["plan"]
+            sched = ex._grouped_schedule(p, setup, bbox, width, height)
             if sched is not None:
-                self._note(plan, density_kernel="grouped")
+                ex._note(p, density_kernel="grouped")
                 grid = kgrouped.density_grouped(
                     cols[xc], cols[yc], m,
                     None if weight is None else cols[weight].to(torch.float32),
                     bbox, width, height, sched,
                 )
             else:
-                self._note(plan, density_kernel="scatter")
+                ex._note(p, density_kernel="scatter")
                 grid = kdensity.density_grid(cols[xc], cols[yc], m, bbox, width,
                                              height, cols[weight] if weight else None)
             return grid
+
+        def compact_key(setup):
+            sched = self._grouped_schedule(plan, setup, bbox, width, height)
+            return () if sched is None else sched["key"]
 
         def host_agg(rows, pos):
             return self._tensor(kdensity.density_grid_np(
@@ -739,13 +994,17 @@ class Executor:
                 rows[weight] if weight else None,
             ))
 
-        out = self._run(plan, agg_cols, device_agg, host_agg, site="density")
+        out = self._run(plan, agg_cols, device_agg, host_agg,
+                        cache_key=("density", tuple(bbox), width, height, weight),
+                        compact_key=compact_key)
         if not as_numpy:
             return out
         if out is None:
             return np.zeros((height, width), np.float32)
         with tracing.span("scan.sync"):
-            return out.cpu().numpy()
+            grid = out.cpu().numpy()
+            utilization.extend_last(self.device)
+            return grid
 
     # -- curve-aligned density (the index-native heatmap) ---------------------
     def _curve_positions(self, plan: QueryPlan, level: int, block_window):
@@ -851,7 +1110,7 @@ class Executor:
         ``(partial or None, B, nx, ny)``; the one-crop
         :meth:`density_curve_batch_raw`."""
         out, ((_p0, _p1, B, nx, ny),) = self.density_curve_batch_raw(
-            plan, level, [block_window], weight)
+            plan, level, [block_window], weight, single=True)
         return (None if out is None else out[0]), B, nx, ny
 
     @staticmethod
@@ -886,14 +1145,16 @@ class Executor:
         return p0s, p1s
 
     def density_curve_batch_raw(self, plan: QueryPlan, level: int, block_windows,
-                                weight: Optional[str] = None):
+                                weight: Optional[str] = None, single: bool = False):
         """N crops of ONE (plan, level) in one scan: the mask and the prefix
         sum (the O(rows) work) are shared, each crop costs its two gathers,
         stacked as [Mp, P] positions. Each crop equals its serial
         :meth:`density_curve` exactly (the same prefix array, exact
         gathers). ``(partial or None, infos)`` before the host copy. CDF
         positions index the padded layout; band rows send the scan to the
-        host (the reference's curve is not additive)."""
+        host (the reference's curve is not additive). ``single``: the
+        one-crop call of :meth:`density_curve_raw`, under the reference's
+        ``density_curve`` registry key."""
         infos = [self._curve_positions(plan, level, bw) for bw in block_windows]
         if not infos:
             return None, []
@@ -902,14 +1163,18 @@ class Executor:
         key = ("curve_batch", self._table(plan).keyspace.name, self.store.version,
                level, tuple(tuple(bw) for bw in block_windows))
 
-        def device_agg(setup, cols, m):
-            d0, d1 = self._device_positions(key, p0s, p1s)
-            c = self._cdf(self._curve_weights(m, cols, weight))
+        def device_agg(setup, cols, m, d0, d1):
+            c = Executor._cdf(Executor._curve_weights(m, cols, weight))
             return c[d1] - c[d0]
 
+        Mp, P = p0s.shape
+        ckey = (("density_curve", level, P, weight) if single
+                else ("density_curve_batch", level, P, Mp, weight))
         out = self._run(plan, agg_cols, device_agg,
                         self._curve_host_agg(plan, weight, p0s, p1s),
-                        additive=False, compactable=False, site="curve")
+                        additive=False, compactable=False,
+                        cache_key=ckey,
+                        extra=lambda: self._device_positions(key, p0s, p1s))
         return out, infos
 
     @staticmethod
@@ -952,12 +1217,14 @@ class Executor:
         key = ("curve_filter", self._table(plans[0]).keyspace.name,
                self.store.version, level, tuple(tuple(bw) for bw in block_windows))
 
-        def member_agg(m, cols, mm):
-            d0, d1 = self._device_positions(key, p0s, p1s)
-            c = self._cdf(self._curve_weights(mm, cols, weight))
+        def member_agg(m, cols, mm, d0, d1):
+            c = Executor._cdf(Executor._curve_weights(mm, cols, weight))
             return c[d1[m]] - c[d0[m]]
 
-        return self._batch_device_agg(plans, spec, bs, member_agg, agg_cols), infos
+        return self._batch_device_agg(
+            plans, spec, bs, member_agg, agg_cols, "density_curve_filter_batch",
+            key_extras=(level, p0s.shape[1], weight),
+            extra=self._device_positions(key, p0s, p1s)), infos
 
     @staticmethod
     def decode_curve_filter_batch(raw):
@@ -1047,15 +1314,30 @@ class Executor:
             corrs.append(host_agg(m, su["table"].rows(agg_cols, info), info))
         return corrs
 
-    def _batch_device_agg(self, plans, spec, bs, member_agg, agg_cols):
+    def _batch_device_agg(self, plans, spec, bs, member_agg, agg_cols, site,
+                          key_extras=(), extra=()):
         """Masks and per-member aggregates of one batch:
-        ``member_agg(m, cols, mask)`` for each real member with a scan
-        (None for empty members; padded members are skipped, their results
-        would be dropped). The member loop runs in one Python call; the
-        literals go to the device once, and each member reads its own as
-        0-d tensors, never as host values."""
+        ``member_agg(m, cols, mask, *extra)`` for each real member with a
+        scan (None for empty members; padded members are skipped, their
+        results would be dropped). The batch's callable comes from the
+        registry under the reference's key ``((site,) + key_extras, L, K,
+        Mp, token, index, dictionary fingerprint)``. The member loop runs in
+        one Python call; the literals go to the device once, and each
+        member reads its own as 0-d tensors, never as host values."""
         table, L = bs["table"], bs["L"]
         bf = spec.bf
+        reg = self.kernel_registry()
+        key = ((site,) + tuple(key_extras), L, bs["K"], bs["Mp"], spec.token,
+               plans[0].index_name, self._dict_fp())
+        go = reg.get(key)
+        if go is None:
+            go = _BatchFn(bf, member_agg)
+            reg.put(key, go)
+            for p in plans:
+                self._note(p, kernel="trace")
+        else:
+            for p in plans:
+                self._note(p, kernel="hit")
         names = list(dict.fromkeys(list(bf.columns) + list(agg_cols)))
         with tracing.span("scan.device_put", batch=len(plans)):
             cols = table.device_columns(names)
@@ -1071,26 +1353,12 @@ class Executor:
         lf, li = self._tensor(spec.lits_f), self._tensor(spec.lits_i)
         for p in plans:
             self._note(p, scan="device-batch", batch=len(plans))
-        with tracing.span("scan.kernel", site="batch", batch=len(plans)):
+        present = [su is not None for su in bs["setups"]]
+        with tracing.span("scan.kernel", site=site, batch=len(plans)), \
+                utilization.device_busy(self.device):
             # one dispatch for the whole batch, as the reference counts it
             metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-            res = bf.residual(cols, torch)
-            res_band = None if bf.residual.band is None else bf.residual.band(cols, torch)
-            outs = []
-            for m, su in enumerate(bs["setups"]):
-                if su is None:
-                    outs.append(None)
-                    continue
-                mm = (kmasks.window_mask_batch(*win, L, m) & res
-                      & bf.slots(cols, torch, lf[m], li[m]))
-                band = res_band
-                if bf.slots_band is not None:
-                    sb = bf.slots_band(cols, torch, lf[m], li[m])
-                    band = sb if band is None else band | sb
-                if band is not None:
-                    mm = mm & ~band
-                outs.append(member_agg(m, cols, mm))
-        return outs
+            return go(cols, win, L, lf, li, present, tuple(extra))
 
     def count_batch_partial(self, plans, spec):
         """``(partials or None, corrs)`` before the host copy: one device
@@ -1103,7 +1371,7 @@ class Executor:
         if bs["empty"]:
             return None, [None] * len(plans)
         corrs = self._batch_band_corrs(plans, bs, lambda m, rows, pos: len(pos), ())
-        out = self._batch_device_agg(plans, spec, bs, lambda m, cols, mm: mm.sum(), ())
+        out = self._batch_device_agg(plans, spec, bs, _member_count, (), "count_batch")
         return out, corrs
 
     def count_batch(self, plans, spec):
@@ -1146,12 +1414,13 @@ class Executor:
         corrs = self._batch_band_corrs(plans, bs, host_agg, agg_cols)
         g = self._tensor(gp)
 
-        def member_agg(m, cols, mm):
+        def member_agg(m, cols, mm, g_):
             return kdensity.density_grid_at(
-                cols[xc], cols[yc], mm, g[m, 0], g[m, 1], g[m, 2], g[m, 3],
+                cols[xc], cols[yc], mm, g_[m, 0], g_[m, 1], g_[m, 2], g_[m, 3],
                 width, height, cols[weight] if weight else None)
 
-        return self._batch_device_agg(plans, spec, bs, member_agg, agg_cols), corrs
+        return self._batch_device_agg(plans, spec, bs, member_agg, agg_cols, "density_batch",
+                                      key_extras=(width, height, weight), extra=(g,)), corrs
 
     def density_batch(self, plans, spec, bboxes, width: int, height: int,
                       weight: Optional[str] = None):
@@ -1197,9 +1466,8 @@ class Executor:
         if self._batch_band_rows(plans, bs):
             return None
         return (self._batch_device_agg(
-            plans, spec, bs,
-            lambda m, cols, mm: kstats.device_update(stats[m], cols, mm, vocab),
-            agg_cols),)
+            plans, spec, bs, _member_stats, agg_cols, "stats_batch",
+            key_extras=(_stat_signature(stats[0]),), extra=(stats, vocab)),)
 
     def stats_batch(self, plans, spec, stats):
         """M distinct stats scans in one call (None = ineligible); fills and
@@ -1245,9 +1513,9 @@ class Executor:
                 a for a, _ in (plan.hints.sort_by or [])]
         # as the reference's, a device feature scan is no deadline site (a
         # partitioned store checks per partition); its host paths check
-        pos = self._run(plan, (), lambda setup, cols, m: m, lambda rows, pos: pos,
-                        additive=False, path_key="feature_scan", deadline=False,
-                        site="mask", device_sync=self._mask_positions, host_span=False)
+        pos = self._run(plan, (), _coarse_agg, lambda rows, pos: pos,
+                        additive=False, path_key="feature_scan", deadline=False, device_sync=self._mask_positions, host_span=False,
+                        cache_key=("mask",))
         if pos is None:
             return ColumnBatch({}, 0)
         return self._table(plan).gather_sorted(pos, names)
@@ -1295,7 +1563,7 @@ class Executor:
             d = torch.where(ok, -v if descending else v, float("inf"))
             flat = kknn.lowest_k(d, k)
             vals = -d[flat] if descending else d[flat]
-            return self._positions(setup, flat.cpu().numpy()), vals.cpu().numpy()
+            return Executor._positions(setup, flat.cpu().numpy()), vals.cpu().numpy()
 
         def host_agg(rows, pos):
             v = rows[attr].astype(np.float64)
@@ -1304,7 +1572,8 @@ class Executor:
             return pos[idx], v[idx]
 
         out = self._run(plan, [attr], device_agg, host_agg, additive=False,
-                        compactable=False, site="topk")
+                        compactable=False,
+                        cache_key=("top", attr, bool(descending), int(k)))
         if out is None:
             return np.zeros(0, np.int64)
         pos, vals = out
@@ -1336,7 +1605,7 @@ class Executor:
                 lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
             t = torch.where(n_ok <= k, inf, hi)  # few matches: take all
             flat = torch.nonzero(ok & (kv <= t)).reshape(-1)
-            return self._positions(setup, flat[:B].cpu().numpy()), flat.numel()
+            return Executor._positions(setup, flat[:B].cpu().numpy()), flat.numel()
 
         def host_agg(rows, pos):
             v = rows[attr].astype(np.float64)
@@ -1351,7 +1620,8 @@ class Executor:
             return pos[sel[:B]], len(sel)
 
         out = self._run(plan, [attr], device_agg, host_agg, additive=False,
-                        compactable=False, site="topk")
+                        compactable=False,
+                        cache_key=("topt", attr, bool(descending), int(k), B))
         if out is None:
             return np.zeros(0, np.int64)
         pos, cnt = out
@@ -1402,7 +1672,7 @@ class Executor:
             lambda setup, cols, m: kstats.device_update(stat, cols, m, vocab),
             lambda rows, pos: kstats.device_update_np(
                 stat, rows, np.ones(len(pos), bool), vocab),
-            additive=False, site="stats",
+            additive=False,
         )
 
     def stats(self, plan: QueryPlan, stat: sk.Stat) -> sk.Stat:
@@ -1436,28 +1706,31 @@ class Executor:
                np.nextafter(np.float32(x1), up), np.nextafter(np.float32(y1), up))
               for x0, y0, x1, y1 in (boxes or ())]
 
-        def in_boxes(x, y):
+        def in_boxes(x, y, boxes):
             inb = None
-            for x0, y0, x1, y1 in bb:
+            for x0, y0, x1, y1 in boxes:
                 mi = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
                 inb = mi if inb is None else (inb | mi)
             return inb
 
-        def device_agg(setup, cols, m):
-            if bb:
-                m = m & in_boxes(cols[xc], cols[yc])
-            idx, d = kknn.knn_indices(cols[xc], cols[yc], m, *q32, k)
-            return self._positions(setup, idx.cpu().numpy()), d.cpu().numpy()
+        def device_agg(setup, cols, m, qx_, qy_, boxes):
+            # the query point and boxes are call operands: one callable
+            # serves every origin and radius
+            if boxes:
+                m = m & in_boxes(cols[xc], cols[yc], boxes)
+            idx, d = kknn.knn_indices(cols[xc], cols[yc], m, qx_, qy_, k)
+            return Executor._positions(setup, idx.cpu().numpy()), d.cpu().numpy()
 
         def host_agg(rows, pos):
             m = np.ones(len(pos), bool)
             if bb:
-                m &= in_boxes(rows[xc], rows[yc])
+                m &= in_boxes(rows[xc], rows[yc], bb)
             idx, d = kknn.knn_indices_np(rows[xc], rows[yc], m, *q32, k)
             return pos[idx], d
 
         out = self._run(plan, [xc, yc], device_agg, host_agg, additive=False,
-                        compactable=False, site="knn")
+                        compactable=False,
+                        cache_key=("knn", int(k), len(bb)), extra=(*q32, bb))
         if out is None:
             return np.zeros(0, np.int64), np.zeros(0)
         pos, d = out

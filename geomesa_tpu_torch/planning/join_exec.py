@@ -52,15 +52,17 @@ cost ledger.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from geomesa_tpu_torch import config, metrics, tracing
+from geomesa_tpu_torch import config, metrics, tracing, utilization
 from geomesa_tpu_torch.cache.cells import CLASSIFY_MARGIN
 from geomesa_tpu_torch.kernels import join as kjoin
+from geomesa_tpu_torch.kernels.registry import KernelRegistry
 from geomesa_tpu_torch.resilience import (
     QueryTimeoutError, check_deadline, partial_allowed, record_skip,
 )
@@ -69,6 +71,65 @@ from geomesa_tpu_torch.resilience import (
 #: in section order, and the canonical row-major sort at the end makes the
 #: surfaced set independent of the routing anyway
 SECTION_ORDER = ("pairwise", "split.l", "split.r")
+
+
+#: one process-wide registry of join callables: the pair and polygon
+#: verdicts are pure in (shapes, predicate), so their keys carry no store
+_REGISTRY: Optional[KernelRegistry] = None
+_REGISTRY_LOCK = threading.Lock()
+
+
+def join_registry() -> KernelRegistry:
+    """The process-wide join-callable registry (the reference's: its
+    ``traces('join.pairs')`` is the join recompile count)."""
+    global _REGISTRY
+    with _REGISTRY_LOCK:
+        if _REGISTRY is None:
+            _REGISTRY = KernelRegistry()
+        return _REGISTRY
+
+
+def _pairs_kernel(site: str, Bp: int, Pp: int, Cp: int, predicate: str):
+    """The registry's ``pair_tiles`` callable of one bucketed tile shape,
+    under the reference's key ``(site, Bp, Pp, Cp, predicate)``; the
+    predicate's parameters are call operands, so distances never rebuild."""
+    reg = join_registry()
+    key = (site, Bp, Pp, Cp, predicate)
+    go = reg.get(key)
+    if go is None:
+        def go(lxb, lyb, rxb, ryb, lval, rval, p0, p1, want_mask, lzb, rzb):
+            return kjoin.pair_tiles(lxb, lyb, rxb, ryb, lval, rval, predicate, p0, p1,
+                                    want_mask=want_mask, lzb=lzb, rzb=rzb)
+
+        reg.put(key, go)
+    return go
+
+
+def _brute_kernel(Kp: int, predicate: str):
+    """The registry's ``pair_flat`` callable of one length bucket."""
+    reg = join_registry()
+    key = ("join.brute", Kp, predicate)
+    go = reg.get(key)
+    if go is None:
+        def go(lxv, lyv, rxv, ryv, kvalid, p0, p1, want_mask, lzv, rzv):
+            return kjoin.pair_flat(lxv, lyv, rxv, ryv, kvalid, predicate, p0, p1,
+                                   want_mask=want_mask, lzv=lzv, rzv=rzv)
+
+        reg.put(key, go)
+    return go
+
+
+def _poly_kernel(Np: int, Ep: int, Pfp: int, Rp: int, predicate: str):
+    """The registry's ``polygon_verdict`` callable of one padded shape."""
+    reg = join_registry()
+    key = ("join.poly", Np, Ep, Pfp, Rp, predicate)
+    go = reg.get(key)
+    if go is None:
+        def go(pxv, pyv, tables):
+            return kjoin.polygon_verdict(pxv, pyv, tables, predicate)
+
+        reg.put(key, go)
+    return go
 
 
 def _pow2(n: int) -> int:
@@ -529,10 +590,12 @@ def _run_slice(plan: JoinPlan, sec: TileSection, lx32, ly32, rx32, ry32,
         sec, 0, sec.n_tiles, lx32, ly32, rx32, ry32, lz32, rz32
     )
     ops = _on(device, lxb, lyb, rxb, ryb, lval, rval, lzb, rzb)
-    with tracing.span("scan.join.pairs", tiles=C, device=_device(device).index):
+    go = _pairs_kernel(sec.site, sec.Bp, sec.Pp, Cp, plan.predicate)
+    dev = _device(device)
+    with tracing.span("scan.join.pairs", tiles=C, device=dev.index), \
+            utilization.device_busy(dev):
         metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        m, counts = kjoin.pair_tiles(*ops[:6], plan.predicate, plan.p0, plan.p1,
-                                     want_mask=want_pairs, lzb=ops[6], rzb=ops[7])
+        m, counts = go(*ops[:6], plan.p0, plan.p1, want_pairs, ops[6], ops[7])
     n = int(counts[:C].sum())
     if not want_pairs:
         return np.zeros((0, 2), np.int64), n
@@ -561,10 +624,12 @@ def _run_brute_slice(plan: JoinPlan, lo: int, hi: int, lx32, ly32,
     lzv = None if lz32 is None else lz32[lidx]
     rzv = None if rz32 is None else rz32[ridx]
     ops = _on(device, lx32[lidx], ly32[lidx], rx32[ridx], ry32[ridx], lzv, rzv)
-    with tracing.span("scan.join.brute", pairs=K, device=_device(device).index):
+    go = _brute_kernel(Kp, plan.predicate)
+    dev = _device(device)
+    with tracing.span("scan.join.brute", pairs=K, device=dev.index), \
+            utilization.device_busy(dev):
         metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        m, n = kjoin.pair_flat(*ops[:4], K, plan.predicate, plan.p0, plan.p1,
-                               want_mask=want_pairs, lzv=ops[4], rzv=ops[5])
+        m, n = go(*ops[:4], K, plan.p0, plan.p1, want_pairs, ops[4], ops[5])
     n = int(n)
     if not want_pairs:
         return np.zeros((0, 2), np.int64), n
@@ -773,7 +838,7 @@ def run_polygon_join(px, py, geoms, predicate: str,
         verdict = _range_or_skip(
             stats, f"poly[0:{len(brows)}]",
             lambda: _run_poly_slice(brows, px32, py32, dev_tables, predicate,
-                                    _device(device)))
+                                    _device(device), Ep, Pfp, Rp))
         if verdict is not None:
             hit = verdict[:, :R] & candmask
             kernel_total = int(hit.sum())
@@ -795,7 +860,8 @@ def run_polygon_join(px, py, geoms, predicate: str,
     return pairs[order2], total, stats
 
 
-def _run_poly_slice(rows: np.ndarray, px32, py32, tables, predicate: str, device):
+def _run_poly_slice(rows: np.ndarray, px32, py32, tables, predicate: str, device,
+                    Ep: int, Pfp: int, Rp: int):
     """One boundary-point slice: [len(rows), Rp] verdicts of
     ``polygon_verdict`` over the points padded to Np = pow2(len(rows))."""
     K = len(rows)
@@ -803,7 +869,10 @@ def _run_poly_slice(rows: np.ndarray, px32, py32, tables, predicate: str, device
     idx = np.zeros(Np, np.int64)
     idx[:K] = rows
     pxv, pyv = _on(device, px32[idx], py32[idx])
-    with tracing.span("scan.join.poly", points=K, device=_device(device).index):
+    go = _poly_kernel(Np, Ep, Pfp, Rp, predicate)
+    dev = _device(device)
+    with tracing.span("scan.join.poly", points=K, device=dev.index), \
+            utilization.device_busy(dev):
         metrics.inc(metrics.EXEC_DEVICE_DISPATCH)
-        verdict = kjoin.polygon_verdict(pxv, pyv, tables, predicate)
+        verdict = go(pxv, pyv, tables)
     return verdict[:K].cpu().numpy()

@@ -71,6 +71,7 @@ from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
 from geomesa_tpu_torch.kernels import stats_scan as kstats
+from geomesa_tpu_torch.kernels.registry import KernelRegistry
 from geomesa_tpu_torch.parallel.devices import TreeReducer
 from geomesa_tpu_torch.planning.executor import Executor
 from geomesa_tpu_torch.planning.planner import QueryPlan
@@ -130,6 +131,15 @@ class PartitionedExecutor:
         self._prefetch: Optional[bool] = None
         self._execs: Dict[int, Executor] = {}
         self._uploader: Optional[Uploader] = None
+
+    def kernel_registry(self) -> KernelRegistry:
+        """The scan-callable registry every partition child shares (it lives
+        on this store: children key their callables without a version, so
+        one build serves every partition of a bucketed shape)."""
+        reg = self.store.__dict__.get("_kernel_registry")
+        if reg is None:
+            reg = self.store.__dict__["_kernel_registry"] = KernelRegistry()
+        return reg
 
     @property
     def prefetch(self) -> bool:

@@ -98,13 +98,17 @@ def spatial_join(ds, points: str, polygons: "Sequence[str] | Sequence[geo.Geomet
     }
     on_device = kjoin.edge_tensors(edges_f32, ds.device)
 
-    def agg(cols, m, xp):
-        return kjoin.pip_assign(cols[xc], cols[yc], m,
-                                edges_f32 if xp is np else on_device, xp)
+    def agg(cols, m, xp, edges):
+        return kjoin.pip_assign(cols[xc], cols[yc], m, edges, xp)
 
     ex = ds._executor(points)
-    # the assignment is addressed in the padded [S*L] layout
-    out = ex.padded_rows(plan, agg_cols, agg, -1, np.int32)
+    # the assignment is addressed in the padded [S*L] layout. The scan
+    # callable is keyed as the reference's kernel, whose key leaves the
+    # edges' y out; the edges are call operands, so a polygon set that
+    # shares the key never reads another's edges
+    sig = hash((edges["x1"].tobytes(), edges["poly_id"].tobytes()))
+    out = ex.padded_rows(plan, agg_cols, agg, -1, np.int32, cache_key=("pip_join", sig),
+                         args=(edges_f32,), device_args=(on_device,))
     if out is None:
         return np.zeros(0, np.int32), np.zeros(len(geoms), np.float32)
     assign_flat = np.asarray(out)

@@ -28,8 +28,14 @@ spill, lake, join and journal paths call:
   :func:`durable_write_json`: the tmp-then-rename publish with file and
   directory fsyncs, so a crash leaves either the old or the new file.
 
-The circuit breakers, ``guarded_root_io``, ``PartialResult`` and the
-serving and fleet errors are not here yet.
+* :class:`CircuitBreaker` and the named registry (:func:`breaker`,
+  :func:`breaker_states`, :func:`reset_breakers`): ``threshold``
+  consecutive failures open a circuit; after ``reset_ms`` one trial call
+  is admitted (half-open). The trace exporter's sinks, the storage roots
+  (:func:`guarded_root_io`) and each device (``parallel/health.py``) sit
+  behind one; ``/healthz`` reads their states.
+
+``PartialResult`` and the serving and fleet errors are not here yet.
 """
 
 from __future__ import annotations
@@ -50,6 +56,19 @@ T = TypeVar("T")
 
 class QueryTimeoutError(RuntimeError):
     """A scan exceeded its :class:`Deadline` (``geomesa.query.timeout``)."""
+
+
+class CircuitOpenError(RuntimeError):
+    """Raised by :meth:`CircuitBreaker.allow` while the breaker is open:
+    the callee has failed repeatedly and calls are fenced off until the
+    reset window elapses."""
+
+    def __init__(self, name: str, retry_after_s: float):
+        super().__init__(
+            f"circuit {name!r} is open (retry after {retry_after_s:.1f}s)"
+        )
+        self.breaker_name = name
+        self.retry_after_s = retry_after_s
 
 
 class InjectedFault(RuntimeError):
@@ -146,6 +165,156 @@ def transient_os_error(e: BaseException) -> bool:
 
 
 # -- deadlines --------------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# circuit breakers
+# ---------------------------------------------------------------------------
+
+
+class CircuitBreaker:
+    """Count-based breaker: ``threshold`` consecutive failures open the
+    circuit; after ``reset_ms`` ONE trial call is admitted (half-open):
+    success closes, failure re-opens. While that trial is in flight every
+    other caller is fenced with :class:`CircuitOpenError`. ``clock`` is
+    injectable so tests advance time deterministically."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
+
+    def __init__(self, name: str, threshold: Optional[int] = None,
+                 reset_ms: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.threshold = threshold if threshold is not None else (
+            config.BREAKER_THRESHOLD.to_int() or 5
+        )
+        self.reset_ms = reset_ms if reset_ms is not None else (
+            config.BREAKER_RESET_MS.to_float() or 30_000.0
+        )
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._failures = 0
+        self._state = self.CLOSED
+        self._opened_at = 0.0
+        self._trial_in_flight = False
+        self._trial_started = 0.0
+        self._trial_thread: Optional[int] = None
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._effective_state()
+
+    def _effective_state(self) -> str:
+        if self._state == self.OPEN and (
+            (self.clock() - self._opened_at) * 1000.0 >= self.reset_ms
+        ):
+            return self.HALF_OPEN
+        return self._state
+
+    def allow(self) -> None:
+        """Raise :class:`CircuitOpenError` unless a call may proceed. In
+        half-open, admits one caller as the trial; concurrent callers are
+        fenced until the trial resolves, or until a full reset window has
+        passed since it started (a trial whose caller died never wedges
+        the breaker half-open)."""
+        with self._lock:
+            st = self._effective_state()
+            if st == self.OPEN:
+                rem = self.reset_ms / 1000.0 - (self.clock() - self._opened_at)
+                raise CircuitOpenError(self.name, max(rem, 0.0))
+            if st == self.HALF_OPEN:
+                if self._trial_in_flight:
+                    stale = ((self.clock() - self._trial_started) * 1000.0
+                             >= self.reset_ms)
+                    if not stale:
+                        rem = (self.reset_ms / 1000.0
+                               - (self.clock() - self._trial_started))
+                        raise CircuitOpenError(self.name, max(rem, 0.0))
+                self._state = self.HALF_OPEN
+                self._trial_in_flight = True
+                self._trial_started = self.clock()
+                self._trial_thread = threading.get_ident()
+
+    def record_success(self) -> None:
+        with self._lock:
+            if (
+                self._state == self.HALF_OPEN
+                and self._trial_in_flight
+                and self._trial_thread is not None
+                and threading.get_ident() != self._trial_thread
+            ):
+                # a superseded trial reporting late must not close the
+                # circuit over the live trial
+                return
+            self._failures = 0
+            self._state = self.CLOSED
+            self._trial_in_flight = False
+            self._trial_thread = None
+
+    def record_failure(self) -> None:
+        # failures count from any caller, a superseded trial's too
+        with self._lock:
+            self._failures += 1
+            if self._state == self.HALF_OPEN or self._failures >= self.threshold:
+                self._state = self.OPEN
+                self._opened_at = self.clock()
+            self._trial_in_flight = False
+            self._trial_thread = None
+
+    def trip(self) -> None:
+        """Force the circuit open whatever the failure count; recovery
+        follows the normal half-open trial after ``reset_ms``."""
+        with self._lock:
+            self._failures = max(self._failures, self.threshold)
+            self._state = self.OPEN
+            self._opened_at = self.clock()
+            self._trial_in_flight = False
+            self._trial_thread = None
+
+
+_breakers: Dict[str, CircuitBreaker] = {}
+_breakers_lock = threading.Lock()
+
+
+def breaker(name: str, **kw) -> CircuitBreaker:
+    """The process-wide breaker of ``name`` (made on first use with
+    ``kw``)."""
+    with _breakers_lock:
+        b = _breakers.get(name)
+        if b is None:
+            b = _breakers[name] = CircuitBreaker(name, **kw)
+        return b
+
+
+def guarded_root_io(root: str, fn):
+    """Run one storage-root I/O under the root's ``fs.root:<abspath>``
+    breaker: an open circuit fences fast, a transient ``OSError`` charges
+    the breaker, success resets it. ``FileNotFoundError`` never charges (a
+    missing file says nothing about the mount)."""
+    br = breaker("fs.root:" + os.path.abspath(root))
+    br.allow()
+    try:
+        out = fn()
+    except OSError as e:
+        if not isinstance(e, FileNotFoundError):
+            br.record_failure()
+        raise
+    br.record_success()
+    return out
+
+
+def reset_breakers() -> None:
+    """Drop all registered breakers (test isolation)."""
+    with _breakers_lock:
+        _breakers.clear()
+
+
+def breaker_states() -> Dict[str, str]:
+    """name -> effective state of every registered breaker (``/healthz``)."""
+    with _breakers_lock:
+        items = list(_breakers.items())
+    return {name: b.state for name, b in items}
+
 
 _deadline_local = threading.local()
 

@@ -12,7 +12,11 @@ the finished tree is:
   metrics registry);
 * written as one JSONL record through the audit appender when the call took
   at least ``geomesa.trace.slow.ms`` (the slow-query log), and kept by id
-  in a bounded ring (``finished_trace``).
+  in a bounded ring (``finished_trace``);
+* handed to the trace exporter (``tracing_export.py``) when a sink is
+  configured: it tail-samples the trace by the flags the call set
+  (``error``, ``degraded``, ``recompiles``, slowness) and writes it as an
+  OTLP span batch.
 
 Cheap when off: the current span lives in a :mod:`contextvars` ContextVar,
 and with no active trace ``span()`` is a single ContextVar read returning a
@@ -30,9 +34,11 @@ span (:func:`snapshot` / :func:`adopt`) as it adopts config overrides.
 Span mutation is lock-protected on the owning :class:`Trace`: the prefetch
 worker appends staging spans while the query thread appends its own.
 
-Not here yet: the trace exporter (``tracing_export.py``), the kernel
-registry's recompile events and the serving scheduler's per-thread trace
-and stranded-slot marks.
+The kernel registry's ``kernel.recompile`` events count into the trace's
+``recompiles`` (and its cost ledger's ``recompiles`` key when it
+finishes). Not here yet: the serving scheduler's per-thread trace and
+stranded-slot marks, and with them the ``shed`` and ``slot_died`` classes
+(the flags exist and stay false).
 """
 
 from __future__ import annotations
@@ -78,14 +84,18 @@ NOOP = _NoopSpan()
 
 class Trace:
     """One query's span tree: id, root, and the bounded span budget, the
-    ``error`` / ``degraded`` classification flags (set as the query runs)
-    and the per-query cost ledger (``cost``: partitions, bytes staged and
-    read, cache hits, join cells; accumulated by :func:`add_cost`, read by
-    ``explain``'s Cost section)."""
+    tail-sampling flags (``error`` / ``shed`` / ``degraded`` /
+    ``recompiles``, set as the query runs and read at completion by
+    ``tracing_export.py``; ``exported`` / ``sample_counted`` make its offer
+    at-most-once) and the per-query cost ledger (``cost``: device ms per
+    device, partitions, bytes staged and read, cache hits, join cells;
+    accumulated by :func:`add_cost`, read by ``explain``'s Cost section and
+    the exporter)."""
 
     __slots__ = ("trace_id", "root", "max_spans", "n_spans", "dropped",
                  "profiler", "lock", "finished", "slow_logged",
-                 "error", "degraded", "cost")
+                 "error", "shed", "degraded", "recompiles", "cost",
+                 "exported", "sample_counted", "slot_died")
 
     def __init__(self, trace_id: Optional[str] = None):
         self.trace_id = trace_id or f"{_ids.getrandbits(64):016x}"
@@ -99,8 +109,13 @@ class Trace:
         self.finished = False
         self.slow_logged = False
         self.error: Optional[str] = None   # exception type name, if raised
+        self.shed = False                  # typed deadline shed (serving)
         self.degraded = False              # partitions skipped (resilience)
+        self.recompiles = 0                # kernel.recompile events seen
         self.cost: Dict[str, float] = {}   # per-query cost ledger
+        self.exported = False              # handed to the exporter once
+        self.sample_counted = False        # sampled-out counted once
+        self.slot_died = False             # serving slot died under it
 
     def admit(self) -> bool:
         """Reserve one span slot (False = budget exhausted, span dropped)."""
@@ -260,12 +275,18 @@ def span(name: str, **attrs):
 
 
 def event(name: str, **attrs) -> None:
-    """A zero-duration marker attached to the current span. No-op without
-    a trace."""
+    """A zero-duration marker attached to the current span (a kernel
+    registry build inside the query that paid for it). No-op without a
+    trace."""
     cur = _current.get()
     if cur is None:
         return
     trace = cur.trace
+    if name == "kernel.recompile":
+        # an always-keep class of tail sampling, flagged here so the
+        # exporter never walks the tree
+        with trace.lock:
+            trace.recompiles += 1
     if not trace.admit():
         return
     child = Span(name, trace, cur, attrs or None)
@@ -316,13 +337,18 @@ def add_cost(key: str, value: float) -> None:
 
 
 def current_cost() -> Dict[str, float]:
-    """Copy of the active trace's cost ledger (empty without a trace)."""
+    """Copy of the active trace's cost ledger (empty without a trace),
+    with the live recompile count folded in as a finished trace carries
+    it."""
     cur = _current.get()
     if cur is None:
         return {}
     tr = cur.trace
     with tr.lock:
-        return dict(tr.cost)
+        out = dict(tr.cost)
+    if tr.recompiles:
+        out.setdefault("recompiles", float(tr.recompiles))
+    return out
 
 
 def mark_degraded() -> None:
@@ -404,21 +430,26 @@ def last_trace() -> Optional[Trace]:
 
 
 def _finish_trace(trace: Trace) -> None:
-    """Root closed: retain the trace, then check it against
-    ``geomesa.trace.slow.ms`` and, when slow, record the full tree (the
-    ring and the audit JSONL appender, so the file's order matches the
-    query events around it)."""
+    """Root closed: retain the trace, fold its recompile count into the
+    cost ledger, check it against ``geomesa.trace.slow.ms`` and, when slow,
+    record the full tree (the ring and the audit JSONL appender, so the
+    file's order matches the query events around it); then offer it to the
+    exporter, which makes the tail-sampling decision."""
     root = trace.root
     if root is None:
         return
     trace.finished = True
     _last[0] = trace
     _retain(trace)
+    if trace.recompiles:
+        with trace.lock:
+            trace.cost["recompiles"] = float(trace.recompiles)
     try:
         thresh = config.TRACE_SLOW_MS.to_float()
     except (TypeError, ValueError):
         thresh = None
     if thresh is None or root.duration_ms < thresh or trace.slow_logged:
+        _offer_export(trace)
         return
     trace.slow_logged = True
     rec = {
@@ -436,6 +467,21 @@ def _finish_trace(trace: Trace) -> None:
 
     audit.append_record(rec)
     metrics.inc("trace.slow")
+    _offer_export(trace)
+
+
+def _offer_export(trace: Trace) -> None:
+    """Hand a finished trace to the exporter when a sink is configured.
+    Safe to call again: a late child re-runs :func:`_finish_trace`, and a
+    trace sampled out may be offered again once it became slow; the
+    ``exported`` flag keeps the enqueue at most once."""
+    if trace.exported:
+        return
+    if not (config.TRACE_OTLP_ENDPOINT.get() or config.TRACE_EXPORT_PATH.get()):
+        return
+    from geomesa_tpu_torch import tracing_export
+
+    tracing_export.offer(trace)
 
 
 def slow_traces(n: int = 50) -> List[Dict[str, Any]]:

@@ -9,9 +9,10 @@ the events of the two packages are equal field by field except:
 * times (``date``, ``plan_time_ms``, ``scan_time_ms`` and the hint
   ``device_coarse_ms``) and the values of ``trace_id``;
 * in ``exec_path``: ``density_kernel`` (the reference's CPU run takes its
-  einsum rung, the port scatters); the reference's kernel-registry notes
-  (``kernel``, ``shape_bucket``, ``kernel:<name>``), which come with the
-  registry's port; and the notes the port's feature scan adds
+  einsum rung, the port scatters); the route of a ``kernel:<name>`` note
+  (the reference's ``pallas``, the port's ``plain`` on CPU tensors: the
+  key compares, and the registry's ``kernel`` and ``shape_bucket`` notes
+  compare whole); and the notes the port's feature scan adds
   (``feature_scan`` with its ``B`` and ``band_rows``), which the
   reference's feature scan does not record;
 * a partitioned call's ``exec_path`` compares on ``lake`` and
@@ -52,7 +53,6 @@ MEMBERS = ["BBOX(geom, -110, 28, -90, 40)", "BBOX(geom, -100, 30, -80, 45)"]
 PBOX = ("BBOX(geom, -100, 30, -96, 34) AND "
         "dtg DURING 2020-01-03T00:00:00Z/2020-01-20T00:00:00Z")
 TIMES = ("date", "plan_time_ms", "scan_time_ms")
-REGISTRY_NOTES = ("kernel", "shape_bucket")
 FEATURE_NOTES = ("feature_scan", "B", "band_rows")
 
 
@@ -149,9 +149,8 @@ def norm(ev, ref_path=None, partitioned=False):
     h.pop("device_coarse_ms", None)
     path = h.pop("exec_path", None)
     if path is not None:
-        path = {k: v for k, v in path.items()
-                if k not in REGISTRY_NOTES and k != "density_kernel"
-                and not k.startswith("kernel:")}
+        path = {k: "<route>" if k.startswith("kernel:") else v
+                for k, v in path.items() if k != "density_kernel"}
         if "feature_scan" in path:
             path = {k: v for k, v in path.items()
                     if k not in FEATURE_NOTES or k in (ref_path or {})}

@@ -80,6 +80,26 @@ KNOBS = {
     "TRACE_JAX_PROFILER": "TRACE_JAX_PROFILER",
     "TRACE_RETAIN": "TRACE_RETAIN",
     "USER": "USER",
+    "COMPACT_BUCKETING": "COMPACT_BUCKETING",
+    "COMPACT_BUCKET_FLOOR": "COMPACT_BUCKET_FLOOR",
+    "KERNEL_CACHE_SIZE": "KERNEL_CACHE_SIZE",
+    "KERNEL_ALERT_THRESHOLD": "KERNEL_ALERT_THRESHOLD",
+    "COMPILE_CACHE_DIR": "COMPILE_CACHE_DIR",
+    "BREAKER_THRESHOLD": "BREAKER_THRESHOLD",
+    "BREAKER_RESET_MS": "BREAKER_RESET_MS",
+    "MESH_CORDON": "MESH_CORDON",
+    "DEVICE_BREAKER_THRESHOLD": "DEVICE_BREAKER_THRESHOLD",
+    "DEVICE_BREAKER_RESET_MS": "DEVICE_BREAKER_RESET_MS",
+    "TRACE_OTLP_ENDPOINT": "TRACE_OTLP_ENDPOINT",
+    "TRACE_EXPORT_PATH": "TRACE_EXPORT_PATH",
+    "TRACE_SAMPLE_RATE": "TRACE_SAMPLE_RATE",
+    "TRACE_SAMPLE_SEED": "TRACE_SAMPLE_SEED",
+    "TRACE_EXPORT_QUEUE": "TRACE_EXPORT_QUEUE",
+    "TRACE_EXPORT_BATCH": "TRACE_EXPORT_BATCH",
+    "DEVICE_BUSY_WINDOW": "DEVICE_BUSY_WINDOW",
+    "SLO_WINDOW_FAST_S": "SLO_WINDOW_FAST_S",
+    "SLO_WINDOW_SLOW_S": "SLO_WINDOW_SLOW_S",
+    "SLO_BURN_THRESHOLD": "SLO_BURN_THRESHOLD",
 }
 
 
@@ -129,6 +149,20 @@ def test_typed_accessors():
         with p.scoped(v):
             assert p.to_bool() is want
     assert config.SPILL_DIR.to_int() is None
+
+
+def test_slo_targets_equal_the_reference(monkeypatch):
+    """``geomesa.slo.<op>.p99.ms`` overrides over ``GEOMESA_SLO_<OP>_P99_MS``
+    env targets, unparseable values ignored, in both packages."""
+    monkeypatch.setenv("GEOMESA_SLO_COUNT_P99_MS", "50")
+    monkeypatch.setenv("GEOMESA_SLO_QUERY_P99_MS", "x")
+    got = []
+    for cfg in (config, jconfig):
+        prop = cfg.SystemProperty("geomesa.slo.density.p99.ms")
+        with prop.scoped("12.5"):
+            got.append(cfg.slo_targets())
+        cfg._REGISTRY.pop(prop.name)
+    assert got[0] == got[1] == {"count": 50.0, "density": 12.5}
 
 
 def test_snapshot_and_adopt_overrides():

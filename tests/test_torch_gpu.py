@@ -1246,3 +1246,79 @@ def test_traced_calls_on_the_card_equal_untraced(cuda, monkeypatch):
     assert kpip.launches > l_pip and kg.launches > l_dg
     assert spans["pip"][-1] == "scan.kernel" and spans["grouped"][-1] == "scan.kernel"
     assert traced_syncs == untraced_syncs
+
+
+# -- slice 15: the kernel registry and device utilization on the card --------------------
+def _busy_union_ms(prof) -> float:
+    """The union of the kernel, memcpy and memset intervals of a
+    ``torch.profiler`` run, in ms."""
+    import json as _json
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = _json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e3
+
+
+def test_device_ms_from_events_covers_the_profiler_busy_union(cuda):
+    """``device_ms.0`` of a traced warm call, from the CUDA event pair around
+    its dispatch and copy back, lies between 0.9x the profiler's busy union
+    of the same call and the call's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomesa_tpu_torch import config, tracing, utilization
+
+    gpu, _ = _datasets(cuda, 200_000, seed=31)
+    poly = f"INTERSECTS(geom, {_ngon(64, -95, 37, 8)}) AND {DURING}"
+    calls = {"count": lambda: gpu.count("t", ECQL),
+             "density": lambda: gpu.density("t", ECQL, bbox=BBOX, width=512, height=512),
+             "polygon": lambda: gpu.count("t", poly)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with config.TRACE_ENABLED.scoped("true"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        tr = tracing.last_trace()
+        dev_ms, wall = tr.cost["device_ms.0"], tr.root.duration_ms
+        union = _busy_union_ms(prof)
+        assert 0 < dev_ms <= wall, (name, dev_ms, wall)
+        assert dev_ms >= 0.9 * union, (name, dev_ms, union)
+    assert utilization.pending() == 0
+    assert 0 < utilization.snapshot()["devices"]["0"]["busy_fraction"] <= 1
+
+
+def test_registry_hits_on_the_card(cuda):
+    """The main path's calls build one scan callable each, then hit it:
+    ``kernel`` notes ``trace`` then ``hit``, launches through the kernels on
+    every call, and no recompile alert."""
+    from geomesa_tpu_torch import metrics
+    from geomesa_tpu_torch.kernels import registry as kreg
+
+    gpu, _ = _datasets(cuda, 200_000, seed=33)
+    poly = f"INTERSECTS(geom, {_ngon(64, -95, 37, 8)}) AND {DURING}"
+    calls = {ECQL: lambda: gpu.count("t", ECQL), poly: lambda: gpu.count("t", poly)}
+    kreg.reset_alert()
+    reg = gpu._executor("t").kernel_registry()
+    for q, fn in calls.items():
+        n0 = sum(reg.traces().values())
+        l0 = kpip.launches
+        fn()
+        assert gpu._plan("t", q).exec_path["kernel"] == "trace"
+        assert sum(reg.traces().values()) == n0 + 1
+        fn()
+        assert gpu._plan("t", q).exec_path["kernel"] == "hit"
+        assert sum(reg.traces().values()) == n0 + 1
+        if q == poly:
+            assert kpip.launches >= l0 + 2
+    assert metrics.registry().gauge(metrics.KERNEL_RECOMPILE_ALERT).value == 0
