@@ -215,7 +215,7 @@ nothing else.)
    store (the long window's off answers in one pass with every partition
    resident),
    with the row groups and bytes loaded of the total and, for a density,
-   the kernel each partition took (grouped or scatter); every answer equal
+   the kernel each partition took (grouped, einsum or scatter); every answer equal
    to the pushdown-off answer and a NumPy f64 oracle, and row groups
    pruned > 0.
    ``join_count`` of 1,900 NYC stations (a flat schema) with the store by
@@ -243,7 +243,7 @@ nothing else.)
    unweighted grid exact, the weighted grid within rtol 1e-4); both
    kernels against their plain versions on the loaded store's operands
    (the grouped kernel's built with ``geomesa.density.pallas.max.dup``
-   raised: at 2M rows the main density scatters); 32 journaled inserts of
+   raised: at 2M rows the main density takes the einsum rung); 32 journaled inserts of
    4,096 rows from one writer and 32 from four threads, then 256 of 256
    rows from one writer and 256 from four threads (ack p50, p99 and max,
    fsyncs and group sizes; the threads must share a group commit); an
@@ -379,10 +379,32 @@ nothing else.)
    127.0.0.1, port 0. The count's warm p50 untraced, traced with export
    off and traced with export on, in turns, once before the profiler
    sessions and once after the endpoints.
+17. Slice 16, the s2 / s3 key spaces, Json attributes, the einsum density
+   rung and the call-time knobs, within ``S16_BUDGET_S``, on slice 1's flat
+   store after slice 15. Under ``geomesa.density.pallas=false`` the main
+   density takes the einsum rung (``density_kernel`` ``mxu-einsum``): its
+   unweighted grid bit-equal to the grouped kernel's (and so the oracle's),
+   the weighted within rtol 1e-4, at full float32 matmul precision, which
+   the phase checks. ``geomesa.compact.b`` scoped to a B other than the
+   main path's moves ``exec_path["B"]`` to it with the count and grid
+   unchanged; ``geomesa.strategy.decider=first`` moves a bbox + time + ids
+   query from the id index to z3 with its count unchanged. An s3 store of
+   ``S16_ROWS`` GDELT-like points (``make_data``, 8 shards; cut, each cut
+   printed, to no less than ``S16_MIN_ROWS`` when the S2 encode rate of a
+   sample says its ingest would pass ``S16_INGEST_S``): ingest seconds with
+   the S2 encode and the pack sort apart, the bbox + ``dtg DURING`` count
+   and 512x512 density (scatter, as the reference's) and the polygon count
+   through ``pip.cu``, each planned on s3 (``explain`` too), warm p50s and
+   the ``[S, L]`` device bytes; answers equal the NumPy oracles (the
+   polygon's an f32 even-odd one). ``bbox AND jsonPath('$.type') = 'car'``
+   over ``S16_JSON_ROWS`` documents against a NumPy oracle. Then, not
+   counted: ``pip.cu`` on the s3 store's compacted points against its
+   plain version, and the einsum, grouped and scatter rungs on the main
+   path's compacted operands in turns, all three grids equal.
 
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
 ``launches_slice8`` to ``launches_slice11`` and ``launches_slice13`` to
-``launches_slice15``), the card's ``nvidia-smi``
+``launches_slice16``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -3006,7 +3028,7 @@ def s9_pushdown(args, torch, ds, data, name, st):
             rows.append((wname, op, cold * 1e3, float(np.median(warm)), walls, acct))
             kern = "" if op != "density" else "; density kernel by partition " + str(
                 {k: [b for b, p in path["partitions"].items() if p.get("density_kernel") == k]
-                 for k in ("grouped", "scatter")})
+                 for k in ("grouped", "mxu-einsum", "scatter")})
             log(f"[slice9] {wname} {op}: cold {cold * 1e3:.3f} ms, warm p50 "
                 f"{np.median(warm):.3f} ms ({reps} reps); from a cold store: on (the cold "
                 f"call) {walls[True]} ms, off "
@@ -3532,8 +3554,9 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
             raise AssertionError(f"pip disagrees with its plain version on {bad} points "
                                  "of the loaded store")
         # at 2M rows the main density's pair schedule duplicates rows past
-        # geomesa.density.pallas.max.dup, so it scatters (the reference's
-        # rung); the grouped kernel's operands are built with the knob raised
+        # geomesa.density.pallas.max.dup, so it takes the einsum rung (the
+        # reference's); the grouped kernel's operands are built with the
+        # knob raised
         with config.DENSITY_PALLAS_MAX_DUP.scoped(S10_MAX_DUP):
             o = ex.density_inputs(loaded._plan(name, q_bbox), QUERY_BBOX, WIDTH, HEIGHT)
         if o is None:
@@ -3657,7 +3680,7 @@ def slice10_flat(args, torch, wkt, packed, n_edges, kpip, kgrouped):
         launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
         log(f"[slice10] flat phase: {time.perf_counter() - t_phase:.3f} s; launches of its own "
             f"calls {launches} (the comparisons with the plain versions not counted; the "
-            f"density scatters at this size)")
+            f"density takes the einsum rung at this size)")
         if launches["pip"] <= 0:
             raise AssertionError(f"pip never launched in slice 10's flat phase: {launches}")
         return launches
@@ -5144,6 +5167,258 @@ def slice15(torch, ds, calls, want, kpip, kgrouped, name="gdelt"):
     return launches, wall, out
 
 
+
+#: the slice-16 phase's own budget (seconds), checked like slice 15's
+S16_BUDGET_S = 60.0
+#: rows of the s3 store (GDELT-like: make_data's distribution)
+S16_ROWS = 10_000_000
+#: the floor the phase cuts the s3 store to, never below
+S16_MIN_ROWS = 2_000_000
+#: seconds of the phase's budget the s3 store's ingest may take; the rows
+#: are cut (to no less than S16_MIN_ROWS) when a sample's encode rate
+#: says it would take longer
+S16_INGEST_S = 24.0
+S16_SPEC = "weight:Float,dtg:Date,*geom:Point;geomesa.indices='s3,id'"
+S16_JSON_ROWS = 100_000
+S16_JSON_SPEC = "props:Json,dtg:Date,*geom:Point"
+S16_JSON_BOX = (-100.0, 30.0, -90.0, 40.0)
+S16_REPS = 5
+
+
+def s16_rows(torch) -> int:
+    """The s3 store's rows: S16_ROWS, cut (each cut printed) while the S2
+    encode rate of a 200,000-point sample says the ingest would outrun
+    S16_INGEST_S."""
+    from geomesa_tpu_torch.curves import s2
+
+    sample = make_data(200_000, 1601)
+    t0 = time.perf_counter()
+    s2.lnglat_to_id(sample["geom__x"], sample["geom__y"])
+    per_row = (time.perf_counter() - t0) / 200_000
+    # the key encode is about 80% of a flush (the rest: fid hashes,
+    # sketches, the pack sort), measured on slice 16's own store
+    rows = S16_ROWS
+    while rows > S16_MIN_ROWS and rows * per_row / 0.8 > S16_INGEST_S:
+        cut = max(S16_MIN_ROWS, rows // 2)
+        log(f"[slice16] cut: {cut} s3 rows instead of {rows} (S2 encode "
+            f"{per_row * 1e6:.3f} us a point: {rows * per_row:.3f} s to encode)")
+        rows = cut
+    return rows
+
+
+def slice16(args, torch, ds, data, results, paths, wkt, packed, n_edges, kpip, kgrouped,
+            n_bbox, name="gdelt"):
+    """The slice-16 phase (see the module docstring, 17): an s3 store, the
+    einsum density rung on the main path's store, a jsonPath query and two
+    knob scopes on the main path. ``results`` / ``paths`` are the main
+    path's oracle-checked answers and exec_paths. Returns (launches, wall
+    s)."""
+    from geomesa_tpu_torch import GeoDataset, Query, config
+    from geomesa_tpu_torch.kernels import density_mxu as kmxu
+    from geomesa_tpu_torch.kernels.density import density_grid
+
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    q_bbox = f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    grid = dict(bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    if tf32 != (False, "highest"):
+        raise AssertionError(f"[slice16] float32 matmuls are not at full precision: {tf32}")
+
+    # 1. the main density on its grouped rung, then on the einsum rung
+    # with the grouped one off
+    g_g, cold_g = timed(torch, lambda: ds.density(name, q_bbox, **grid))
+    warm_g = [timed(torch, lambda: ds.density(name, q_bbox, **grid))[1]
+              for _ in range(S16_REPS)]
+    kern_g = ds._plan(name, q_bbox).exec_path.get("density_kernel")
+    if kern_g != "grouped" or not np.array_equal(g_g, results["density"]):
+        raise AssertionError(f"[slice16] the main density took {kern_g!r} or changed")
+    with config.DENSITY_PALLAS.scoped("false"):
+        g_e, cold_e = timed(torch, lambda: ds.density(name, q_bbox, **grid))
+        kern = ds._plan(name, q_bbox).exec_path.get("density_kernel")
+        g_ew = ds.density(name, q_bbox, weight="weight", **grid)
+        warm_e = [timed(torch, lambda: ds.density(name, q_bbox, **grid))[1]
+                  for _ in range(S16_REPS)]
+    if kern != "mxu-einsum":
+        raise AssertionError(f"[slice16] the main density took {kern!r}, not the einsum rung")
+    if not np.array_equal(g_e, results["density"]):
+        bad = int((g_e != results["density"]).sum())
+        raise AssertionError(f"[slice16] the einsum grid differs from the grouped kernel's "
+                             f"(and the oracle's) in {bad} cells")
+    if not np.allclose(g_ew, results["density_weighted"], rtol=1e-4, atol=1e-3):
+        raise AssertionError("[slice16] the weighted einsum grid is outside rtol 1e-4")
+    log(f"[slice16] einsum rung on the main path (geomesa.density.pallas=false): "
+        f"density_kernel {kern}; unweighted grid bit-equal to the grouped kernel's and the "
+        f"oracle ({int(g_e.sum())} rows), weighted within rtol 1e-4 (max abs diff "
+        f"{float(np.abs(g_ew - results['density_weighted']).max())}); cold "
+        f"{cold_e * 1e3:.3f} ms, warm p50 {float(np.median(warm_e)) * 1e3:.3f} ms against the "
+        f"grouped rung's {cold_g * 1e3:.3f} / {float(np.median(warm_g)) * 1e3:.3f} ms; matmul "
+        f"allow_tf32 {tf32[0]}, precision {tf32[1]!r}")
+
+    # 2. two knob scopes on the main path, each with the plan change it causes
+    b0 = paths["count_bbox"].get("B")
+    b_over = 256 if b0 != 256 else 1024
+    with config.COMPACT_B.scoped(b_over):
+        c_b = ds.count(name, q_bbox)
+        b_got = ds._plan(name, q_bbox).exec_path.get("B")
+        g_b = ds.density(name, q_bbox, **grid)
+        gb_kern = ds._plan(name, q_bbox).exec_path.get("density_kernel")
+    if c_b != n_bbox or b_got != b_over or not np.array_equal(g_b, results["density"]):
+        raise AssertionError(f"[slice16] geomesa.compact.b={b_over}: B {b_got}, count {c_b} "
+                             f"(want {n_bbox})")
+    log(f"[slice16] geomesa.compact.b={b_over}: exec_path B {b0} -> {b_got}; count and "
+        f"grid ({gb_kern}) unchanged")
+    fids = list(ds.query(name, Query(ecql=q_bbox, max_features=3)).fids)
+    q_ids = f"{q_bbox} AND IN ({', '.join(repr(str(f)) for f in fids)})"
+    cost = ds._plan(name, q_ids).index_name
+    n_cost = ds.count(name, q_ids)
+    with config.STRATEGY_DECIDER.scoped("first"):
+        first = ds._plan(name, q_ids).index_name
+        n_first = ds.count(name, q_ids)
+    if (cost, first) != ("id", "z3") or not (n_cost == n_first == len(fids)):
+        raise AssertionError(f"[slice16] geomesa.strategy.decider=first: index {cost} -> "
+                             f"{first}, counts {n_cost} / {n_first} (want {len(fids)})")
+    log(f"[slice16] geomesa.strategy.decider=first: index {cost} -> {first}; "
+        f"count {n_first} either way")
+
+    # 3. an s3 store of GDELT-like points
+    rows = s16_rows(torch)
+    d16 = make_data(rows, args.seed + 16)
+    s3ds = GeoDataset(n_shards=8)
+    s3ds.create_schema("gdelt16", S16_SPEC)
+    t0 = time.perf_counter()
+    s3ds.insert("gdelt16", d16)
+    s3ds.flush("gdelt16")
+    ingest_s = time.perf_counter() - t0
+    st = s3ds._store("gdelt16")
+    log(f"[slice16] s3 store: {rows} rows ingested in {ingest_s:.3f} s; S2 encode "
+        f"{st.key_seconds['s3']:.3f} s, fid hashes {st.key_seconds['id']:.3f} s, s3 pack "
+        f"sort {st.flush_seconds['s3']:.3f} s, sketches {st.flush_seconds['sketches']:.3f} s")
+    calls = {
+        "count_bbox": (q_bbox, lambda: s3ds.count("gdelt16", q_bbox)),
+        "density": (q_bbox, lambda: s3ds.density("gdelt16", q_bbox, **grid)),
+        "count_polygon": (q_poly, lambda: s3ds.count("gdelt16", q_poly)),
+    }
+    got, lat = {}, {}
+    for key, (q, fn) in calls.items():
+        got[key], cold = timed(torch, fn)
+        warm = [timed(torch, fn)[1] for _ in range(S16_REPS)]
+        lat[key] = (cold * 1e3, float(np.median(warm)) * 1e3)
+        plan = s3ds._plan("gdelt16", q)
+        chosen = [ln for ln in s3ds.explain("gdelt16", q).splitlines() if "Chosen index" in ln]
+        if plan.index_name != "s3" or not chosen or "s3" not in chosen[0]:
+            raise AssertionError(f"[slice16] {key} planned {plan.index_name} ({chosen})")
+        log(f"[slice16] s3 {key}: cold {lat[key][0]:.3f} ms, warm p50 {lat[key][1]:.3f} ms; "
+            f"exec_path {dict(plan.exec_path)}")
+    tm = time_mask(d16)
+    g_u, _, _, n16 = density_oracles(d16, tm)
+    n16_poly = polygon_oracle(d16, tm, packed, n_edges)
+    if got["count_bbox"] != n16 or not np.array_equal(got["density"].astype(np.float64), g_u):
+        raise AssertionError(f"[slice16] s3 count {got['count_bbox']} (oracle {n16}) or its "
+                             "grid differs from the oracle")
+    if got["count_polygon"] != n16_poly:
+        raise AssertionError(f"[slice16] s3 polygon count {got['count_polygon']} != f32 "
+                             f"oracle {n16_poly}")
+    if s3ds._plan("gdelt16", q_bbox).exec_path.get("density_kernel") != "scatter":
+        raise AssertionError("[slice16] an s3 density left the scatter rung")
+    dev_bytes = sum(t.device_bytes() for t in st.tables.values())
+    t16 = st.tables["s3"]
+    log(f"[slice16] s3 answers equal the oracles: count {n16}, grid exact, polygon "
+        f"{n16_poly} (f32 even-odd); [S, L] = [{t16.n_shards}, {t16.shard_len}], device "
+        f"bytes {dev_bytes}")
+
+    # 4. a jsonPath query on a small Json schema, against a NumPy oracle
+    rng = np.random.default_rng(args.seed + 160)
+    jn = S16_JSON_ROWS
+    kinds = np.array(["car", "truck", "bike"])[rng.integers(0, 3, jn)]
+    docs = [json.dumps({"type": str(k), "speed": int(v)})
+            for k, v in zip(kinds, rng.integers(0, 120, jn))]
+    jd = make_data(jn, args.seed + 161)
+    jds = GeoDataset(n_shards=8)
+    jds.create_schema("docs", S16_JSON_SPEC)
+    jds.insert("docs", {"props": docs, "dtg": jd["dtg"], "geom__x": jd["geom__x"],
+                        "geom__y": jd["geom__y"]})
+    jds.flush("docs")
+    xmin, ymin, xmax, ymax = S16_JSON_BOX
+    q_json = (f"BBOX(geom, {xmin}, {ymin}, {xmax}, {ymax}) AND "
+              "jsonPath('$.type', props) = 'car'")
+    (n_json, json_s) = timed(torch, lambda: jds.count("docs", q_json))
+    x, y = jd["geom__x"], jd["geom__y"]
+    want_json = int(((x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+                     & (kinds == "car")).sum())
+    if n_json != want_json:
+        raise AssertionError(f"[slice16] jsonPath count {n_json} != oracle {want_json}")
+    log(f"[slice16] jsonPath over {jn} documents: {n_json} rows, equal to the oracle, in "
+        f"{json_s * 1e3:.3f} ms; exec_path {dict(jds._plan('docs', q_json).exec_path)}")
+
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[slice16] a kernel never launched in the phase: {launches}")
+
+    # 5. kernels against their plain versions on the phase's operands (not
+    # counted): pip on the s3 store's scan columns
+    ex16 = s3ds._executor("gdelt16")
+    cols = ex16.scan_columns(s3ds._plan("gdelt16", q_poly), ["geom__x", "geom__y"])
+    px, py = cols["geom__x"], cols["geom__y"]
+    edges = torch.from_numpy(packed).cuda()
+    bad = int((kpip.pip_mask(px, py, edges, n_edges)
+               != kpip.pip_mask_plain(px, py, edges, n_edges)).sum())
+    if bad:
+        raise AssertionError(f"[slice16] pip disagrees with its plain version on {bad} points "
+                             "of the s3 store")
+    pip_ms = cuda_ms(torch, lambda: kpip.pip_mask(px, py, edges, n_edges), 20)
+    log(f"[slice16] pip on the s3 store's {tuple(px.shape)} scan points "
+        f"({dict(s3ds._plan('gdelt16', q_poly).exec_path).get('scan')}): equal to its "
+        f"plain version; {pip_ms:.6f} ms")
+    del cols, px, py, edges
+    # the three rungs on the main path's compacted operands, in turns
+    ex = ds._executor(name)
+    plan = ds._plan(name, q_bbox)
+    setup = ex._scan_setup(plan, ["geom__x", "geom__y"])
+    ex._maybe_compact(plan, setup)
+    c, m = ex._fused(plan, setup, ["geom__x", "geom__y"])
+    _, sched_g = ex._density_rung(plan, setup, QUERY_BBOX, WIDTH, HEIGHT)
+    with config.DENSITY_PALLAS.scoped("false"):
+        rung, sched_p = ex._density_rung(plan, setup, QUERY_BBOX, WIDTH, HEIGHT)
+    if rung != "mxu-einsum":
+        raise AssertionError(f"[slice16] no einsum schedule on the main path ({rung})")
+    gx, gy = c["geom__x"], c["geom__y"]
+    fns = {
+        "einsum": lambda: kmxu.density_grid_pairs(gx, gy, m, QUERY_BBOX, WIDTH, HEIGHT, None,
+                                                  sched_p),
+        "grouped": lambda: kgrouped.density_grouped(gx, gy, m, None, QUERY_BBOX, WIDTH, HEIGHT,
+                                                    sched_g),
+        "scatter": lambda: density_grid(gx, gy, m, QUERY_BBOX, WIDTH, HEIGHT),
+    }
+    outs = {k: f() for k, f in fns.items()}
+    if not (torch.equal(outs["einsum"], outs["grouped"])
+            and torch.equal(outs["einsum"], outs["scatter"])):
+        raise AssertionError("[slice16] the einsum, grouped and scatter grids differ")
+    t = {k: [] for k in fns}
+    for k in ("einsum", "grouped", "scatter", "scatter", "grouped", "einsum"):
+        t[k].append(cuda_ms(torch, fns[k], 10))
+    torch.cuda.synchronize()
+    peak0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fns["einsum"]()
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated() - peak0
+    log(f"[slice16] the main path's {tuple(gx.shape)} compacted rows, 512x512, in turns: "
+        f"einsum {np.mean(t['einsum']):.6f} ms ({sched_p['n_pairs']} pairs of "
+        f"{sched_p['TY']}x{sched_p['TX']} tiles, batches of {sched_p['PB']}), grouped kernel "
+        f"{np.mean(t['grouped']):.6f} ms, scatter {np.mean(t['scatter']):.6f} ms; all three "
+        f"grids equal; the einsum's scratch {peak_e} B above the {peak0} B allocated")
+    del c, m, gx, gy, outs, setup, sched_g, sched_p, fns
+    del s3ds, jds, d16, st, t16, ex16
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[slice16] launches {launches}; the phase took {wall:.3f} s")
+    if wall > S16_BUDGET_S:
+        raise AssertionError(f"[slice16] the phase took {wall:.3f} s, over its {S16_BUDGET_S} s")
+    return launches, wall
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -5401,6 +5676,10 @@ def main() -> int:
     # -- 16. slice 15: the kernel registry, utilization, export and endpoints --
     s15_flat, _, _ = slice15(torch, ds, queries, results, kpip, kgrouped)
 
+    # -- 17. slice 16: s3 keys, Json, the einsum rung and call-time knobs -----
+    s16_flat, _ = slice16(args, torch, ds, data, results, paths, wkt, packed, n_edges, kpip,
+                          kgrouped, n_bbox)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -5444,6 +5723,7 @@ def main() -> int:
         k["launches_slice13"] = s13_part.get(k["name"], 0)
         k["launches_slice14"] = s14_flat.get(k["name"], 0) + s14_part.get(k["name"], 0)
         k["launches_slice15"] = s15_flat.get(k["name"], 0)
+        k["launches_slice16"] = s16_flat.get(k["name"], 0)
     if min(s14_flat.values()) <= 0:
         raise AssertionError(f"[slice14] a main-path kernel never launched traced: {s14_flat}")
 

@@ -270,14 +270,17 @@ def _traced(op: str):
 class GeoDataset:
     """Schema catalog + stores on one device.
 
+    ``n_shards``: the shards of each store (None: the schema's
+    ``geomesa.z.splits``, else ``geomesa.index.shards``).
     ``compact_min_rows`` / ``compact_fraction``: the compacted scan layout
     engages for tables of at least ``compact_min_rows`` rows whose windows
-    admit less than ``compact_fraction`` of the table (the JAX package's
-    ``geomesa.compact.min.rows`` / ``geomesa.compact.fraction``)."""
+    admit less than ``compact_fraction`` of the table; None (the default)
+    reads ``geomesa.compact.min.rows`` / ``geomesa.compact.fraction`` at
+    each scan."""
 
-    def __init__(self, n_shards: int = 8, device=None,
-                 compact_min_rows: int = 1 << 20,
-                 compact_fraction: float = 0.5):
+    def __init__(self, n_shards: Optional[int] = None, device=None,
+                 compact_min_rows: Optional[int] = None,
+                 compact_fraction: Optional[float] = None):
         self.n_shards = n_shards
         self.device = resolve_device(device)
         self.compact_min_rows = compact_min_rows
@@ -582,6 +585,8 @@ class GeoDataset:
                 if name is not None:
                     self._applied_seq[name] = seq
                 applied += 1
+        if applied:
+            metrics.registry().counter(metrics.JOURNAL_REPLAYED).inc(applied)
         self._journal_replayed = applied
         return applied
 
@@ -965,7 +970,8 @@ class GeoDataset:
             # the knobs planning reads key the cache too, so a scoped change
             # never serves a plan compiled under another setting
             key = (name, repr(q), id(st), st.version, config.LOOSE_BBOX.get(),
-                   config.SCAN_RANGES_TARGET.get(), interceptors.version())
+                   config.SCAN_RANGES_TARGET.get(), config.STRATEGY_DECIDER.get(),
+                   interceptors.version())
             plan = self._plans.get(key)
             if plan is not None:
                 guard(st, plan.key_plan, plan.filter)
@@ -1298,7 +1304,8 @@ class GeoDataset:
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
         t0 = time.perf_counter()
-        with query_deadline(self._timeout_s()):
+        with metrics.registry().timer("query.density").time(), \
+                query_deadline(self._timeout_s()):
             grid = self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
         self._audit(name, q, plan, t0, int(np.count_nonzero(grid)), op="density")
         return grid
@@ -1323,7 +1330,8 @@ class GeoDataset:
             bbox = self.bounds(name) or (-180.0, -90.0, 180.0, 90.0)
         window, snapped = self._snap_blocks(bbox, level)
         t0 = time.perf_counter()
-        with query_deadline(self._timeout_s()):
+        with metrics.registry().timer("query.density").time(), \
+                query_deadline(self._timeout_s()):
             grid = self.cache.density_curve(self, st, q, plan, level, window, weight)
         self._audit(name, q, plan, t0, int(np.count_nonzero(grid)), op="density_curve")
         return grid, snapped
@@ -1387,7 +1395,8 @@ class GeoDataset:
             plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
             windows, snaps = self._curve_windows(name, bboxes, level)
             t0 = time.perf_counter()
-            with query_deadline(self._timeout_s()):
+            with metrics.registry().timer("query.density").time(), \
+                    query_deadline(self._timeout_s()):
                 grids = self._executor(name).density_curve_batch(plan, level, windows, weight)
             # one event per member; every member shares the one plan
             self._batch_audit(name, "density_curve", [plan],
@@ -1419,7 +1428,8 @@ class GeoDataset:
                 return None
             windows, snaps = self._curve_windows(name, bboxes, level)
             t0 = time.perf_counter()
-            with query_deadline(self._timeout_s()):
+            with metrics.registry().timer("query.density").time(), \
+                    query_deadline(self._timeout_s()):
                 grids = self._executor(name).density_curve_filter_batch(
                     plans, spec, level, windows, weight)
             if grids is None:
@@ -1504,7 +1514,8 @@ class GeoDataset:
                     bb = default
                 boxes.append(tuple(bb))
             t0 = time.perf_counter()
-            with query_deadline(self._timeout_s()):
+            with metrics.registry().timer("query.density").time(), \
+                    query_deadline(self._timeout_s()):
                 grids = self._executor(name).density_batch(plans, spec, boxes, width,
                                                            height, weight)
             if grids is None:
@@ -1550,7 +1561,8 @@ class GeoDataset:
         st = self._store(name)
         t0 = time.perf_counter()
         ex = self._executor(name)
-        with query_deadline(self._timeout_s()):
+        with metrics.registry().timer("query.scan").time(), \
+                query_deadline(self._timeout_s()):
             batch = self._query_scan(q, plan, st, ex)
         self._audit(name, q, plan, t0, batch.n)
         if q.sort_by and batch.n:
@@ -1627,7 +1639,8 @@ class GeoDataset:
             if traced:
                 tracing.adopt(root)
             try:
-                with query_deadline(self._timeout_s()):
+                with metrics.registry().timer("query.scan").time(), \
+                        query_deadline(self._timeout_s()):
                     for batch in ex.features_iter(plan, batch_rows):
                         hits += batch.n
                         yield _project(batch, q.properties) if q.properties else batch
@@ -1802,6 +1815,7 @@ class GeoDataset:
         from geomesa_tpu_torch.planning import join_exec
 
         t0 = time.perf_counter()
+        metrics.inc(metrics.JOIN_QUERIES)
         with query_deadline(self._timeout_s()):
             if predicate in kjoin.POLYGON_PREDICATES:
                 lst, lplan, lbatch, rst, rbatch = self._join_sides(
@@ -2000,13 +2014,18 @@ class GeoDataset:
             bytes_side = max(bytes_side, int(acct.get("bytes_payload", 0)))
             groups_side = max(groups_side, int(acct.get("groups_total", 0)))
         stats.matched = total
+        res_hits = residency.hits if residency is not None else 0
+        res_saved = residency.bytes_saved if residency is not None else 0
         stats.pushdown = {
             "chunks": chunks, "cells": len(ucell),
             "bytes_loaded": bytes_loaded, "bytes_side": bytes_side,
             "groups_loaded": groups_loaded, "groups_side": groups_side,
-            "residency_hits": residency.hits if residency is not None else 0,
-            "bytes_saved_residency": residency.bytes_saved if residency is not None else 0,
+            "residency_hits": res_hits, "bytes_saved_residency": res_saved,
         }
+        metrics.inc(metrics.JOIN_PUSHDOWN_RESIDENCY_HITS, res_hits)
+        metrics.inc(metrics.JOIN_PUSHDOWN_RESIDENCY_BYTES, res_saved)
+        join_exec.record_metrics(stats, total)
+        metrics.inc(metrics.JOIN_PUSHDOWN_BYTES, bytes_loaded)
         tracing.add_cost("join_pushdown_bytes", float(bytes_loaded))
         tracing.add_cost("join_cells", float(stats.cells_joint))
         tracing.add_cost("join_candidate_pairs", float(stats.candidate_pairs))

@@ -198,6 +198,52 @@ DENSITY_PALLAS_MAX_DUP = SystemProperty("geomesa.density.pallas.max.dup", "4.0")
 #: largest ``max_features`` a sorted query selects on the device
 TOPK_MAX = SystemProperty("geomesa.topk.max", "100000")
 
+#: candidate rows beyond k the device top-k keeps for boundary ties; a
+#: tie group that overflows k + slack sorts on the host
+TOPK_TIE_SLACK = SystemProperty("geomesa.topk.tie-slack", "4096")
+
+#: hash groups of per-key sampling for int keys and dictionaries beyond
+#: the exact per-key counter (a power of two; 0: such keys sample on the
+#: host with an exact counter per key)
+SAMPLE_HASH_BUCKETS = SystemProperty("geomesa.sample.hash-buckets", "64")
+
+#: shards of a store whose caller and schema name none
+DEFAULT_SHARDS = SystemProperty("geomesa.index.shards", "4")
+
+#: "cost": the decider weighs every candidate index; anything else takes
+#: the first candidate
+STRATEGY_DECIDER = SystemProperty("geomesa.strategy.decider", "cost")
+
+#: the window-compacted scan layout (gather only the window rows)
+COMPACT_ENABLED = SystemProperty("geomesa.compact.enabled", "true")
+
+#: table rows below which a scan keeps the padded layout
+COMPACT_MIN_ROWS = SystemProperty("geomesa.compact.min.rows", str(1 << 20))
+
+#: compaction engages only when its padded chunk rows stay under this
+#: fraction of the table
+COMPACT_FRACTION = SystemProperty("geomesa.compact.fraction", "0.5")
+
+#: chunk length override, clamped onto the ladder (0: the adaptive
+#: choice, least padding and the largest B within 10% of it)
+COMPACT_B = SystemProperty("geomesa.compact.b", "0")
+
+#: flat stores round their padded shard length up to a multiple of this
+#: under bucketing (partition children use geomesa.partition.shard.bucket)
+COMPACT_SHARD_BUCKET = SystemProperty("geomesa.compact.shard.bucket", "8192")
+
+#: the grouped density kernel (``csrc/density_grouped.cu``) on compacted
+#: z3 / z2 / xz scans
+DENSITY_PALLAS = SystemProperty("geomesa.density.pallas", "true")
+
+#: the einsum pair rung on compacted z3 / z2 scans when the grouped
+#: kernel is off or declines (false: those scans scatter)
+DENSITY_MXU = SystemProperty("geomesa.density.mxu", "true")
+
+#: the einsum rung's grid tile shape (cells)
+MXU_TILE_X = SystemProperty("geomesa.mxu.tile.x", "64")
+MXU_TILE_Y = SystemProperty("geomesa.mxu.tile.y", "32")
+
 #: spatial-join tiles: per-cell build/probe blocks chunk into tiles of at
 #: most this many rows per side
 JOIN_TILE = SystemProperty("geomesa.join.tile", "64")

@@ -1,15 +1,19 @@
-"""Carry an indexed store across from NumPy arrays.
+"""Carry an indexed store across from NumPy arrays, and the JSON path
+reader of stored documents.
 
 A database's counterpart of loading weights: a store built elsewhere (for
 example by the JAX package, read off its ``FeatureStore``) is rebuilt here
 from its master columns, and each index table given with its sorted state
 keeps that state without re-sorting, so both packages answer queries over
-identical rows, order and shard layout.
+identical rows, order and shard layout. :func:`json_path_get` is a copy of
+``_json_path_get`` in ``geomesa_tpu/convert/converter.py``, which the
+``jsonPath()`` predicates read documents with.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, List
 
 import numpy as np
 
@@ -86,3 +90,30 @@ def store_from_arrays(spec: str, arrays: Dict, n_shards: int, device=None,
     store._key_cols = keys
     store.version += 1
     return store
+
+
+def json_path_get(obj, path: str) -> List:
+    """The values a path names in a parsed document, for a small JsonPath
+    subset: ``$.a.b``, ``a.b``, ``$['a']``, array indices ``[0]`` and
+    ``[*]``."""
+    parts = re.findall(r"\[\*\]|\[(?:'([^']*)'|(\d+))\]|([A-Za-z0-9_\-]+)", path)
+    cur = [obj]
+    for quoted, idx, name in parts:
+        nxt = []
+        for c in cur:
+            if c is None:
+                continue
+            if quoted or name:
+                key = quoted or name
+                if key == "$":
+                    nxt.append(c)
+                elif isinstance(c, dict):
+                    nxt.append(c.get(key))
+            elif idx:
+                if isinstance(c, list) and int(idx) < len(c):
+                    nxt.append(c[int(idx)])
+            else:  # [*]
+                if isinstance(c, list):
+                    nxt.extend(c)
+        cur = nxt
+    return cur

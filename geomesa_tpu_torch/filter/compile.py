@@ -20,7 +20,9 @@ columns, a superset of the exact matches under even NOT-polarity and a
 subset under odd, plus the exact host tree over the ``__wkt`` column
 (``geofn``'s ``st_*`` relations on each candidate's parsed WKT, through a
 bounded, locked LRU). Under ``geomesa.loose.bbox`` a BBOX on an extent
-column is the envelope overlap alone. Expression comparisons
+column is the envelope overlap alone. A ``jsonPath()`` comparison, IN,
+LIKE or IS NULL evaluates on the host over the Json attribute's document
+text. Expression comparisons
 (``ExprCompare``: arithmetic, property against property, ``st_*``
 functions) get the exact host tree and, when they call no function and
 read no string or geometry, an error-bounded f32 interval mask on the
@@ -29,7 +31,9 @@ device.
 
 from __future__ import annotations
 
+import json
 import math
+import operator
 import re
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -389,6 +393,83 @@ _GEOM_CACHE_MAX = 8192
 _GEOM_CACHE_LOCK = Lock()
 
 
+_JSON_CACHE: "OrderedDict[str, object]" = OrderedDict()
+_JSON_CACHE_MAX = 8192
+_JSON_CACHE_LOCK = Lock()
+
+
+def _parse_json_cached(s):
+    """A stored document parsed (None when it is not JSON), through a
+    bounded LRU shared by every jsonPath() predicate."""
+    key = str(s)
+    with _JSON_CACHE_LOCK:
+        if key in _JSON_CACHE:
+            _JSON_CACHE.move_to_end(key)
+            return _JSON_CACHE[key]
+    try:
+        doc = json.loads(key)
+    except ValueError:
+        doc = None
+    with _JSON_CACHE_LOCK:
+        while len(_JSON_CACHE) >= _JSON_CACHE_MAX:
+            _JSON_CACHE.popitem(last=False)
+        _JSON_CACHE[key] = doc
+    return doc
+
+
+def _json_path_pred(jp: ir.JsonPath, test) -> Callable:
+    """Host evaluator of a jsonPath() predicate: parse each row's stored
+    document (cached) and test the values the path extracts; a null or
+    unparseable document matches nothing."""
+    # convert.py imports the dataset, which imports this module
+    from geomesa_tpu_torch.convert import json_path_get
+
+    attr, path = jp.attr, jp.path
+
+    def fn(cols, xp=np):
+        col = cols[attr]
+        out = np.zeros(len(col), bool)
+        for i, s in enumerate(col):
+            if s is None:
+                continue
+            doc = _parse_json_cached(s)
+            if doc is None:
+                continue
+            out[i] = any(v is not None and test(v) for v in json_path_get(doc, path))
+        return out
+
+    return fn
+
+
+def _json_test(op: str, val) -> Callable:
+    """Value test with JSON-side coercion: a numeric compare when the
+    literal is numeric, else a string compare; values that do not coerce
+    fail the test."""
+    o = {
+        "=": operator.eq, "<>": operator.ne, "<": operator.lt,
+        "<=": operator.le, ">": operator.gt, ">=": operator.ge,
+    }[op]
+    numeric = isinstance(val, (int, float)) and not isinstance(val, bool)
+
+    def test(v):
+        try:
+            if numeric:
+                return bool(o(float(v), float(val)))
+            return bool(o(str(v), str(val)))
+        except (TypeError, ValueError):
+            return False
+
+    return test
+
+
+def _require_json_attr(ft: FeatureType, jp: ir.JsonPath):
+    a = ft.attr(jp.attr)
+    if a.type != "json":
+        raise ValueError(
+            f"jsonPath() requires a Json attribute; {jp.attr!r} is {a.type}"
+        )
+
+
 def _parse_wkt_cached(w) -> geo.Geometry:
     if isinstance(w, geo.Geometry):
         return w
@@ -478,6 +559,11 @@ def _expr_mark_needs(node: ir.ExprCompare, ft: FeatureType, need, need_refine) -
                 need(p + "__x", p + "__y")
             else:
                 need_refine(p + "__wkt")
+        elif a.type == "json":
+            raise ValueError(
+                f"json attribute {p!r} cannot appear in an expression; "
+                "query it via jsonPath('$...', attr) instead"
+            )
         elif a.type == "string":
             host_only = True
             need(p)
@@ -1021,6 +1107,11 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
         if isinstance(node, ir.In):
             return compile_in(node, neg, exact)
         if isinstance(node, ir.Like):
+            if isinstance(node.prop, ir.JsonPath):
+                _require_json_attr(ft, node.prop)
+                need(node.prop.attr)
+                cre = _like_regex(node.pattern, node.case_insensitive)
+                return _json_path_pred(node.prop, lambda v: bool(cre.match(str(v))))
             a = ft.attr(node.prop)
             if a.type != "string":
                 raise ValueError(f"LIKE requires a string attribute, got {a.type}")
@@ -1028,6 +1119,13 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
             d = dicts.setdefault(node.prop, DictionaryEncoder())
             return _isin_fn(node.prop, _like_codes(d, node.pattern, node.case_insensitive))
         if isinstance(node, ir.IsNull):
+            if isinstance(node.prop, ir.JsonPath):
+                _require_json_attr(ft, node.prop)
+                need(node.prop.attr)
+                exists = _json_path_pred(node.prop, lambda v: True)
+                if node.negate:  # IS NOT NULL
+                    return exists
+                return lambda cols, xp: ~np.asarray(exists(cols, xp))
             a = ft.attr(node.prop)
             need(node.prop)
             col = node.prop
@@ -1041,6 +1139,12 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
                 return lambda cols, xp: ~fn(cols, xp)
             return fn
         if isinstance(node, ir.During):
+            if isinstance(node.prop, ir.JsonPath):
+                raise ValueError(
+                    "temporal predicates (DURING/BEFORE/AFTER/TEQUALS) are "
+                    "not supported on jsonPath() accessors; compare the "
+                    "extracted value numerically instead"
+                )
             # lexicographic compare on the (bin, scaled offset) int32 pair
             lo_b, lo_o, hi_b, hi_o = during_device_bounds(ft, node.lo_ms, node.hi_ms)
             cb, co = node.prop + "__bin", node.prop + "__off"
@@ -1157,6 +1261,10 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
         return _FALSE if neg else _extent_overlap_fn(ks, ex)
 
     def compile_compare(node: ir.Compare, neg: bool, exact: bool) -> Callable:
+        if isinstance(node.prop, ir.JsonPath):
+            _require_json_attr(ft, node.prop)
+            need(node.prop.attr)
+            return _json_path_pred(node.prop, _json_test(node.op, node.value))
         a = ft.attr(node.prop)
         col = node.prop
         if (a.type in ("int32", "int64")
@@ -1229,6 +1337,11 @@ def compile_filter(f: ir.Filter, ft: FeatureType,
         return _compare_fn(col, op, val)
 
     def compile_in(node: ir.In, neg: bool, exact: bool) -> Callable:
+        if isinstance(node.prop, ir.JsonPath):
+            _require_json_attr(ft, node.prop)
+            need(node.prop.attr)
+            tests = [_json_test("=", v) for v in node.values]
+            return _json_path_pred(node.prop, lambda v: any(t(v) for t in tests))
         a = ft.attr(node.prop)
         need(node.prop)
         if a.type == "string":

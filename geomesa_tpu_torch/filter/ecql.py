@@ -19,9 +19,12 @@ Copy of the recursive-descent parser in ``geomesa_tpu/filter/ecql.py``::
         st_area(geom) > 0.5
     NOT p | p AND q | p OR q | ( p )
 
+    jsonPath('$.a.b', attr) CMP literal        -- stored-JSON accessor, also
+                                              -- with BETWEEN / IN / LIKE /
+                                              -- IS NULL
+
 Functions resolve against the port's ``geofn`` ``st_*`` library. Dates are
-ISO-8601 (bare or quoted). ``jsonPath(...)`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+ISO-8601 (bare or quoted).
 """
 
 from __future__ import annotations
@@ -57,9 +60,6 @@ _KEYWORDS = {
     "ILIKE", "IS", "NULL",
 }
 
-
-#: ROADMAP item that ports the JSON paths this parser refuses
-_LATER = "ROADMAP Queue 1, extent geometries and expression predicates"
 
 #: DWITHIN / BEYOND distance units -> meters
 _UNITS = {
@@ -215,9 +215,15 @@ class _Parser:
     # -- scalar expressions (FastFilterFactory.scala:395 parity) ----------
     @staticmethod
     def _mk_arith(op: str, left, right):
-        """Build an Arith node; literal-only subtrees fold to a literal (so
-        'speed < 1 + 1' and unary minus keep the plain Compare IR and its
-        device pushdown)."""
+        """Build an Arith node; jsonPath() refs cannot ride arithmetic,
+        and literal-only subtrees fold to a literal (so 'speed < 1 + 1' and
+        unary minus keep the plain Compare IR and its device pushdown)."""
+        for side in (left, right):
+            if isinstance(side, ir.JsonPath):
+                raise ValueError(
+                    "jsonPath() cannot appear inside arithmetic "
+                    "expressions; compare it directly against a literal"
+                )
         if isinstance(left, ir.Lit) and isinstance(right, ir.Lit) \
                 and isinstance(left.value, (int, float, np.integer)) \
                 and isinstance(right.value, (int, float, np.integer)):
@@ -284,12 +290,23 @@ class _Parser:
             nt = self.peek()
             if nt and nt.kind == "sym" and nt.text == "(":
                 if name.lower() == "jsonpath":
-                    raise NotImplementedError(f"jsonPath: {_LATER}")
+                    self.next()
+                    path = str(self.literal())
+                    self.expect("sym", ",")
+                    attr = self.expect("id").text
+                    self.expect("sym", ")")
+                    return ir.JsonPath(attr, path)
                 self.next()
                 args = []
                 if not self.accept("sym", ")"):
                     while True:
-                        args.append(self.expr_operand())
+                        a = self.expr_operand()
+                        if isinstance(a, ir.JsonPath):
+                            raise ValueError(
+                                "jsonPath() cannot be a function argument;"
+                                " compare it directly against a literal"
+                            )
+                        args.append(a)
                         if not self.accept("sym", ","):
                             break
                     self.expect("sym", ")")
@@ -359,11 +376,16 @@ class _Parser:
                 self.expect("sym", ")")
                 return ir.IdIn(tuple(ids))
         # property-led predicates: the left side is a full scalar
-        # expression (property, arithmetic, st_* call); plain property
-        # against literal keeps the Compare IR (and its device pushdown),
-        # anything richer becomes ExprCompare
+        # expression (property, jsonPath(), arithmetic, st_* call); plain
+        # property against literal keeps the Compare IR (and its device
+        # pushdown), anything richer becomes ExprCompare
         lhs = self.expr_operand()
-        prop = lhs.name if isinstance(lhs, ir.Prop) else None
+        if isinstance(lhs, ir.JsonPath):
+            prop = lhs
+        elif isinstance(lhs, ir.Prop):
+            prop = lhs.name
+        else:
+            prop = None  # expression: comparison operators only
         t = self.peek()
         if t and t.kind == "op":
             op = self.next().text
@@ -375,6 +397,10 @@ class _Parser:
             if isinstance(lhs, ir.Lit) and isinstance(rhs, ir.Prop):
                 flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
                 return ir.Compare(rhs.name, flip.get(op, op), lhs.value)
+            if isinstance(lhs, ir.JsonPath) or isinstance(rhs, ir.JsonPath):
+                raise ValueError(
+                    "jsonPath() comparisons support literal operands only"
+                )
             if isinstance(lhs, ir.Lit) and isinstance(rhs, ir.Lit):
                 # constant comparison folds at parse time ('1 + 1 = 2').
                 # Dispatch on the op — eagerly building a table of all six

@@ -6,8 +6,9 @@ against a geometry literal, attribute comparisons (``Compare``,
 ``Between``, ``In``, ``Like``, ``IsNull``), DURING intervals (BEFORE /
 AFTER / TEQUALS parse to DURING), feature-id ``IdIn`` and expression
 comparisons (``ExprCompare`` over ``Prop`` / ``Lit`` / ``Arith`` /
-``FnCall`` trees); with the plan-time extraction of geometries,
-intervals, ids and attribute bounds. JSON paths are not part of it.
+``FnCall`` trees), and the ``JsonPath`` accessor a comparison, IN, LIKE
+or IS NULL may take for its property; with the plan-time extraction of
+geometries, intervals, ids and attribute bounds.
 """
 
 from __future__ import annotations
@@ -78,10 +79,20 @@ class DWithin(Filter):
 
 
 @dataclass(frozen=True)
+class JsonPath:
+    """A property reference into a stored-JSON attribute: the ECQL
+    ``jsonPath('$.a.b', attr)`` accessor. It stands where a property name
+    does; the filter compiler evaluates it on the host."""
+
+    attr: str
+    path: str
+
+
+@dataclass(frozen=True)
 class Compare(Filter):
     """=, <>, <, <=, >, >= on a scalar attribute."""
 
-    prop: str
+    prop: "str | JsonPath"
     op: str
     value: object  # float | int | str | bool | np.int64 epoch-ms for dates
 

@@ -28,9 +28,9 @@ and returns only once the record is on disk (ack = durable):
   group's fsync) and ``journal.replay`` (per segment read), as the
   reference's.
 
-The reference's metrics registry entries become counters on the journal
-object, reported by :meth:`MutationJournal.status`. Not here: the fleet
-epoch marker and the ``/healthz`` lag snapshot.
+Each journal also keeps its own counters (:meth:`MutationJournal.counters`)
+beside the process registry's ``journal.*`` series, which it bumps where
+the reference does. Not here: the fleet epoch marker.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config, resilience
+from geomesa_tpu_torch import config, metrics, resilience
 from geomesa_tpu_torch.resilience import fsync_dir
 
 #: json bytes, blob bytes, crc32(json + blob)
@@ -247,6 +247,10 @@ class MutationJournal:
         self.truncated_bytes = 0
         self._recover_segments()
         _JOURNALS.add(self)
+        # the process-wide pending-frame gauge (per root: lag_snapshot)
+        metrics.registry().gauge(
+            metrics.JOURNAL_LAG,
+            fn=lambda: float(sum(lag_snapshot().values())), replace=True)
 
     # -- write path -------------------------------------------------------------------
     def last_seq(self) -> int:
@@ -285,6 +289,7 @@ class MutationJournal:
             raise JournalError(f"journal append not durable: {p.error!r}") from p.error
         with self._lock:
             self.appends += 1
+        metrics.inc(metrics.JOURNAL_APPENDS)
         return seq
 
     def _commit_or_follow(self, p: _Pending) -> None:
@@ -326,10 +331,17 @@ class MutationJournal:
             # roll to a fresh segment (replay truncates the tear)
             with self._io_lock:
                 self._close_segment()
+        fsync_s = time.perf_counter() - t0
         with self._lock:
             self.fsyncs += 1
-            self.fsync_seconds += time.perf_counter() - t0
+            self.fsync_seconds += fsync_s
             self.group_sizes[len(batch)] += 1
+        metrics.registry().histogram(
+            metrics.JOURNAL_FSYNC_MS, metrics.JOURNAL_FSYNC_BUCKETS_MS,
+            unit=None).observe(fsync_s * 1000.0)
+        metrics.registry().histogram(
+            metrics.JOURNAL_GROUP_SIZE, metrics.JOURNAL_GROUP_BUCKETS,
+            unit=None).observe(float(len(batch)))
         for p in batch:
             p.error = err
             p.event.set()
@@ -389,6 +401,9 @@ class MutationJournal:
             with self._lock:
                 self.torn_tails += 1
                 self.truncated_bytes += max(total - good, 0)
+            metrics.registry().counter(
+                metrics.JOURNAL_TRUNCATED_BYTES).inc(max(total - good, 0))
+            metrics.inc(metrics.JOURNAL_TORN_TAILS)
 
     def _recover_segments(self) -> None:
         """Truncate torn tails now (before an append could extend past
@@ -442,6 +457,7 @@ class MutationJournal:
                 fsync_dir(self.dir)
                 with self._lock:
                     self.truncated_bytes += freed
+                metrics.registry().counter(metrics.JOURNAL_TRUNCATED_BYTES).inc(freed)
         return freed
 
     # -- status --------------------------------------------------------------------

@@ -3,11 +3,11 @@ windows (plan time).
 
 Copy of ``geomesa_tpu/index/keyspace.py`` cut to ``Z3KeySpace`` (point
 geometry + time), ``Z2KeySpace`` (point geometry), ``XZ3KeySpace`` and
-``XZ2KeySpace`` (extent geometries, + time for xz3), ``IdKeySpace``
-(feature-id hash) and ``AttributeKeySpace`` (one attribute, with a z2
-tiebreak), with ``KeyPlan`` (full scans included), range merging, window
-capping and the LSM append's insert positions. The s2 / s3 key spaces are
-not ported yet. Per-bin window resolution is NumPy ``searchsorted`` (the
+``XZ2KeySpace`` (extent geometries, + time for xz3), ``S2KeySpace`` and
+``S3KeySpace`` (S2 cell ids over point geometry, + time bins for s3),
+``IdKeySpace`` (feature-id hash) and ``AttributeKeySpace`` (one attribute,
+with a z2 tiebreak), with ``KeyPlan`` (full scans included), range merging,
+window capping and the LSM append's insert positions. Per-bin window resolution is NumPy ``searchsorted`` (the
 JAX package may use native C++ there; both give the same windows). The
 range budget is ``geomesa.scan.ranges.target`` unless a caller passes one;
 the per-shard window cap is an explicit argument instead of scoped
@@ -22,13 +22,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from geomesa_tpu_torch import config
-from geomesa_tpu_torch.curves.binned_time import TimePeriod
+from geomesa_tpu_torch.curves.binned_time import BinnedTime, TimePeriod
 from geomesa_tpu_torch.curves.cover import ZRange
+from geomesa_tpu_torch.curves.s2 import S2SFC
 from geomesa_tpu_torch.curves.xz import XZ2SFC, XZ3SFC
 from geomesa_tpu_torch.curves.zorder import Z2SFC, Z3SFC
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index import packsort
-from geomesa_tpu_torch.schema.feature_type import LATER_ITEM, FeatureType
+from geomesa_tpu_torch.schema.feature_type import FeatureType
 
 MAX_WINDOW_BINS = 64  # collapse per-bin windows beyond this many time bins
 
@@ -586,6 +587,170 @@ class XZ3KeySpace(KeySpace):
                             MAX_WINDOW_BINS)
 
 
+#: the S2 key space's extent: 6 faces of 2^60 Hilbert positions (the
+#: coverage divisor of an s2 / s3 plan)
+_S2_SPAN = float(6 << 60)
+
+
+def _s2_cover(keyspace, f) -> Tuple[Optional[List[ZRange]], bool]:
+    """(ranges, disjoint) of a filter's geometries over S2 leaf ids: one
+    cover of the geometries' common bounding box; (None, False) when the
+    filter bounds no geometry."""
+    geoms = ir.extract_geometries(f, keyspace.geom)
+    if geoms.disjoint:
+        return None, True
+    if geoms.is_empty:
+        return None, False
+    bs = np.asarray([g.bounds() for g in geoms.values])
+    bbox = (bs[:, 0].min(), bs[:, 1].min(), bs[:, 2].max(), bs[:, 3].max())
+    return keyspace.sfc.ranges(*bbox), False
+
+
+def _s2_windows(col: np.ndarray, ranges, sh: int, base: int = 0):
+    """Row windows of each leaf-id range over a sorted (quantized) key
+    segment, the non-empty ones, in range order."""
+    starts, ends = [], []
+    for r in ranges:
+        s = base + np.searchsorted(col, np.uint64(r.lo >> sh), side="left")
+        e = base + np.searchsorted(col, np.uint64(r.hi >> sh), side="right")
+        if e > s:
+            starts.append(s)
+            ends.append(e)
+    return starts, ends
+
+
+class S2KeySpace(KeySpace):
+    """S2 cell-id keys over point geometry (the reference's S2Index; the cell
+    math is ``curves/s2.py``). Covers ignore the planner's range budget and
+    windows cap at :data:`MAX_WINDOW_BINS`, as the JAX package's do."""
+
+    name = "s2"
+    kind = "s2"
+
+    def __init__(self, geom: str):
+        self.geom = geom
+        self.sfc = S2SFC(max_cells=64)
+        self.key_cols = ("__s2",)
+
+    def supports(self, ft):
+        return ft.has(self.geom) and ft.attr(self.geom).is_point
+
+    def index_keys(self, ft, cols):
+        return {"__s2": self.sfc.index(cols[self.geom + "__x"], cols[self.geom + "__y"])}
+
+    def sort_order(self, cols):
+        return np.argsort(cols["__s2"], kind="stable")
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__s2")
+        out = packsort.pack_sort(cols["__s2"], 64, force_shift=fs)
+        if out is None:
+            return None
+        perm, cq, _, shift = out
+        return perm, {"__s2": cq}, {"__s2": shift}
+
+    def plan(self, ft, f, ranges_target=None):
+        ranges, disjoint = _s2_cover(self, f)
+        if disjoint:
+            return KeyPlan(self, disjoint=True)
+        if ranges is None:
+            return KeyPlan(self, full_scan=True)
+        span = sum(r.hi - r.lo + 1 for r in ranges)
+        return KeyPlan(self, ranges=ranges, coverage=span / _S2_SPAN)
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        starts, ends = _s2_windows(shard_cols["__s2"], plan.ranges,
+                                   _shift_of(shard_cols, "__s2"))
+        if not starts:
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                            MAX_WINDOW_BINS)
+
+
+class S3KeySpace(KeySpace):
+    """(time bin, S2 cell id) keys: the reference's S3Index (S2 space and
+    BinnedTime period bins). More than 8 bins, or no geometry bound, scan
+    the bins' whole run."""
+
+    name = "s3"
+    kind = "s3"
+
+    def __init__(self, geom: str, dtg: str, period: "str | TimePeriod" = TimePeriod.WEEK):
+        self.geom = geom
+        self.dtg = dtg
+        self.sfc = S2SFC(max_cells=64)
+        self.binned = BinnedTime(period)
+        self.key_cols = ("__s3_bin", "__s3")
+
+    def supports(self, ft):
+        return (ft.has(self.geom) and ft.attr(self.geom).is_point
+                and ft.has(self.dtg) and ft.attr(self.dtg).type == "date")
+
+    def index_keys(self, ft, cols):
+        """Reuses the batch's ``<dtg>__bin`` column when its period matches."""
+        bin_col = self.dtg + "__bin"
+        if bin_col in cols and ft.time_period == self.binned.period:
+            b = cols[bin_col]
+        else:
+            b, _ = self.binned.to_bin_and_offset(cols[self.dtg])
+        return {
+            "__s3_bin": np.asarray(b, np.int32),
+            "__s3": self.sfc.index(cols[self.geom + "__x"], cols[self.geom + "__y"]),
+        }
+
+    def sort_order(self, cols):
+        return np.lexsort((cols["__s3"], cols["__s3_bin"]))
+
+    def fast_build(self, cols, force_shifts=None):
+        fs = None if force_shifts is None else force_shifts.get("__s3")
+        out = packsort.pack_sort(cols["__s3"], 64, prefix=cols["__s3_bin"],
+                                 force_shift=fs)
+        if out is None:
+            return None
+        perm, cq, bins_sorted, shift = out
+        return perm, {"__s3_bin": bins_sorted, "__s3": cq}, {"__s3": shift}
+
+    def plan(self, ft, f, ranges_target=None):
+        """None when the filter has no time bound (s3 cannot serve it)."""
+        intervals = ir.extract_intervals(f, self.dtg)
+        ranges, disjoint = _s2_cover(self, f)
+        if disjoint or intervals.disjoint:
+            return KeyPlan(self, disjoint=True)
+        if intervals.is_empty:
+            return None
+        CLAMP = 2**45
+        iv = [(max(lo, -CLAMP), min(hi, CLAMP)) for lo, hi in intervals.values]
+        bins = np.unique(
+            np.concatenate([self.binned.bins_between(lo, hi) for lo, hi in iv])
+        ).astype(np.int32)
+        if ranges is None:
+            return KeyPlan(self, ranges=[], bins=bins, coverage=1.0)
+        span = sum(r.hi - r.lo + 1 for r in ranges)
+        return KeyPlan(self, ranges=ranges, bins=bins, coverage=span / _S2_SPAN)
+
+    def resolve_windows(self, plan, shard_cols, n, cap):
+        bins_col = shard_cols["__s3_bin"]
+        col = shard_cols["__s3"]
+        bins = plan.bins
+        if len(bins) > 8 or not plan.ranges:
+            s = np.searchsorted(bins_col, bins[0], side="left")
+            e = np.searchsorted(bins_col, bins[-1], side="right")
+            return np.asarray([s], np.int64), np.asarray([e], np.int64)
+        sh = _shift_of(shard_cols, "__s3")
+        starts, ends = [], []
+        for b in bins.tolist():
+            s = np.searchsorted(bins_col, b, side="left")
+            e = np.searchsorted(bins_col, b, side="right")
+            if e > s:
+                ws, we = _s2_windows(col[s:e], plan.ranges, sh, int(s))
+                starts += ws
+                ends += we
+        if not starts:
+            return _empty_windows()
+        return _cap_windows(np.asarray(starts, np.int64), np.asarray(ends, np.int64),
+                            MAX_WINDOW_BINS)
+
+
 class IdKeySpace(KeySpace):
     """Feature-id index, keyed by a 64-bit hash of the fid: the window of
     hash(fid) is a superset (collisions included) and the ``IdIn`` mask
@@ -752,9 +917,10 @@ class AttributeKeySpace(KeySpace):
 def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
     """The indices of a schema: z3 (with a date) and z2 for a point
     geometry, xz3 (with a date) and xz2 for an extent geometry, id, and an
-    attribute index for every ``index=true`` attribute. The
-    ``geomesa.indices`` user-data key overrides them with a comma-separated
-    list of index kinds; kinds the schema cannot carry drop out."""
+    attribute index for every ``index=true`` attribute that is not Json.
+    The ``geomesa.indices`` user-data key overrides them with a
+    comma-separated list of index kinds (z3, z2, xz3, xz2, s2, s3, id,
+    attr); kinds the schema cannot carry drop out."""
     geom = ft.geom_field
     dtg = ft.dtg_field
     explicit = ft.user_data.get("geomesa.indices")
@@ -774,8 +940,6 @@ def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
         wanted += ["id", "attr"]
     out: List[KeySpace] = []
     for kind in wanted:
-        if kind in ("s2", "s3"):
-            raise NotImplementedError(f"{kind} index: {LATER_ITEM}")
         if kind == "z3" and geom and dtg:
             out.append(Z3KeySpace(geom, dtg, ft.time_period))
         elif kind == "z2" and geom:
@@ -784,11 +948,15 @@ def keyspaces_for_schema(ft: FeatureType) -> List[KeySpace]:
             out.append(XZ3KeySpace(geom, dtg, ft.time_period))
         elif kind == "xz2" and geom:
             out.append(XZ2KeySpace(geom))
+        elif kind == "s2" and geom:
+            out.append(S2KeySpace(geom))
+        elif kind == "s3" and geom and dtg:
+            out.append(S3KeySpace(geom, dtg, ft.time_period))
         elif kind == "id":
             out.append(IdKeySpace())
         elif kind == "attr":
             for a in ft.attributes:
-                if a.indexed and not a.is_geom:
+                if a.indexed and not a.is_geom and a.type != "json":
                     out.append(AttributeKeySpace(a.name, geom, a.type))
     if not any(isinstance(k, IdKeySpace) for k in out):
         out.append(IdKeySpace())

@@ -583,7 +583,7 @@ class PartitionedFeatureStore(FeatureStore):
             if t.n == 0 and n:
                 st.build_missing_table(t)
         for a in self.ft.attributes:
-            if a.indexed and not a.is_geom:
+            if a.indexed and not a.is_geom and a.type != "json":
                 st.ensure_attr_sketch(a.name)
 
     # -- statistics-pruned partial loads -----------------------------------------
@@ -787,7 +787,7 @@ class PartitionedFeatureStore(FeatureStore):
         permutation now, spilled ones when they load. Snapshots are not
         dirtied."""
         a = self.ft.attr(attr)
-        if a.is_geom:
+        if a.is_geom or a.type == "json":
             raise ValueError(f"cannot attribute-index {attr!r} ({a.type})")
         ks = AttributeKeySpace(attr, self.ft.geom_field, a.type)
         if any(k.name == ks.name for k in self.keyspaces):

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.index.keyspace import (
     MAX_SHARD_WINDOWS, AttributeKeySpace, KeyPlan, KeySpace, keyspaces_for_schema,
 )
@@ -32,10 +33,6 @@ from geomesa_tpu_torch.schema.columns import (
 )
 from geomesa_tpu_torch.schema.feature_type import FeatureType
 from geomesa_tpu_torch.stats import sketches as sk
-
-#: padded shard length rounds up to a multiple of this (the reference's
-#: geomesa.compact.shard.bucket), so small inserts keep one shape
-SHARD_BUCKET = 8192
 
 #: column dtype kinds that never reach the device
 _HOST_ONLY_KINDS = ("O", "U", "S")
@@ -77,9 +74,10 @@ class IndexTable:
         #: staged columns of the partition pipeline, consumed (and freed)
         #: by device_columns: stacked host arrays, or side-stream uploads
         self._host_stage: Dict[str, object] = {}
-        #: the padded shard length rounds up to a multiple of this;
-        #: partition children use 65536 (geomesa.partition.shard.bucket)
-        self.shard_len_multiple = SHARD_BUCKET
+        #: the padded shard length rounds up to a multiple of this (a
+        #: partition child's bucket); 1 reads geomesa.compact.shard.bucket
+        #: under bucketing when the length is asked for
+        self.shard_len_multiple = 1
 
     # -- build ------------------------------------------------------------
     def rebuild(self, columns: Dict[str, np.ndarray],
@@ -243,12 +241,17 @@ class IndexTable:
     @property
     def shard_len(self) -> int:
         """Padded per-shard length: the largest shard, rounded up to
-        :attr:`shard_len_multiple`."""
+        :attr:`shard_len_multiple`, or, when that is 1 and
+        ``geomesa.compact.bucketing`` is on, to
+        ``geomesa.compact.shard.bucket``, so a small insert keeps one
+        shape."""
         if self.n == 0:
             return 0
         m = int(np.max(np.diff(self.shard_bounds)))
         b = self.shard_len_multiple
-        return -(-m // b) * b
+        if b <= 1 and config.COMPACT_BUCKETING.to_bool():
+            b = config.COMPACT_SHARD_BUCKET.to_int() or 1
+        return m if b <= 1 else -(-m // b) * b
 
     def shard_slice(self, s: int) -> slice:
         return slice(int(self.shard_bounds[s]), int(self.shard_bounds[s + 1]))
@@ -305,8 +308,15 @@ class IndexTable:
         """Stacked, padded [S, L] tensors for ``names`` on the table's
         device (cached per column): a staged upload after its copy, a staged
         host array copied now, or the column stacked and copied now.
-        Host-only columns (fids, extent WKT, strings) are skipped."""
+        Host-only columns (fids, extent WKT, strings) are skipped. A change
+        of the padded length (``geomesa.compact.shard.bucket`` or
+        bucketing scoped otherwise) drops the cached and staged columns."""
         out = {}
+        if self._device_cache:
+            first = next(iter(self._device_cache.values()))
+            if first.shape[1] != self.shard_len:
+                self._device_cache.clear()
+                self._host_stage.clear()
         for name in dict.fromkeys(names):
             t = self._device_cache.get(name)
             if t is None:
@@ -372,7 +382,7 @@ def _init_stats(ft: FeatureType) -> Dict[str, object]:
         out["z3-histogram"] = sk.Z3HistogramStat(ft.geom_field, ft.dtg_field,
                                                  ft.time_period, 1024)
     for a in ft.attributes:
-        if a.indexed and not a.is_geom:
+        if a.indexed and not a.is_geom and a.type != "json":
             if a.type == "string":
                 out[f"enum-{a.name}"] = sk.EnumerationStat(a.name)
             else:
@@ -386,11 +396,12 @@ class FeatureStore:
 
     _uids = itertools.count()
 
-    def __init__(self, ft: FeatureType, n_shards: int, device: torch.device):
+    def __init__(self, ft: FeatureType, n_shards: Optional[int], device: torch.device):
         #: process-unique id: the aggregate cache scopes its entries by
         #: ``(uid, version)``, and ``id()`` can be recycled after GC
         self.uid = next(FeatureStore._uids)
         self.ft = ft
+        n_shards = n_shards or ft.shards or config.DEFAULT_SHARDS.to_int()
         self.n_shards = n_shards
         self.device = device
         self.dicts: Dict[str, DictionaryEncoder] = {}
@@ -411,8 +422,10 @@ class FeatureStore:
         #: calls :meth:`_bump_epoch`.
         self.mutation_epoch = uuid.uuid4().hex
         #: host seconds of the last flush by stage ("keys", "sketches",
-        #: then one entry per table)
+        #: then one entry per table: its sort and append)
         self.flush_seconds: Dict[str, float] = {}
+        #: host seconds of the last flush's key encode, by index
+        self.key_seconds: Dict[str, float] = {}
         #: the executor's caches of device artefacts made from this store
         #: (gathered slabs; a partition child's per-plan caches)
         self.device_state: Dict[str, Dict] = {}
@@ -441,8 +454,11 @@ class FeatureStore:
         fresh = ColumnBatch.concat(self._buffer, fills)
         self._buffer = []
         fresh_keys: Dict[str, np.ndarray] = {}
+        self.key_seconds = {}
         for ks in self.keyspaces:
+            t1 = time.perf_counter()
             fresh_keys.update(ks.index_keys(self.ft, fresh.columns))
+            self.key_seconds[ks.name] = time.perf_counter() - t1
         seconds = {"keys": time.perf_counter() - t0}
         t0 = time.perf_counter()
         # the period marker tells the z3 histogram the keys match its own
@@ -552,7 +568,7 @@ class FeatureStore:
         permutation over the master columns. The table pads its shards as
         the store's other tables do (a partition child's bucket)."""
         a = self.ft.attr(attr)
-        if a.is_geom:
+        if a.is_geom or a.type == "json":
             raise ValueError(f"cannot attribute-index {attr!r} ({a.type})")
         ks = AttributeKeySpace(attr, self.ft.geom_field, a.type)
         if ks.name in self.tables:

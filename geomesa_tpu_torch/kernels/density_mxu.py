@@ -1,10 +1,20 @@
-"""Host schedule for the grouped density kernel: (chunk, tile) candidates.
+"""Density as batched one-hot matrix products over (chunk, tile) pairs: the
+pair schedule of the grouped kernel and of the einsum rung, and the einsum
+rung itself.
 
-Copy of the host half of ``geomesa_tpu/kernels/density_mxu.py`` (``ladder8``,
-``_chunk_boxes``, ``pair_candidates``) for the z3 and z2 key spaces. Chunks
-are B-row runs of the z-sorted order, so each spans a small spatial box
-computed from its own sorted keys; a chunk is paired only with the grid
-tiles its box overlaps.
+Port of ``geomesa_tpu/kernels/density_mxu.py``: ``ladder8``,
+``_chunk_boxes`` and ``pair_candidates`` for the z3 and z2 key spaces (the
+grouped kernel's schedule), ``tile_shape``, ``pair_batch`` and
+``build_pairs`` (the einsum rung's, z3 and z2 only, as the reference's),
+and ``density_grid_pairs``. Chunks are B-row runs of the z-sorted order, so
+each spans a small spatial box computed from its own sorted keys; a chunk is
+paired only with the grid tiles its box overlaps, and each pair adds
+
+    tile[y, x] += sum_b onehot(py_b == y) * w_b * onehot(px_b == x)
+
+as one [TY, B] @ [B, TX] product. The JAX package leaves that einsum to
+XLA, outside any Pallas kernel, so here it is plain PyTorch (``torch.bmm``
+over batches of pairs) on the card and on the CPU, not a hand kernel.
 
 The xz3 / xz2 key spaces get chunk boxes too, which the JAX package does
 not give them (it scatters there): an xz code bounds an element only by
@@ -18,8 +28,36 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.zorder import deinterleave2, deinterleave3
+from geomesa_tpu_torch.kernels.density import pixel_coords
+
+#: rows one pair batch multiplies: PB pairs x B rows (~512 Ki)
+_PAIR_ROWS = 512 * 1024
+
+#: the einsum rung runs a pair batch in slices of at most this share of
+#: the scan's compacted rows, and no fewer than :data:`_SLICE_MIN_ROWS`:
+#: its f32 one-hots and their masks take about 430 bytes a row (XLA builds
+#: the reference's one-hots inside the product; here they are
+#: materialized), so a slice's scratch stays near the scan's own columns
+#: and a partitioned store streaming its partitions keeps the memory bound
+#: its residency budget sets, while each slice's dozen launches still run
+#: over enough rows
+_SLICE_SHARE = 8
+_SLICE_MIN_ROWS = 12 * 1024
+
+
+def tile_shape():
+    """The einsum rung's grid tile (TY, TX) in cells:
+    ``geomesa.mxu.tile.y`` / ``.x``."""
+    return (config.MXU_TILE_Y.to_int() or 32, config.MXU_TILE_X.to_int() or 64)
+
+
+def pair_batch(B: int) -> int:
+    """Pairs per product batch for B-row chunks."""
+    return max(8, min(4096, _PAIR_ROWS // max(B, 1)))
 
 
 def ladder8(n: int) -> int:
@@ -200,3 +238,74 @@ def pair_candidates(
         "chunk_of": chunk_of, "tx": tx, "ty": ty,
         "ntx": ntx, "nty": nty, "P": P,
     }
+
+
+def build_pairs(
+    compact: Dict, table, keyspace, bbox, width: int, height: int,
+    box_cache: Optional[Dict] = None,
+) -> Optional[Dict]:
+    """(chunk, tile) pair arrays of the einsum rung, ``n_pairs`` of each.
+    ``P`` is the reference's padded pair count (a multiple of the pair
+    batch above the ladder), kept only as the registry key's shape bucket.
+    None for a key space other than z3 / z2 (the scan scatters) or no
+    pair."""
+    if getattr(keyspace, "kind", None) not in ("z3", "z2"):
+        return None
+    TY, TX = tile_shape()
+    cand = pair_candidates(compact, table, keyspace, bbox, width, height, TY, TX,
+                           box_cache)
+    if cand is None:
+        return None
+    tx, ty, P = cand["tx"], cand["ty"], cand["P"]
+    PB = pair_batch(compact["B"])
+    return {
+        "chunk": cand["chunk_of"].astype(np.int32),
+        "px0": (tx * TX).astype(np.int32),
+        "py0": (ty * TY).astype(np.int32),
+        "tile": (ty * cand["ntx"] + tx).astype(np.int32),
+        "P": -(-ladder8(P) // PB) * PB, "PB": PB, "ntx": cand["ntx"],
+        "nty": cand["nty"], "TY": TY, "TX": TX, "n_pairs": P,
+    }
+
+
+def density_grid_pairs(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, bbox,
+                       width: int, height: int, weight: Optional[torch.Tensor],
+                       pairs: Dict) -> torch.Tensor:
+    """[C, B] compact columns and :func:`build_pairs`' arrays (as tensors on
+    the columns' device) -> (height, width) f32 grid.
+
+    A slice of a pair batch (at most 1/:data:`_SLICE_SHARE` of the scan's
+    [C, B] rows or :data:`_SLICE_MIN_ROWS`, whichever is more, and at
+    least one pair) gathers its chunks' pixels and
+    weights, builds f32 one-hots ([pb, B, TY] rows carrying the weight,
+    [pb, B, TX] columns) and multiplies them into pb tiles, which
+    ``index_add_`` sums into the grid's tiles; the slice's operands are
+    freed before the next. The products are float32 at
+    PyTorch's default matmul precision: 0/1 one-hots keep a count exact up
+    to 2^24, and a weighted product rounds as an f32 dot does (TF32, where
+    a caller enables it for the process, would keep about three digits of
+    each weight)."""
+    TY, TX, PB = pairs["TY"], pairs["TX"], pairs["PB"]
+    ntx, nty, n_pairs = pairs["ntx"], pairs["nty"], pairs["n_pairs"]
+    rows = max(_SLICE_MIN_ROWS, x.numel() // _SLICE_SHARE)
+    step = max(1, min(PB, rows // max(x.shape[-1], 1)))
+    dev = x.device
+    px, py = pixel_coords(x, y, bbox, width, height)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    w = mask.to(torch.float32) if weight is None else torch.where(
+        mask, weight.to(torch.float32), zero)
+    ix = torch.arange(TX, dtype=torch.int32, device=dev)
+    iy = torch.arange(TY, dtype=torch.int32, device=dev)
+    acc = torch.zeros((ntx * nty, TY * TX), dtype=torch.float32, device=dev)
+    for lo in range(0, n_pairs, step):
+        hi = min(lo + step, n_pairs)
+        pc = pairs["chunk"][lo:hi]
+        lx = px[pc] - pairs["px0"][lo:hi, None]
+        ly = py[pc] - pairs["py0"][lo:hi, None]
+        ohx = (lx[:, :, None] == ix).to(torch.float32)                    # [pb, B, TX]
+        rows = torch.where(ly[:, :, None] == iy, w[pc][:, :, None], zero)  # [pb, B, TY]
+        tiles = torch.bmm(rows.transpose(1, 2), ohx)                       # [pb, TY, TX]
+        acc.index_add_(0, pairs["tile"][lo:hi], tiles.reshape(hi - lo, TY * TX))
+        del ohx, rows, tiles
+    grid = acc.reshape(nty, ntx, TY, TX).permute(0, 2, 1, 3)
+    return grid.reshape(nty * TY, ntx * TX)[:height, :width].contiguous()

@@ -15,11 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: hash groups of the per-key sampling approximation for wide key spaces
-#: (the JAX package's geomesa.sample.hash-buckets; a power of two)
-SAMPLE_HASH_BUCKETS = 64
-
-
 def window_mask(starts: torch.Tensor, ends: torch.Tensor, counts: torch.Tensor,
                 L: int) -> torch.Tensor:
     """[S, K] local-row windows + [S] shard row counts -> [S, L] bool mask.

@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import resilience
+from geomesa_tpu_torch import metrics, resilience
 
 MAGIC = b"GMLAKE01"
 _TAIL = len(MAGIC) + 8
@@ -271,6 +271,7 @@ class LakeFile:
             fh.close()
             raise
         self.blobs: List[List[int]] = self.footer.get("blobs", [])
+        metrics.inc(metrics.LAKE_BYTES_READ, flen + _TAIL)
 
     def close(self) -> None:
         self._fh.close()
@@ -286,6 +287,7 @@ class LakeFile:
                 f"{self.path}: blob {ref} truncated ({len(payload)}/{length} bytes)")
         if (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
             raise LakeCorruptError(f"{self.path}: blob {ref} crc mismatch")
+        metrics.inc(metrics.LAKE_BYTES_READ, length)
         return payload
 
     def read_array(self, ref_meta: Dict[str, Any]) -> np.ndarray:

@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config
+from geomesa_tpu_torch import config, metrics
 from geomesa_tpu_torch.lake.format import LakeCorruptError, LakeFile, LakeWriter
 
 SNAPSHOT_FILE = "part.lake"
@@ -228,10 +228,14 @@ class PartitionSnapshot:
         return out
 
     def account(self, loaded: Sequence[int]) -> Dict[str, int]:
-        """Groups and bytes of a pruned load against the whole file."""
+        """Groups and bytes of a pruned load against the whole file, also
+        added to the process's ``lake.*`` counters."""
         total = len(self.groups)
         read_b = self.payload_bytes(loaded)
         all_b = self.payload_bytes(None)
+        metrics.inc(metrics.LAKE_ROWGROUPS_LOADED, len(loaded))
+        metrics.inc(metrics.LAKE_ROWGROUPS_PRUNED, total - len(loaded))
+        metrics.inc(metrics.LAKE_BYTES_SKIPPED, all_b - read_b)
         return {
             "groups_total": total,
             "groups_loaded": len(loaded),

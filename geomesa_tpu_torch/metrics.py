@@ -5,8 +5,10 @@ analog): the metric kinds, ``MetricRegistry`` with ``report``,
 ``prometheus`` (the ``/metrics`` text, with OpenMetrics exemplars on
 request), ``export_snapshot`` and ``clear``, the process registry with the
 ``inc`` / ``observe`` shorthands, and the names the aggregate cache, the
-cell-heat table, the executor's dispatch count, the kernel registry, the
-trace exporter, utilization, device health and the SLO monitor use. The names equal the JAX package's, so
+cell-heat table, the executor's dispatch count and compaction share, the
+partition pipeline, the joins, the lake tier, the mutation journal, the
+kernel registry, the trace exporter, utilization, device health and the
+SLO monitor use. The names equal the JAX package's, so
 one name reads the same count in both packages. The registry is per
 process, like the reference's.
 """
@@ -375,6 +377,69 @@ CACHE_PERSIST_RESTORED = "cache.persist.restored"
 #   exec.device.dispatch   device scans the executors launched (a warm
 #                          zoom-out served by the cache launches none)
 EXEC_DEVICE_DISPATCH = "exec.device.dispatch"
+#   compact.desc.shared    compacted-scan descriptors served from the
+#                          store's content-addressed share (another plan
+#                          resolved the same windows)
+COMPACT_DESC_SHARED = "compact.desc.shared"
+#   pipeline.prefetch      partitions the prefetch worker staged
+PIPELINE_PREFETCH = "pipeline.prefetch"
+# Spatial joins (planning/join_exec.py, api/dataset.py):
+#   join.queries           spatial joins run (count and pair forms)
+#   join.cells             co-partition cells with rows on both sides
+#   join.candidate.pairs   pairwise tests dispatched
+#   join.pairs             matched pairs emitted
+#   join.cells.<strategy>  joint cells by strategy (pairwise, brute,
+#                          split, interior)
+#   join.pushdown.bytes    payload bytes a pushdown side scan read
+#   join.pushdown.residency.hits / .bytes  row-group chunks served from
+#                          the cross-chunk residency, and the payload bytes
+#                          a re-decode would have read
+JOIN_QUERIES = "join.queries"
+JOIN_CELLS = "join.cells"
+JOIN_CANDIDATE_PAIRS = "join.candidate.pairs"
+JOIN_PAIRS = "join.pairs"
+JOIN_CELLS_STRATEGY = "join.cells."
+JOIN_PUSHDOWN_BYTES = "join.pushdown.bytes"
+JOIN_PUSHDOWN_RESIDENCY_HITS = "join.pushdown.residency.hits"
+JOIN_PUSHDOWN_RESIDENCY_BYTES = "join.pushdown.residency.bytes"
+# The lake tier (lake/format.py, lake/snapshot.py,
+# planning/partitioned_exec.py):
+#   lake.bytes.read        payload and footer bytes read
+#   lake.bytes.skipped     payload bytes statistics pruning never touched
+#   lake.rowgroups.loaded  row groups decoded for scans
+#   lake.rowgroups.pruned  row groups footer statistics excluded
+#   lake.pushdown.scans    partition scans a pruned partial load served
+#   lake.pushdown.fallback pushdown asked for but served by a whole load
+LAKE_BYTES_READ = "lake.bytes.read"
+LAKE_BYTES_SKIPPED = "lake.bytes.skipped"
+LAKE_ROWGROUPS_LOADED = "lake.rowgroups.loaded"
+LAKE_ROWGROUPS_PRUNED = "lake.rowgroups.pruned"
+LAKE_PUSHDOWN_SCANS = "lake.pushdown.scans"
+LAKE_PUSHDOWN_FALLBACK = "lake.pushdown.fallback"
+# The mutation journal (fs/journal.py, api/dataset.py):
+#   journal.appends          records made durable (acked appends)
+#   journal.group.size       histogram: appends per group-commit fsync
+#   journal.fsync_ms         histogram: a group's write and fsync (ms)
+#   journal.replayed         records re-applied by a replay
+#   journal.truncated_bytes  bytes reclaimed by checkpoints or clipped
+#                            from torn tails
+#   journal.torn_tails       torn segment tails truncated
+#   journal.lag              gauge: appended records not yet durable
+JOURNAL_APPENDS = "journal.appends"
+JOURNAL_GROUP_SIZE = "journal.group.size"
+JOURNAL_FSYNC_MS = "journal.fsync_ms"
+JOURNAL_REPLAYED = "journal.replayed"
+JOURNAL_TRUNCATED_BYTES = "journal.truncated_bytes"
+JOURNAL_TORN_TAILS = "journal.torn_tails"
+JOURNAL_LAG = "journal.lag"
+#: group-commit width buckets (appends per fsync)
+JOURNAL_GROUP_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+#: group-commit fsync latency buckets (milliseconds)
+JOURNAL_FSYNC_BUCKETS_MS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
+                            50.0, 100.0, 250.0)
+# Query timers (api/dataset.py): query.plan, query.scan (count and the
+# feature calls) and query.density (density, density_curve and their
+# batches)
 # Partition spills (index/partitioned.py):
 #   index.spill.quarantined   corrupt snapshots quarantined
 SPILL_QUARANTINED = "index.spill.quarantined"

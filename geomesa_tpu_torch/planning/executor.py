@@ -89,6 +89,7 @@ from geomesa_tpu_torch.curves.zorder import interleave2
 from geomesa_tpu_torch.index.store import FeatureStore, IndexTable
 from geomesa_tpu_torch.kernels import density as kdensity
 from geomesa_tpu_torch.kernels import density_grouped as kgrouped
+from geomesa_tpu_torch.kernels import density_mxu as kmxu
 from geomesa_tpu_torch.kernels import knn as kknn
 from geomesa_tpu_torch.kernels import masks as kmasks
 from geomesa_tpu_torch.kernels import stats_scan as kstats
@@ -109,12 +110,8 @@ _B_LADDER = (128, 256, 512, 1024, 2048, 4096)
 #: gathered [C, B] column slabs kept per executor before the cache clears
 _GATHER_CACHE = 64
 
-#: candidate rows beyond k the threshold top-k keeps for boundary ties
-#: (the JAX package's geomesa.topk.tie-slack)
-TOPK_TIE_SLACK = 4096
-
 #: the largest dictionary the exact per-key sampling counter serves; wider
-#: int32 keys hash into kmasks.SAMPLE_HASH_BUCKETS groups
+#: int32 keys hash into ``geomesa.sample.hash-buckets`` groups
 SAMPLE_EXACT_VOCAB = 256
 
 #: rows per chunk of features_iter (the JAX package's
@@ -190,8 +187,22 @@ def _padded_agg(setup, cols, m, fn, args):
     return fn(cols, m, torch, *args).reshape(-1).cpu().numpy()
 
 
+def _desc_id(d) -> tuple:
+    """What tells two compaction descriptors of one plan apart (a scoped
+    ``geomesa.compact.b`` or shard bucket gives the plan another): the
+    chunk size and count, the windows and the first chunk starts."""
+    return (d["B"], d["C"], d["whash"], int(d["cstart"][0]) if len(d["cstart"]) else 0)
+
+
+def _hash_buckets() -> int:
+    """The hash groups of per-key sampling (``geomesa.sample.hash-buckets``;
+    its default when unset or 0, since 0 routes keys away from hashing)."""
+    return config.SAMPLE_HASH_BUCKETS.to_int() or int(config.SAMPLE_HASH_BUCKETS.default)
+
+
 def _scan_mask(compiled, cols, wm: torch.Tensor, excise_band=True, sampling=None,
-               sample_by=None, sb_mode=None, sb_off=0, sb_vocab=0) -> torch.Tensor:
+               sample_by=None, sb_mode=None, sb_off=0, sb_vocab=0,
+               sb_buckets=0) -> torch.Tensor:
     """window & compiled predicate & ~band, then sampling."""
     m = wm & compiled(cols, torch)
     if compiled.band is not None and excise_band:
@@ -199,8 +210,7 @@ def _scan_mask(compiled, cols, wm: torch.Tensor, excise_band=True, sampling=None
         # from their f64 values by the band correction
         m = m & ~compiled.band(cols, torch)
     if sampling and sample_by and sb_mode == "hash":
-        m = kmasks.sampling_mask_by_key_hash(m, sampling, cols[sample_by],
-                                             kmasks.SAMPLE_HASH_BUCKETS)
+        m = kmasks.sampling_mask_by_key_hash(m, sampling, cols[sample_by], sb_buckets)
     elif sampling and sample_by:
         m = kmasks.sampling_mask_by_key_device(m, sampling, cols[sample_by] - sb_off, sb_vocab)
     elif sampling:
@@ -220,20 +230,22 @@ class _ScanFn:
     ``kernel:<name>`` dispatch records."""
 
     __slots__ = ("compiled", "excise_band", "sampling", "sample_by", "sb_mode",
-                 "sb_off", "sb_vocab", "agg", "fresh")
+                 "sb_off", "sb_vocab", "sb_buckets", "agg", "fresh")
 
     def __init__(self, compiled, agg, sampling=None, sample_by=None, sb_mode=None,
-                 sb_off=0, sb_vocab=0, excise_band=True):
+                 sb_off=0, sb_vocab=0, excise_band=True, sb_buckets=0):
         self.compiled = compiled
         self.excise_band = excise_band
         self.sampling, self.sample_by = sampling, sample_by
         self.sb_mode, self.sb_off, self.sb_vocab = sb_mode, sb_off, sb_vocab
+        self.sb_buckets = sb_buckets
         self.agg = agg
         self.fresh = True
 
     def mask(self, cols, wm: torch.Tensor) -> torch.Tensor:
         return _scan_mask(self.compiled, cols, wm, self.excise_band, self.sampling,
-                          self.sample_by, self.sb_mode, self.sb_off, self.sb_vocab)
+                          self.sample_by, self.sb_mode, self.sb_off, self.sb_vocab,
+                          self.sb_buckets)
 
     def __call__(self, setup, cols, wm, extra=()):
         if self.fresh:
@@ -286,11 +298,11 @@ class _BatchFn:
 
 class Executor:
     """Runs plans over one store. ``compact_min_rows`` /
-    ``compact_fraction`` are the JAX package's ``geomesa.compact.min.rows``
-    / ``geomesa.compact.fraction``."""
+    ``compact_fraction`` override ``geomesa.compact.min.rows`` /
+    ``geomesa.compact.fraction``; None reads the knob at each scan."""
 
-    def __init__(self, store: FeatureStore, compact_min_rows: int = 1 << 20,
-                 compact_fraction: float = 0.5, version_source=None):
+    def __init__(self, store: FeatureStore, compact_min_rows: Optional[int] = None,
+                 compact_fraction: Optional[float] = None, version_source=None):
         self.store = store
         self.device = store.device
         self.compact_min_rows = compact_min_rows
@@ -348,7 +360,7 @@ class Executor:
             else:
                 head = (cache_key, setup["L"], setup["starts"].shape[1])
             key = head + (sampling, sample_by, sb_mode, sb_off, sb_vocab,
-                          kmasks.SAMPLE_HASH_BUCKETS)
+                          setup["sb_buckets"])
             token = plan.__dict__.get("cache_token")
             if token is not None:
                 reg = self.kernel_registry()
@@ -362,7 +374,7 @@ class Executor:
                 self._note(plan, kernel="hit")
                 return fn
         fn = _ScanFn(plan.compiled, agg, sampling, sample_by, sb_mode, sb_off,
-                     sb_vocab, excise_band)
+                     sb_vocab, excise_band, setup["sb_buckets"])
         if reg is not None:
             reg.put(key, fn)
             self._note(plan, kernel="trace")
@@ -447,6 +459,7 @@ class Executor:
             and (compiled.refine is None or compiled.refine_only_if_band),
             "coarse_device": not host_only and compiled.refine is not None,
             "sb_mode": sb_mode, "sb_off": sb_off, "sb_vocab": sb_vocab,
+            "sb_buckets": _hash_buckets(),
             # a cached scan callable reads the call's plan and executor here
             "plan": plan, "ex": self,
         }
@@ -456,15 +469,18 @@ class Executor:
         the reference chooses: ``exact`` for a dictionary of at most
         :data:`SAMPLE_EXACT_VOCAB` codes, ``exact-span`` for an int32 key
         whose values span fewer than that (offset by the minimum), else
-        ``hash``; (None, 0, 0) for no key or a key the device cannot count
-        exactly (float, int64, host-only), which samples on the host."""
+        ``hash`` (None when ``geomesa.sample.hash-buckets`` is 0); (None,
+        0, 0) for no key or a key the device cannot count exactly (float,
+        int64, host-only), which samples on the host."""
         if not sb or table.is_host_only(sb) or table.dtype_of(sb) != np.int32:
             return None, 0, 0
+        hashed = ("hash" if (config.SAMPLE_HASH_BUCKETS.to_int() or 0) > 0
+                  else None), 0, 0
         d = self.store.dicts.get(sb)
         if d is not None:
             if 0 < len(d) <= SAMPLE_EXACT_VOCAB:
                 return "exact", 0, len(d)
-            return "hash", 0, 0
+            return hashed
         span = c.setdefault("sb_span", {})
         if sb not in span:
             col = table.col_sorted(sb)
@@ -472,7 +488,7 @@ class Executor:
         lo, hi = span[sb]
         if 0 <= hi - lo < SAMPLE_EXACT_VOCAB:
             return "exact-span", lo, hi - lo + 1
-        return "hash", 0, 0
+        return hashed
 
     def _fine_windows(self, plan: QueryPlan, setup):
         """Windows re-resolved from a re-covered key plan under the much
@@ -480,21 +496,22 @@ class Executor:
         compacted layout costs per admitted row and the density schedule
         wants spatially tight chunks."""
         c = setup["cache"]
-        if "fine" not in c:
+        cover = config.COMPACT_COVER.to_int() or 0
+        key = ("fine", cover, config.SCAN_RANGES_TARGET.to_int())
+        if key not in c:
             table = setup["table"]
             # the fine cover depends on the filter and the index alone: it
             # rides on the plan, shared by every partition a plan scans
             covers = plan.__dict__.setdefault("_fine_key_plans", {})
-            cover = config.COMPACT_COVER.to_int() or 0
             if cover <= (config.SCAN_RANGES_TARGET.to_int() or 2000):
-                c["fine"] = (None, None)  # no finer than the planner's cover
-                return c["fine"]
+                c[key] = (None, None)  # no finer than the planner's cover
+                return c[key]
             if (plan.index_name, cover) not in covers:
                 covers[(plan.index_name, cover)] = table.keyspace.plan(
                     self.store.ft, plan.filter, cover)
             kp = covers[(plan.index_name, cover)]
-            c["fine"] = (None, None) if kp is None else table.windows(kp, cap=cover)
-        return c["fine"]
+            c[key] = (None, None) if kp is None else table.windows(kp, cap=cover)
+        return c[key]
 
     def _compact_candidates(self, plan: QueryPlan, setup):
         """(starts, ends, B, lens) of the window set and chunk size with the
@@ -508,8 +525,14 @@ class Executor:
                 return None
             flat = lens.reshape(-1)
             rows_at = {Bc: int((-(-flat // Bc)).sum()) * Bc for Bc in ladder}
-            floor_rows = min(rows_at.values())
-            B = max(b for b, r in rows_at.items() if r <= 1.10 * floor_rows)
+            override = config.COMPACT_B.to_int() or 0
+            if override:
+                # clamp the knob onto the ladder (a B off it, or above L,
+                # would break the slab clamp arithmetic)
+                B = min(ladder, key=lambda b: abs(b - override))
+            else:
+                floor_rows = min(rows_at.values())
+                B = max(b for b, r in rows_at.items() if r <= 1.10 * floor_rows)
             return B, rows_at[B], lens
 
         cands = []
@@ -528,30 +551,71 @@ class Executor:
         _, _, starts, ends, B, lens = cands[0]
         return starts, ends, B, lens
 
+    def _compact_knobs(self):
+        """(min rows, fraction) of this scan: the constructor's overrides,
+        else ``geomesa.compact.min.rows`` / ``.fraction``."""
+        min_rows = self.compact_min_rows
+        if min_rows is None:
+            min_rows = config.COMPACT_MIN_ROWS.to_int() or 0
+        frac = self.compact_fraction
+        if frac is None:
+            frac = config.COMPACT_FRACTION.to_float()
+            frac = 0.5 if frac is None else frac
+        return min_rows, frac
+
     def _maybe_compact(self, plan: QueryPlan, setup) -> None:
         """Set ``setup['compact']`` to the chunk descriptor of the compacted
         layout, or None (padded layout). Chunks are B-row slabs covering
         every window in global row order; ``lo`` carries the end-of-table
-        clamp: chunk c's valid rows sit at [lo, lo + valid) from cstart."""
+        clamp: chunk c's valid rows sit at [lo, lo + valid) from cstart.
+        ``geomesa.compact.enabled`` and the row floor are read at each
+        scan; the descriptor is cached per plan under the knobs that shape
+        it (``geomesa.compact.b``, the fraction, ``geomesa.compact.cover``)
+        and shared by content across the store's plans (the reference's
+        ``compact.desc.shared``). ``cache['compact']`` keeps the last
+        scan's descriptor."""
+        setup["compact"] = None
+        min_rows, frac = self._compact_knobs()
+        if not config.COMPACT_ENABLED.to_bool() or setup["table"].n < min_rows:
+            return
         c = setup["cache"]
-        if "compact" not in c:
-            c["compact"] = self._build_compact(plan, setup)
-        setup["compact"] = c["compact"]
+        descs = c.setdefault("compact_descs", {})
+        ckey = (setup["L"], config.COMPACT_B.to_int(), frac, config.COMPACT_COVER.to_int())
+        if ckey not in descs:
+            descs[ckey] = self._build_compact(plan, setup, frac)
+        # the last compacted scan's descriptor
+        setup["compact"] = c["compact"] = descs[ckey]
 
-    def _build_compact(self, plan: QueryPlan, setup):
+    def _build_compact(self, plan: QueryPlan, setup, frac: float):
         table = setup["table"]
-        if table.n < self.compact_min_rows:
-            return None
         chosen = self._compact_candidates(plan, setup)
         if chosen is None:
             return None
-        L = setup["L"]
         starts, ends, B, lens = chosen
+        # the descriptor is pure in the resolved windows' bytes, the layout
+        # and the refusal's inputs: another plan (or site) that resolves the
+        # same windows reuses it (keyed by the bytes, never their hash)
+        share = self.store.__dict__.setdefault("_desc_share", {})
+        skey = ("flat", B, setup["L"], table.n, frac, starts.shape, starts.tobytes(),
+                ends.tobytes())
+        if skey in share:
+            metrics.inc(metrics.COMPACT_DESC_SHARED)
+            return share[skey]
+        if len(share) >= 64:
+            share.clear()
+        share[skey] = desc = self._chunk_desc(table, starts, ends, B, lens, frac)
+        return desc
+
+    @staticmethod
+    def _chunk_desc(table, starts, ends, B: int, lens, frac: float):
+        """The chunk descriptor of windows ``starts`` / ``ends`` in B-row
+        slabs, or None when they admit most of the table."""
         S, K = starts.shape
+        L = table.shard_len
         flat_lens = lens.reshape(-1)
         nc = -(-flat_lens // B)
         C = int(nc.sum())
-        if C * B >= table.n * self.compact_fraction:
+        if C * B >= table.n * frac:
             return None  # windows admit most of the table
         win = np.repeat(np.arange(S * K), nc)
         j = np.arange(C) - np.repeat(np.cumsum(nc) - nc, nc)
@@ -580,7 +644,8 @@ class Executor:
         bounded cache, as the reference caches its slab gathers."""
         d = setup["compact"]
         table = setup["table"]
-        key0 = (table.keyspace.name, d["whash"], d["B"], d["C"], self.store.version)
+        key0 = (table.keyspace.name, d["whash"], d["B"], d["C"], setup["L"],
+                 self.store.version)
         out, missing = {}, []
         for n in names:
             hit = self._gathered.get(key0 + (n,))
@@ -644,9 +709,10 @@ class Executor:
         if d is None:
             return self._padded_window_mask(setup)
         c = setup["cache"]
-        if "compact_win" not in c:
-            c["compact_win"] = (self._tensor(d["lo"]), self._tensor(d["valid"]))
-        lo, valid = c["compact_win"]
+        key = ("compact_win",) + _desc_id(d)
+        if key not in c:
+            c[key] = (self._tensor(d["lo"]), self._tensor(d["valid"]))
+        lo, valid = c[key]
         iota = torch.arange(d["B"], dtype=torch.int32, device=self.device)[None, :]
         return (iota >= lo[:, None]) & (iota < (lo + valid)[:, None])
 
@@ -655,7 +721,8 @@ class Executor:
         ~band, then sampling."""
         h = plan.hints
         return _scan_mask(plan.compiled, cols, self._window_mask(setup), True, h.sampling,
-                          h.sample_by, setup["sb_mode"], setup["sb_off"], setup["sb_vocab"])
+                          h.sample_by, setup["sb_mode"], setup["sb_off"], setup["sb_vocab"],
+                          setup["sb_buckets"])
 
     # -- the f32 band --------------------------------------------------------
     def _band_info(self, plan: QueryPlan, setup) -> Optional[np.ndarray]:
@@ -763,7 +830,7 @@ class Executor:
             key = setup["table"].rows([h.sample_by], pos)[h.sample_by]
             if setup["sb_mode"] == "hash":
                 keep = kmasks.sampling_mask_by_key_hash_np(
-                    keep, h.sampling, key, kmasks.SAMPLE_HASH_BUCKETS)
+                    keep, h.sampling, key, setup["sb_buckets"])
             else:
                 codes = np.unique(key, return_inverse=True)[1].reshape(-1)
                 keep = kmasks.sampling_mask_by_key(keep, h.sampling, codes)
@@ -916,7 +983,7 @@ class Executor:
             return None
         c = setup["cache"]
         max_dup = config.DENSITY_PALLAS_MAX_DUP.to_float()
-        key = ("grouped", tuple(float(v) for v in bbox), width, height, max_dup)
+        key = ("grouped", tuple(float(v) for v in bbox), width, height, max_dup) + _desc_id(d)
         hit = c.get(key)
         if hit is None:
             table = setup["table"]
@@ -935,6 +1002,48 @@ class Executor:
             c[key] = hit
         return hit or None
 
+    def _pair_schedule(self, plan: QueryPlan, setup, bbox, width, height):
+        """The einsum rung's pair schedule (tensors on the device), cached
+        per (plan, grid, tile shape); None when the scan is not compacted,
+        the index is neither z3 nor z2, or no chunk meets the grid."""
+        d = setup["compact"]
+        if d is None:
+            return None
+        c = setup["cache"]
+        key = (("pairs", tuple(float(v) for v in bbox), width, height, kmxu.tile_shape())
+               + _desc_id(d))
+        hit = c.get(key)
+        if hit is None:
+            table = setup["table"]
+            pr = kmxu.build_pairs(d, table, table.keyspace, bbox, width, height,
+                                  box_cache=c.setdefault("boxes", {}))
+            hit = False
+            if pr is not None:
+                hit = dict(pr)
+                for k in ("chunk", "tile"):
+                    hit[k] = self._tensor(pr[k].astype(np.int64))
+                for k in ("px0", "py0"):
+                    hit[k] = self._tensor(pr[k])
+                # the registry key's suffix, the reference's einsum one
+                hit["key"] = ("mxu", int(pr["P"]), int(pr["PB"]), int(pr["TX"]),
+                              int(pr["TY"]))
+            c[key] = hit
+        return hit or None
+
+    def _density_rung(self, plan: QueryPlan, setup, bbox, width, height):
+        """(rung, schedule) of a density scan, in the reference's order: the
+        grouped kernel (``geomesa.density.pallas``), then the einsum pairs
+        (``geomesa.density.mxu``), else the scatter (schedule None)."""
+        if config.DENSITY_PALLAS.to_bool():
+            sched = self._grouped_schedule(plan, setup, bbox, width, height)
+            if sched is not None:
+                return "grouped", sched
+        if config.DENSITY_MXU.to_bool():
+            sched = self._pair_schedule(plan, setup, bbox, width, height)
+            if sched is not None:
+                return "mxu-einsum", sched
+        return "scatter", None
+
     def _density_cols(self, weight):
         geom = self.store.ft.geom_field
         return [geom + "__x", geom + "__y"] + ([weight] if weight else [])
@@ -950,8 +1059,8 @@ class Executor:
             return None
         self._maybe_compact(plan, setup)
         cols, m = self._fused(plan, setup, agg_cols)
-        sched = self._grouped_schedule(plan, setup, bbox, width, height)
-        if sched is None:
+        rung, sched = self._density_rung(plan, setup, bbox, width, height)
+        if rung != "grouped":
             return None
         xc, yc = agg_cols[:2]
         return {"x": cols[xc], "y": cols[yc], "mask": m,
@@ -960,32 +1069,32 @@ class Executor:
 
     def density(self, plan: QueryPlan, bbox, width: int, height: int,
                 weight: Optional[str] = None, as_numpy: bool = True):
-        """(height, width) f32 density grid. Compacted scans of a Morton
-        index with a pair schedule run the grouped CUDA kernel; other
-        device scans the scatter (the reference's XLA rungs); host paths
-        grid their exact rows on the host. ``as_numpy=False`` returns the
-        grid as a tensor on the device (None for an empty scan)."""
+        """(height, width) f32 density grid. A compacted scan takes the
+        reference's ladder: the grouped CUDA kernel where its schedule
+        exists (z3 / z2 / xz), then the einsum pairs (z3 / z2), then the
+        scatter, which the padded layout always takes; host paths grid
+        their exact rows on the host. ``exec_path['density_kernel']`` names
+        the rung. ``as_numpy=False`` returns the grid as a tensor on the
+        device (None for an empty scan)."""
         agg_cols = self._density_cols(weight)
         xc, yc = agg_cols[:2]
 
         def device_agg(setup, cols, m):
             ex, p = setup["ex"], setup["plan"]
-            sched = ex._grouped_schedule(p, setup, bbox, width, height)
-            if sched is not None:
-                ex._note(p, density_kernel="grouped")
-                grid = kgrouped.density_grouped(
-                    cols[xc], cols[yc], m,
-                    None if weight is None else cols[weight].to(torch.float32),
-                    bbox, width, height, sched,
-                )
-            else:
-                ex._note(p, density_kernel="scatter")
-                grid = kdensity.density_grid(cols[xc], cols[yc], m, bbox, width,
-                                             height, cols[weight] if weight else None)
-            return grid
+            rung, sched = ex._density_rung(p, setup, bbox, width, height)
+            ex._note(p, density_kernel=rung)
+            w = None if weight is None else cols[weight].to(torch.float32)
+            if rung == "grouped":
+                return kgrouped.density_grouped(cols[xc], cols[yc], m, w, bbox, width,
+                                                height, sched)
+            if rung == "mxu-einsum":
+                return kmxu.density_grid_pairs(cols[xc], cols[yc], m, bbox, width,
+                                               height, w, sched)
+            return kdensity.density_grid(cols[xc], cols[yc], m, bbox, width, height,
+                                         cols[weight] if weight else None)
 
         def compact_key(setup):
-            sched = self._grouped_schedule(plan, setup, bbox, width, height)
+            _, sched = self._density_rung(plan, setup, bbox, width, height)
             return () if sched is None else sched["key"]
 
         def host_agg(rows, pos):
@@ -1585,10 +1694,13 @@ class Executor:
         """Threshold top-k (see :meth:`top_rows`): the smallest f32 key t
         with at least k keys <= t by 48 halvings of ``(lo + hi) * 0.5``,
         each a masked count, all on the device; then the rows with keys
-        <= t, in row order, into a buffer of k + :data:`TOPK_TIE_SLACK`.
+        <= t, in row order, into a buffer of k + ``geomesa.topk.tie-slack``.
         f64 and int columns rank at f32, whose monotone rounding keeps the
         selection a superset; the host sort restores exact order."""
-        B = int(k + TOPK_TIE_SLACK)
+        slack = config.TOPK_TIE_SLACK.to_int()
+        if slack is None:
+            slack = int(config.TOPK_TIE_SLACK.default)
+        B = int(k + slack)
 
         def device_agg(setup, cols, m):
             v = cols[attr].reshape(-1).to(torch.float32)

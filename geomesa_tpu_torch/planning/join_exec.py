@@ -687,11 +687,28 @@ def run_join(lx, ly, rx, ry, predicate: str, distance=None, dx=None,
         plan = co_partition(lx, ly, rx, ry, predicate, reach_x, reach_y,
                             level=level, p0=p0, p1=p1, wrap_x=wrap_x,
                             adaptive=adaptive)
+    _record_cells(plan.stats)
     tracing.add_cost("join_cells", float(plan.stats.cells_joint))
     tracing.add_cost("join_candidate_pairs", float(plan.stats.candidate_pairs))
     pairs, total = execute_predicate(plan, lx, ly, rx, ry, predicate,
                                      device=device, want_pairs=want_pairs)
+    metrics.inc(metrics.JOIN_PAIRS, total)
     return pairs, total, plan.stats
+
+
+def _record_cells(stats: JoinStats) -> None:
+    metrics.inc(metrics.JOIN_CELLS, stats.cells_joint)
+    metrics.inc(metrics.JOIN_CANDIDATE_PAIRS, stats.candidate_pairs)
+    for s, k in stats.strategy_cells.items():
+        metrics.inc(metrics.JOIN_CELLS_STRATEGY + s, k)
+
+
+def record_metrics(stats: JoinStats, total: int) -> None:
+    """One join's ``join.cells``, ``join.candidate.pairs``,
+    ``join.cells.<strategy>`` and ``join.pairs`` (the pairwise join counts
+    its cells before its kernels run, as the reference's does)."""
+    _record_cells(stats)
+    metrics.inc(metrics.JOIN_PAIRS, total)
 
 
 def execute_predicate(plan: JoinPlan, lx, ly, rx, ry, predicate: str,
@@ -850,6 +867,7 @@ def run_polygon_join(px, py, geoms, predicate: str,
                 ], axis=1))
     total = len(wholesale) + kernel_total
     stats.matched = total
+    record_metrics(stats, total)
     if not want_pairs:
         return None, total, stats
     blocks = [b for b in ([wholesale] + matched_blocks) if len(b)]

@@ -66,7 +66,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch import config, resilience, tracing
+from geomesa_tpu_torch import config, metrics, resilience, tracing
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index.partitioned import PartitionedFeatureStore
 from geomesa_tpu_torch.index.staging import Uploader
@@ -122,8 +122,9 @@ class PartitionedExecutor:
     turns the pipeline's worker on or off, with the same results (unset,
     ``geomesa.pipeline.prefetch`` decides at each call)."""
 
-    def __init__(self, store: PartitionedFeatureStore, compact_min_rows: int = 1 << 20,
-                 compact_fraction: float = 0.5):
+    def __init__(self, store: PartitionedFeatureStore,
+                 compact_min_rows: Optional[int] = None,
+                 compact_fraction: Optional[float] = None):
         self.store = store
         self.device = store.device
         self.compact_min_rows = compact_min_rows
@@ -254,6 +255,7 @@ class PartitionedExecutor:
         )
         tracing.add_cost("lake_bytes_read", float(note["bytes_loaded"]))
         tracing.add_cost("lake_bytes_skipped", float(note["bytes_skipped"]))
+        metrics.inc(metrics.LAKE_PUSHDOWN_SCANS)
 
     @staticmethod
     def _note_pushdown_fallbacks(plan: QueryPlan, window: Optional[Dict]) -> None:
@@ -284,6 +286,7 @@ class PartitionedExecutor:
                 # the worker adopted the query's span, so the bytes land on
                 # the query's cost ledger
                 tracing.add_cost("bytes_staged", float(staged))
+            metrics.inc(metrics.PIPELINE_PREFETCH)
 
     @staticmethod
     def _free_staging(child, plan: QueryPlan) -> None:

@@ -32,7 +32,8 @@ from geomesa_tpu_torch.planning.explain import Explainer
 from geomesa_tpu_torch.stats import sketches as sk
 
 #: index preference multipliers of the decider
-_MULTIPLIER = {"id": 0.5, "z3": 1.0, "xz3": 1.0, "z2": 1.5, "xz2": 1.5, "attr": 2.0}
+_MULTIPLIER = {"id": 0.5, "z3": 1.0, "xz3": 1.0, "s3": 1.0,
+               "z2": 1.5, "xz2": 1.5, "s2": 1.5, "attr": 2.0}
 
 
 @dataclass
@@ -124,8 +125,11 @@ def plan_query(store: FeatureStore, ecql: Union[str, ir.Filter],
 def _decide(store: FeatureStore, candidates: List[KeyPlan],
             exp: Explainer) -> Tuple[KeyPlan, float]:
     """The cheapest candidate by weighted estimate (the first on ties; a
-    disjoint plan always wins)."""
+    disjoint plan always wins). Unless ``geomesa.strategy.decider`` is
+    ``cost``, the first candidate, estimated at the whole table."""
     total = float(store.count)
+    if config.STRATEGY_DECIDER.get() != "cost" and candidates:
+        return candidates[0], total
     best, best_cost = None, None
     for kp in candidates:
         cost = _estimate(store, kp, total)

@@ -1,7 +1,6 @@
 """Columnar feature encoding (struct of arrays).
 
-Copy of ``geomesa_tpu/schema/columns.py`` cut to the types this port serves
-(JSON documents are left out):
+Copy of ``geomesa_tpu/schema/columns.py``:
 
 * scalar attribute ``a``  -> column ``a`` (int32 / int64 / float32 / float64
                               / bool)
@@ -13,6 +12,8 @@ Copy of ``geomesa_tpu/schema/columns.py`` cut to the types this port serves
                               (float64), the bounds' centroid as ``g__x`` /
                               ``g__y``, and the host-only object column
                               ``g__wkt`` (full-precision WKT)
+* Json attribute ``j``    -> host-only object column ``j`` of document text
+                              (None = null)
 * feature id              -> host-only fixed-width bytes column ``__fid__``
                               ('S'; 'U' for non-ASCII ids)
 
@@ -22,6 +23,7 @@ NumPy paths give the same columns.
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
@@ -162,8 +164,8 @@ def schema_null_fills(ft: FeatureType) -> Dict[str, Any]:
 def null_columns(ft: FeatureType, attrs, n: int,
                  dicts: Dict[str, DictionaryEncoder]) -> Dict[str, np.ndarray]:
     """Columns for ``attrs`` holding ``n`` nulls of this layout (string ->
-    code -1, float -> NaN, int / long -> 0, bool -> False, date -> epoch 0
-    with its time bins). ``update_schema``'s column append and the
+    code -1, float -> NaN, int / long -> 0, bool -> False, Json -> None,
+    date -> epoch 0 with its time bins). ``update_schema``'s column append and the
     partition snapshot's schema upgrade on load share it; it registers a
     string attribute's dictionary."""
     cols: Dict[str, np.ndarray] = {}
@@ -178,6 +180,8 @@ def null_columns(ft: FeatureType, attrs, n: int,
             cols[a.name + "__off"] = off
         elif a.type == "bool":
             cols[a.name] = np.zeros(n, bool)
+        elif a.type == "json":
+            cols[a.name] = np.full(n, None, dtype=object)
         elif a.type in ("float32", "float64"):
             cols[a.name] = np.full(n, np.nan, np.dtype(a.type))
         else:
@@ -270,6 +274,17 @@ def encode_batch(ft: FeatureType, data: Dict[str, Any],
             set_n(len(vals))
             d = dicts.setdefault(a.name, DictionaryEncoder())
             cols[a.name] = d.encode(vals)
+        elif a.type == "json":
+            # a stored JSON document: its text in a host-only object
+            # column; jsonPath() predicates parse it on demand
+            vals = data.get(a.name)
+            if vals is None:
+                raise KeyError(f"missing attribute {a.name!r}")
+            out = np.empty(len(vals), dtype=object)
+            for i, v in enumerate(vals):
+                out[i] = None if v is None else v if isinstance(v, str) else json.dumps(v)
+            set_n(len(out))
+            cols[a.name] = out
         elif a.type == "bool":
             vals = np.asarray(data[a.name]).astype(bool)
             set_n(len(vals))

@@ -4,7 +4,8 @@ Copy of ``geomesa_tpu/schema/feature_type.py`` cut to the attribute types
 this port serves: Point, the extent geometries (LineString, Polygon,
 MultiPoint, MultiLineString, MultiPolygon, Geometry; GeometryCollection is
 stored as Geometry), Date, String (UUID and Bytes are stored as strings),
-Integer, Long, Float, Double and Boolean. The spec-string format
+Integer, Long, Float, Double, Boolean and Json (a stored JSON document,
+host-only, queried through ``jsonPath()``). The spec-string format
 stays GeoMesa's (``name:Type:opt=val,*geom:Point;userdata='v'``);
 ``index=true`` marks an attribute index.
 """
@@ -27,6 +28,7 @@ _TYPES = {
     "timestamp": "date",
     "uuid": "string",
     "bytes": "string",
+    "json": "json",
     "point": "point",
     "linestring": "linestring",
     "polygon": "polygon",
@@ -40,7 +42,8 @@ _TYPES = {
 #: canonical type -> its name in a spec string
 _SPEC_NAMES = {
     "string": "String", "int32": "Integer", "int64": "Long", "float32": "Float",
-    "float64": "Double", "bool": "Boolean", "date": "Date", "point": "Point",
+    "float64": "Double", "bool": "Boolean", "date": "Date", "json": "Json",
+    "point": "Point",
     "linestring": "LineString", "polygon": "Polygon", "multipoint": "MultiPoint",
     "multilinestring": "MultiLineString", "multipolygon": "MultiPolygon",
     "geometry": "Geometry",
@@ -50,13 +53,6 @@ GEOM_TYPES = {
     "point", "linestring", "polygon", "multipoint", "multilinestring",
     "multipolygon", "geometry",
 }
-
-#: spec types the JAX package accepts that this port does not serve yet
-_LATER = {"json"}
-
-#: ROADMAP item that ports the refused types
-LATER_ITEM = "ROADMAP Queue 1, extent geometries and expression predicates"
-
 
 @dataclass
 class AttributeSpec:
@@ -132,6 +128,12 @@ class FeatureType:
     def time_period(self) -> str:
         return self.user_data.get("geomesa.z3.interval", "week")
 
+    @property
+    def shards(self) -> Optional[int]:
+        """The ``geomesa.z.splits`` user data: the schema's shard count."""
+        v = self.user_data.get("geomesa.z.splits")
+        return int(v) if v else None
+
     def spec(self) -> str:
         s = ",".join(a.spec() for a in self.attributes)
         if self.user_data:
@@ -178,8 +180,6 @@ class FeatureType:
             if len(pieces) < 2:
                 raise ValueError(f"invalid attribute spec: {part!r}")
             aname, atype = pieces[0].strip(), pieces[1].strip().lower()
-            if atype in _LATER:
-                raise NotImplementedError(f"attribute type {pieces[1]!r}: {LATER_ITEM}")
             if atype not in _TYPES:
                 raise ValueError(f"unknown attribute type {pieces[1]!r} for {aname!r}")
             options = {}

@@ -100,6 +100,19 @@ KNOBS = {
     "SLO_WINDOW_FAST_S": "SLO_WINDOW_FAST_S",
     "SLO_WINDOW_SLOW_S": "SLO_WINDOW_SLOW_S",
     "SLO_BURN_THRESHOLD": "SLO_BURN_THRESHOLD",
+    "TOPK_TIE_SLACK": "TOPK_TIE_SLACK",
+    "SAMPLE_HASH_BUCKETS": "SAMPLE_HASH_BUCKETS",
+    "DEFAULT_SHARDS": "DEFAULT_SHARDS",
+    "STRATEGY_DECIDER": "STRATEGY_DECIDER",
+    "COMPACT_ENABLED": "COMPACT_ENABLED",
+    "COMPACT_MIN_ROWS": "COMPACT_MIN_ROWS",
+    "COMPACT_FRACTION": "COMPACT_FRACTION",
+    "COMPACT_B": "COMPACT_B",
+    "COMPACT_SHARD_BUCKET": "COMPACT_SHARD_BUCKET",
+    "DENSITY_PALLAS": "DENSITY_PALLAS",
+    "DENSITY_MXU": "DENSITY_MXU",
+    "MXU_TILE_X": "MXU_TILE_X",
+    "MXU_TILE_Y": "MXU_TILE_Y",
 }
 
 
@@ -271,9 +284,11 @@ def test_max_dup_read_at_density_time():
     grouped = ds.density("t", q, bbox=bbox, width=64, height=64)
     assert ds._plan("t", q).exec_path["density_kernel"] == "grouped"
     with config.DENSITY_PALLAS_MAX_DUP.scoped(0.0):
-        scatter = ds.density("t", q, bbox=bbox, width=64, height=64)
-        assert ds._plan("t", q).exec_path["density_kernel"] == "scatter"
-    assert np.array_equal(grouped, scatter)
+        # the grouped rung declines: the einsum pairs take it, as in the
+        # reference
+        einsum = ds.density("t", q, bbox=bbox, width=64, height=64)
+        assert ds._plan("t", q).exec_path["density_kernel"] == "mxu-einsum"
+    assert np.array_equal(grouped, einsum)
 
 
 def test_topk_max_read_at_query_time():

@@ -196,8 +196,10 @@ def test_tile_segments_partition_the_pairs(pair, target):
 
 
 def test_scatter_rung_over_the_duplication_budget(pair):
-    """Over the pair budget the port scatters, as the reference leaves the
-    Pallas rung there; unweighted counts are the same either way."""
+    """Over the pair budget the port leaves the grouped rung, as the
+    reference leaves its Pallas rung there: to the einsum pairs, and to the
+    scatter with ``geomesa.density.mxu`` off; unweighted counts are the
+    same on every rung."""
     _, p = pair
     plan = p._plan("t", ECQL)
     ex = p._executor("t")
@@ -209,6 +211,10 @@ def test_scatter_rung_over_the_duplication_budget(pair):
     ex_tight = tight._executor("t")
     plan_t = tight._plan("t", ECQL)
     with pconfig.DENSITY_PALLAS_MAX_DUP.scoped(0.01):
-        g_scatter = ex_tight.density(plan_t, BBOX, 256, 256)
+        g_einsum = ex_tight.density(plan_t, BBOX, 256, 256)
+        assert plan_t.exec_path["density_kernel"] == "mxu-einsum"
+        with pconfig.DENSITY_MXU.scoped(False):
+            g_scatter = ex_tight.density(plan_t, BBOX, 256, 256)
     assert plan_t.exec_path["density_kernel"] == "scatter"
     assert np.array_equal(g_grouped, g_scatter)
+    assert np.array_equal(g_grouped, g_einsum)

@@ -148,8 +148,12 @@ def test_parse_errors_equal(q):
 
 
 def test_json_path_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, extent geometries"):
-        parse_ecql("jsonPath('$.a', js) > 2")
+    """jsonPath() parses to the reference's IR (it was refused before the
+    Json slice)."""
+    q = "jsonPath('$.a', js) > 2"
+    got = parse_ecql(q)
+    assert isinstance(got, ir.Compare) and isinstance(got.prop, ir.JsonPath)
+    assert repr(got) == repr(jparse(q))
 
 
 # -- compiled masks, node by node --------------------------------------------------------

@@ -584,6 +584,16 @@ def test_partitioned_device_memory_is_bounded(cuda, tmp_path):
     every partition gives their device memory back."""
     gpu = _partitioned(cuda, 2, tmp_path)
     st = gpu._store("t")
+    # the nine whole-week scans take the einsum rung, whose products use
+    # cuBLAS's workspace: the process's first matrix product on a stream
+    # allocates it (at most 32 MiB) and keeps it, so a 1x1 product allocates
+    # it before the baseline and its size is held apart from the bound
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.mm(torch.ones(1, 1, device=cuda), torch.ones(1, 1, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= 32 * 2**20
 
     def peak_of(q):
         st.spill_all()
@@ -1322,3 +1332,95 @@ def test_registry_hits_on_the_card(cuda):
         if q == poly:
             assert kpip.launches >= l0 + 2
     assert metrics.registry().gauge(metrics.KERNEL_RECOMPILE_ALERT).value == 0
+
+
+@pytest.mark.parametrize("weight", [None, "weight"], ids=["count", "weighted"])
+def test_einsum_rung_on_the_card(cuda, weight):
+    """The einsum rung (``geomesa.density.pallas`` off) on the card: its grid
+    equals the CPU's and the grouped kernel's (unweighted bit for bit,
+    weighted within rtol 1e-4), at PyTorch's default float32 matmul
+    precision, which the run checks it ran under."""
+    from geomesa_tpu_torch import config
+    from geomesa_tpu_torch.kernels import density_mxu as kmxu
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    gpu, cpu = _datasets(cuda, 200_000, seed=41)
+    grid = dict(bbox=BBOX, width=512, height=512, weight=weight)
+    before = kg.launches
+    grouped = gpu.density("t", ECQL, **grid)
+    assert gpu._plan("t", ECQL).exec_path["density_kernel"] == "grouped"
+    assert kg.launches > before
+    with config.DENSITY_PALLAS.scoped("false"):
+        before = kg.launches
+        einsum = gpu.density("t", ECQL, **grid)
+        assert gpu._plan("t", ECQL).exec_path["density_kernel"] == "mxu-einsum"
+        assert kg.launches == before
+        on_cpu = cpu.density("t", ECQL, **grid)
+        assert cpu._plan("t", ECQL).exec_path["density_kernel"] == "mxu-einsum"
+        # the rung's function itself on the card against the CPU, same operands
+        ex, plan = gpu._executor("t"), gpu._plan("t", ECQL)
+        cols_all = ["geom__x", "geom__y", "weight"]
+        setup = ex._scan_setup(plan, cols_all)
+        ex._maybe_compact(plan, setup)
+        cols, m = ex._fused(plan, setup, cols_all)
+        rung, sched = ex._density_rung(plan, setup, BBOX, 512, 512)
+        assert rung == "mxu-einsum"
+        w = None if weight is None else cols["weight"]
+        got = kmxu.density_grid_pairs(cols["geom__x"], cols["geom__y"], m, BBOX, 512, 512,
+                                      w, sched)
+        cpu_sched = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                     for k, v in sched.items()}
+        want = kmxu.density_grid_pairs(cols["geom__x"].cpu(), cols["geom__y"].cpu(), m.cpu(),
+                                       BBOX, 512, 512, None if w is None else w.cpu(),
+                                       cpu_sched)
+    assert einsum.sum() > 0
+    if weight is None:
+        assert np.array_equal(einsum, grouped)
+        assert np.array_equal(einsum, on_cpu)
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert np.allclose(einsum, grouped, rtol=1e-4, atol=1e-3)
+        assert np.allclose(einsum, on_cpu, rtol=1e-4, atol=1e-3)
+        assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_pip_kernel_on_an_s3_tables_compacted_layout(cuda):
+    """An ``INTERSECTS`` polygon on an s3 table: the compacted [C, B] point
+    columns through ``pip.cu`` equal its plain version, and the count
+    equals the CPU's."""
+    rng = np.random.default_rng(43)
+    n = 200_000
+    lo = parse_iso_ms("2020-01-01")
+    data = {
+        "geom__x": rng.uniform(-120, -70, n),
+        "geom__y": rng.uniform(25, 50, n),
+        "dtg": rng.integers(lo, parse_iso_ms("2020-02-01"), n).astype("datetime64[ms]"),
+        "weight": rng.uniform(0, 1, n).astype(np.float32),
+    }
+    out = []
+    for dev in (cuda, "cpu"):
+        ds = GeoDataset(n_shards=4, device=dev, compact_min_rows=1, compact_fraction=2.0)
+        ds.create_schema("t", SPEC + ";geomesa.indices='s3,id'")
+        ds.insert("t", data)
+        ds.flush("t")
+        out.append(ds)
+    gpu, cpu = out
+    wkt = _ngon(64, -90, 37, 6)
+    q = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    plan = gpu._plan("t", q)
+    assert plan.index_name == "s3"
+    ex = gpu._executor("t")
+    cols = ex.scan_columns(plan, ["geom__x", "geom__y"])
+    x, y = cols["geom__x"], cols["geom__y"]
+    assert x.dim() == 2 and ex._cache(plan)["compact"] is not None
+    (x1, *_), packed = kpip.polygon_edge_tables(parse_wkt(wkt))
+    edges = torch.from_numpy(packed).to(cuda)
+    before = kpip.launches
+    got = kpip.pip_mask(x, y, edges, len(x1))
+    assert kpip.launches == before + 1
+    assert torch.equal(got, kpip.pip_mask_plain(x, y, edges, len(x1)))
+    before = kpip.launches
+    assert gpu.count("t", q) == cpu.count("t", q) > 0
+    assert kpip.launches > before
+    assert gpu._plan("t", q).exec_path["scan"] == "device-compact"

@@ -401,9 +401,10 @@ def test_store_from_arrays_builds_every_table(pair):
 
 @pytest.mark.parametrize("kind", ["s2", "s3"])
 def test_other_key_spaces_name_the_roadmap(kind):
-    p = GeoDataset(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, extent geometries"):
-        p.create_schema("t", f"dtg:Date,*geom:Point;geomesa.indices='{kind},id'")
+    """``geomesa.indices`` naming s2 / s3 (refused before the S2 slice) is
+    served: the tables and a count equal the JAX package's."""
+    assert _served_pair(f"dtg:Date,*geom:Point;geomesa.indices='{kind},id'") == \
+        [kind, "id"]
 
 
 def _served_pair(spec):
@@ -445,8 +446,12 @@ def test_extent_key_spaces_are_served(kind):
 
 @pytest.mark.parametrize("spec", ["doc:Json,*geom:Point"], ids=["json"])
 def test_other_types_name_the_roadmap(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, extent geometries"):
-        GeoDataset(device="cpu").create_schema("t", spec)
+    """A Json attribute (refused before the Json slice) is served: the
+    spec round-trips and the tables equal the JAX package's."""
+    p = GeoDataset(device="cpu")
+    ft = p.create_schema("t", spec)
+    assert ft.spec() == JGeoDataset().create_schema("t", spec).spec()
+    assert [k.name for k in p._store("t").keyspaces] == ["z2", "id"]
 
 
 @pytest.mark.parametrize("spec", ["dtg:Date,*geom:LineString"], ids=["extent"])

@@ -24,6 +24,7 @@ from geomesa_tpu import GeoDataset as JGeoDataset
 from geomesa_tpu import config
 from geomesa_tpu.api.dataset import Query as JQuery
 from geomesa_tpu_torch import GeoDataset
+from geomesa_tpu_torch import config as pconfig
 from geomesa_tpu_torch.api.dataset import Query
 from geomesa_tpu_torch.filter.ecql import parse_iso_ms
 from geomesa_tpu_torch.planning import executor as pexec
@@ -259,9 +260,10 @@ def test_sorted_query_equal(pair, name, monkeypatch):
 
 
 def test_sort_tie_group_overflows_the_buffer(pair):
-    """The planted tie group exceeds k + TOPK_TIE_SLACK rows."""
+    """The planted tie group exceeds k + geomesa.topk.tie-slack rows."""
     _, p, data = pair
-    assert TIE_ROWS > SORTS["speed_tie_overflow"][0].max_features + pexec.TOPK_TIE_SLACK
+    assert TIE_ROWS > SORTS["speed_tie_overflow"][0].max_features \
+        + pconfig.TOPK_TIE_SLACK.to_int()
     assert (data["speed"] == -1).sum() == TIE_ROWS
 
 
