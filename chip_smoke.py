@@ -402,9 +402,31 @@ nothing else.)
    plain version, and the einsum, grouped and scatter rungs on the main
    path's compacted operands in turns, all three grids equal.
 
+18. Slice 17, the serving scheduler and standing queries, within
+   ``S17_BUDGET_S``, on slice 1's flat store after slice 16: 8 identical
+   main-path counts serial, then fused through ``ds.serving.start()``
+   behind a stall ticket (bit-identical, at most 2 dispatches); 8 distinct
+   bbox counts and 5 distinct polygon-residual counts fused into query-axis
+   batches (``serving.fused.distinct``, equal to serial; the polygon group
+   must launch ``pip.cu``); 4 identical 512x512 densities repeat-fused
+   (one ``density_grouped.cu`` launch, each grid exact against the serial
+   one and its own copy); an expired budget and a full queue refused typed
+   with 0 dispatches; a seeded ``serving.slot.loop`` kill and its respawn;
+   the queue-wait p99; speculative count, density and stats with 0
+   dispatches. Then a fresh ``S17_ROWS``-row flat store of slice 1's shape
+   (seed + 17): count and 512x512 density over ``S17_VIEW``, a pyramid and
+   ``Count();MinMax(weight)`` over ``S17_VIEW2`` subscribed under
+   ``geomesa.subscribe.verify``, ``S17_BATCHES`` inserts of
+   ``S17_BATCH_ROWS`` rows and a delete over part of the first viewport;
+   after each step every standing result equals a fresh count / density /
+   stats on the card and a NumPy oracle (the standing grid maps pixels in
+   f64, the card's in f32: each equals its own oracle, the totals agree,
+   the differing cells are logged). The host evaluator's delta for one
+   batch against one re-scan. The store is dropped at the end.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
 ``launches_slice8`` to ``launches_slice11`` and ``launches_slice13`` to
-``launches_slice16``), the card's ``nvidia-smi``
+``launches_slice17``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -5419,6 +5441,372 @@ def slice16(args, torch, ds, data, results, paths, wkt, packed, n_edges, kpip, k
         raise AssertionError(f"[slice16] the phase took {wall:.3f} s, over its {S16_BUDGET_S} s")
     return launches, wall
 
+#: the slice-17 phase's own budget (seconds), checked like slice 16's
+S17_BUDGET_S = 30.0
+#: the standing part's flat store, its insert batches and their rows
+S17_ROWS = 2_000_000
+S17_BATCHES = 10
+S17_BATCH_ROWS = 20_000
+#: the standing viewports (inside CONUS) and the delete's box, which cuts
+#: part of the first viewport
+S17_VIEW = (-100.0, 30.0, -80.0, 45.0)
+S17_VIEW2 = (-120.0, 35.0, -105.0, 47.0)
+S17_DELETE = (-95.0, 33.0, -90.0, 38.0)
+S17_STAT = "Count();MinMax(weight)"
+S17_LEVELS = 6
+S17_FUSED = 8
+
+
+def s17_stall(sched, timeout: float = 60.0):
+    """Occupy the dispatch thread until the returned gate opens, so the
+    tickets submitted meanwhile queue and fuse."""
+    import threading
+
+    gate, started = threading.Event(), threading.Event()
+
+    def fn():
+        started.set()
+        return gate.wait(timeout)
+
+    fut = sched.submit(fn, user="stall", op="stall")
+    if not started.wait(30):
+        raise AssertionError("[slice17] the stall ticket never dispatched")
+    return gate, fut
+
+
+def s17_fused(sched, calls, user: str, spec_of):
+    """Submit ``calls`` behind a stall as fusable tickets, release them and
+    return (results, wall s from the release to the last result, per-ticket
+    queue waits s)."""
+    gate, fut = s17_stall(sched)
+    waits = []
+    futs = []
+    try:
+        for fn, opts in calls:
+            spec = spec_of(opts)
+            inner = spec.batch
+
+            def batch(tickets, inner=inner):
+                # the scheduler stamps each member's wait before the batch
+                waits.extend(t.wait_s for t in tickets)
+                return inner(tickets)
+
+            spec.batch = batch
+            t_sub = time.perf_counter()
+            futs.append(sched.submit(
+                lambda fn=fn, t_sub=t_sub: waits.append(time.perf_counter() - t_sub) or fn(),
+                user=user, op="fused", fuse=spec))
+    finally:
+        t0 = time.perf_counter()
+        gate.set()
+        fut.result(60)
+    out = [f.result(120) for f in futs]
+    wall = time.perf_counter() - t0
+    return out, wall, waits
+
+
+def s17_grid_f64(x, y, box, width, height):
+    """The standing density's pixel mapping: f64, clip-cast."""
+    xmin, ymin, xmax, ymax = box
+    px = np.clip(((x - xmin) / (xmax - xmin) * width).astype(np.int32), 0, width - 1)
+    py = np.clip(((y - ymin) / (ymax - ymin) * height).astype(np.int32), 0, height - 1)
+    return np.bincount(py * width + px, minlength=width * height).reshape(height, width)
+
+
+def s17_oracles(cols, view, levels):
+    """NumPy oracles of the standing viewports over the host rows: the
+    count, the f64-mapped 512x512 grid, the pyramid's leaf, and
+    ``Count();MinMax(weight)``."""
+    x, y, w = cols["geom__x"], cols["geom__y"], cols["weight"]
+    m = (x >= view[0]) & (x <= view[2]) & (y >= view[1]) & (y <= view[3])
+    side = 1 << levels
+    return {"count": int(m.sum()),
+            "density": s17_grid_f64(x[m], y[m], view, WIDTH, HEIGHT).astype(np.float32),
+            "leaf": s17_grid_f64(x[m], y[m], view, side, side).astype(np.float64),
+            "stats": (int(m.sum()), float(w[m].min()), float(w[m].max()))}
+
+
+def slice17(args, torch, ds, data, results, wkt, kpip, kgrouped, n_bbox, name="gdelt"):
+    """The slice-17 phase (see the module docstring, 18): the serving
+    scheduler on slice 1's store, then standing queries on a fresh 2M-row
+    flat store. Returns (launches, wall s)."""
+    from geomesa_tpu_torch import GeoDataset, config, metrics, resilience
+    from geomesa_tpu_torch.serving import fuse
+    from geomesa_tpu_torch.subscribe import delta as sdl
+
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    reg = metrics.registry()
+    disp = reg.counter(metrics.EXEC_DEVICE_DISPATCH)
+    q_bbox = f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}"
+    grid = dict(bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+    rng = np.random.default_rng(args.seed + 17)
+    spec_of = lambda opts: fuse.make_spec(ds, opts.pop("op"), name, opts)  # noqa: E731
+
+    # 1. 8 identical main-path counts: serial, then fused behind a stall
+    serial = [timed(torch, lambda: ds.count(name, q_bbox)) for _ in range(S17_FUSED)]
+    if any(r != n_bbox for r, _ in serial):
+        raise AssertionError("[slice17] a serial count differs from the oracle")
+    sched = ds.serving.start()
+    all_waits = []
+    try:
+        d0 = disp.value
+        out, wall, waits = s17_fused(
+            sched, [(lambda: ds.count(name, q_bbox), {"op": "count", "ecql": q_bbox})
+                    for _ in range(S17_FUSED)], "s17-repeat", spec_of)
+        all_waits += waits
+        d_rep = disp.value - d0
+        if out != [n_bbox] * S17_FUSED or d_rep > 2:
+            raise AssertionError(f"[slice17] fused counts {out} ({d_rep} dispatches) against "
+                                 f"{n_bbox} with at most 2")
+        log(f"[slice17] 8 identical main-path counts: serial "
+            f"{sum(s for _, s in serial) * 1e3:.3f} ms in all (p50 "
+            f"{float(np.median([s for _, s in serial])) * 1e3:.3f} ms), fused "
+            f"{wall * 1e3:.3f} ms from the release to the last answer; {d_rep} dispatches; "
+            f"answers bit-identical to serial and the oracle ({n_bbox})")
+
+        # 2. 8 distinct-bbox counts and 5 distinct polygon-residual counts
+        boxes = [(-100.0 + 2 * i, 30.0 + i, -92.0 + 2 * i, 38.0 + i) for i in range(S17_FUSED)]
+        bq = [f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {DURING}" for b in boxes]
+        pq = [f"INTERSECTS(geom, {wkt}) AND BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND "
+              f"{DURING}" for b in s8_boxes(rng, 5, 6.0, 5.0, (-98.0, -82.0), (31.0, 44.0))]
+        for label, qs in (("bbox", bq), ("polygon", pq)):
+            # cold first (each member's plan), then warm: the fused group
+            # plans the same texts, so it meets the warm plans
+            cold = [timed(torch, lambda q=q: ds.count(name, q))[1] for q in qs]
+            ser = [timed(torch, lambda q=q: ds.count(name, q)) for q in qs]
+            fd0 = reg.counter(metrics.SERVING_FUSED_DISTINCT).value
+            d0, p0 = disp.value, kpip.launches
+            out, wall, waits = s17_fused(
+                sched, [(lambda q=q: ds.count(name, q), {"op": "count", "ecql": q}) for q in qs],
+                f"s17-{label}", spec_of)
+            all_waits += waits
+            fd = reg.counter(metrics.SERVING_FUSED_DISTINCT).value - fd0
+            d, pl = disp.value - d0, kpip.launches - p0
+            if out != [r for r, _ in ser] or fd != len(qs) or d > 2:
+                raise AssertionError(f"[slice17] distinct {label} counts {out} against serial "
+                                     f"{[r for r, _ in ser]}, {fd} distinct members, {d} "
+                                     "dispatches")
+            if label == "polygon" and pl <= 0:
+                raise AssertionError("[slice17] the fused polygon group never launched pip.cu")
+            log(f"[slice17] {len(qs)} distinct {label} counts: serial cold "
+                f"{sum(cold) * 1e3:.3f} ms in all, warm {sum(s for _, s in ser) * 1e3:.3f} ms, "
+                f"fused {wall * 1e3:.3f} ms; "
+                f"serving.fused.distinct +{fd}, {d} dispatches, pip.cu launches +{pl}; answers "
+                f"equal to serial {[r for r, _ in ser]}")
+
+        # 3. 4 identical 512x512 densities, repeat-fused: one grouped launch
+        g_ser, s_ser = timed(torch, lambda: ds.density(name, q_bbox, **grid))
+        if not np.array_equal(g_ser, results["density"]):
+            raise AssertionError("[slice17] the serial density changed")
+        d0, g0 = disp.value, kgrouped.launches
+        dopts = {"op": "density", "ecql": q_bbox, "bbox": list(QUERY_BBOX), "width": WIDTH,
+                 "height": HEIGHT}
+        out, wall, waits = s17_fused(
+            sched, [(lambda: ds.density(name, q_bbox, **grid), dict(dopts)) for _ in range(4)],
+            "s17-density", spec_of)
+        all_waits += waits
+        d, gl = disp.value - d0, kgrouped.launches - g0
+        if gl != 1 or d > 2 or not all(np.array_equal(g, g_ser) for g in out):
+            raise AssertionError(f"[slice17] fused densities: {gl} grouped launches, {d} "
+                                 "dispatches, or a grid unequal to the serial one")
+        if len({id(g) for g in out}) != 4:
+            raise AssertionError("[slice17] fused members share a grid object")
+        log(f"[slice17] 4 identical 512x512 densities: serial {s_ser * 1e3:.3f} ms each, fused "
+            f"{wall * 1e3:.3f} ms for all 4; density_grouped.cu launches +{gl}, {d} "
+            f"dispatches; grids exact against the serial grid, each member its own copy")
+
+        # 4. typed refusals with no dispatch: an expired budget, a full queue
+        d0 = disp.value
+        try:
+            sched.submit(lambda: ds.count(name, q_bbox), user="s17-late", op="count",
+                         budget_s=0.0)
+            raise AssertionError("[slice17] an expired budget was admitted")
+        except resilience.DeadlineShedError as e:
+            shed_msg = str(e)
+        gate, fut = s17_stall(sched)
+        try:
+            with config.SERVING_QUEUE_DEPTH.scoped(1):
+                queued = sched.submit(lambda: ds.count(name, q_bbox), user="s17-full", op="count")
+                try:
+                    sched.submit(lambda: ds.count(name, q_bbox), user="s17-full", op="count")
+                    raise AssertionError("[slice17] a full queue admitted a ticket")
+                except resilience.AdmissionRejectedError as e:
+                    full_msg = str(e)
+            if disp.value != d0:
+                raise AssertionError("[slice17] a refused ticket dispatched")
+        finally:
+            gate.set()
+            fut.result(60)
+        if queued.result(60) != n_bbox:
+            raise AssertionError("[slice17] the queued count changed")
+        log(f"[slice17] refusals with 0 dispatches: [{resilience.DeadlineShedError.code}] "
+            f"{shed_msg!r}; [{resilience.AdmissionRejectedError.code}] {full_msg!r}")
+
+        # 5. a seeded kill of the dispatch slot and its respawn
+        with config.FAULT_INJECTION.scoped("true"), resilience.inject_faults(seed=17) as inj:
+            with sched._cv:
+                gen0, resp0 = sched._slot_gen[0], sched._respawns
+            inj.fail("serving.slot.loop", SystemExit("slice17 kill"), times=1)
+            t0 = time.perf_counter()
+            after = sched.submit(lambda: ds.count(name, q_bbox), user="s17-kill", op="count")
+            if not sched.wait_respawns(resp0 + 1, timeout=30):
+                raise AssertionError("[slice17] the killed slot never respawned")
+            got = after.result(60)
+            kill_s = time.perf_counter() - t0
+        with sched._cv:
+            gen1 = sched._slot_gen[0]
+        if got != n_bbox or gen1 != gen0 + 1 or len(inj.fired) != 1:
+            raise AssertionError(f"[slice17] after the kill: count {got}, generation "
+                                 f"{gen0} -> {gen1}, fired {inj.fired}")
+        log(f"[slice17] seeded slot kill: respawned (generation {gen0} -> {gen1}); the queued "
+            f"count answered {got} {kill_s * 1e3:.3f} ms after its submission")
+        p99 = float(np.percentile(all_waits, 99)) * 1e3
+        hist_p99 = reg.histogram(metrics.SERVING_QUEUE_WAIT).quantile(0.99) * 1e3
+        snap = sched.snapshot()
+    finally:
+        sched.stop()
+    log(f"[slice17] queue wait p99 {p99:.3f} ms over {len(all_waits)} fused tickets (the "
+        f"serving.queue.wait histogram's bucket bound: {hist_p99:.3f} ms); scheduler "
+        f"{snap}")
+
+    # 6. speculative count / density / stats: host reads only
+    d0, g0, p0 = disp.value, kgrouped.launches, kpip.launches
+    with resilience.deadline_scope(0.0):
+        c = ds.count(name, q_bbox, speculative_ok=True)
+        g = ds.density(name, q_bbox, speculative_ok=True, **grid)
+        st = ds.stats(name, "Count();MinMax(dtg)", q_bbox, speculative_ok=True)
+    est = ds.count(name, q_bbox, exact=False)
+    if disp.value != d0 or kgrouped.launches != g0 or kpip.launches != p0:
+        raise AssertionError("[slice17] a speculative answer dispatched")
+    if c != est or g.shape != (HEIGHT, WIDTH) or not np.isfinite(g).all():
+        raise AssertionError(f"[slice17] speculative count {c} against the estimate {est}")
+    ev = ds.audit.recent(1)[0]
+    if not (ev.hints.get("speculative") and ev.hints.get("shed")):
+        raise AssertionError("[slice17] the speculative audit marker is missing")
+    log(f"[slice17] speculative answers with 0 dispatches: count {c} (exact {n_bbox}), density "
+        f"total {float(g.sum()):.1f}, stats {st.to_json()}")
+
+    # 7. standing queries on a fresh flat store of slice 1's shape
+    t0 = time.perf_counter()
+    sdata = make_data(S17_ROWS, args.seed + 17)
+    sds = GeoDataset(n_shards=8)
+    sname = "standing"
+    sds.create_schema(sname, "weight:Float,dtg:Date,*geom:Point")
+    sds.insert(sname, sdata)
+    sds.flush(sname)
+    build_s = time.perf_counter() - t0
+    with config.SUBSCRIBE_VERIFY.scoped("true"):
+        subs = {
+            "count": sds.subscribe(sname, "count", bbox=S17_VIEW),
+            "density": sds.subscribe(sname, "density", bbox=S17_VIEW, width=WIDTH,
+                                     height=HEIGHT),
+            "pyramid": sds.subscribe(sname, "pyramid", bbox=S17_VIEW2, levels=S17_LEVELS),
+            "stats": sds.subscribe(sname, "stats", bbox=S17_VIEW2, stat_spec=S17_STAT),
+        }
+        host = {k: [v] for k, v in sdata.items()}
+        insert_s = []
+        checks = 0
+
+        def check(step):
+            nonlocal checks
+            cols = {k: np.concatenate(v) for k, v in host.items()}
+            o1 = s17_oracles(cols, S17_VIEW, S17_LEVELS)
+            o2 = s17_oracles(cols, S17_VIEW2, S17_LEVELS)
+            got = {}
+            for k, sid in subs.items():
+                p = sds.subscription_poll(sid)
+                spec = sds.standing._groups[sname][sds.standing._subs[sid][1]].spec
+                got[k] = sdl.decode_result(spec, p["result"])
+            view_q = "BBOX(geom, {}, {}, {}, {})"
+            n1 = sds.count(sname, view_q.format(*S17_VIEW))
+            g1 = sds.density(sname, view_q.format(*S17_VIEW), bbox=S17_VIEW, width=WIDTH,
+                             height=HEIGHT)
+            n2 = sds.count(sname, view_q.format(*S17_VIEW2))
+            s2 = sds.stats(sname, S17_STAT, view_q.format(*S17_VIEW2))
+            # the card's density maps pixels in f32 op by op (the
+            # reference's device path), the standing grid in f64 (its host
+            # evaluator): each equals its own oracle and the totals agree
+            g1_f32, _, g1_f64, n1_or = density_oracles(
+                cols, np.ones(len(cols["geom__x"]), bool), bbox=S17_VIEW)
+            pyr, sg = got["pyramid"], got["stats"]
+            cnt, mm = sg.stats[0].count, sg.stats[1]
+            ok = (got["count"] == n1 == o1["count"] == n1_or
+                  and np.array_equal(got["density"].astype(np.float64), g1_f64)
+                  and np.array_equal(got["density"], o1["density"])
+                  and np.array_equal(g1.astype(np.float64), g1_f32)
+                  and float(g1.sum()) == float(got["density"].sum()) == n1
+                  and np.array_equal(pyr[0], o2["leaf"])
+                  and all(float(lv.sum()) == n2 for lv in pyr)
+                  and sg.to_json() == s2.to_json()
+                  and (cnt, float(mm.lo), float(mm.hi)) == o2["stats"])
+            if not ok:
+                raise AssertionError(f"[slice17] standing results diverge after {step}")
+            checks += 1
+            return int((got["density"] != g1).sum())
+
+        diff_cells = [check("subscribe")]
+        for i in range(S17_BATCHES):
+            b = make_data(S17_BATCH_ROWS, args.seed + 1700 + i)
+            t1 = time.perf_counter()
+            sds.insert(sname, b)
+            insert_s.append(time.perf_counter() - t1)
+            for k in host:
+                host[k].append(b[k])
+            diff_cells.append(check(f"insert {i + 1}"))
+        t1 = time.perf_counter()
+        n_del = sds.delete_features(sname, "BBOX(geom, {}, {}, {}, {})".format(*S17_DELETE))
+        delete_s = time.perf_counter() - t1
+        cols = {k: np.concatenate(v) for k, v in host.items()}
+        x, y = cols["geom__x"], cols["geom__y"]
+        dm = ((x >= S17_DELETE[0]) & (x <= S17_DELETE[2]) & (y >= S17_DELETE[1])
+              & (y <= S17_DELETE[3]))
+        if n_del != int(dm.sum()):
+            raise AssertionError(f"[slice17] delete removed {n_del}, the oracle {int(dm.sum())}")
+        host = {k: [v[~dm]] for k, v in cols.items()}
+        diff_cells.append(check("delete"))
+        polls = {k: sds.subscription_poll(sid) for k, sid in subs.items()}
+    # the delta pass against one re-scan, the evaluator alone (verify off)
+    eng = sds.standing
+    win_cols, win_n = sds._store(sname)._all.columns, sds._store(sname)._all.n
+    batch = make_data(S17_BATCH_ROWS, args.seed + 1799)
+    from geomesa_tpu_torch.schema.columns import encode_batch
+
+    st_ = sds._store(sname)
+    enc = encode_batch(st_.ft, batch, st_.dicts, None)
+    groups = list(eng._groups[sname].values())
+
+    def eval_all(cols_, n_):
+        for grp in groups:
+            sdl.eval_rows(grp.spec, grp.cf, st_.ft, cols_, n_, st_.dicts)
+
+    t1 = time.perf_counter()
+    eval_all(enc.columns, enc.n)
+    delta_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    eval_all(win_cols, win_n)
+    rescan_ms = (time.perf_counter() - t1) * 1e3
+    kinds = {k: [u["kind"] for u in p["updates"]] for k, p in polls.items()}
+    log(f"[slice17] standing store of {S17_ROWS} rows built in {build_s:.3f} s; "
+        f"{S17_BATCHES} inserts of {S17_BATCH_ROWS} rows (insert + delta + verify re-scan "
+        f"p50 {float(np.median(insert_s)) * 1e3:.3f} ms) and a delete of {n_del} rows "
+        f"({delete_s * 1e3:.3f} ms); {checks} checks: count / density / pyramid / stats equal "
+        f"to fresh card answers and NumPy oracles (density grid against the card's f32-mapped "
+        f"grid: cells differing {diff_cells}, totals equal); update kinds {kinds}")
+    log(f"[slice17] host evaluation of the 4 groups: one batch's delta {delta_ms:.3f} ms against "
+        f"one re-scan of {win_n} rows {rescan_ms:.3f} ms")
+    del sds, sdata, host, cols, win_cols, st_, enc, groups, eng
+    torch.cuda.empty_cache()
+
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    wall = time.perf_counter() - t_phase
+    log(f"[slice17] launches {launches}; the phase took {wall:.3f} s")
+    if wall > S17_BUDGET_S:
+        raise AssertionError(f"[slice17] the phase took {wall:.3f} s, over its {S17_BUDGET_S} s")
+    return launches, wall
+
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -5680,6 +6068,9 @@ def main() -> int:
     s16_flat, _ = slice16(args, torch, ds, data, results, paths, wkt, packed, n_edges, kpip,
                           kgrouped, n_bbox)
 
+    # -- 18. slice 17: the serving scheduler, then standing queries ------------
+    s17_flat, _ = slice17(args, torch, ds, data, results, wkt, kpip, kgrouped, n_bbox)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -5724,6 +6115,7 @@ def main() -> int:
         k["launches_slice14"] = s14_flat.get(k["name"], 0) + s14_part.get(k["name"], 0)
         k["launches_slice15"] = s15_flat.get(k["name"], 0)
         k["launches_slice16"] = s16_flat.get(k["name"], 0)
+        k["launches_slice17"] = s17_flat.get(k["name"], 0)
     if min(s14_flat.values()) <= 0:
         raise AssertionError(f"[slice14] a main-path kernel never launched traced: {s14_flat}")
 

@@ -51,10 +51,21 @@ which a cached plan checks again on every call. ``query``,
 planner's explain tree and the cache, hierarchy, warm-path,
 observability and (``analyze=True``) selectivity and cost sections.
 
-No counterpart here yet: standing subscriptions (their journal records
-replay as unknown kinds and are skipped), serving admission, the kernel
-registry's accounting, the trace export, the metrics export and the fleet
-(the journal's epoch marker and ``/healthz`` lag snapshot).
+Every public call passes the serving scheduler's admission
+(``self.serving``, ``serving/scheduler.py``): a call whose deadline scope
+has already run out is shed with a typed ``DeadlineShedError`` before any
+plan or device work, and ``count`` / ``density`` / ``stats`` with
+``speculative_ok=True`` answer such a shed with a coarse host-only
+estimate (``_speculative_*``) instead. ``self.serving.start()`` starts the
+dispatch thread, which queues, sheds, orders by fair share and fuses
+concurrent requests (``serving/fuse.py``). Standing queries (``subscribe``,
+``subscription_poll``, ``unsubscribe``; ``subscribe/``) keep registered
+viewports current as inserts, deletes and age-offs apply; their journal
+records and manifest entries are the reference's, so roots with
+subscriptions interchange both ways.
+
+No counterpart here yet: the fleet (the journal's epoch marker and the
+handoff of standing groups) and ``StreamingDataset``'s live windows.
 """
 
 from __future__ import annotations
@@ -66,7 +77,6 @@ import json
 import math
 import os
 import shutil
-import threading
 import time
 import uuid
 import zlib
@@ -97,8 +107,12 @@ from geomesa_tpu_torch.schema.columns import (
     ColumnBatch, DictionaryEncoder, decode_batch, fid_strs, schema_null_fills,
 )
 from geomesa_tpu_torch.schema.feature_type import FeatureType
+from geomesa_tpu_torch.serving import QueryScheduler
 from geomesa_tpu_torch.stats import parse_stat
 from geomesa_tpu_torch.stats import sketches as sk
+from geomesa_tpu_torch.subscribe import StandingQueryEngine, StoreWindow, UnknownSubscription
+from geomesa_tpu_torch.subscribe import spec as subspec
+from geomesa_tpu_torch.subscribe.spec import StandingSpec
 from geomesa_tpu_torch.utils import geometry as geo
 from geomesa_tpu_torch.utils.geometry import EARTH_RADIUS_M, haversine_m
 
@@ -246,17 +260,31 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _traced(op: str):
+def _traced(op: str, speculative: Optional[str] = None):
     """Open one ROOT span per public query operation (a child span when a
-    trace is already open) and run the call as the caller's identity (see
-    :meth:`GeoDataset._identity`)."""
+    trace is already open) and pass the call through serving admission:
+    an op whose deadline has already run out is shed with a typed
+    ``DeadlineShedError`` before any plan or device work, and the op is
+    accounted to the admitted user (whom its audit events name).
+
+    ``speculative``: the method answering a shed call whose caller passed
+    ``speculative_ok=True``, with a coarse host-only result."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, name, *args, **kw):
-            with tracing.start(op, schema=name), self._identity():
+            spec_ok = bool(kw.pop("speculative_ok", False))
+            # the fallback runs inside the root span, so the speculative
+            # audit event carries this trace id
+            with tracing.start(op, schema=name):
                 try:
-                    return fn(self, name, *args, **kw)
+                    with self.serving.admit(op):
+                        return fn(self, name, *args, **kw)
+                except resilience.DeadlineShedError:
+                    # only admission raises it, so no device work ran
+                    if not (spec_ok and speculative):
+                        raise
+                    return getattr(self, speculative)(name, *args, **kw)
                 finally:
                     # the call's CUDA busy intervals, complete once its
                     # host copies returned, go to this trace's ledger
@@ -290,8 +318,12 @@ class GeoDataset:
         self._plans: Dict[tuple, QueryPlan] = {}
         #: the query audit log: one QueryEvent per public query call
         self.audit = AuditWriter()
-        #: the identity of the public call running on this thread
-        self._tls = threading.local()
+        #: the serving scheduler: every public call passes its inline
+        #: admission; ``start()`` runs the dispatch thread
+        self.serving = QueryScheduler()
+        self.serving.set_residency_probe(self._residency_bytes)
+        #: the standing-query engine, made by the first subscribe
+        self.standing: Optional[StandingQueryEngine] = None
         #: the aggregate cache in front of count / density / density_curve /
         #: stats (``geomesa.cache.enabled``; off by default)
         self.cache = AggregateCache()
@@ -340,6 +372,8 @@ class GeoDataset:
         # the tombstone first: replay must not bring the schema back from
         # its checkpoint files
         self._journal_rec("delete-schema", name)
+        if self.standing is not None:
+            self.standing.drop_schema(name)
         # the schema's uid is never read again, so neither the epoch check
         # nor the per-uid LRU would reclaim its cached aggregates
         self.cache.store.invalidate(st.uid)
@@ -422,8 +456,12 @@ class GeoDataset:
             cutoff = int(older_than)
         # the resolved cutoff is journaled, so a replay deletes the same rows
         self._journal_rec("age-off", name, older_than_ms=cutoff)
-        n = st.delete(lambda cols: cols[dtg] < cutoff)
+        pred = lambda cols: cols[dtg] < cutoff  # noqa: E731
+        bounds = self._standing_dirty_bounds(name, st, pred)
+        n = st.delete(pred)
         self._forget(name)
+        if n and self.standing is not None and self.standing.active(name):
+            self.standing.on_dirty(name, bounds)
         return n
 
     def delete_features(self, name: str, ecql: str, auths=None) -> int:
@@ -437,9 +475,81 @@ class GeoDataset:
         f = parse_ecql(ecql)
         self._journal_rec("delete-features", name, ecql=ecql, auths=None)
         cf = compile_filter(f, st.ft, st.dicts)
-        n = st.delete(lambda cols: cf.exact_mask(cols, len(cols["__fid__"])))
+        pred = lambda cols: cf.exact_mask(cols, len(cols["__fid__"]))  # noqa: E731
+        bounds = self._standing_dirty_bounds(name, st, pred)
+        n = st.delete(pred)
         self._forget(name)
+        if n and self.standing is not None and self.standing.active(name):
+            # non-additive: the groups whose viewport meets the removed
+            # rows' bounds re-scan, the others keep their results
+            self.standing.on_dirty(name, bounds)
         return n
+
+    def _standing_dirty_bounds(self, name: str, st, pred):
+        """The bbox of the rows ``pred`` is about to remove: the extent a
+        non-additive mutation's re-scans are scoped to. None with no
+        standing group, or when the extent is unknown."""
+        if self.standing is None or not self.standing.active(name):
+            return None
+        st.flush()
+        if st._all is None or not st._all.n:
+            return None
+        g = st.ft.geom_field
+        cols = st._all.columns
+        if g is None or g + "__x" not in cols:
+            return None
+        try:
+            m = np.asarray(pred(cols)).astype(bool)
+        except Exception:
+            return None
+        xs, ys = cols[g + "__x"][m], cols[g + "__y"][m]
+        ok = np.isfinite(xs) & np.isfinite(ys)
+        if not ok.any():
+            return None
+        xs, ys = xs[ok], ys[ok]
+        return (float(xs.min()), float(ys.min()), float(xs.max()), float(ys.max()))
+
+    # -- standing queries -------------------------------------------------------
+    def _standing_engine(self) -> StandingQueryEngine:
+        if self.standing is None:
+            self.standing = StandingQueryEngine(lambda nm: StoreWindow(self, nm))
+        return self.standing
+
+    def subscribe(self, name: str, aggregate: str, bbox=None, region=None,
+                  width: int = 256, height: int = 256, levels: Optional[int] = None,
+                  stat_spec: Optional[str] = None, sub_id: Optional[str] = None) -> str:
+        """Register a standing viewport (``count``, ``density``, ``pyramid``
+        or ``stats`` over ``bbox`` and/or a ``region`` polygon): every
+        applied insert then updates its result incrementally, and a delete
+        or age-off re-scans the viewports it touches. Same-viewport
+        subscribers share one group. Returns the subscription id (its
+        prefix is the fleet ring's route key). The journal record carries
+        the id, so a replay registers the same one. Partitioned schemas
+        are refused, as in the reference."""
+        sp = subspec.make_spec(name, aggregate, bbox=bbox, region=region, width=width,
+                               height=height, levels=levels, stat_spec=stat_spec)
+        self._store(name)  # an unknown schema raises before registering
+        eng = self._standing_engine()
+        if sub_id is None:
+            sub_id = eng.make_sub_id(sp)
+        self._journal_rec("subscribe", name, spec=sp.to_dict(), sub_id=sub_id)
+        return eng.register(sp, sub_id=sub_id)
+
+    def unsubscribe(self, sub_id: str) -> bool:
+        if self.standing is None:
+            return False
+        schema = self.standing.schema_of(sub_id)
+        if schema is not None:
+            self._journal_rec("unsubscribe", schema, sub_id=sub_id)
+        return self.standing.unregister(sub_id)
+
+    def subscription_poll(self, sub_id: str, cursor: int = 0) -> Dict[str, Any]:
+        """The standing result (in the cache's wire form, see
+        ``subscribe/delta.py::decode_result``) and the update records past
+        ``cursor``."""
+        if self.standing is None:
+            raise UnknownSubscription(sub_id)
+        return self.standing.poll(sub_id, cursor)
 
     def z3_histogram(self, name: str) -> Optional[sk.Z3HistogramStat]:
         """The write-time spatio-temporal histogram the cost model reads
@@ -478,6 +588,22 @@ class GeoDataset:
                 compact_fraction=self.compact_fraction,
             )
         return ex
+
+    def _residency_bytes(self, schema: str, slot: int) -> int:
+        """The schema's card-resident column bytes on serving slot
+        ``slot``'s card now: the scheduler's placement probe. Metadata
+        reads only (it runs under the scheduler lock). The port's one card
+        is slot 0's; another slot holds nothing."""
+        st = self._stores.get(schema)
+        if st is None or slot != 0:
+            return 0
+        total = 0
+        children = list(st.partitions.values()) if isinstance(st, PartitionedFeatureStore) else [st]
+        for child in children:
+            for t in list(child.tables.values()):
+                for arr in list(t._device_cache.values()):
+                    total += arr.numel() * arr.element_size()
+        return total
 
     # -- the write-ahead mutation journal -----------------------------------------
     def attach_journal(self, path: str) -> Optional[_jr.MutationJournal]:
@@ -529,7 +655,7 @@ class GeoDataset:
     def _apply_record(self, rec: Dict[str, Any]) -> bool:
         """Re-apply one journal record through the ordinary mutation calls
         (inside :meth:`_replay_scope`). False for a kind the port does not
-        serve (the reference's standing-query records)."""
+        know."""
         kind, name = rec.get("kind"), rec.get("schema")
         if kind == "schema-create":
             prev = self.n_shards
@@ -555,6 +681,12 @@ class GeoDataset:
             self.add_attribute_index(name, rec["attr"])
         elif kind == "remove-index":
             self.remove_attribute_index(name, rec["attr"])
+        elif kind == "subscribe":
+            self._standing_engine().register(StandingSpec.from_dict(rec["spec"]),
+                                             sub_id=rec["sub_id"])
+        elif kind == "unsubscribe":
+            if self.standing is not None:
+                self.standing.unregister(rec["sub_id"])
         else:
             return False
         return True
@@ -681,6 +813,12 @@ class GeoDataset:
             }
             if jpos is not None:
                 entry["journal_seq"] = jpos
+            if self.standing is not None:
+                # the save truncates the subscribe records, so the entry
+                # carries the subscriptions for load to register again
+                standing = self.standing.subscriptions(name)
+                if standing:
+                    entry["standing"] = standing
             if isinstance(st, PartitionedFeatureStore):
                 parts = st.checkpoint_into(os.path.join(path, f"{name}_parts"))
                 entry["partitions"] = {str(b): os.path.relpath(d, path)
@@ -808,6 +946,22 @@ class GeoDataset:
                                      default=str).encode()) & 0xFFFFFFFF
 
     def _attach_schema_entry(self, path: str, name: str, meta: Dict) -> None:
+        """Create and fill one schema's store from its manifest entry, then
+        re-scan the standing groups a replaced store held and register the
+        entry's subscriptions under their ids. A subscription that no longer
+        validates is skipped into the degradation trail, not raised."""
+        self._attach_schema_data(path, name, meta)
+        if self.standing is not None and self.standing.active(name):
+            self.standing.reattach(name)
+        for rec in meta.get("standing") or []:
+            try:
+                self._standing_engine().register(StandingSpec.from_dict(rec["spec"]),
+                                                 sub_id=rec["sub_id"])
+            except Exception as e:
+                resilience.record_skip("standing.restore", f"{name}:{rec.get('sub_id')}", e,
+                                       phase="load")
+
+    def _attach_schema_data(self, path: str, name: str, meta: Dict) -> None:
         """Create and fill one schema's store from its manifest entry."""
         self._ckpt_fp[name] = self._entry_fp(meta)
         ft = FeatureType.from_spec(name, meta["spec"])
@@ -931,7 +1085,12 @@ class GeoDataset:
             self._journal_rec(
                 "insert", name, blobs=sink, data=_jr.enc_columns(data, sink),
                 fids=None if fids is None else _jr.enc_value(fids, sink), vis=None)
-        return st.append(data, fids)
+        # the standing delta hook sees the encoded batch, the columns a
+        # re-scan reads; it fires on journal replay too
+        obs = None
+        if self.standing is not None and self.standing.active(name):
+            obs = lambda b: self.standing.on_batch(name, b.columns, b.n)  # noqa: E731
+        return st.append(data, fids, observer=obs)
 
     def flush(self, name: Optional[str] = None) -> None:
         for st in ([self._store(name)] if name else self._stores.values()):
@@ -1007,22 +1166,10 @@ class GeoDataset:
         return plan
 
     # -- audit ----------------------------------------------------------------
-    @contextlib.contextmanager
-    def _identity(self):
-        """Run a public call as ``geomesa.user`` (or ``"anonymous"``): the
-        ``user`` of the audit events written inside it. A nested call keeps
-        the outer call's identity."""
-        if getattr(self._tls, "user", None) is not None:
-            yield
-            return
-        self._tls.user = config.USER.get() or "anonymous"
-        try:
-            yield
-        finally:
-            self._tls.user = None
-
     def _current_user(self) -> str:
-        return getattr(self._tls, "user", None) or ""
+        """The admitted user of the call on this thread (``geomesa.user``,
+        else ``"anonymous"``; a dispatched ticket's user), "" outside one."""
+        return self.serving.current_user() or ""
 
     @staticmethod
     def _plan_audit_extras(plan: QueryPlan) -> Dict[str, Any]:
@@ -1277,13 +1424,15 @@ class GeoDataset:
         return q if isinstance(query, Query) or not isinstance(combined, str) \
             else combined
 
-    @_traced("count")
+    @_traced("count", speculative="_speculative_count")
     def count(self, name: str, query="INCLUDE", exact: bool = True,
               region=None) -> int:
         """Feature count of ``query``: exact, or (``exact=False``) the
         planner's estimate from the write-time sketches, with no scan.
         ``region``: optional polygon (WKT or geometry) clipping the count
-        (see :meth:`_with_region`)."""
+        (see :meth:`_with_region`). ``speculative_ok=True`` (keyword): a
+        count that admission sheds returns the planner's estimate, with an
+        audit event marked ``speculative``, instead of raising."""
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if not exact:
             return int(plan.est_count)
@@ -1293,13 +1442,15 @@ class GeoDataset:
         self._audit(name, q, plan, t0, n, op="count")
         return n
 
-    @_traced("density")
+    @_traced("density", speculative="_speculative_density")
     def density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
                 height: int = 256, weight: Optional[str] = None,
                 region=None) -> np.ndarray:
         """(height, width) f32 heatmap of ``query`` over ``bbox`` (default:
         the data's bounds), optionally summing the ``weight`` attribute.
-        ``region``: optional polygon clipping the aggregate."""
+        ``region``: optional polygon clipping the aggregate.
+        ``speculative_ok=True``: a shed density returns the coarse grid of
+        :meth:`_speculative_density`."""
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         if bbox is None:
             bbox = self.bounds(name) or (-180, -90, 180, 90)
@@ -1308,6 +1459,84 @@ class GeoDataset:
                 query_deadline(self._timeout_s()):
             grid = self.cache.density(self, st, q, plan, tuple(bbox), width, height, weight)
         self._audit(name, q, plan, t0, int(np.count_nonzero(grid)), op="density")
+        return grid
+
+    # -- speculative answers to a shed call: host reads only ---------------------
+    def _speculative_audit(self, name: str, plan: QueryPlan, op: str, hits: int,
+                           extra: Optional[Dict[str, Any]] = None) -> None:
+        """The audit marker of every speculative answer (``speculative`` and
+        ``shed``), so each coarse answer served under load stands apart."""
+        metrics.inc(metrics.SERVING_SPECULATIVE)
+        hints: Dict[str, Any] = {"op": op, "index": plan.index_name,
+                                 "speculative": True, "shed": True}
+        if extra:
+            hints.update(extra)
+        tid = tracing.current_trace_id()
+        if tid is not None:
+            hints["trace_id"] = tid
+        self.audit.record(name, plan.ecql, hints, plan.__dict__.get("plan_time_ms", 0.0),
+                          0.0, hits, user=self._current_user())
+
+    def _speculative_count(self, name: str, query="INCLUDE", exact: bool = True,
+                           region=None) -> int:
+        """The planner's estimate of a shed :meth:`count`: no device work."""
+        _, _, plan = self._cache_args(name, self._with_region(name, query, region))
+        est = int(plan.est_count)
+        self._speculative_audit(name, plan, "count", est)
+        return est
+
+    def _speculative_density(self, name: str, query="INCLUDE", bbox=None, width: int = 256,
+                             height: int = 256, weight: Optional[str] = None,
+                             region=None) -> np.ndarray:
+        """A coarse grid for a shed :meth:`density`, from host reads only:
+        resident cache / hierarchy count cells splat their exact counts
+        evenly over their footprint, the uncovered cells share the rest of
+        the planner's estimate, and a query with no cell cover splats the
+        whole estimate over the bbox. A weighted density has no such form
+        (the cells hold counts), so it stays shed."""
+        if weight is not None:
+            raise resilience.DeadlineShedError(
+                "[GM-SHED] weighted density has no speculative form "
+                "(resident cells hold counts, not weight sums)")
+        st, q, plan = self._cache_args(name, self._with_region(name, query, region))
+        if bbox is None:
+            bbox = self.bounds(name) or (-180, -90, 180, 90)
+        bbox = tuple(float(v) for v in bbox)
+        grid = np.zeros((height, width), np.float32)
+        est = float(plan.est_count)
+        got = self.cache.speculative_cells(self, st, q, plan)
+
+        def splat(box, value):
+            # value spread evenly over box ∩ bbox, in whole pixels
+            x0, y0, x1, y1 = box
+            sx = width / max(bbox[2] - bbox[0], 1e-12)
+            sy = height / max(bbox[3] - bbox[1], 1e-12)
+            c0 = int(np.clip(np.floor((x0 - bbox[0]) * sx), 0, width))
+            c1 = int(np.clip(np.ceil((x1 - bbox[0]) * sx), 0, width))
+            r0 = int(np.clip(np.floor((y0 - bbox[1]) * sy), 0, height))
+            r1 = int(np.clip(np.ceil((y1 - bbox[1]) * sy), 0, height))
+            if c1 > c0 and r1 > r0 and value > 0:
+                grid[r0:r1, c0:c1] += np.float32(value / ((r1 - r0) * (c1 - c0)))
+
+        resident_cells = 0
+        if got is not None:
+            from geomesa_tpu_torch.cache.cells import cell_box
+
+            decomp, resident, missing = got
+            resident_cells = len(resident)
+            served = 0
+            for cell, n in resident:
+                splat(cell_box(decomp.level, *cell), float(n))
+                served += n
+            remainder = max(est - served, 0.0)
+            uncovered = len(missing) + decomp.residual_count()
+            if uncovered and remainder > 0:
+                for cell in missing:
+                    splat(cell_box(decomp.level, *cell), remainder / uncovered)
+        else:
+            splat(bbox, est)
+        self._speculative_audit(name, plan, "density", int(np.count_nonzero(grid)),
+                                {"resident_cells": resident_cells})
         return grid
 
     # -- curve-aligned density ------------------------------------------------
@@ -1391,7 +1620,7 @@ class GeoDataset:
         bboxes = list(bboxes)
         self._check_members(members, len(bboxes), "bboxes")
         with tracing.start("density_curve_batch", schema=name, batch=len(bboxes)), \
-                self._identity():
+                self.serving.admit("density_curve"):
             plan = self._fresh_plan(name, dataclasses.replace(self._as_query(query), index="z2"))
             windows, snaps = self._curve_windows(name, bboxes, level)
             t0 = time.perf_counter()
@@ -1422,7 +1651,7 @@ class GeoDataset:
             raise ValueError("bboxes must align with queries")
         qs = [dataclasses.replace(self._as_query(q), index="z2") for q in queries]
         with tracing.start("density_curve_filter_batch", schema=name, batch=len(qs)), \
-                self._identity():
+                self.serving.admit("density_curve"):
             plans, spec = self._batch_plans(name, qs)
             if spec is None:
                 return None
@@ -1475,7 +1704,7 @@ class GeoDataset:
             return None
         self._check_members(members, len(queries))
         with tracing.start("count_batch", schema=name, batch=len(queries)), \
-                self._identity():
+                self.serving.admit("count"):
             plans, spec = self._batch_plans(name, queries)
             if spec is None:
                 return None
@@ -1484,6 +1713,7 @@ class GeoDataset:
                 res = self._executor(name).count_batch(plans, spec)
             if res is None:
                 return None
+            metrics.inc(metrics.SERVING_FUSED_DISTINCT, len(res))
             self._batch_audit(name, "count", plans, res, t0, members)
             return res
 
@@ -1501,7 +1731,7 @@ class GeoDataset:
         if len(bboxes) != len(queries):
             raise ValueError("bboxes must align with queries")
         with tracing.start("density_batch", schema=name, batch=len(queries)), \
-                self._identity():
+                self.serving.admit("density"):
             plans, spec = self._batch_plans(name, queries)
             if spec is None:
                 return None
@@ -1520,6 +1750,7 @@ class GeoDataset:
                                                            height, weight)
             if grids is None:
                 return None
+            metrics.inc(metrics.SERVING_FUSED_DISTINCT, len(grids))
             self._batch_audit(name, "density", plans,
                               [int(np.count_nonzero(g)) for g in grids], t0, members)
             return grids
@@ -1535,7 +1766,7 @@ class GeoDataset:
             return []
         self._check_members(members, len(queries))
         with tracing.start("stats_batch", schema=name, batch=len(queries)), \
-                self._identity():
+                self.serving.admit("stats"):
             stats = [parse_stat(stat_spec) for _ in queries]
             plans, spec = self._batch_plans(name, queries)
             if spec is None:
@@ -1545,6 +1776,7 @@ class GeoDataset:
                 out = self._executor(name).stats_batch(plans, spec, stats)
             if out is None:
                 return None
+            metrics.inc(metrics.SERVING_FUSED_DISTINCT, len(out))
             self._batch_audit(name, "stats", plans, [0] * len(out), t0, members,
                               extra_hints={"stat": stat_spec})
             return out
@@ -1620,7 +1852,9 @@ class GeoDataset:
             root.t0 = time.perf_counter()
             tracing.adopt(root)
         try:
-            with self._identity():
+            # admission covers the eager planning; the stream body runs as
+            # the consumer iterates
+            with self.serving.admit("query_batches"):
                 plan = self._fresh_plan(name, q)
         except BaseException:
             # the stream, which owns the finish, never runs
@@ -1665,12 +1899,13 @@ class GeoDataset:
         return st.bounds()
 
     # -- stats -------------------------------------------------------------
-    @_traced("stats")
+    @_traced("stats", speculative="_speculative_stats")
     def stats(self, name: str, stat_spec: str, query="INCLUDE",
               region=None) -> sk.Stat:
         """Exact statistics of the matches, from the stat DSL
         (``Count();MinMax(a);Histogram(a,bins,lo,hi);...``). ``region``:
-        optional polygon clipping the matches."""
+        optional polygon clipping the matches. ``speculative_ok=True``: a
+        shed call returns :meth:`_speculative_stats`."""
         st, q, plan = self._cache_args(name, self._with_region(name, query, region))
         parse_stat(stat_spec)  # validate the spec before any scan
         t0 = time.perf_counter()
@@ -1678,6 +1913,33 @@ class GeoDataset:
             out = self.cache.stats(self, st, q, plan, stat_spec)
         self._audit(name, q, plan, t0, 0, op="stats")
         return out
+
+    def _speculative_stats(self, name: str, stat_spec: str, query="INCLUDE",
+                           region=None) -> sk.Stat:
+        """A shed :meth:`stats` from the write-time sketches, host reads
+        only: a ``Count`` leaf reads the store's count (unfiltered) or the
+        planner's estimate, a ``MinMax`` of an indexed attribute or of the
+        date reads its sketch, and other leaves stay empty. The result has
+        the spec's shape; the audit marker tells it apart."""
+        st, _, plan = self._cache_args(name, self._with_region(name, query, region))
+        stat = parse_stat(stat_spec)
+        leaves = stat.stats if isinstance(stat, sk.SeqStat) else [stat]
+        served = 0
+        for leaf in leaves:
+            if isinstance(leaf, sk.CountStat):
+                leaf.count = int(st.count if isinstance(plan.filter, ir.Include)
+                                 else plan.est_count)
+                served += 1
+            elif isinstance(leaf, sk.MinMax):
+                mm = st.stats.get(f"minmax-{leaf.attribute}")
+                if mm is None and leaf.attribute == st.ft.dtg_field:
+                    mm = st.stats.get("time-bounds")
+                if isinstance(mm, sk.MinMax) and not mm.is_empty:
+                    leaf.merge(mm)
+                    served += 1
+        self._speculative_audit(name, plan, "stats", 0,
+                                {"stat": stat_spec, "served_leaves": served})
+        return stat
 
     def unique(self, name: str, attribute: str, query="INCLUDE") -> List:
         """Distinct values, sorted (None last)."""

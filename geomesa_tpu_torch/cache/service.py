@@ -424,6 +424,51 @@ class AggregateCache:
             ),
         }
 
+    def speculative_cells(self, ds, st, q, plan):
+        """The host-only residency read behind the speculative density and
+        stats answers: the query's decomposed cells with their resident
+        count values (cache hits, and hierarchy assembly from cached
+        children), never a scan and never a promotion. ``(decomp,
+        resident, missing)`` with ``resident`` as ``[(cell, count), ...]``,
+        or None when the cache is off or the query does not decompose (the
+        caller falls back to the planner's estimate)."""
+        if not self.enabled() or plan.is_empty:
+            return None
+        decomp = cellmod.decompose(plan.filter, st.ft)
+        if decomp is None:
+            decomp = cellmod.decompose_region(plan.filter, st.ft)
+        if decomp is None:
+            return None
+        uid, epoch = st.uid, st.version
+        akey = self._auth_key(ds, q)
+        fp = ("count",)
+
+        def key(level, cell):
+            return ("cell",) + fp + (
+                decomp.residual_key, akey, level,
+                cellmod.cell_prefix(level, cell),
+            )
+
+        def merge4(vals):
+            return sum(int(v) for v in vals)
+
+        dep = hierarchy.depth() if hierarchy.enabled() else 0
+        resident, missing = [], []
+        for cell in decomp.cells:
+            got = self.store.get(uid, epoch, key(decomp.level, cell))
+            if got is None and dep:
+                got = hierarchy.assemble(
+                    lambda lvl, c: self.store.get(uid, epoch, key(lvl, c)),
+                    lambda lvl, c, v: None,  # read-only: never promote
+                    merge4, decomp.level, cell, max_depth=dep,
+                    count_promotes=False,
+                )
+            if got is not None:
+                resident.append((cell, int(got)))
+            else:
+                missing.append(cell)
+        return decomp, resident, missing
+
     # -- ops ----------------------------------------------------------------
     def count(self, ds, st, q, plan) -> int:
         ex = ds._executor(st.ft.name)

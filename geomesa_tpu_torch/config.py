@@ -462,3 +462,82 @@ def slo_targets() -> Dict[str, float]:
             except ValueError:
                 pass
     return out
+
+
+# -- the serving scheduler (serving/scheduler.py; names and defaults of
+# geomesa_tpu/config.py) --
+
+#: bounded admission queue: a request beyond it is rejected typed
+#: ``[GM-OVERLOADED]`` before any planning or device work
+SERVING_QUEUE_DEPTH = SystemProperty("geomesa.serving.queue.depth", "256")
+
+#: cross-query fusion of already-queued compatible aggregates into one pass
+SERVING_FUSION = SystemProperty("geomesa.serving.fusion", "true")
+
+#: members per fused micro-batch
+SERVING_FUSION_MAX = SystemProperty("geomesa.serving.fusion.max", "16")
+
+#: distinct-literal fusion: requests whose ECQL differs only in BBOX /
+#: temporal literals share a structural key and ride one query-axis batch
+SERVING_FUSION_DISTINCT = SystemProperty("geomesa.serving.fusion.distinct", "true")
+
+#: pool-aware placement of fused groups toward the slot holding the
+#: schema's columns (a pool of one slot never defers)
+SERVING_PLACEMENT = SystemProperty("geomesa.serving.placement", "true")
+
+#: ms a placement-deferred ticket stays reserved for its preferred slot
+SERVING_PLACEMENT_GRACE_MS = SystemProperty("geomesa.serving.placement.grace.ms", "50")
+
+#: per-user fair share by attained service (off: strict FIFO)
+SERVING_FAIR_SHARE = SystemProperty("geomesa.serving.fair-share", "true")
+
+#: shed at admission when the budget is below the estimated queue wait
+SERVING_SHED_ESTIMATE = SystemProperty("geomesa.serving.shed.estimate", "true")
+
+#: dispatch-thread pool width ("all": one per healthy card), clamped to
+#: the healthy card count: 1 in the port, which drives one card
+SERVING_EXECUTORS = SystemProperty("geomesa.serving.executors", "1")
+
+#: fair-share weights are ``geomesa.serving.user.weight.<user>`` (see
+#: user_weight), default 1.0
+USER_WEIGHT_PREFIX = "geomesa.serving.user.weight."
+
+
+def user_weight(user: str) -> float:
+    """Effective fair-share weight of ``user``: the thread-local override,
+    else the environment (non-alphanumeric characters of the name as
+    ``_``, upper-cased), else 1.0; values <= 0 or unparseable read 1.0."""
+    name = USER_WEIGHT_PREFIX + user
+    v = _overrides().get(name)
+    if v is None:
+        v = os.environ.get("".join(ch if ch.isalnum() else "_" for ch in name).upper())
+    if v is None:
+        return 1.0
+    try:
+        w = float(v)
+    except ValueError:
+        return 1.0
+    return w if w > 0 else 1.0
+
+
+# -- standing queries (subscribe/; names and defaults of geomesa_tpu/config.py) --
+
+#: master switch: off, registrations raise
+SUBSCRIBE_ENABLED = SystemProperty("geomesa.subscribe.enabled", "true")
+
+#: assert every delta-applied result against a re-scan at the same epoch
+#: after each update (a full re-scan per update: tests and drills only)
+SUBSCRIBE_VERIFY = SystemProperty("geomesa.subscribe.verify", "false")
+
+#: distinct standing groups per schema (past it: ``[GM-SUB-LIMIT]``)
+SUBSCRIBE_MAX_GROUPS = SystemProperty("geomesa.subscribe.max.groups", "256")
+
+#: update records a group's ring keeps
+SUBSCRIBE_UPDATES_RING = SystemProperty("geomesa.subscribe.updates.ring", "256")
+
+#: pyramid depth: the leaf grid is 2^levels on a side
+SUBSCRIBE_PYRAMID_LEVELS = SystemProperty("geomesa.subscribe.pyramid.levels", "5")
+
+#: SFC cell level of a subscription id's route key (the fleet router's
+#: affinity level; the id keeps the reference's form)
+FLEET_ROUTING_LEVEL = SystemProperty("geomesa.fleet.routing.level", "3")

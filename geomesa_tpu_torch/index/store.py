@@ -433,10 +433,14 @@ class FeatureStore:
         #: ephemeral partition child (``PartitionedFeatureStore.scan_child``)
         self.lake_note: Optional[Dict[str, int]] = None
 
-    def append(self, data: Dict, fids=None) -> int:
-        """Buffer an ingest batch (encoded now, indexed at flush)."""
+    def append(self, data: Dict, fids=None, observer=None) -> int:
+        """Buffer an ingest batch (encoded now, indexed at flush).
+        ``observer``: called with the encoded batch once it is buffered
+        (the standing-query delta hook reads the columns a re-scan reads)."""
         batch = encode_batch(self.ft, data, self.dicts, fids)
         self._buffer.append(batch)
+        if observer is not None:
+            observer(batch)
         return batch.n
 
     @property

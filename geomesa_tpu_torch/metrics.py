@@ -486,3 +486,52 @@ SLOT_OCCUPANCY_PREFIX = "serving.slot.occupancy"
 DEVICE_HEALTH_PREFIX = "device.health"
 SLO_BURN_PREFIX = "slo.burn"
 SLO_BREAKER_PREFIX = "slo.breaker"
+# The serving scheduler (serving/scheduler.py, serving/fuse.py):
+#   serving.queue.depth       gauge: tickets queued on the started scheduler
+#   serving.queue.wait        histogram: a ticket's wait before dispatch
+#   serving.admitted / .completed            tickets queued / ops finished
+#   serving.shed.deadline / .shed.queue_full  typed sheds and rejections
+#   serving.fused             members served by a fused batch (all of them)
+#   serving.fused.distinct    members served by a distinct-literal batch
+#   serving.fusion.batch      histogram (dimensionless): fused batch sizes
+#   serving.speculative       sheds answered with the coarse host answer
+#   serving.placement.bound / .defer  placement of fused groups on a pool
+#   serving.executor.dispatch.<slot>  groups executed per slot
+#   serving.slot.died[.<slot>] / serving.slot.respawn[.<slot>]  dispatcher
+#                             deaths and the supervisor's respawns
+SERVING_QUEUE_DEPTH = "serving.queue.depth"
+SERVING_QUEUE_WAIT = "serving.queue.wait"
+SERVING_ADMITTED = "serving.admitted"
+SERVING_COMPLETED = "serving.completed"
+SERVING_SHED_DEADLINE = "serving.shed.deadline"
+SERVING_SHED_QUEUE_FULL = "serving.shed.queue_full"
+SERVING_FUSED = "serving.fused"
+SERVING_FUSED_DISTINCT = "serving.fused.distinct"
+SERVING_SPECULATIVE = "serving.speculative"
+SERVING_PLACEMENT_BOUND = "serving.placement.bound"
+SERVING_PLACEMENT_DEFER = "serving.placement.defer"
+SERVING_FUSION_BATCH = "serving.fusion.batch"
+SERVING_EXECUTOR_DISPATCH = "serving.executor.dispatch"
+SERVING_SLOT_DIED = "serving.slot.died"
+SERVING_SLOT_RESPAWN = "serving.slot.respawn"
+#: fused batch-size histogram buckets (members per micro-batch)
+FUSION_BATCH_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0)
+# Standing queries (subscribe/):
+#   subscribe.groups / .subscribers   gauges: groups and subscribers held
+#   subscribe.update.dispatches       delta passes: one per applied ingest
+#                                     batch per schema, however many watch
+#   subscribe.updates                 update records emitted
+#   subscribe.rescans                 dirty-scoped re-scans
+#   subscribe.fused                   registrations joining an existing group
+#   subscribe.verify                  delta-against-re-scan checks run
+#   subscribe.handoff.exported / .imported / .resync  group migration
+SUBSCRIBE_GROUPS = "subscribe.groups"
+SUBSCRIBE_SUBSCRIBERS = "subscribe.subscribers"
+SUBSCRIBE_DISPATCHES = "subscribe.update.dispatches"
+SUBSCRIBE_UPDATES = "subscribe.updates"
+SUBSCRIBE_RESCANS = "subscribe.rescans"
+SUBSCRIBE_FUSED = "subscribe.fused"
+SUBSCRIBE_VERIFY = "subscribe.verify"
+SUBSCRIBE_HANDOFF_EXPORTED = "subscribe.handoff.exported"
+SUBSCRIBE_HANDOFF_IMPORTED = "subscribe.handoff.imported"
+SUBSCRIBE_HANDOFF_RESYNC = "subscribe.handoff.resync"

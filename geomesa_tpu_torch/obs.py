@@ -16,13 +16,16 @@ process's operational state.
                         healthy or softly degraded, 503 when a breaker
                         other than a device's is open, an SLO burns, or no
                         device is usable
-    GET /debug/queries  JSON: recent audit events, the degradation trail
-                        and slow-query span trees (?n=, ?user=, ?op=);
-                        ?trace=<id> returns one retained span tree
+    GET /debug/queries  JSON: recent audit events, the degradation trail,
+                        slow-query span trees, the serving scheduler's
+                        per-user rollups and snapshot, and the standing
+                        groups (?n=, ?user=, ?op=); ?trace=<id> returns one
+                        retained span tree
     GET /debug/devices  JSON: per-device busy fractions and totals (the
                         dispatch windows of ``utilization.py``: an upper
                         bound of the card's use), the per-device health
-                        map and the SLO burn summary
+                        map, the SLO burn summary and the serving pool's
+                        digest
     GET /debug/heat     JSON: per-(schema, cell) access heat
     GET /debug/fleet, /metrics/fleet, /healthz/fleet
                         what the reference answers in a process that runs
@@ -186,13 +189,17 @@ def health() -> Dict[str, Any]:
 def debug_queries(dataset=None, n: int = 50, user: Optional[str] = None,
                   op: Optional[str] = None) -> Dict[str, Any]:
     """The /debug/queries payload: recent audit events of ``dataset``, the
-    degradation trail and slow traces (process-wide). ``user`` / ``op``
-    filter before the ``n`` cap. The port runs no serving scheduler or
-    standing queries, so ``users``, ``serving`` and ``subscriptions`` are
-    empty."""
+    degradation trail and slow traces (process-wide), the serving
+    scheduler's per-user rollups (``users``, the ledger fair share runs on)
+    and ``snapshot()`` (``serving``), and the standing groups
+    (``subscriptions``). ``user`` / ``op`` filter events, rollups and slow
+    traces before the ``n`` cap."""
     from geomesa_tpu_torch import audit as audit_mod
 
     events = []
+    users: Dict[str, Any] = {}
+    serving: Dict[str, Any] = {}
+    subscriptions: Dict[str, Any] = {"groups": [], "subscribers": 0}
     user_tids = None
     if dataset is not None:
         raw = dataset.audit.recent(n if user is None and op is None else 10_000)
@@ -204,6 +211,15 @@ def debug_queries(dataset=None, n: int = 50, user: Optional[str] = None,
         if op is not None:
             events = [e for e in events if e.get("hints", {}).get("op") == op]
         events = events[-n:]
+        sched = getattr(dataset, "serving", None)
+        if sched is not None:
+            users = sched.user_rollups()
+            if user is not None:
+                users = {u: r for u, r in users.items() if u == user}
+            serving = sched.snapshot()
+        eng = getattr(dataset, "standing", None)
+        if eng is not None:
+            subscriptions = eng.snapshot()
     degraded = [json.loads(e.to_json()) for e in audit_mod.degradations.recent(n)]
     slow = tracing.slow_traces(10_000 if (op is not None or user is not None) else n)
     if op is not None:
@@ -214,9 +230,9 @@ def debug_queries(dataset=None, n: int = 50, user: Optional[str] = None,
         "queries": events,
         "degradations": degraded,
         "slow_traces": slow[-n:],
-        "users": {},
-        "serving": {},
-        "subscriptions": {"groups": [], "subscribers": 0},
+        "users": users,
+        "serving": serving,
+        "subscriptions": subscriptions,
     }
 
 
@@ -235,14 +251,17 @@ def debug_heat(top: Optional[int] = None) -> Dict[str, Any]:
 
 def debug_devices(dataset=None) -> Dict[str, Any]:
     """The /debug/devices payload: per-device utilization, the queue-wait
-    against device-time breakdown, the SLO burn summary and the per-device
-    health map."""
+    against device-time breakdown, the SLO burn summary, the per-device
+    health map and, with a dataset, its serving pool's digest (``pool``)."""
     from geomesa_tpu_torch import slo, utilization
     from geomesa_tpu_torch.parallel import health as phealth
 
     out = utilization.snapshot()
     out["slo"] = slo.monitor().status()
     out["health"] = phealth.registry().snapshot()
+    sched = getattr(dataset, "serving", None) if dataset is not None else None
+    if sched is not None:
+        out["pool"] = sched.snapshot()
     return out
 
 

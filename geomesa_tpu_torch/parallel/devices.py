@@ -1,15 +1,50 @@
-"""The partitioned scan's merge order.
+"""The partitioned scan's merge order and the serving pool's device claim.
 
-Copy of ``tree_merge`` and ``TreeReducer`` from
+Copy of ``tree_merge``, ``TreeReducer``, ``register_pool`` /
+``unregister_pool`` / ``pool_width`` and ``healthy_device_count`` from
 ``geomesa_tpu/parallel/devices.py``: partials merge in one fixed balanced
 association of their pruned-bin order, so float grids add up in the same
-order as the JAX package's. The device fan-out of that module waits for
-ROADMAP Queue 1's multi-GPU item.
+order as the JAX package's; a started serving scheduler records its pool
+width, which the healthy card count clamps. The port drives one card, so
+the count is 1 (0 healthy cards still leave the one default placement).
+The device fan-out and the slot -> device map wait for ROADMAP Queue 1's
+multi-GPU item.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import List
+
+#: live executor pools: scheduler -> width
+_pools: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_lock = threading.Lock()
+
+
+def register_pool(owner, n: int) -> None:
+    """Record ``owner``'s live executor-pool width (a started scheduler)."""
+    with _lock:
+        _pools[owner] = max(1, int(n))
+
+
+def unregister_pool(owner) -> None:
+    """Forget ``owner``'s pool (a stopped scheduler)."""
+    with _lock:
+        _pools.pop(owner, None)
+
+
+def pool_width() -> int:
+    """Width of the widest live pool (1 when none runs)."""
+    with _lock:
+        return max(_pools.values(), default=1)
+
+
+def healthy_device_count() -> int:
+    """Cards the health registry allows scheduling on, at least 1: a
+    cordoned or broken card caps capacity, never zeroes it. The port
+    serves card 0 alone, so the count is 1 on the H100 and on the CPU."""
+    return 1
 
 
 def tree_merge(parts, combine):

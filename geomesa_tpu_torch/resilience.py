@@ -35,7 +35,14 @@ spill, lake, join and journal paths call:
   (:func:`guarded_root_io`) and each device (``parallel/health.py``) sit
   behind one; ``/healthz`` reads their states.
 
-``PartialResult`` and the serving and fleet errors are not here yet.
+* The serving errors: :class:`DeadlineShedError` (``[GM-SHED]``),
+  :class:`AdmissionRejectedError` (``[GM-OVERLOADED]``) and
+  :class:`DeviceDrainError` (``[GM-DRAINING]``), raised by
+  ``serving/scheduler.py`` before any device work or for a stranded
+  stream.
+
+``PartialResult`` (with ``fs/storage.py``) and ``FleetPartialError`` (with
+the fleet) are not here yet.
 """
 
 from __future__ import annotations
@@ -56,6 +63,44 @@ T = TypeVar("T")
 
 class QueryTimeoutError(RuntimeError):
     """A scan exceeded its :class:`Deadline` (``geomesa.query.timeout``)."""
+
+
+class DeadlineShedError(QueryTimeoutError):
+    """A query SHED by the serving scheduler: dropped at admission or at
+    dispatch because its deadline budget cannot be met (already expired,
+    expired while queued, or smaller than the estimated queue wait),
+    before any planning or device work. A :class:`QueryTimeoutError`, so
+    deadline-aware callers classify it as a timeout; ``retry_after_s`` is
+    advisory (0: do not retry)."""
+
+    code = "GM-SHED"
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class AdmissionRejectedError(RuntimeError):
+    """The serving scheduler's bounded admission queue is full:
+    backpressure, not failure (retry with backoff)."""
+
+    code = "GM-OVERLOADED"
+
+    def __init__(self, depth: int):
+        super().__init__(
+            f"admission queue full ({depth} queued); retry with backoff or "
+            "raise geomesa.serving.queue.depth"
+        )
+        self.depth = depth
+
+
+class DeviceDrainError(RuntimeError):
+    """Serving work rejected or stranded because its executor slot was
+    drained: the slot's dispatcher died, or the pool was re-clamped. The
+    device work in flight is not known to have committed, so a stream
+    re-opens instead of resuming."""
+
+    code = "GM-DRAINING"
 
 
 class CircuitOpenError(RuntimeError):

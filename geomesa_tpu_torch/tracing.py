@@ -36,9 +36,13 @@ worker appends staging spans while the query thread appends its own.
 
 The kernel registry's ``kernel.recompile`` events count into the trace's
 ``recompiles`` (and its cost ledger's ``recompiles`` key when it
-finishes). Not here yet: the serving scheduler's per-thread trace and
-stranded-slot marks, and with them the ``shed`` and ``slot_died`` classes
-(the flags exist and stay false).
+finishes). For the serving scheduler (``serving/scheduler.py``): a root
+span that a ``DeadlineShedError`` escapes flags its trace ``shed``;
+:func:`mark_slot_died` flags a stranded stream's trace ``slot_died`` by id
+(the live traces are held weakly in ``_open``) with a ``serving.slot.died``
+event under its root; and :func:`pop_thread_trace` hands a dispatch thread
+the trace its ticket just finished, so the ticket's cost ledger lands on
+its user. ``tracing_export.classify`` keeps both flags' traces.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import contextvars
 import random
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional
 
@@ -56,6 +61,10 @@ from geomesa_tpu_torch import config, metrics
 #: reference's ``uuid4`` reads ``os.urandom`` for every id, a system call
 #: that cost about 0.1-0.27 ms a trace on the H100's host (PERF.md §6)
 _ids = random.Random()
+
+#: live traces by id (weak values: a trace lives as long as its holders):
+#: the serving supervisor flags a stranded ticket's trace through it
+_open: "weakref.WeakValueDictionary[str, Trace]" = weakref.WeakValueDictionary()
 
 #: the innermost open span of the calling context (None = not tracing)
 _current: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar(
@@ -95,7 +104,7 @@ class Trace:
     __slots__ = ("trace_id", "root", "max_spans", "n_spans", "dropped",
                  "profiler", "lock", "finished", "slow_logged",
                  "error", "shed", "degraded", "recompiles", "cost",
-                 "exported", "sample_counted", "slot_died")
+                 "exported", "sample_counted", "slot_died", "__weakref__")
 
     def __init__(self, trace_id: Optional[str] = None):
         self.trace_id = trace_id or f"{_ids.getrandbits(64):016x}"
@@ -116,6 +125,7 @@ class Trace:
         self.exported = False              # handed to the exporter once
         self.sample_counted = False        # sampled-out counted once
         self.slot_died = False             # serving slot died under it
+        _open[self.trace_id] = self
 
     def admit(self) -> bool:
         """Reserve one span slot (False = budget exhausted, span dropped)."""
@@ -168,8 +178,12 @@ class Span:
             # root-only: an exception a child span propagates may be caught
             # and recovered above (a skipped partition under allow_partial
             # succeeds degraded); only one that escapes the root means the
-            # query failed
+            # query failed; a typed deadline shed is its own class
             self.trace.error = exc[0].__name__
+            from geomesa_tpu_torch.resilience import DeadlineShedError
+
+            if issubclass(exc[0], DeadlineShedError):
+                self.trace.shed = True
         if self._token is not None:
             _current.reset(self._token)
             self._token = None
@@ -242,14 +256,16 @@ def enabled() -> bool:
     return bool(config.TRACE_ENABLED.to_bool())
 
 
-def start(name: str, trace_id: Optional[str] = None, **attrs):
+def start(name: str, trace_id: Optional[str] = None, force: bool = False, **attrs):
     """Open a ROOT span (one per query), under ``trace_id`` when given.
-    The no-op singleton unless tracing is enabled. Called with a trace
-    already active on the context (a public call inside another), it joins
-    that trace as a child instead of opening a second root."""
+    The no-op singleton unless tracing is enabled, or ``force`` is set with
+    a ``trace_id`` (a fused member keeps the trace id its client sent).
+    Called with a trace already active on the context (a public call
+    inside another), it joins that trace as a child instead of opening a
+    second root."""
     if _current.get() is not None:
         return span(name, **attrs)
-    if not enabled():
+    if not (enabled() or (force and trace_id)):
         return NOOP
     trace = Trace(trace_id)
     root = Span(name, trace, None, attrs or None)
@@ -359,6 +375,40 @@ def mark_degraded() -> None:
         cur.trace.degraded = True
 
 
+def mark_slot_died(trace_id: Optional[str], slot: int, reason: str = "died") -> bool:
+    """Flag the live trace behind ``trace_id`` as stranded by a dying or
+    drained serving slot: sets ``slot_died`` (an always-keep class of tail
+    sampling) and appends a zero-duration ``serving.slot.died`` event under
+    its root. By id, since the dying dispatcher is not in the stream's span
+    context. False when no live trace holds the id."""
+    if not trace_id:
+        return False
+    tr = _open.get(trace_id)
+    if tr is None:
+        return False
+    with tr.lock:
+        tr.slot_died = True
+    root = tr.root
+    if root is not None and tr.admit():
+        ev = Span("serving.slot.died", tr, root, {"slot": int(slot), "reason": reason})
+        with tr.lock:
+            root.children.append(ev)
+    return True
+
+
+#: the trace each thread completed last: the serving scheduler reads and
+#: clears it around a dispatched ticket, without racing other threads on
+#: the process-wide ``last_trace``
+_tls = threading.local()
+
+
+def pop_thread_trace() -> Optional[Trace]:
+    """Return and clear this thread's most recently completed trace."""
+    tr = getattr(_tls, "last", None)
+    _tls.last = None
+    return tr
+
+
 # ---------------------------------------------------------------------------
 # slow-query log + finished-trace ring
 # ---------------------------------------------------------------------------
@@ -440,6 +490,7 @@ def _finish_trace(trace: Trace) -> None:
         return
     trace.finished = True
     _last[0] = trace
+    _tls.last = trace
     _retain(trace)
     if trace.recompiles:
         with trace.lock:

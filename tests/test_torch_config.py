@@ -113,6 +113,22 @@ KNOBS = {
     "DENSITY_MXU": "DENSITY_MXU",
     "MXU_TILE_X": "MXU_TILE_X",
     "MXU_TILE_Y": "MXU_TILE_Y",
+    # slice 17: the serving scheduler and standing queries
+    "SERVING_QUEUE_DEPTH": "SERVING_QUEUE_DEPTH",
+    "SERVING_FUSION": "SERVING_FUSION",
+    "SERVING_FUSION_MAX": "SERVING_FUSION_MAX",
+    "SERVING_FUSION_DISTINCT": "SERVING_FUSION_DISTINCT",
+    "SERVING_PLACEMENT": "SERVING_PLACEMENT",
+    "SERVING_PLACEMENT_GRACE_MS": "SERVING_PLACEMENT_GRACE_MS",
+    "SERVING_FAIR_SHARE": "SERVING_FAIR_SHARE",
+    "SERVING_SHED_ESTIMATE": "SERVING_SHED_ESTIMATE",
+    "SERVING_EXECUTORS": "SERVING_EXECUTORS",
+    "SUBSCRIBE_ENABLED": "SUBSCRIBE_ENABLED",
+    "SUBSCRIBE_VERIFY": "SUBSCRIBE_VERIFY",
+    "SUBSCRIBE_MAX_GROUPS": "SUBSCRIBE_MAX_GROUPS",
+    "SUBSCRIBE_UPDATES_RING": "SUBSCRIBE_UPDATES_RING",
+    "SUBSCRIBE_PYRAMID_LEVELS": "SUBSCRIBE_PYRAMID_LEVELS",
+    "FLEET_ROUTING_LEVEL": "FLEET_ROUTING_LEVEL",
 }
 
 

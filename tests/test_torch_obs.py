@@ -487,9 +487,9 @@ def test_endpoint_status_and_payload_keys(pair):
             continue
         assert pr[0] == jr[0] and pr[1] == jr[1], route
         if jr[1] == "application/json":
-            # the reference adds its serving pool's digest ("pool"); the
-            # port runs no serving scheduler
-            assert _keys(pr[2]) == [k for k in _keys(jr[2]) if k != "pool"], route
+            # both carry the serving pool's digest ("pool") since the port
+            # has the serving scheduler
+            assert _keys(pr[2]) == _keys(jr[2]), route
     om = obs.handle("/metrics", p, accept="application/openmetrics-text")
     assert om[1] == obs.OPENMETRICS_CTYPE and om[2].decode().endswith("# EOF\n")
     h = json.loads(obs.handle("/healthz", p)[2])
