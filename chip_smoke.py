@@ -9,7 +9,8 @@
 time ``np.savez_compressed`` takes on each column of its chunk alone, and
 nothing else.)
 
-1. Device: the card's name and power limit; builds the CUDA kernels from
+1. Device: the card's name and power limit, whether ``pyarrow`` is installed
+   (and its version; logged only); builds the CUDA kernels from
    ``geomesa_tpu_torch/csrc`` with nvcc (in parallel) and prints the build
    time and the ``-Xptxas -v`` report.
 2. Main path through ``GeoDataset``, at the bench's deployment: N (default
@@ -424,9 +425,36 @@ nothing else.)
    the differing cells are logged). The host evaluator's delta for one
    batch against one re-scan. The store is dropped at the end.
 
+19. Slice 18, the streaming tier, within ``S18_BUDGET_S``, on stores of
+   its own after slice 17: a journaled ``StreamingDataset`` (4 partitions)
+   takes a live window of ``S18_LIVE`` AIS-like tracks (``make_data``, seed
+   + 1801, explicit event times), written and polled in batches of
+   ``S18_BATCH``; the first batch's write and apply rates decide the cuts
+   (the cold tier toward ``S18_COLD_FLOOR`` first, then the window toward
+   ``S18_LIVE_FLOOR``, each printed). A cold tier of ``S18_COLD_ROWS`` rows
+   of slice 1's shape (seed + 18) on the card shares ``S18_SHARED`` fids
+   with the window. A standing count and 256x256 density over slice 1's
+   box, under ``geomesa.subscribe.verify``, through ``S18_MOVES`` moves, a
+   stale update (dropped), ``S18_DELETES`` deletes and a poison message
+   (quarantined): each update equals a fresh call and an oracle. Count,
+   ``query``, a 512x512 ``density`` on the card and ``Count();MinMax(weight)``
+   over slice 1's bbox + ``dtg DURING`` and over its 64-edge polygon, each
+   against a NumPy oracle over the live state (grids exact against the f32
+   mapping); the density on the card against ``density_grid_np``.
+   ``S18_CONFLUENT`` framed-Avro records through ``attach_confluent`` with
+   one schema evolution and one tombstone, offsets committed every
+   ``S18_COMMIT``; the resume offset. A fresh consumer on the same bus
+   recovers the journal: equal caches and offsets, a next poll of 0. Then
+   ``LambdaDataset(cold, recovered)``: ``run_persistence`` ages about half
+   the window into the cold tier; the merged count, ``query``, f64-mapped
+   density and stats equal an oracle in which the hot matches win, the
+   polygon count launching ``pip.cu``, and ``pip.cu`` against its plain
+   version on the cold tier's operands (not counted). The stores and the
+   journal root are dropped at the end.
+
 Output: a ``{"kernels": [...]}`` JSON line (each kernel also carries
 ``launches_slice8`` to ``launches_slice11`` and ``launches_slice13`` to
-``launches_slice17``), the card's ``nvidia-smi``
+``launches_slice18``), the card's ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero. Without a visible CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -436,6 +464,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.metadata
+import importlib.util
 import json
 import math
 import subprocess
@@ -5807,6 +5837,474 @@ def slice17(args, torch, ds, data, results, wkt, kpip, kgrouped, n_bbox, name="g
     return launches, wall
 
 
+#: the slice-18 phase's own budget (seconds), checked as slices 16 and 17 check theirs
+S18_BUDGET_S = 30.0
+#: the Lambda store's cold tier (slice 1's shape, seed + 18) and the live
+#: window (distinct fids, written in batches); cuts go no lower than the floors
+S18_COLD_ROWS = 2_000_000
+S18_COLD_FLOOR = 500_000
+S18_LIVE = 200_000
+S18_LIVE_FLOOR = 50_000
+S18_BATCH = 20_000
+#: live fids that also exist in the cold tier (``c<i>``), moves, deletes
+S18_SHARED = 50_000
+S18_MOVES = 20_000
+S18_DELETES = 1_000
+S18_SCHEMA = "ais"
+S18_SPEC = "weight:Float,dtg:Date,*geom:Point"
+#: the live window's event times: row i at S18_T0 + i ms
+S18_T0 = 1_700_000_000_000
+S18_STAT = "Count();MinMax(weight)"
+S18_STANDING_GRID = 256
+#: framed-Avro records through ``attach_confluent``; a broker offset is
+#: committed every S18_COMMIT records (and at the last one)
+S18_CONFLUENT = 10_000
+S18_COMMIT = 1_000
+#: for the cut estimate, checked after each batch of the load: the host
+#: passes over the whole window after the load at the mean write + apply
+#: cost a message so far (the journal replay, the checks), the seconds of
+#: the parts that do not grow with it (the moves, the Avro records, the
+#: merged calls), and the share of the budget the estimate may reach
+S18_PASSES = 1.5
+S18_FIXED_S = 4.5
+S18_MARGIN = 0.85
+
+
+def s18_fid(i: int) -> str:
+    return f"c{i}" if i < S18_SHARED else f"l{i}"
+
+
+def s18_pip64(x, y, tables) -> np.ndarray:
+    """Even-odd membership over the f64 edge table, op for op as the host's
+    exact mask (``filter/compile.py::_pip_fn`` with ``xp=np``)."""
+    x1, y1, _, y2, slope = tables
+    out = np.zeros(len(x), bool)
+    for lo in range(0, len(x), 1 << 16):
+        xb, yb = x[lo:lo + (1 << 16), None], y[lo:lo + (1 << 16), None]
+        cond = (y1 > yb) != (y2 > yb)
+        out[lo:lo + (1 << 16)] = (cond & (xb < x1 + (yb - y1) * slope)).sum(axis=1) % 2 == 1
+    return out
+
+
+def s18_grid_f32(x, y, box, width, height):
+    """The card's pixel mapping of the stream's density: f32 op by op, no
+    band correction (membership is the host's exact f64 mask)."""
+    f = np.float32
+    xmin, ymin, xmax, ymax = box
+    px = ((x.astype(f) - f(xmin)) / f(xmax - xmin) * f(width)).astype(np.int32)
+    py = ((y.astype(f) - f(ymin)) / f(ymax - ymin) * f(height)).astype(np.int32)
+    idx = np.clip(py, 0, height - 1) * width + np.clip(px, 0, width - 1)
+    return np.bincount(idx, minlength=width * height).reshape(height, width)
+
+
+def s18_live_batch(rows, ts, dtg, x, y, w):
+    """``StreamingDataset.write`` arguments of the live rows ``rows``."""
+    data = {"weight": w[rows].tolist(), "dtg": dtg[rows].tolist(),
+            "geom": list(zip(x[rows].tolist(), y[rows].tolist()))}
+    return data, [s18_fid(int(i)) for i in rows], ts[rows].tolist()
+
+
+def slice18(args, torch, wkt, kpip, kgrouped):
+    """The slice-18 phase (see the module docstring, 19): the streaming tier
+    on a live window of AIS-like tracks beside a cold tier on the card.
+    Returns (launches, wall s)."""
+    import tempfile
+
+    from geomesa_tpu_torch import GeoDataset, config, metrics
+    from geomesa_tpu_torch.schema.columns import fid_strs
+    from geomesa_tpu_torch.schema.feature_type import FeatureType
+    from geomesa_tpu_torch.stream import LambdaDataset, StreamingDataset
+    from geomesa_tpu_torch.stream.confluent import (
+        ConfluentSerializer, SchemaRegistry, attach_confluent, confluent_resume_offset,
+    )
+    from geomesa_tpu_torch.subscribe import delta as sdl
+    from geomesa_tpu_torch.utils.geometry import parse_wkt
+
+    t_phase = time.perf_counter()
+    kpip.launches = 0
+    kgrouped.launches = 0
+    reg = metrics.registry()
+    name = S18_SCHEMA
+    q_box = f"BBOX(geom, {', '.join(str(v) for v in QUERY_BBOX)}) AND {DURING}"
+    q_poly = f"INTERSECTS(geom, {wkt}) AND {DURING}"
+    tables, packed = kpip.polygon_edge_tables(parse_wkt(wkt))
+    n_edges = len(tables[0])
+    rng = np.random.default_rng(args.seed + 18)
+    live = make_data(S18_LIVE, args.seed + 1801)
+    x, y, w = live["geom__x"], live["geom__y"], live["weight"]
+    dtg = live["dtg"].astype(np.int64)
+    ts = S18_T0 + np.arange(S18_LIVE, dtype=np.int64)
+    alive = np.zeros(S18_LIVE, bool)
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+
+    # 1. the live window: journaled producer and consumer; the first
+    # batch's rates decide the cuts
+    sds = StreamingDataset(partitions=4)
+    sds.attach_journal(root)
+    sds.create_schema(name, S18_SPEC)
+    write_s, poll_s = [], []
+
+    def load(lo, hi):
+        for b in range(lo, hi, S18_BATCH):
+            rows = np.arange(b, min(b + S18_BATCH, hi))
+            data, fids, tss = s18_live_batch(rows, ts, dtg, x, y, w)
+            t1 = time.perf_counter()
+            sds.write(name, data, fids, ts_ms=tss)
+            t2 = time.perf_counter()
+            if sds.poll(name) != len(rows):
+                raise AssertionError("[slice18] a live batch did not apply whole")
+            poll_s.append(time.perf_counter() - t2)
+            write_s.append(t2 - t1)
+            alive[rows] = True
+
+    n_live, n_cold = S18_LIVE, S18_COLD_ROWS
+    # the cold tier's ingest: slice 17's measured 2M rows in 0.905 s on the
+    # card's host, taken twice (the build and the persistence's rebuild)
+    cold_per_row = 2 * 0.905 / 2_000_000
+    limit = S18_MARGIN * S18_BUDGET_S
+    loaded, est0 = 0, None
+    while loaded < n_live:
+        load(loaded, loaded + S18_BATCH)
+        loaded += S18_BATCH
+        # the mean write + apply cost of the messages so far
+        per_msg = (sum(write_s) + sum(poll_s)) / loaded
+
+        def estimate():
+            return (time.perf_counter() - t_phase + (n_live - loaded) * per_msg
+                    + S18_PASSES * per_msg * n_live + S18_FIXED_S + cold_per_row * n_cold)
+
+        if est0 is None:
+            est0 = estimate()
+        while estimate() > limit and n_cold > S18_COLD_FLOOR:
+            n_cold = max(S18_COLD_FLOOR, n_cold // 2)
+            log(f"[slice18] cut after {loaded} fids: cold tier {n_cold} rows (estimate "
+                f"{estimate():.3f} s)")
+        while estimate() > limit and n_live > max(S18_LIVE_FLOOR, loaded):
+            n_live -= S18_BATCH
+            log(f"[slice18] cut after {loaded} fids: live window {n_live} fids (estimate "
+                f"{estimate():.3f} s)")
+    log(f"[slice18] first batch: write {write_s[0] * 1e3:.3f} ms, poll {poll_s[0] * 1e3:.3f} "
+        f"ms for {S18_BATCH} messages; the phase estimated at {est0:.3f} s after it, "
+        f"{estimate():.3f} s after the load, against {S18_BUDGET_S} s; live window {n_live}, "
+        f"cold tier {n_cold}")
+    x, y, w, dtg, ts, alive = (a[:n_live] for a in (x, y, w, dtg, ts, alive))
+    n_msgs = n_live
+    write_rate = n_msgs / sum(write_s)
+    apply_rate = n_msgs / sum(poll_s)
+
+    # 2. the cold tier on the card: slice 1's shape, seed + 18; fids c<j>
+    t1 = time.perf_counter()
+    cold_data = make_data(n_cold, args.seed + 18)
+    cold_fids = np.char.add("c", np.arange(n_cold).astype(str))
+    cold = GeoDataset(n_shards=8)
+    cold.create_schema(name, S18_SPEC)
+    cold.insert(name, cold_data, fids=cold_fids)
+    cold.flush(name)
+    cold_s = time.perf_counter() - t1
+
+    cache = sds.cache(name)
+    t1 = time.perf_counter()
+    cache._invalidate()
+    cache.batch()
+    rebuild_ms = (time.perf_counter() - t1) * 1e3
+
+    # 3. standing count and 256^2 density, then moves, a stale update,
+    # deletes and a poison message
+    view = QUERY_BBOX
+    view_q = "BBOX(geom, {}, {}, {}, {})".format(*view)
+    sg = S18_STANDING_GRID
+    checks = 0
+
+    def tm_of(d):
+        return time_mask({"dtg": d})
+
+    def in_view(xx, yy):
+        return (xx >= view[0]) & (xx <= view[2]) & (yy >= view[1]) & (yy <= view[3])
+
+    def standing_check(step):
+        nonlocal checks
+        m = alive & in_view(x, y)
+        n_want = int(m.sum())
+        got = {}
+        for k, sid in subs.items():
+            p = sds.subscription_poll(sid)
+            spec = sds.standing._groups[name][sds.standing._subs[sid][1]].spec
+            got[k] = (sdl.decode_result(spec, p["result"]), p["updates"][-1]["kind"])
+        n_fresh = sds.count(name, view_q)
+        sds.prefer_device = False
+        g_host = sds.density(name, view_q, bbox=view, width=sg, height=sg)
+        sds.prefer_device = True
+        g_card = sds.density(name, view_q, bbox=view, width=sg, height=sg)
+        want = s17_grid_f64(x[m], y[m], view, sg, sg).astype(np.float32)
+        if not (got["count"][0] == n_fresh == n_want
+                and np.array_equal(got["density"][0], g_host)
+                and np.array_equal(g_host, want)
+                and np.array_equal(g_card, s18_grid_f32(x[m], y[m], view, sg, sg))
+                and float(g_card.sum()) == n_want):
+            raise AssertionError(f"[slice18] standing results diverge after {step}")
+        checks += 1
+        return {k: v[1] for k, v in got.items()}, int((g_card != g_host).sum())
+
+    with config.SUBSCRIBE_VERIFY.scoped("true"):
+        subs = {"count": sds.subscribe(name, "count", bbox=view),
+                "density": sds.subscribe(name, "density", bbox=view, width=sg, height=sg)}
+        kinds, cells = [], []
+        k_, c_ = standing_check("subscribe")
+        kinds.append(k_)
+        cells.append(c_)
+        moved = rng.choice(n_live, S18_MOVES, replace=False)
+        moved.sort()
+        mv = make_data(S18_MOVES, args.seed + 1802)
+        x[moved], y[moved] = mv["geom__x"], mv["geom__y"]
+        w[moved], dtg[moved] = mv["weight"], mv["dtg"].astype(np.int64)
+        ts[moved] = S18_T0 + S18_LIVE + 1_000 + np.arange(S18_MOVES)
+        data, fids, tss = s18_live_batch(moved, ts, dtg, x, y, w)
+        t1 = time.perf_counter()
+        sds.write(name, data, fids, ts_ms=tss)
+        # a stale update of an unmoved fid: dropped by event-time order
+        stale = int(np.setdiff1d(np.arange(n_live), moved)[7])
+        sds.write(name, {"weight": [9.0], "dtg": [int(dtg[stale])], "geom": [(0.0, 0.0)]},
+                  [s18_fid(stale)], ts_ms=[int(ts[stale]) - 1])
+        applied = sds.poll(name)
+        move_s = time.perf_counter() - t1
+        if applied != S18_MOVES + 1 or cache._state[s18_fid(stale)][0] != ts[stale]:
+            raise AssertionError(f"[slice18] the moves applied {applied}; the stale update "
+                                 f"replaced {cache._state[s18_fid(stale)]}")
+        k_, c_ = standing_check("moves")
+        kinds.append(k_)
+        cells.append(c_)
+        deleted = rng.choice(np.setdiff1d(np.arange(n_live), moved), S18_DELETES,
+                             replace=False)
+        q0 = reg.counter(f"{metrics.STREAM_POLL_QUARANTINED}.{name}").value
+        t1 = time.perf_counter()
+        for i in deleted.tolist():
+            sds.delete(name, s18_fid(i))
+        sds._topics[name]._logs[0].append(b"\x07 not a geomessage")
+        applied = sds.poll(name)
+        delete_s = time.perf_counter() - t1
+        alive[deleted] = False
+        quarantined = reg.counter(f"{metrics.STREAM_POLL_QUARANTINED}.{name}").value - q0
+        if applied != S18_DELETES or sds.quarantined.get(name) != 1 or quarantined != 1:
+            raise AssertionError(f"[slice18] deletes applied {applied}, quarantined "
+                                 f"{sds.quarantined} ({quarantined} counted)")
+        k_, c_ = standing_check("deletes")
+        kinds.append(k_)
+        cells.append(c_)
+    if len(cache) != int(alive.sum()):
+        raise AssertionError(f"[slice18] the live window holds {len(cache)} fids, the oracle "
+                             f"{int(alive.sum())}")
+    log(f"[slice18] live window {n_live} fids in {len(write_s)} batches: write "
+        f"{write_rate:.1f} messages/s, apply {apply_rate:.1f} messages/s, poll p50 "
+        f"{float(np.median(poll_s)) * 1e3:.3f} ms a batch of {S18_BATCH} ("
+        f"stream.apply timer p50 bucket {reg.timer(metrics.STREAM_APPLY).hist.quantile(0.5) * 1e3:.3f}"
+        f" ms); batch() rebuild {rebuild_ms:.3f} ms; {S18_MOVES} moves + 1 stale update "
+        f"{move_s * 1e3:.3f} ms (stale dropped), {S18_DELETES} deletes + 1 poison message "
+        f"{delete_s * 1e3:.3f} ms (1 quarantined); cold tier {n_cold} rows in {cold_s:.3f} s")
+    log(f"[slice18] standing count and {sg}x{sg} density: {checks} checks equal fresh calls "
+        f"and the oracles; update kinds {kinds}; cells where the card's f32 grid differs from "
+        f"the standing f64 one {cells}")
+
+    # 4. the stream calls against NumPy oracles over the live state
+    oracles = {}
+    for label, q in (("bbox", q_box), ("polygon", q_poly)):
+        tmk = alive & tm_of(dtg)
+        if label == "bbox":
+            m = tmk & in_view(x, y)
+        else:
+            m = np.zeros(n_live, bool)
+            m[tmk] = s18_pip64(x[tmk], y[tmk], tables)
+        rows = np.flatnonzero(m)
+        n = sds.count(name, q)
+        got = sds.query(name, q)
+        g = sds.density(name, q, bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+        st = sds.stats(name, S18_STAT, q)
+        ok = (n == len(rows) == got.n
+              and fid_strs(got.columns["__fid__"]).tolist() == [s18_fid(i) for i in rows]
+              and np.array_equal(got.columns["geom__x"], x[rows])
+              and np.array_equal(got.columns["geom__y"], y[rows])
+              and np.array_equal(got.columns["weight"], w[rows])
+              and np.array_equal(got.columns["dtg"], dtg[rows])
+              and np.array_equal(g, s18_grid_f32(x[rows], y[rows], QUERY_BBOX, WIDTH, HEIGHT))
+              and (st.stats[0].count, float(st.stats[1].lo), float(st.stats[1].hi))
+              == (len(rows), float(w[rows].min()), float(w[rows].max())))
+        if not ok:
+            raise AssertionError(f"[slice18] stream {label} calls differ from the oracle")
+        oracles[label] = len(rows)
+    grid_q = lambda: sds.density(name, q_box, bbox=QUERY_BBOX, width=WIDTH,  # noqa: E731
+                                 height=HEIGHT)
+    card = [timed(torch, grid_q)[1] for _ in range(3)]
+    sds.prefer_device = False
+    host = [timed(torch, grid_q)[1] for _ in range(3)]
+    sds.prefer_device = True
+    log(f"[slice18] stream count / query / 512x512 density / {S18_STAT} equal the oracles: "
+        f"bbox + DURING {oracles['bbox']}, polygon + DURING {oracles['polygon']} rows; the "
+        f"density on the card p50 {float(np.median(card)) * 1e3:.3f} ms against "
+        f"density_grid_np {float(np.median(host)) * 1e3:.3f} ms (the window's mask and "
+        f"upload included)")
+
+    # 5. framed Avro: 10,000 records, one schema evolution, one tombstone
+    cname = name + "_avro"
+    sds.create_schema(cname, S18_SPEC)
+    regy = SchemaRegistry()
+    ser, ingest = attach_confluent(sds, cname, regy)
+    ser2 = ConfluentSerializer(regy, cname, FeatureType.from_spec(cname, S18_SPEC + ",mmsi:Long"))
+    cd = make_data(S18_CONFLUENT, args.seed + 1803)
+    cx, cy, cw = cd["geom__x"], cd["geom__y"], cd["weight"]
+    cdt = cd["dtg"].astype(np.int64)
+    t1 = time.perf_counter()
+    for i in range(S18_CONFLUENT):
+        rec = {"weight": float(cw[i]), "dtg": int(cdt[i]),
+               "geom": f"POINT ({float(cx[i])!r} {float(cy[i])!r})"}
+        s = ser
+        if i >= S18_CONFLUENT // 2:
+            rec["mmsi"] = 200_000_000 + i
+            s = ser2
+        commit = i % S18_COMMIT == S18_COMMIT - 1
+        if ingest(s.serialize(f"a{i}", rec), ts_ms=S18_T0 + i,
+                  offset=i if commit else None) != f"a{i}":
+            raise AssertionError(f"[slice18] Avro record {i} was not applied")
+    ingest(None, fid="a3")
+    sds.poll(cname)
+    avro_s = time.perf_counter() - t1
+    keep = np.ones(S18_CONFLUENT, bool)
+    keep[3] = False
+    cm = keep & tm_of(cdt) & in_view(cx, cy)
+    if (len(sds.cache(cname)) != S18_CONFLUENT - 1 or sds.count(cname, q_box) != int(cm.sum())
+            or len(regy.versions(cname)) != 2):
+        raise AssertionError(f"[slice18] Avro ingest: {len(sds.cache(cname))} live")
+    log(f"[slice18] {S18_CONFLUENT} framed-Avro records (schema ids {regy.versions(cname)}, "
+        f"the second from record {S18_CONFLUENT // 2}) and a tombstone in {avro_s:.3f} s "
+        f"({S18_CONFLUENT / avro_s:.1f} records/s); bbox count {int(cm.sum())} equals the "
+        f"oracle")
+
+    # 6. the journal: a fresh consumer on the same bus recovers the caches
+    # and the offsets, and its next poll applies nothing twice
+    sds._journal.close()
+    t1 = time.perf_counter()
+    sds2 = StreamingDataset(bus=sds.bus, partitions=4)
+    sds2.attach_journal(root)
+    replayed = sds2.recover()
+    replay_s = time.perf_counter() - t1
+    for nm in (name, cname):
+        a, b = sds.cache(nm).batch(), sds2.cache(nm).batch()
+        if not (a.n == b.n and sds2._offsets[nm] == sds._offsets[nm]
+                and all(np.array_equal(a.columns[k], b.columns[k]) for k in a.columns)):
+            raise AssertionError(f"[slice18] the recovered {nm} window differs")
+    again = sds2.poll()
+    # the journal's last committed broker offset: the external consumer
+    # seeks past it
+    resume = confluent_resume_offset(sds2, cname)
+    if again != 0 or resume != S18_CONFLUENT - 1:
+        raise AssertionError(f"[slice18] the recovered consumer applied {again} again; "
+                             f"resume offset {resume}")
+    log(f"[slice18] journal replay: {replayed} records in {replay_s:.3f} s "
+        f"({len(sds2.cache(name)) + len(sds2.cache(cname))} live features); caches and "
+        f"offsets equal; the next poll applied 0; resume offset {resume}")
+    del sds, cache
+
+    # 7. the Lambda store: half the window ages into the cold tier
+    lam = LambdaDataset(persistent=cold, transient=sds2)
+    now_ms = S18_T0 + n_live // 2 - 1 + lam.persist_age_ms
+    aged = alive & (ts <= now_ms - lam.persist_age_ms)
+    t1 = time.perf_counter()
+    moved_n = lam.run_persistence(name, now_ms=now_ms)
+    persist_s = time.perf_counter() - t1
+    hot = alive & ~aged
+    if moved_n != int(aged.sum()) or len(sds2.cache(name)) != int(hot.sum()):
+        raise AssertionError(f"[slice18] run_persistence moved {moved_n}, the oracle "
+                             f"{int(aged.sum())}")
+    # the merged state, as the reference merges it: the hot tier's matches,
+    # then the cold tier's matches whose fid is not among the hot matches
+    # (a hot copy that no longer matches leaves its older cold copy in the
+    # answer); a persisted shared fid replaced its original cold copy
+    n_sh = min(S18_SHARED, n_live)
+    gone = np.zeros(n_cold, bool)
+    gone[:n_sh] = aged[:n_sh]
+    cx_, cy_ = cold_data["geom__x"], cold_data["geom__y"]
+    cw_, cd_ = cold_data["weight"], cold_data["dtg"].astype(np.int64)
+    ax, ay, aw, ad = x[aged], y[aged], w[aged], dtg[aged]
+    afid = np.array([s18_fid(i) for i in np.flatnonzero(aged)])
+    lam_want = {}
+    for label, q in (("bbox", q_box), ("polygon", q_poly)):
+        hm = hot & tm_of(dtg)
+        cm_ = ~gone & tm_of(cd_)
+        am = tm_of(ad)
+        if label == "bbox":
+            hm &= in_view(x, y)
+            cm_ &= in_view(cx_, cy_)
+            am &= in_view(ax, ay)
+        else:
+            hsel = np.flatnonzero(hm)
+            hm = np.zeros(n_live, bool)
+            hm[hsel] = s18_pip64(x[hsel], y[hsel], tables)
+            cm_ &= polygon_rows(cold_data, cm_, packed, n_edges)
+            am &= polygon_rows({"geom__x": ax, "geom__y": ay}, am, packed, n_edges)
+        cm_[:n_sh] &= ~hm[:n_sh]
+        fids_w = np.concatenate([np.array([s18_fid(i) for i in np.flatnonzero(hm)], dtype=str),
+                                 cold_fids[cm_], afid[am]])
+        xs_w = np.concatenate([x[hm], cx_[cm_], ax[am]])
+        ys_w = np.concatenate([y[hm], cy_[cm_], ay[am]])
+        ws_w = np.concatenate([w[hm], cw_[cm_], aw[am]])
+        lam_want[label] = (fids_w, xs_w, ys_w, ws_w)
+    before = kpip.launches
+    t1 = time.perf_counter()
+    n_lam_poly = lam.count(name, q_poly)
+    lam_poly_s = time.perf_counter() - t1
+    pip_delta = kpip.launches - before
+    t1 = time.perf_counter()
+    n_lam_box = lam.count(name, q_box)
+    lam_box_s = time.perf_counter() - t1
+    for label, q in (("bbox", q_box), ("polygon", q_poly)):
+        fids_w, xs_w, ys_w, ws_w = lam_want[label]
+        got = lam.query(name, q)
+        gf = fid_strs(got.columns["__fid__"])
+        o_g, o_w = np.argsort(gf, kind="stable"), np.argsort(fids_w, kind="stable")
+        g = lam.density(name, q, bbox=QUERY_BBOX, width=WIDTH, height=HEIGHT)
+        st = lam.stats(name, S18_STAT, q)
+        n_got = n_lam_box if label == "bbox" else n_lam_poly
+        ok = (n_got == got.n == len(fids_w)
+              and np.array_equal(gf[o_g], fids_w[o_w])
+              and np.array_equal(got.columns["geom__x"][o_g], xs_w[o_w])
+              and np.array_equal(got.columns["geom__y"][o_g], ys_w[o_w])
+              and np.array_equal(got.columns["weight"][o_g], ws_w[o_w])
+              and np.array_equal(g, s17_grid_f64(xs_w, ys_w, QUERY_BBOX, WIDTH, HEIGHT))
+              and (st.stats[0].count, float(st.stats[1].lo), float(st.stats[1].hi))
+              == (len(fids_w), float(ws_w.min()), float(ws_w.max())))
+        if not ok:
+            raise AssertionError(f"[slice18] merged {label} calls differ from the oracle: "
+                                 f"count {n_got}, rows {got.n}, oracle {len(fids_w)}")
+    if pip_delta <= 0:
+        raise AssertionError("[slice18] the merged polygon count launched no pip.cu")
+    launches = {"pip": kpip.launches, "density_grouped": kgrouped.launches}
+    # pip.cu against its plain version on the cold tier's operands, not counted
+    ex = cold._executor(name)
+    cols = ex.scan_columns(cold._plan(name, q_poly), ["geom__x", "geom__y"])
+    px, py = cols["geom__x"], cols["geom__y"]
+    edges = torch.from_numpy(packed).cuda()
+    got_k = kpip.pip_mask(px, py, edges, n_edges)
+    got_p = kpip.pip_mask_plain(px, py, edges, n_edges)
+    torch.cuda.synchronize()
+    pip_err = int((got_k != got_p).sum())
+    if pip_err:
+        raise AssertionError(f"[slice18] pip.cu disagrees with its plain version on {pip_err}")
+    log(f"[slice18] Lambda store: run_persistence moved {moved_n} of {n_live} fids in "
+        f"{persist_s:.3f} s; merged count / query / 512x512 f64-mapped density / {S18_STAT} "
+        f"equal the oracles (hot wins): bbox + DURING {n_lam_box} ({lam_box_s * 1e3:.3f} ms), "
+        f"polygon + DURING {n_lam_poly} ({lam_poly_s * 1e3:.3f} ms, pip.cu +{pip_delta}); "
+        f"pip.cu on the cold tier's {tuple(px.shape)} points equals its plain version")
+    sds2._journal.close()
+    del lam, sds2, cold, cold_data, cols, px, py, edges, got_k, got_p, ex
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_phase
+    log(f"[slice18] launches {launches}; the phase took {wall:.3f} s")
+    if wall > S18_BUDGET_S:
+        raise AssertionError(f"[slice18] the phase took {wall:.3f} s, over its {S18_BUDGET_S} s")
+    return launches, wall
+
+
 def _iso(ms: int) -> str:
     return str(np.datetime64(int(ms), "ms")) + "Z"
 
@@ -5860,6 +6358,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    # the Parquet tier (fs/storage.py) and the Arrow IO wait on this answer
+    if importlib.util.find_spec("pyarrow") is None:
+        log("[device] pyarrow: not installed")
+    else:
+        log(f"[device] pyarrow: installed, version {importlib.metadata.version('pyarrow')}")
     t0 = time.perf_counter()
     built = _build.build()
     fresh = [src for src in _build.SOURCES if src not in built]
@@ -6071,6 +6574,9 @@ def main() -> int:
     # -- 18. slice 17: the serving scheduler, then standing queries ------------
     s17_flat, _ = slice17(args, torch, ds, data, results, wkt, kpip, kgrouped, n_bbox)
 
+    # -- 19. slice 18: the streaming tier, on stores of its own ---------------
+    s18_flat, _ = slice18(args, torch, wkt, kpip, kgrouped)
+
     # -- 5. slice 3 ---------------------------------------------------------
     _, extra, fids = slice3(args, torch, ds, data, wkt, packed, n_edges, kpip, kgrouped)
 
@@ -6116,6 +6622,7 @@ def main() -> int:
         k["launches_slice15"] = s15_flat.get(k["name"], 0)
         k["launches_slice16"] = s16_flat.get(k["name"], 0)
         k["launches_slice17"] = s17_flat.get(k["name"], 0)
+        k["launches_slice18"] = s18_flat.get(k["name"], 0)
     if min(s14_flat.values()) <= 0:
         raise AssertionError(f"[slice14] a main-path kernel never launched traced: {s14_flat}")
 

@@ -15,7 +15,8 @@ the schema and data lifecycle (``update_schema``, attribute indices,
 with the write-ahead mutation journal), and the aggregate cache in front
 of the aggregates (``cache``, off by default; ``persist_cache`` /
 ``restore_cache``; its counts and the device dispatches in ``metrics``),
-with
+and the streaming tier (``stream``: live feature caches over message
+topics, the Lambda hot / cold store, the Confluent Avro ingest), with
 the JAX package's two Pallas kernels and the join predicates written as
 CUDA kernels (``csrc/``). Its tunables are in
 ``config``. It imports torch and numpy, and nothing of JAX or

@@ -105,3 +105,26 @@ def density_grid_np(x: np.ndarray, y: np.ndarray, mask: np.ndarray, bbox,
     grid = np.zeros(height * width, np.float32)
     np.add.at(grid, py * width + px, w)
     return grid.reshape(height, width)
+
+
+def density_grid_f64(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, bbox,
+                     width: int, height: int) -> torch.Tensor:
+    """:func:`density_grid_np` on the points' device: the f64 pixel mapping
+    of host rows, op for op (the scalars ride as 0-d f64 tensors on the
+    points' device, so a card divides and never multiplies by a
+    reciprocal), and f32 counts. Unweighted: every count is an integer
+    below 2**24, so the grid equals the host one bit for bit whatever the
+    order of the card's atomic adds."""
+    xmin, ymin, xmax, ymax = bbox
+    dev = x.device
+
+    def f64(v):
+        return torch.tensor(float(v), dtype=torch.float64, device=dev)
+
+    fx, fy = x.reshape(-1).to(torch.float64), y.reshape(-1).to(torch.float64)
+    fm = mask.reshape(-1)
+    px = ((fx - f64(xmin)) / f64(xmax - xmin) * f64(width)).to(torch.int32).clamp_(0, width - 1)
+    py = ((fy - f64(ymin)) / f64(ymax - ymin) * f64(height)).to(torch.int32).clamp_(0, height - 1)
+    grid = torch.zeros(height * width, dtype=torch.float32, device=dev)
+    grid.index_add_(0, py.to(torch.int64) * width + px, fm.to(torch.float32))
+    return grid.reshape(height, width)

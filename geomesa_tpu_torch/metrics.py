@@ -516,6 +516,24 @@ SERVING_SLOT_DIED = "serving.slot.died"
 SERVING_SLOT_RESPAWN = "serving.slot.respawn"
 #: fused batch-size histogram buckets (members per micro-batch)
 FUSION_BATCH_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0)
+# Stream-consumer lag (stream/live.py, stream/confluent.py):
+#   stream.lag          gauge: ms between the last applied message's event
+#                       time and its apply time (poll -> apply lag)
+#   stream.apply        histogram: per-poll apply-phase latency
+STREAM_LAG = "stream.lag"
+STREAM_APPLY = "stream.apply"
+#   stream.epoch.<schema>   gauge: the live window's mutation epoch, the
+#                           staleness anchor standing subscriptions and
+#                           window-aggregate caches key on (stream/live.py)
+#   stream.poll.batches     counter: applied (non-empty) poll batches
+#   stream.poll.quarantined[.<schema>]       counter: poison messages
+#                           skipped by the topic consumer (StreamingDataset)
+#   stream.confluent.quarantined[.<schema>]  counter: poison records
+#                           skipped at the framed-Avro ingest edge
+STREAM_EPOCH = "stream.epoch"
+STREAM_POLL_BATCHES = "stream.poll.batches"
+STREAM_POLL_QUARANTINED = "stream.poll.quarantined"
+STREAM_CONFLUENT_QUARANTINED = "stream.confluent.quarantined"
 # Standing queries (subscribe/):
 #   subscribe.groups / .subscribers   gauges: groups and subscribers held
 #   subscribe.update.dispatches       delta passes: one per applied ingest

@@ -1,17 +1,19 @@
 """Standing-query engine.
 
-Copy of ``geomesa_tpu/subscribe/engine.py``, cut to ``GeoDataset`` windows.
-A dataset attaches one engine on its first ``subscribe``. The engine keeps
-the registered viewports as **standing groups** (same-spec subscribers fuse
-into one group, ``serving/fuse.py::subscription_key``) and advances every
-group as mutations apply:
+Copy of ``geomesa_tpu/subscribe/engine.py``. A dataset (``GeoDataset`` or
+``StreamingDataset``) attaches one engine on its first ``subscribe``. The
+engine keeps the registered viewports as **standing groups** (same-spec
+subscribers fuse into one group, ``serving/fuse.py::subscription_key``) and
+advances every group as mutations apply:
 
-* an **additive batch** (an insert) runs the shared evaluator
-  (``delta.py``) once over the batch's rows and folds each group's partial
-  into its result: ``subscribe.update.dispatches`` counts one pass per
-  applied batch per schema, however many groups watch;
-* a **non-additive mutation** (delete, age-off) re-scans only the groups
-  whose viewport intersects the mutation's bounds.
+* an **additive batch** (an insert; a live feature's move as its -old /
+  +new pair) runs the shared evaluator (``delta.py``) once over the batch's
+  rows and folds each group's partial into its result:
+  ``subscribe.update.dispatches`` counts one pass per applied batch per
+  schema, however many groups watch;
+* a **non-additive mutation** (delete, age-off, a live window's expiry or
+  clear) re-scans only the groups whose viewport intersects the
+  mutation's bounds.
 
 A delta-applied result equals a re-scan at the same epoch bit for bit;
 ``geomesa.subscribe.verify`` asserts it after every update. A subscription
@@ -21,9 +23,10 @@ groups between datasets: a matching ``{count, spec}`` guard adopts the
 results and update rings as they are, a mismatch re-scans and emits a
 ``resync`` update.
 
-The reference's ``LiveWindow``, ``live_observer`` and ``settle`` serve
-``StreamingDataset`` and come with the port's ``stream/`` (ROADMAP
-Queue 1, host layers).
+A live window (:class:`LiveWindow`) feeds the engine through the cache's
+observer (:meth:`StandingQueryEngine.live_observer`), which buffers events;
+the stream's ``poll`` settles them once per applied batch
+(:meth:`StandingQueryEngine.settle`).
 """
 
 from __future__ import annotations
@@ -98,19 +101,57 @@ class StoreWindow:
                 "[GM-SUB] standing queries do not support partitioned "
                 f"schemas yet ({self.name!r})"
             )
-        g = self.ft.geom_field
-        if g is None or not self.ft.attr(g).is_point:
-            raise ValueError(
-                f"[GM-SUB] standing queries need a point-geometry schema ({spec.schema!r})")
-        if spec.aggregate == "stats":
-            from geomesa_tpu_torch.cache.service import stats_exact_merge
-            from geomesa_tpu_torch.stats import parse_stat
+        _validate_common(self.ft, spec)
 
-            if not stats_exact_merge(parse_stat(spec.stat_spec)):
-                raise ValueError(
-                    "[GM-SUB] stats subscriptions need exact-merge sketches "
-                    f"(cache/service.EXACT_MERGE_KINDS); got {spec.stat_spec!r}"
-                )
+
+class LiveWindow:
+    """A ``StreamingDataset`` schema's live feature cache as a standing
+    window."""
+
+    def __init__(self, sds, name: str):
+        self.sds = sds
+        self.name = name
+
+    @property
+    def cache(self):
+        return self.sds._caches[self.name]
+
+    @property
+    def ft(self):
+        return self.cache.ft
+
+    @property
+    def dicts(self):
+        return self.cache.dicts
+
+    def columns(self) -> Tuple[Dict[str, np.ndarray], int]:
+        b = self.cache.batch()
+        return b.columns, b.n
+
+    def epoch(self) -> int:
+        return int(self.cache.epoch)
+
+    def guard(self) -> Dict[str, Any]:
+        return {"count": len(self.cache), "spec": self.ft.spec()}
+
+    def validate(self, spec: StandingSpec) -> None:
+        _validate_common(self.ft, spec)
+
+
+def _validate_common(ft, spec: StandingSpec) -> None:
+    g = ft.geom_field
+    if g is None or not ft.attr(g).is_point:
+        raise ValueError(
+            f"[GM-SUB] standing queries need a point-geometry schema ({spec.schema!r})")
+    if spec.aggregate == "stats":
+        from geomesa_tpu_torch.cache.service import stats_exact_merge
+        from geomesa_tpu_torch.stats import parse_stat
+
+        if not stats_exact_merge(parse_stat(spec.stat_spec)):
+            raise ValueError(
+                "[GM-SUB] stats subscriptions need exact-merge sketches "
+                f"(cache/service.EXACT_MERGE_KINDS); got {spec.stat_spec!r}"
+            )
 
 
 @dataclass
@@ -137,6 +178,19 @@ class StandingGroup:
         metrics.inc(metrics.SUBSCRIBE_UPDATES)
 
 
+@dataclass
+class _Pending:
+    """Buffered live-cache events, settled once per applied poll batch."""
+
+    adds: List[Tuple[str, Dict]] = field(default_factory=list)
+    moves: List[Tuple[str, Dict, Dict]] = field(default_factory=list)
+    removed: List[Dict] = field(default_factory=list)
+    clear: bool = False
+
+    def any(self) -> bool:
+        return bool(self.adds or self.moves or self.removed or self.clear)
+
+
 class StandingQueryEngine:
     """Registered viewports and their incremental upkeep for one dataset."""
 
@@ -144,6 +198,7 @@ class StandingQueryEngine:
         self._window_of = window_of
         self._groups: Dict[str, Dict[tuple, StandingGroup]] = {}
         self._subs: Dict[str, Tuple[str, tuple]] = {}  # sub_id -> (schema, key)
+        self._pending: Dict[str, _Pending] = {}
         self._lock = threading.RLock()
 
     def active(self, schema: str) -> bool:
@@ -239,6 +294,7 @@ class StandingQueryEngine:
             if got is None:
                 raise UnknownSubscription(sub_id)
             schema, key = got
+            self.settle(schema)
             grp = self._groups[schema][key]
             return {
                 "sub_id": sub_id,
@@ -313,6 +369,71 @@ class StandingQueryEngine:
         grp.emit(kind, rows, epoch)
         metrics.inc(metrics.SUBSCRIBE_RESCANS)
 
+    # -- live-cache events (StreamingDataset) ------------------------------
+    def live_observer(self, schema: str) -> Callable:
+        """The LiveFeatureCache observer: it only buffers events; the
+        dataset settles them once per applied poll batch."""
+
+        def observe(event: str, fid: Optional[str], old, new) -> None:
+            with self._lock:
+                if not self.active(schema):
+                    return
+                p = self._pending.setdefault(schema, _Pending())
+                if event == "put":
+                    if old is None:
+                        p.adds.append((fid, new))
+                    else:
+                        p.moves.append((fid, old, new))
+                elif event == "remove":
+                    if old is not None:
+                        p.removed.append(old)
+                elif event == "clear":
+                    p.clear = True
+
+        return observe
+
+    def settle(self, schema: str) -> None:
+        """Fold buffered live events into the standing results: adds and
+        moves as one delta pass (+new, -old), removals and clears through
+        the dirty-bounds re-scan."""
+        with self._lock:
+            p = self._pending.get(schema)
+            groups = self._groups.get(schema)
+            if p is None or not p.any():
+                return
+            self._pending[schema] = _Pending()
+            if not groups:
+                return
+            win = self._window_of(schema)
+            epoch = win.epoch()
+            add_rows = [a for _, a in p.adds] + [n for _, _, n in p.moves]
+            sub_rows = [o for _, o, _ in p.moves]
+            if add_rows or sub_rows:
+                badd = _encode_rows(win.ft, win.dicts, add_rows)
+                bsub = _encode_rows(win.ft, win.dicts, sub_rows)
+                metrics.inc(metrics.SUBSCRIBE_DISPATCHES)
+                for grp in groups.values():
+                    if grp.spec.aggregate == "stats" and sub_rows:
+                        # sketches cannot unobserve a move's old position
+                        self._rescan(win, grp, win.columns(), "rescan", epoch)
+                        continue
+                    rows = 0
+                    for b, sign in ((badd, 1), (bsub, -1)):
+                        if b is None:
+                            continue
+                        d, r = dl.eval_rows(grp.spec, grp.cf, win.ft, b.columns, b.n, win.dicts)
+                        if r:
+                            grp.result = dl.apply_delta(grp.spec, grp.result, d, sign=sign)
+                        rows += r
+                    if rows:
+                        grp.emit("delta", rows, epoch)
+                    else:
+                        grp.epoch = epoch
+            if p.removed or p.clear:
+                self.on_dirty(schema, None if p.clear else _bounds_of(win.ft, p.removed))
+            else:
+                self._verify_all(schema)
+
     def _verify_all(self, schema: str) -> None:
         """Under ``geomesa.subscribe.verify``: every group against a re-scan
         at this epoch, bit for bit."""
@@ -347,6 +468,7 @@ class StandingQueryEngine:
             for nm, groups in self._groups.items():
                 if schema is not None and nm != schema:
                     continue
+                self.settle(nm)
                 for key, grp in groups.items():
                     rk = grp.spec.route_key(lvl)
                     if want is not None and rk not in want:
@@ -422,6 +544,7 @@ class StandingQueryEngine:
             for grp in (groups or {}).values():
                 for sid in grp.subscribers:
                     self._subs.pop(sid, None)
+            self._pending.pop(schema, None)
             self._set_gauges()
 
     def reattach(self, schema: str) -> None:
@@ -437,3 +560,54 @@ class StandingQueryEngine:
             for grp in groups.values():
                 grp.cf = dl.compile_viewport(grp.spec, win.ft, win.dicts)
                 self._rescan(win, grp, cols_n, "rescan", epoch)
+
+
+# -- helpers ---------------------------------------------------------------
+
+def _encode_rows(ft, dicts, rows: List[Dict[str, Any]]):
+    """Encode loose attribute rows into a ColumnBatch with the packing
+    ``LiveFeatureCache.batch()`` applies, so a delta batch's columns are
+    byte-compatible with the window's."""
+    if not rows:
+        return None
+    from geomesa_tpu_torch.schema.columns import encode_batch
+
+    data: Dict[str, Any] = {}
+    for a in ft.attributes:
+        if a.is_geom and a.is_point:
+            xs, ys = [], []
+            for r in rows:
+                v = r.get(a.name)
+                if v is None:
+                    xs.append(np.nan)
+                    ys.append(np.nan)
+                else:
+                    xs.append(float(v[0]))
+                    ys.append(float(v[1]))
+            data[a.name + "__x"] = np.array(xs)
+            data[a.name + "__y"] = np.array(ys)
+        else:
+            data[a.name] = [r.get(a.name) for r in rows]
+    return encode_batch(ft, data, dicts, None)
+
+
+def _bounds_of(ft, rows: List[Dict[str, Any]]):
+    """The bbox of removed rows' point geometries: the dirty extent a
+    non-additive mutation is scoped to. None when no geometry is finite
+    (which dirties every group)."""
+    g = ft.geom_field
+    if g is None:
+        return None
+    xs, ys = [], []
+    for r in rows:
+        v = r.get(g)
+        if v is None:
+            continue
+        try:
+            xs.append(float(v[0]))
+            ys.append(float(v[1]))
+        except (TypeError, ValueError, IndexError):
+            return None
+    if not xs:
+        return None
+    return (min(xs), min(ys), max(xs), max(ys))

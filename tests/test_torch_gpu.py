@@ -1424,3 +1424,42 @@ def test_pip_kernel_on_an_s3_tables_compacted_layout(cuda):
     assert gpu.count("t", q) == cpu.count("t", q) > 0
     assert kpip.launches > before
     assert gpu._plan("t", q).exec_path["scan"] == "device-compact"
+
+
+# -- slice 18: the streaming tier on the card ---------------------------------------
+def test_stream_density_and_lambda_polygon_count_on_the_card(cuda):
+    """The live window's density binned on the card equals the CPU's f32
+    grid bit for bit; the Lambda store's merged polygon count equals the
+    CPU's and its cold tier launches pip.cu; the merged f64 density equals
+    the CPU's."""
+    from geomesa_tpu_torch import stream
+
+    n, t0 = 20_000, parse_iso_ms("2020-01-05")
+    rng = np.random.default_rng(18)
+    x, y = rng.uniform(-120, -70, n), rng.uniform(25, 50, n)
+    data = {"weight": rng.uniform(0, 1, n).astype(np.float32),
+            "dtg": t0 + np.arange(n, dtype=np.int64) * 1000,
+            "geom": list(zip(x.tolist(), y.tolist()))}
+    fids = [f"f{i}" for i in range(n)]
+    ts = [t0 + (i % 2) * 10_000_000 + i for i in range(n)]
+    out = []
+    for dev in (cuda, "cpu"):
+        cold = GeoDataset(n_shards=4, device=dev, compact_min_rows=1, compact_fraction=2.0)
+        lam = stream.LambdaDataset(cold, stream.StreamingDataset(device=dev))
+        lam.create_schema("t", SPEC)
+        lam.write("t", data, fids, ts_ms=ts)
+        out.append(lam)
+    gpu, cpu = out
+    grid = gpu.transient.density("t", ECQL, bbox=BBOX, width=512, height=512)
+    assert np.array_equal(grid, cpu.transient.density("t", ECQL, bbox=BBOX, width=512,
+                                                      height=512))
+    assert grid.sum() == gpu.transient.count("t", ECQL) > 0
+    now = t0 + 10_000_000 - 1
+    assert gpu.run_persistence(now_ms=now) == cpu.run_persistence(now_ms=now) == n // 2
+    q = f"INTERSECTS(geom, {_ngon(64, -95, 37, 8)}) AND {DURING}"
+    before = kpip.launches
+    assert gpu.count("t", q) == cpu.count("t", q) > 0
+    assert kpip.launches > before
+    np.testing.assert_array_equal(
+        gpu.density("t", q, bbox=BBOX, width=256, height=256),
+        cpu.density("t", q, bbox=BBOX, width=256, height=256))
